@@ -1,0 +1,161 @@
+"""Candidate store with a deterministic resume ledger.
+
+Candidates are npz records (:class:`..pipeline.pulse_info.PulseInfo` plus
+the chunk's full result table) named ``{root}_{istart}-{iend}``; a
+``progress_<fingerprint>.json`` ledger records every processed chunk (hit
+or not), so a restarted search skips exactly the work already done.  The
+file formats are the JAX package's.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import json
+import logging
+import os
+
+import numpy as np
+import torch
+
+from ..ops.plan import delta_delay
+from ..ops.rebin import quick_resample
+from ..pipeline.pulse_info import PulseInfo
+from ..utils.device import to_numpy
+from ..utils.table import ResultTable
+from .atomic import atomic_write_json
+
+logger = logging.getLogger("pulsarutils_tpu_torch")
+
+
+def config_fingerprint(**kwargs):
+    """Stable hash of the search configuration; a resume ledger is only
+    valid for identical configuration."""
+    blob = json.dumps(kwargs, sort_keys=True, default=str)
+    return hashlib.sha256(blob.encode()).hexdigest()[:16]
+
+
+class CandidateStore:
+    """``fingerprint=None`` disables the resume ledger: every chunk reports
+    not-done and nothing is recorded."""
+
+    #: persisted-waterfall element budget: above it the store keeps a
+    #: window around the pulse instead of the whole chunk
+    WATERFALL_BUDGET = 1 << 22
+
+    def __init__(self, directory, fingerprint=None):
+        self.directory = str(directory)
+        os.makedirs(self.directory, exist_ok=True)
+        self.fingerprint = fingerprint
+        if fingerprint is None:
+            self._ledger_path = None
+            self._ledger = {"fingerprint": None, "done": []}
+        else:
+            self._ledger_path = os.path.join(
+                self.directory, f"progress_{fingerprint}.json")
+            self._ledger = self._load_ledger()
+
+    def _load_ledger(self):
+        """Load the ledger; a torn or corrupt file is backed up to
+        ``<ledger>.corrupt`` and a fresh ledger starts (done chunks are
+        then searched again)."""
+        if os.path.exists(self._ledger_path):
+            try:
+                with open(self._ledger_path) as f:
+                    ledger = json.load(f)
+                if not isinstance(ledger, dict) \
+                        or not isinstance(ledger.get("done"), list):
+                    raise ValueError("ledger is not a {fingerprint, done} "
+                                     "record")
+                return ledger
+            except ValueError as exc:
+                backup = self._ledger_path + ".corrupt"
+                os.replace(self._ledger_path, backup)
+                logger.warning("corrupt resume ledger %s (%r): backed up to "
+                               "%s, starting a fresh ledger",
+                               self._ledger_path, exc, backup)
+        return {"fingerprint": self.fingerprint, "done": []}
+
+    def is_done(self, istart):
+        if self.fingerprint is None:
+            return False
+        return istart in self._ledger["done"]
+
+    def mark_done(self, istart):
+        """Record a chunk as processed (the ``done`` list is kept sorted)."""
+        if self.fingerprint is None or istart in self._ledger["done"]:
+            return
+        self._ledger["done"].append(int(istart))
+        self._ledger["done"].sort()
+        atomic_write_json(self._ledger_path, self._ledger)
+
+    @property
+    def done_chunks(self):
+        return sorted(self._ledger["done"])
+
+    def _base(self, root, istart, iend):
+        return os.path.join(self.directory, f"{root}_{istart}-{iend}")
+
+    def save_candidate(self, root, istart, iend, info, table):
+        base = self._base(root, istart, iend)
+        self.trim_waterfall(info, table).save(base + ".info.npz")
+        table.to_npz(base + ".table.npz")
+        return base
+
+    def trim_waterfall(self, info, table):
+        """Bound the persisted record: full chunk in, pulse cutout out.
+
+        The window covers the dispersed track, ``[peak - pad, peak + span
+        + pad]`` with ``span`` the band-crossing delay at the candidate's
+        DM, taken circularly (the sweep's wrap continues a track past the
+        chunk end at its start), then block-sum decimated if still over
+        budget.  ``info`` is untouched; a trimmed copy is returned (or
+        ``info`` itself when already under budget).  A device waterfall
+        is sliced on the device, so only the cutout crosses to the host.
+        """
+        wf = info.allprofs
+        if wf is None or np.prod(wf.shape) <= self.WATERFALL_BUDGET:
+            return info
+        nbin = wf.shape[1]
+        tsamp = (1.0 / (info.pulse_freq * info.nbin)
+                 if info.pulse_freq and info.nbin else None)
+        best = table.best_row()
+        peak = int(best["peak"]) if "peak" in table.colnames else nbin // 2
+        span = 256
+        if tsamp and info.start_freq and info.bandwidth and best["DM"]:
+            span = int(delta_delay(float(best["DM"]), info.start_freq,
+                                   info.start_freq + info.bandwidth)
+                       / tsamp) + 1
+        pad = max(span // 2, 256)
+        lo = peak - pad
+        hi = peak + span + pad
+        if hi - lo >= nbin:
+            lo, hi = 0, nbin
+        if lo >= 0 and hi <= nbin:
+            cut = to_numpy(wf[:, lo:hi])
+        else:
+            cols = np.arange(lo, hi) % nbin
+            if isinstance(wf, torch.Tensor):
+                cols = torch.from_numpy(cols).to(wf.device)
+            cut = to_numpy(wf[:, cols])
+            lo = lo % nbin
+        decim = 1
+        if cut.size > self.WATERFALL_BUDGET:
+            decim = -(-cut.size // self.WATERFALL_BUDGET)
+            cut = to_numpy(quick_resample(torch.from_numpy(cut), decim))
+        return dataclasses.replace(info, allprofs=cut, cutout_start=lo,
+                                   cutout_decim=decim)
+
+    def load_candidate(self, root, istart, iend):
+        base = self._base(root, istart, iend)
+        return (PulseInfo.load(base + ".info.npz"),
+                ResultTable.from_npz(base + ".table.npz"))
+
+    def candidates(self):
+        """Yield ``(root, istart, iend)`` for every stored candidate."""
+        for name in sorted(os.listdir(self.directory)):
+            if name.endswith(".info.npz"):
+                stem = name[: -len(".info.npz")]
+                root, _, span = stem.rpartition("_")
+                lo, _, hi = span.partition("-")
+                yield root, int(lo), int(hi)

@@ -1,0 +1,221 @@
+"""The streaming search driver: file -> clean -> sweep -> candidates.
+
+The port of the JAX package's ``search_by_chunks`` on its default path
+(the exact direct sweep), itself the counterpart of the reference's
+``pulsarutils/clean.py:276-351``:
+
+* bad channels are flagged once from the file's bandpass statistics;
+* the file is cut into 50%-overlap chunks sized by the search physics
+  (:func:`..parallel.stream.plan_chunks`); every chunk is read, moved to
+  the device in its stored dtype, cleaned there, searched there, and
+  scored; only the scores and hit products come back;
+* a chunk whose best S/N exceeds ``snr_threshold`` is persisted through
+  :class:`..io.candidates.CandidateStore`, and every searched chunk is
+  marked in the resume ledger, so a restarted run searches only what is
+  missing.
+
+Everything downstream of the reader sees an *ascending* band.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import time
+
+import torch
+
+from ..io.candidates import CandidateStore, config_fingerprint
+from ..io.sigproc import FilterbankReader
+from ..ops.clean_ops import fft_zap_time, renormalize_data, zero_dm_filter
+from ..ops.rebin import quick_resample
+from ..ops.search import dedispersion_search
+from ..parallel.stream import iter_chunk_starts, plan_chunks
+from ..utils.device import resolve_device, to_numpy
+from .pulse_info import PulseInfo
+from .spectral_stats import get_bad_chans
+
+logger = logging.getLogger("pulsarutils_tpu_torch")
+
+
+def plan_survey(fname, chunk_length=None, new_sample_time=None, tmin=0,
+                dmmin=200, dmmax=800, surelybad=(), *, kernel="auto",
+                snr_threshold=6.0, fft_zap=False, cut_outliers=False,
+                zero_dm=False):
+    """Resolve a survey's geometry and resume fingerprint without
+    searching anything.
+
+    Returns a dict: ``reader`` (the open reader), ``plan`` (the
+    :class:`~..parallel.stream.ChunkPlan`), ``chunk_starts``,
+    ``snr_threshold``, ``fingerprint``, ``root`` (the candidate filename
+    stem), ``nsamples`` and ``sample_time``.  The fingerprint hashes the
+    fields the JAX package hashes, with ``backend="torch"``: the two
+    packages never share a ledger.
+    """
+    if isinstance(snr_threshold, str):
+        raise NotImplementedError(
+            f"snr_threshold={snr_threshold!r}: the matched and certifiable "
+            "floors are not ported yet (ROADMAP.md queue A, item 5); pass "
+            "a number")
+    root = os.path.splitext(os.path.basename(str(fname)))[0]
+    reader = FilterbankReader(fname)
+    header = reader.header
+    nsamples = header["nsamples"]
+    plan = plan_chunks(nsamples, header["tsamp"], dmmin, dmmax,
+                       header["fbottom"], header["ftop"], header["foff"],
+                       chunk_length=chunk_length,
+                       new_sample_time=new_sample_time)
+    fingerprint = config_fingerprint(
+        fname=os.path.abspath(str(fname)), dmmin=dmmin, dmmax=dmmax,
+        step=plan.step, resample=plan.resample, backend="torch",
+        kernel=kernel, snr_threshold=snr_threshold, fft_zap=fft_zap,
+        cut_outliers=cut_outliers,
+        **({"zero_dm": True} if zero_dm else {}),
+        surelybad=sorted(int(c) for c in surelybad),
+        period_search=False, period_sigma_threshold=8.0)
+    return {
+        "reader": reader, "plan": plan, "root": root,
+        "nsamples": nsamples, "sample_time": header["tsamp"],
+        "snr_threshold": snr_threshold, "fingerprint": fingerprint,
+        "chunk_starts": list(iter_chunk_starts(
+            nsamples, plan, tmin=tmin, sample_time=header["tsamp"])),
+    }
+
+
+def clean_chunk(block, mask, *, cut_outliers=False, zero_dm=False,
+                fft_zap=False, resample=1):
+    """The conditioning of one ``(nchan, n)`` chunk, on its device."""
+    cleaned = renormalize_data(block, badchans_mask=mask,
+                               cut_outliers=cut_outliers)
+    if zero_dm:
+        cleaned = zero_dm_filter(cleaned, badchans_mask=mask)
+    if fft_zap:
+        cleaned, _ = fft_zap_time(cleaned)
+    if resample > 1:
+        cleaned = quick_resample(cleaned, resample)
+    return cleaned
+
+
+class _Stages:
+    """Wall seconds per stage, synchronising the device at each stage's
+    end so that queued device work is charged to the stage that queued
+    it."""
+
+    def __init__(self, device, into):
+        self.device = device
+        self.seconds = into
+
+    def run(self, name, fn, *args, **kwargs):
+        if self.seconds is None:
+            return fn(*args, **kwargs)
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.seconds[name] = (self.seconds.get(name, 0.0)
+                              + time.perf_counter() - t0)
+        return out
+
+
+def _persist(store, root, istart, iend, info, table):
+    """Save a hit (``info`` not None), then mark the chunk done: a crash
+    between the two re-searches the chunk, never loses its candidate."""
+    if info is not None:
+        store.save_candidate(root, istart, iend, info, table)
+    store.mark_done(istart)
+
+
+def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
+                     dmmin=200, dmmax=800, surelybad=(), *, kernel="auto",
+                     snr_threshold=6.0, output_dir=None, resume=True,
+                     fft_zap=False, cut_outliers=False, zero_dm=False,
+                     max_chunks=None, device="cuda", stage_seconds=None):
+    """Search a filterbank file for dispersed single pulses.
+
+    Parameters follow the JAX package's driver; ``device`` is where the
+    chunks are cleaned and searched (``"cuda"`` by default, raising
+    without a card; ``"cpu"`` on request).  ``max_chunks`` stops after
+    that many chunks (the rest stay un-marked for a resumed run).
+    ``stage_seconds``, a dict, receives the wall seconds of each stage
+    (``badchans``, ``read``, ``clean``, ``search``, ``persist``).
+
+    Returns ``(hits, store)``: ``hits`` is a list of ``(istart, iend,
+    PulseInfo, ResultTable)`` — with ``resume``, including hits persisted
+    by earlier sessions of the same configuration.
+    """
+    dev = resolve_device(device)
+    stages = _Stages(dev, stage_seconds)
+    output_dir = output_dir or os.path.dirname(os.path.abspath(str(fname)))
+    mask_fileorder = stages.run("badchans", get_bad_chans, fname,
+                                surelybad=surelybad)
+    sp = plan_survey(fname, chunk_length=chunk_length,
+                     new_sample_time=new_sample_time, tmin=tmin,
+                     dmmin=dmmin, dmmax=dmmax, surelybad=surelybad,
+                     kernel=kernel, snr_threshold=snr_threshold,
+                     fft_zap=fft_zap, cut_outliers=cut_outliers,
+                     zero_dm=zero_dm)
+    reader = sp["reader"]
+    root = sp["root"]
+    header = reader.header
+    nsamples = sp["nsamples"]
+    sample_time = sp["sample_time"]
+    start_freq = header["fbottom"]
+    bandwidth = header["bandwidth"]
+    plan = sp["plan"]
+    eff_tsamp = plan.sample_time
+    mask = mask_fileorder[::-1] if reader.band_descending else mask_fileorder
+    mask_dev = torch.as_tensor(mask.copy(), device=dev)
+    store = CandidateStore(output_dir, sp["fingerprint"] if resume else None)
+
+    todo = [s for s in sp["chunk_starts"]
+            if not (resume and store.is_done(s))]
+    if max_chunks is not None:
+        todo = todo[:max_chunks]
+
+    hits = []
+    for istart in todo:
+        iend = istart + min(plan.step, nsamples - istart)
+        block = stages.run("read", reader.read_block_tensor, istart,
+                           iend - istart, dev)
+        array = stages.run("clean", clean_chunk, block, mask_dev,
+                           cut_outliers=cut_outliers, zero_dm=zero_dm,
+                           fft_zap=fft_zap, resample=plan.resample)
+        del block
+        table = stages.run("search", dedispersion_search, array, dmmin,
+                           dmmax, start_freq, bandwidth, eff_tsamp,
+                           kernel=kernel, device=dev)
+        best = table.best_row()
+        is_hit = bool(best["snr"] > snr_threshold)
+        info = None
+        if is_hit:
+            info = PulseInfo(
+                allprofs=array, start_freq=start_freq, bandwidth=bandwidth,
+                nbin=array.shape[1], nchan=array.shape[0],
+                date=header.get("tstart"), t0=istart * sample_time,
+                istart=istart, pulse_freq=1.0 / (array.shape[1] * eff_tsamp),
+                ibeam=reader.ibeam, nbeams=reader.nbeams,
+                dm=float(best["DM"]), snr=float(best["snr"]),
+                width=float(best["rebin"]) * eff_tsamp,
+                disp_profile=to_numpy(array.mean(0)))
+            # the cutout is sliced on the device: the chunk stays there
+            info = store.trim_waterfall(info, table)
+            info.allprofs = to_numpy(info.allprofs)
+            info.compute_stats()
+            hits.append((istart, iend, info, table))
+            logger.info("HIT chunk %d-%d: DM=%.2f snr=%.2f width=%gs",
+                        istart, iend, info.dm, info.snr, info.width)
+        del array
+        stages.run("persist", _persist, store, root, istart, iend, info,
+                   table)
+
+    if resume:
+        # the complete result of the configuration: hits persisted by
+        # earlier (interrupted) sessions are restored from the store
+        seen = {(h[0], h[1]) for h in hits}
+        for cand_root, lo, hi in store.candidates():
+            if cand_root == root and (lo, hi) not in seen \
+                    and store.is_done(lo):
+                hits.append((lo, hi, *store.load_candidate(root, lo, hi)))
+        hits.sort(key=lambda h: h[0])
+    logger.info("done: %d chunks searched, %d hits", len(todo), len(hits))
+    return hits, store

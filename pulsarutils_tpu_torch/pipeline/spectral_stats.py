@@ -1,0 +1,69 @@
+"""Bandpass statistics and bad-channel detection (host side).
+
+* :func:`get_spectral_stats` — one-pass mean and std bandpass spectra from
+  running ``sum(x)`` / ``sum(x^2)`` moments over file blocks (reference
+  ``stats.py:35-60``), in float64;
+* :func:`get_bad_chans` — channels above ``medfilt(spec, 11) +
+  4 * ref_mad(spec)`` on either spectrum, cached in ``<file>.badchans``
+  (reference ``stats.py:63-90``), the format the JAX package reads and
+  writes.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from ..io.sigproc import FilterbankReader
+from ..ops.robust import median_filter_1d, ref_mad
+
+
+def get_spectral_stats(source, chunksize=10000):
+    """Mean and std spectra of a filterbank path or reader, or of an
+    in-memory ``(nchans, nsamples)`` array."""
+    if isinstance(source, (str, os.PathLike)):
+        source = FilterbankReader(source)
+    if not isinstance(source, FilterbankReader):
+        data = np.asarray(source, dtype=float)
+        return data.mean(axis=1), data.std(axis=1)
+    s = np.zeros(source.nchans)
+    sq = np.zeros(source.nchans)
+    n = 0
+    for _, block in source.iter_blocks(chunksize):
+        s = s + block.sum(axis=1)
+        sq = sq + (block ** 2).sum(axis=1)
+        n = n + block.shape[1]
+    mean = s / n
+    return mean, np.sqrt(np.maximum(sq / n - mean ** 2, 0.0))
+
+
+def flag_bad_channels(mean_spec, std_spec, medfilt_size=11, nsigma=4.0):
+    """Flag channels above the median-filtered baseline of either
+    spectrum by ``nsigma`` reference-MADs (reference ``stats.py:70-77``)."""
+    bad = None
+    for spec in (mean_spec, std_spec):
+        spec = torch.as_tensor(np.asarray(spec, dtype=np.float64))
+        smooth = median_filter_1d(spec, medfilt_size)
+        flagged = spec > smooth + nsigma * ref_mad(spec)
+        bad = flagged if bad is None else bad | flagged
+    return bad.numpy()
+
+
+def get_bad_chans(source, cache=None, surelybad=(), refresh=False):
+    """Bad-channel mask (file channel order) with a ``.badchans`` text
+    cache beside a file source; ``surelybad`` channels are always bad."""
+    path = source if isinstance(source, (str, os.PathLike)) else None
+    if cache is None and path is not None:
+        cache = f"{path}.badchans"
+    if cache is not None and os.path.exists(cache) and not refresh:
+        bad = np.loadtxt(cache).astype(bool)
+    else:
+        bad = flag_bad_channels(*get_spectral_stats(source))
+        if cache is not None:
+            np.savetxt(cache, [bad.astype(int)], fmt="%d")
+    bad = np.array(bad, dtype=bool).reshape(-1)
+    for chan in surelybad:
+        bad[int(chan)] = True
+    return bad

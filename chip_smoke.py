@@ -8,20 +8,38 @@ Phases, one JSON line each:
 1. environment: the card (``nvidia-smi`` name and power limit, printed
    raw on a line of its own), PyTorch and CUDA versions; TF32 is turned
    off for matmuls and cuDNN;
-2. build: every CUDA source of the port's main path, with ``nvcc``, all
-   started together;
+2. build: every CUDA source of the port's paths (the direct sweep, the
+   FDMT merges, the one-pass scorer), with ``nvcc``, all started
+   together;
 3. kernels: each kernel against its plain PyTorch version on the same
-   inputs — the direct sweep at the headline geometry (1024 channels x
-   2^20 samples, the 514-trial DM 300-635 plan, in the search's 512-trial
-   superblocks) and on edge cases — requiring max |diff| == 0, timed with
-   CUDA events (one warm-up, median of 5);
-4. end to end: a simulated 1024-channel 8-bit filterbank with a dispersed
+   inputs, timed with CUDA events (one warm-up, median of 5), beside its
+   bound:
+   - the direct sweep (B1) at the headline geometry (1024 channels x
+     2^20 samples, the 514-trial DM 300-635 plan, in the search's
+     512-trial superblocks) and on edge cases, max |diff| == 0;
+   - the FDMT passes (B3: the first seven levels fused; B2a: one level;
+     B2b: the last two levels fused), pass by pass through the headline
+     transform (1024 x 2^20, the 512-trial DM 300+ grid of the JAX
+     package's benchmark) and on edge cases (nchan 1000, T = 300007,
+     T = 150, a pruned range), max |diff| == 0; B3 also against B2a over
+     its seven levels;
+   - the one-pass scorer (B4) on the headline coarse plane and on edge
+     cases (odd T, rows not a multiple of 8, a DC offset of 1e4):
+     windows and peaks equal, floats within rtol 2e-4, atol 1e-5;
+4. hybrid headline: the JAX package's benchmark data (1024 x 2^20,
+   |N(0,1)| / 2, an impulse at T/2 dispersed at DM 350) searched by
+   ``dedispersion_search(kernel="hybrid")`` and by the full exact sweep;
+   the hybrid's best row must equal the sweep's (argbest, DM, rebin,
+   peak; snr within rel 1e-5); coarse, hybrid and sweep times;
+5. end to end: a simulated 1024-channel 8-bit filterbank with a dispersed
    pulse, searched by the port's ``search_by_chunks`` on the card in
-   2^18-sample chunks: the pulse must be found in its chunk at the
-   injected DM, through the kernel (its launch count is read around this
-   phase alone), with the ledger written; the cleaned chunk and a cut of
-   the search are checked against the CPU path;
-5. the kernels line, then ``{"ok": true, "device": {...}}`` last.
+   2^18-sample chunks with the direct sweep, then with the hybrid (at
+   S/N 8 and at the certifiable floor): the pulse must be found in its
+   chunk at the injected DM, the hybrid's hits must equal the direct
+   sweep's, and each path's kernels must have launched (their counts are
+   set to 0 before each run and read after it); the cleaned chunk and a
+   cut of the search are checked against the CPU path;
+6. the kernels line, then ``{"ok": true, "device": {...}}`` last.
 
 Any failed check exits non-zero before the last line.  Without a CUDA
 device, or without the package beside this script, it exits non-zero
@@ -42,15 +60,26 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 
-#: NVIDIA H100 SXM data-sheet peaks (700 W): float32 on the CUDA cores,
-#: and HBM3 bandwidth
-PEAK_FP32_FLOPS = 67e12
+#: NVIDIA H100 SXM data-sheet peaks (700 W).  The sheet's 67 TFLOP/s
+#: float32 on the CUDA cores counts each fused multiply-add as two
+#: operations; a plain float32 add is one operation per lane per clock,
+#: so adds issue at half that: 33.5e12 adds/s.  HBM3 bandwidth 3.35 TB/s.
+PEAK_FP32_ADDS = 33.5e12
 PEAK_HBM_BYTES_S = 3.35e12
 
 #: the headline geometry of the JAX package's benchmark
 NCHAN, NSAMPLES = 1024, 1 << 20
 START_FREQ, BANDWIDTH, TSAMP = 1200.0, 200.0, 5e-4
 DMMIN, DMMAX = 300.0, 635.0
+
+#: the hybrid headline: the JAX package's benchmark grid (bench.py), 512
+#: integer band-delay trials from DM 300, a pulse at DM 350
+HYB_NTRIALS = 512
+HYB_DM = 350.0
+
+#: the scorer's tolerance between the kernel and its plain version: the
+#: JAX package's own between its Pallas and XLA scorers
+SCORE_RTOL, SCORE_ATOL = 2e-4, 1e-5
 
 #: end-to-end file: 2.5 chunks of 2^18 samples (4 chunks at 50% overlap)
 E2E_CHUNK = 1 << 18
@@ -88,15 +117,20 @@ def time_ms(torch, fn, runs=5):
     return statistics.median(times), times
 
 
-def sweep_bound_ms(ndm, nchan, nsamples):
-    """Least time for the sweep on the card: the larger of its adds over
-    the float32 peak and its bytes (input, offsets and plane, each once)
-    over the memory rate."""
-    ops = ndm * nchan * nsamples
-    nbytes = 4 * (nchan * nsamples + ndm * nsamples + ndm * nchan)
-    t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES_S
+def bound_ms(adds, nbytes):
+    """Least time on the card: the larger of ``adds`` float32 adds over
+    the add rate and ``nbytes`` over the memory rate, in ms, with what
+    sets it."""
+    t_ops, t_bytes = adds / PEAK_FP32_ADDS, nbytes / PEAK_HBM_BYTES_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def sweep_bound_ms(ndm, nchan, nsamples):
+    """Least time for the sweep: its adds, and its bytes (input, offsets
+    and plane, each once)."""
+    return bound_ms(ndm * nchan * nsamples,
+                    4 * (nchan * nsamples + ndm * nsamples + ndm * nchan))
 
 
 def phase_environment(torch):
@@ -120,7 +154,7 @@ def phase_build():
     from pulsarutils_tpu_torch.utils import nvcc
 
     t0 = time.perf_counter()
-    built = nvcc.build(["dedisperse"])
+    built = nvcc.build(["dedisperse", "fdmt_merge", "score"])
     for name, (path, seconds, log) in built.items():
         resources = [line.strip() for line in log.splitlines()
                      if "registers" in line or "spill" in line]
@@ -223,14 +257,501 @@ def phase_kernels(torch, np, seed, quick):
         records.append(_sweep_case(torch, name, data(nchan, nsamples), off,
                                    timed=timed))
     if quick:
-        return None, records
-    head = _sweep_case(torch, "headline", data(NCHAN, NSAMPLES),
+        return None, records, None
+    head_data = data(NCHAN, NSAMPLES)
+    head = _sweep_case(torch, "headline", head_data,
                        plan_offsets(NCHAN, NSAMPLES), superblock=SUPERBLOCK)
     check(head["ndm"] == 514 and head["launches_per_call"] == 2,
           f"headline plan: {head['ndm']} trials, "
           f"{head['launches_per_call']} launches")
     torch.cuda.empty_cache()
+    return head, records, head_data
+
+
+def _fdmt_case(torch, name, data, max_delay, min_delay, *, f0=START_FREQ,
+               bw=BANDWIDTH, timed=True):
+    """The transform pass by pass: each pass's kernel (through its
+    wrapper, and launched alone for timing) against its plain version on
+    the same input state, and the fused head also against the per-level
+    kernel over its levels; returns the per-pass records and the plane."""
+    from pulsarutils_tpu_torch.ops import fdmt_cuda as fc
+    from pulsarutils_tpu_torch.ops.fdmt import (fdmt_plan, fdmt_transform,
+                                                head_plain, merge4_plain,
+                                                merge_plain,
+                                                transform_schedule)
+
+    nchan, nsamples = data.shape
+    plan = fdmt_plan(nchan, float(f0), float(bw), int(max_delay),
+                     int(min_delay))
+    state = data
+    records = []
+    for level, (kind, step) in enumerate(transform_schedule(plan)):
+        rows_in = state.shape[0]
+        extra = {}
+        if kind == "head":
+            np_table, offsets = fc.head_table(step)
+            params = fc.head_params(step, offsets, nsamples, rows_in)
+            table = torch.from_numpy(np_table)
+            rows_out = step.rows_out
+
+            def wrapper(state=state, step=step):
+                return fc.head(state, step)
+
+            def kernel(state=state, table=table.to(state.device),
+                       params=params, rows_out=rows_out):
+                return fc.head_cuda(state, table, params, rows_out)
+
+            def plain(state=state, step=step):
+                return head_plain(state, step)
+
+            def per_level(state=state, step=step):
+                for it in step.iterations:
+                    state = fc.merge(state, it)
+                return state
+            adds = nsamples * int(step.counts.sum(axis=1).sum())
+            max_shift = max(step.max_shift)
+            max_shift_high = int(max(t[2].max() for t in step.tables[0]))
+            extra = {"levels": len(step.iterations), "tile": params[4],
+                     "tiles_per_group": params[3], "groups": step.n_groups,
+                     "halo": step.halo, "buffer_rows": list(step.buf_rows),
+                     "smem_bytes_per_block":
+                         4 * sum(step.buf_rows) * params[5]}
+        elif kind == "merge":
+            table = torch.from_numpy(fc.merge_table(step, nsamples))
+            rows_out = table.shape[1]
+
+            def wrapper(state=state, step=step):
+                return fc.merge(state, step)
+
+            def kernel(state=state, table=table.to(state.device)):
+                return fc.merge_cuda(state, table)
+
+            def plain(state=state, step=step):
+                return merge_plain(state, step["idx_low"], step["idx_high"],
+                                   step["shift"], step["shift_high"])
+            adds = rows_out * nsamples
+            max_shift = int(table[2:].max())
+            max_shift_high = int(table[2].max())
+        else:
+            table = torch.from_numpy(fc.merge4_table(*step, nsamples))
+            rows_out = table.shape[1]
+
+            def wrapper(state=state, step=step):
+                return fc.merge4(state, *step)
+
+            def kernel(state=state, table=table.to(state.device)):
+                return fc.merge4_cuda(state, table)
+
+            def plain(state=state, step=step):
+                return merge4_plain(state, *step)
+            adds = 3 * rows_out * nsamples
+            max_shift = int(table[4:].max())
+            max_shift_high = 0
+        label = {"head": "B3 head", "merge": "B2a merge",
+                 "merge4": "B2b merge4"}[kind]
+        got = wrapper()
+        want = plain()
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"{name} pass {level}: "
+              "non-finite state")
+        diff = float((got - want).abs().max())
+        check(diff == 0.0, f"{name} pass {level} ({kind}): kernel differs "
+              f"from plain by {diff}")
+        del want
+        if kind == "head":
+            chain = per_level()
+            torch.cuda.synchronize()
+            extra["per_level_b2a_max_abs_diff"] = float(
+                (got - chain).abs().max())
+            check(torch.equal(got, chain), f"{name}: the head differs from "
+                  "the per-level kernel over its levels")
+            del chain
+        # each input state read once, each output written once, tables
+        nbytes = 4 * nsamples * (rows_in + rows_out) + 4 * table.numel()
+        bound, bound_by = bound_ms(adds, nbytes)
+        record = {"case": name, "level": level, "kernel": label,
+                  "nchan": nchan, "nsamples": nsamples,
+                  "rows_in": rows_in, "rows_out": rows_out,
+                  "leaf": kind == "merge" and step["shift_high"] is not None,
+                  "max_shift": max_shift, "max_shift_high": max_shift_high,
+                  "max_abs_diff": diff,
+                  "tolerance": "max_abs_diff == 0", "bound_ms": bound,
+                  "bound_by": bound_by, **extra}
+        if timed:
+            record["kernel_ms"], record["kernel_runs_ms"] = time_ms(torch,
+                                                                    kernel)
+            record["wrapper_ms"], _ = time_ms(torch, wrapper)
+            record["plain_ms"], record["plain_runs_ms"] = time_ms(torch,
+                                                                  plain)
+            record["bound_share"] = bound / record["kernel_ms"]
+            if kind == "head":
+                record["per_level_b2a_ms"], _ = time_ms(torch, per_level)
+        emit("kernel_check", **record)
+        records.append(record)
+        state = got
+    whole = fdmt_transform(data, max_delay, f0, bw, min_delay=min_delay)
+    check(torch.equal(whole, state), f"{name}: fdmt_transform differs from "
+          "the pass-by-pass chain")
+    check(state.shape == (max_delay - min_delay + 1, nsamples),
+          f"{name}: plane shape {tuple(state.shape)}")
+    del whole
+    return records, state
+
+
+def phase_fdmt(torch, np, seed, quick, head_data):
+    """B3, B2a and B2b on edge cases, then through the headline
+    transform."""
+    from pulsarutils_tpu_torch.ops.fdmt import fdmt_trial_dms
+    from pulsarutils_tpu_torch.ops.plan import dmmax_for_trials
+
+    rng = np.random.default_rng(seed + 1)
+    dev = torch.device("cuda")
+
+    def data(nchan, nsamples):
+        return torch.from_numpy(rng.standard_normal(
+            (nchan, nsamples), dtype=np.float32)).to(dev)
+
+    def rows(nchan, dmmin, dmmax, f0=START_FREQ, bw=BANDWIDTH, tsamp=TSAMP):
+        _, n_lo, n_hi = fdmt_trial_dms(nchan, dmmin, dmmax, f0, bw, tsamp)
+        return n_hi, n_lo
+
+    timed = not quick
+    records = []
+    head_first = ["B3 head", "B2a merge", "B2b merge4"]
+    cases = [
+        # nchan not a power of two: zero channels above the band
+        ("nchan_1000_padded", data(1000, 1 << 16),
+         rows(1000, DMMIN, DMMAX), {}, head_first),
+        # no power-of-two tile divides T, through the head and per level
+        ("t_300007", data(1024, 300007), rows(1024, DMMIN, DMMAX), {},
+         head_first),
+        ("t_300007_per_level", data(256, 300007), rows(256, DMMIN, DMMAX),
+         {}, ["B2a merge"] * 6 + ["B2b merge4"]),
+        # T shorter than the head's window: it wraps T twice
+        ("t_150", data(1024, 150), rows(1024, DMMIN, DMMAX), {},
+         head_first),
+        # a narrow pruned range: min_delay > 0, few rows per level
+        ("pruned_narrow", data(256, 1 << 16), rows(256, 500.0, 505.0), {},
+         None),
+        # 110-170 MHz: band delays up to ~2000 samples in a 1536-sample
+        # chunk, so the host reduces shifts mod T
+        ("shifts_beyond_t", data(64, 1536),
+         rows(64, 5.0, 10.0, 110.0, 60.0, 1e-3),
+         {"f0": 110.0, "bw": 60.0}, ["B2a merge"] * 4 + ["B2b merge4"]),
+    ]
+    for name, x, (n_hi, n_lo), geom, kinds in cases:
+        recs, plane = _fdmt_case(torch, name, x, n_hi, n_lo, timed=timed,
+                                 **geom)
+        got = [r["kernel"] for r in recs]
+        check(kinds is None or got == kinds, f"{name}: schedule {got}")
+        records += recs
+        del x, plane
+    # the leaf form of B2a samples both parents with shifts of their own
+    check(any(r["leaf"] and r["max_shift_high"] > 0 for r in records),
+          "no leaf pass with a high-parent shift")
+    check(any(r["case"] == "pruned_narrow" and r["level"] == 0 for r in
+              records), "pruned case missing")
+    if quick:
+        torch.cuda.empty_cache()
+        return None, records, None
+    dmmax = dmmax_for_trials(DMMIN, HYB_NTRIALS, START_FREQ, BANDWIDTH,
+                             TSAMP)
+    n_hi, n_lo = rows(NCHAN, DMMIN, dmmax)
+    head, plane = _fdmt_case(torch, "headline", head_data, n_hi, n_lo)
+    check(n_hi - n_lo + 1 == HYB_NTRIALS
+          and [r["kernel"] for r in head] == head_first
+          and head[0]["max_shift_high"] > 0,
+          f"headline transform: rows {n_lo}..{n_hi}, passes "
+          f"{[r['kernel'] for r in head]}")
+    torch.cuda.empty_cache()
+    return head, records, plane
+
+
+def _score_case(torch, np, name, plane, *, with_cert=True, timed=True):
+    """B4 against its plain version on one plane."""
+    from pulsarutils_tpu_torch.ops.score_cuda import (score_plane,
+                                                      score_plane_cuda)
+    from pulsarutils_tpu_torch.ops.search import score_profiles_chunked
+
+    rows, nsamples = plane.shape
+    got = score_plane(plane, with_cert=with_cert).cpu().numpy()
+    want = score_profiles_chunked(plane, with_cert=with_cert).cpu().numpy()
+    check(np.isfinite(got).all(), f"{name}: non-finite scores")
+    check(np.array_equal(got[3], want[3]), f"{name}: windows differ in "
+          f"{int((got[3] != want[3]).sum())} rows")
+    check(np.array_equal(got[4], want[4]), f"{name}: peaks differ in "
+          f"{int((got[4] != want[4]).sum())} rows")
+    floats = [0, 1, 2] + ([5] if with_cert else [])
+    err = float(max(np.abs(got[k] - want[k]).max() for k in floats))
+    used = {name: float((np.abs(got[k] - want[k])
+                         / (SCORE_ATOL + SCORE_RTOL * np.abs(want[k]))).max())
+            for k, name in zip(floats, ("max", "std", "snr", "cert"))}
+    rel = max(used.values())
+    check(rel <= 1.0, f"{name}: scores outside rtol {SCORE_RTOL} / atol "
+          f"{SCORE_ATOL} (share of the tolerance used: {used})")
+    # the plane read once, the scores written once; ~16 adds per sample
+    bound, bound_by = bound_ms(16 * rows * nsamples,
+                               4 * rows * nsamples + 8 * got.size)
+    record = {"case": name, "rows": rows, "nsamples": nsamples,
+              "with_cert": with_cert, "max_abs_diff": err,
+              "tolerance_used": used, "windows_equal": True,
+              "peaks_equal": True,
+              "tolerance": f"rtol {SCORE_RTOL}, atol {SCORE_ATOL}",
+              "bound_ms": bound, "bound_by": bound_by}
+    if timed:
+        def kernel():
+            return score_plane_cuda(plane, with_cert=with_cert)
+
+        def plain():
+            return score_profiles_chunked(plane, with_cert=with_cert)
+        record["kernel_ms"], record["kernel_runs_ms"] = time_ms(torch, kernel)
+        record["plain_ms"], record["plain_runs_ms"] = time_ms(torch, plain)
+        record["bound_share"] = bound / record["kernel_ms"]
+    emit("kernel_check", kernel="B4 score", **record)
+    return record
+
+
+def phase_score(torch, np, seed, quick, coarse_plane):
+    """B4 on edge cases, then on the headline coarse plane."""
+    rng = np.random.default_rng(seed + 2)
+    dev = torch.device("cuda")
+
+    def plane(rows, nsamples, dc=0.0):
+        x = rng.standard_normal((rows, nsamples), dtype=np.float32)
+        x += np.float32(dc)
+        x[rows // 3, nsamples // 3:nsamples // 3 + 4] += 9.0  # width 4
+        x[rows // 2, nsamples - 2] += 12.0  # cert window wraps the end
+        return torch.from_numpy(x).to(dev)
+
+    timed = not quick
+    records = [
+        _score_case(torch, np, "odd_T", plane(97, 300007), timed=timed),
+        _score_case(torch, np, "rows_not_multiple_of_8", plane(13, 1 << 16),
+                    timed=timed),
+        _score_case(torch, np, "rows_13_no_cert", plane(13, 1 << 16),
+                    with_cert=False, timed=timed),
+        _score_case(torch, np, "dc_offset_1e4", plane(64, 1 << 16, 1e4),
+                    timed=timed),
+        # a ragged last group of 3 samples and two width-8 blocks
+        _score_case(torch, np, "short_T_19", plane(5, 19), timed=False),
+    ]
+    head = None
+    if coarse_plane is not None:
+        head = _score_case(torch, np, "headline_coarse_plane", coarse_plane)
+    torch.cuda.empty_cache()
     return head, records
+
+
+def reset_counts():
+    """Set every kernel's launch count to 0."""
+    from pulsarutils_tpu_torch.ops import dedisperse_cuda, fdmt_cuda, \
+        score_cuda
+
+    dedisperse_cuda.launches = 0
+    fdmt_cuda.head_launches = 0
+    fdmt_cuda.merge_launches = 0
+    fdmt_cuda.merge4_launches = 0
+    score_cuda.launches = 0
+
+
+def read_counts():
+    """Every kernel's launch count since :func:`reset_counts`."""
+    from pulsarutils_tpu_torch.ops import dedisperse_cuda, fdmt_cuda, \
+        score_cuda
+
+    return {"B1": dedisperse_cuda.launches, "B2a": fdmt_cuda.merge_launches,
+            "B2b": fdmt_cuda.merge4_launches, "B3": fdmt_cuda.head_launches,
+            "B4": score_cuda.launches}
+
+
+def fdmt_launches(nchan, dmmin, dmmax, f0=START_FREQ, bw=BANDWIDTH,
+                  tsamp=TSAMP):
+    """Launches of B3, B2a and B2b that one coarse sweep of this geometry
+    makes, from the transform's own schedule."""
+    from pulsarutils_tpu_torch.ops.fdmt import (fdmt_plan, fdmt_trial_dms,
+                                                transform_schedule)
+
+    _, n_lo, n_hi = fdmt_trial_dms(nchan, dmmin, dmmax, f0, bw, tsamp)
+    kinds = [k for k, _ in transform_schedule(
+        fdmt_plan(nchan, f0, bw, n_hi, n_lo))]
+    return {"B3": kinds.count("head"), "B2a": kinds.count("merge"),
+            "B2b": kinds.count("merge4")}
+
+
+def _hit_mismatch(ours, ref):
+    """The first difference between two hit lists (chunks, best DM, rebin,
+    peak, snr within rel 1e-5), or None."""
+    if [(h[0], h[1]) for h in ours] != [(h[0], h[1]) for h in ref]:
+        return (f"chunks {[(h[0], h[1]) for h in ours]} vs "
+                f"{[(h[0], h[1]) for h in ref]}")
+    for (lo, _, info, table), (_, _, rinfo, rtable) in zip(ours, ref):
+        best, rbest = table.best_row(), rtable.best_row()
+        for col in ("DM", "rebin", "peak"):
+            if best[col] != rbest[col]:
+                return f"chunk {lo}: {col} {best[col]} vs {rbest[col]}"
+        if abs(best["snr"] - rbest["snr"]) > 1e-5 * abs(rbest["snr"]):
+            return f"chunk {lo}: snr {best['snr']} vs {rbest['snr']}"
+        if info.dm != rinfo.dm or info.width != rinfo.width:
+            return f"chunk {lo}: candidate {info.dm}/{info.width}"
+    return None
+
+
+def phase_hybrid_headline(torch, np, seed):
+    """The JAX package's benchmark: hybrid vs the full exact sweep."""
+    from pulsarutils_tpu_torch.ops.fdmt import fdmt_trial_dms
+    from pulsarutils_tpu_torch.ops.plan import (dedispersion_shifts,
+                                                dmmax_for_trials)
+    from pulsarutils_tpu_torch.ops.search import (_search_fdmt,
+                                                  dedispersion_search)
+
+    dmmax = dmmax_for_trials(DMMIN, HYB_NTRIALS, START_FREQ, BANDWIDTH,
+                             TSAMP)
+    t0 = time.perf_counter()
+    # bench.py's data: |N(0, 1)| / 2, an impulse at T/2, rolled per
+    # channel by the DM 350 shifts
+    rng = np.random.default_rng(seed)
+    array = rng.standard_normal((NCHAN, NSAMPLES), dtype=np.float32)
+    np.abs(array, out=array)
+    array *= 0.5
+    array[:, NSAMPLES // 2] += 1.0
+    shifts = np.rint(np.asarray(dedispersion_shifts(
+        NCHAN, HYB_DM, START_FREQ, BANDWIDTH, TSAMP))).astype(int) % NSAMPLES
+    for c in range(NCHAN):
+        array[c] = np.roll(array[c], shifts[c])
+    data = torch.from_numpy(array).cuda()
+    del array
+    make_s = time.perf_counter() - t0
+    args = (DMMIN, dmmax, START_FREQ, BANDWIDTH, TSAMP)
+
+    def hybrid():
+        return dedispersion_search(data, *args, kernel="hybrid",
+                                   device="cuda")
+
+    def exact():
+        return dedispersion_search(data, *args, kernel="auto",
+                                   device="cuda")
+
+    def wall(fn, runs=3):
+        times, out = [], None
+        for _ in range(runs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t))
+        return out, statistics.median(times), times
+
+    reset_counts()
+    t = time.perf_counter()
+    table = hybrid()   # first call: the retention bound (host) included
+    torch.cuda.synchronize()
+    first_ms = 1e3 * (time.perf_counter() - t)
+    counts = read_counts()
+    want = fdmt_launches(NCHAN, float(table["DM"].min()),
+                         float(table["DM"].max()))
+    check(want["B3"] == 1 and all(counts[k] == v for k, v in want.items())
+          and counts["B4"] == 1 and counts["B1"] >= 1,
+          f"hybrid headline launches {counts}, schedule {want}")
+    table, hybrid_ms, hybrid_runs = wall(hybrid)
+    ref, exact_ms, exact_runs = wall(exact)
+    coarse_dms = fdmt_trial_dms(NCHAN, float(table["DM"].min()),
+                                float(table["DM"].max()), START_FREQ,
+                                BANDWIDTH, TSAMP)[0]
+    coarse_ms, coarse_runs = time_ms(torch, lambda: _search_fdmt(
+        data, float(table["DM"].min()), float(table["DM"].max()),
+        START_FREQ, BANDWIDTH, TSAMP, False, with_cert=True))
+    best_h, best_p = table.argbest(), ref.argbest()
+    match = {
+        "argbest_equal": best_h == best_p,
+        "dm_byte_equal": bool(table["DM"][best_h] == ref["DM"][best_p]),
+        "rebin_equal": int(table["rebin"][best_h])
+        == int(ref["rebin"][best_p]),
+        "peak_equal": int(table["peak"][best_h]) == int(ref["peak"][best_p]),
+        "snr_close": bool(abs(table["snr"][best_h] - ref["snr"][best_p])
+                          <= 1e-5 * abs(ref["snr"][best_p])),
+        "snr_rel_diff": float(abs(table["snr"][best_h] - ref["snr"][best_p])
+                              / abs(ref["snr"][best_p])),
+        "rescored_rows": int(np.count_nonzero(table["exact"])),
+    }
+    ndm = table.nrows
+    emit("hybrid_headline", nchan=NCHAN, nsamples=NSAMPLES, ndm=ndm,
+         coarse_rows=len(coarse_dms), dm_range=[DMMIN, dmmax],
+         injected_dm=HYB_DM, best_dm=float(table["DM"][best_h]),
+         best_snr=float(table["snr"][best_h]), exact_hit_match=match,
+         launches=counts, data_seconds=make_s, first_call_ms=first_ms,
+         coarse_ms=coarse_ms, coarse_runs_ms=coarse_runs,
+         hybrid_ms=hybrid_ms, hybrid_runs_ms=hybrid_runs,
+         exact_sweep_ms=exact_ms, exact_sweep_runs_ms=exact_runs,
+         hybrid_dm_trials_per_s=ndm / (hybrid_ms / 1e3),
+         exact_dm_trials_per_s=ref.nrows / (exact_ms / 1e3),
+         coarse_dm_trials_per_s=len(coarse_dms) / (coarse_ms / 1e3),
+         meta=table.meta)
+    failed = [k for k, v in match.items() if isinstance(v, bool) and not v]
+    check(not failed, f"exact_hit_match failed on {failed}")
+    check(abs(table["DM"][best_h] - HYB_DM) < 1.0,
+          f"hybrid best DM {table['DM'][best_h]} vs injected {HYB_DM}")
+    del data
+    torch.cuda.empty_cache()
+    return {"hybrid_ms": hybrid_ms, "coarse_ms": coarse_ms,
+            "exact_ms": exact_ms}
+
+
+def phase_e2e_hybrid(torch, np, workdir, path, chunk_length, nchunks,
+                     direct_hits):
+    """The end-to-end file through the hybrid: at S/N 8 (floorless), then
+    at the certifiable floor (the noise certificate)."""
+    from pulsarutils_tpu_torch.ops.plan import dedispersion_plan
+    from pulsarutils_tpu_torch.pipeline.search_pipeline import \
+        search_by_chunks
+
+    common = dict(chunk_length=chunk_length, dmmin=DMMIN, dmmax=DMMAX,
+                  device="cuda")
+    dms = dedispersion_plan(NCHAN, DMMIN, DMMAX, START_FREQ, BANDWIDTH,
+                            TSAMP)
+    per_chunk = fdmt_launches(NCHAN, float(dms.min()), float(dms.max()))
+    check(per_chunk["B3"] == 1, f"e2e schedule {per_chunk}")
+    runs = {}
+    for label, threshold in (("snr_8", 8.0), ("certifiable", "certifiable")):
+        stages, summary = {}, {}
+        reset_counts()
+        t0 = time.perf_counter()
+        hits, store = search_by_chunks(
+            str(path), kernel="hybrid", snr_threshold=threshold,
+            output_dir=str(workdir / f"out_hybrid_{label}"),
+            stage_seconds=stages, summary=summary, **common)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        floor = summary["snr_threshold"]
+        check(summary["searched"] == nchunks, f"{label}: searched "
+              f"{summary['searched']} of {nchunks} chunks")
+        check(all(counts[k] == v * nchunks for k, v in per_chunk.items())
+              and counts["B4"] == nchunks,
+              f"{label}: launches {counts} for {nchunks} chunks "
+              f"(schedule {per_chunk} a chunk)")
+        uncertified = nchunks - summary["certified"]
+        check(counts["B1"] >= uncertified, f"{label}: {counts['B1']} sweep "
+              f"launches for {uncertified} uncertified chunks")
+        if floor >= 8.0:
+            ref = [h for h in direct_hits if h[2].snr > floor]
+        else:
+            ref, _ = search_by_chunks(
+                str(path), snr_threshold=floor,
+                output_dir=str(workdir / f"out_direct_{label}"), **common)
+        bad = _hit_mismatch(hits, ref)
+        check(bad is None, f"{label}: hybrid hits differ from the direct "
+              f"sweep's at S/N {floor}: {bad}")
+        check(len(store.done_chunks) == nchunks, f"{label}: ledger")
+        loop_s = wall - stages.get("badchans", 0.0)
+        emit("e2e_hybrid", run=label, snr_threshold=floor,
+             snr_floor=summary["snr_floor"], chunks=nchunks,
+             certified_chunks=summary["certified"], hits=len(hits),
+             launches=counts,
+             launches_per_chunk={k: v / nchunks for k, v in counts.items()},
+             wall_s=wall, chunk_loop_s=loop_s,
+             chunks_per_s=nchunks / loop_s, stage_seconds=stages,
+             hits_equal_direct=True)
+        runs[label] = counts
+    return runs
 
 
 def _write_e2e_file(np, path, seed):
@@ -248,7 +769,6 @@ def _write_e2e_file(np, path, seed):
 
 def phase_end_to_end(torch, np, seed, workdir):
     from pulsarutils_tpu_torch.io.sigproc import FilterbankReader
-    from pulsarutils_tpu_torch.ops import dedisperse_cuda
     from pulsarutils_tpu_torch.ops.plan import dedispersion_plan
     from pulsarutils_tpu_torch.pipeline.search_pipeline import (
         clean_chunk, plan_survey, search_by_chunks)
@@ -269,14 +789,15 @@ def phase_end_to_end(torch, np, seed, workdir):
                             TSAMP)
     stages = {}
     torch.cuda.reset_peak_memory_stats()
-    dedisperse_cuda.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     hits, store = search_by_chunks(
         str(path), chunk_length=chunk_length, dmmin=DMMIN, dmmax=DMMAX,
         snr_threshold=8.0, output_dir=str(workdir / "out"), device="cuda",
         stage_seconds=stages)
     wall = time.perf_counter() - t0
-    launches = dedisperse_cuda.launches
+    counts = read_counts()
+    launches = counts["B1"]
     nchunks = len(sp["chunk_starts"])
     loop_s = wall - stages.get("badchans", 0.0)
     check(launches == 2 * nchunks,
@@ -323,7 +844,7 @@ def phase_end_to_end(torch, np, seed, workdir):
     check(snr_rel <= 1e-5, f"search snr rel diff {snr_rel}")
     emit("e2e_reference", clean_max_abs_diff=clean_diff,
          search_cut=list(cut.shape), search_snr_max_rel_diff=snr_rel)
-    return launches
+    return counts, hits, path, chunk_length, nchunks
 
 
 def main(argv=None):
@@ -361,19 +882,47 @@ def main(argv=None):
     try:
         card = phase_environment(torch)
         phase_build()
-        head, records = phase_kernels(torch, np, opts.seed, opts.quick)
+        head, records, head_data = phase_kernels(torch, np, opts.seed,
+                                                 opts.quick)
+        fdmt_head, fdmt_records, coarse = phase_fdmt(
+            torch, np, opts.seed, opts.quick, head_data)
+        del head_data
+        score_head, score_records = phase_score(torch, np, opts.seed,
+                                                opts.quick, coarse)
+        del coarse
+        torch.cuda.empty_cache()
         if opts.quick:
             return 0
+        phase_hybrid_headline(torch, np, opts.seed)
         shutil.rmtree(workdir, ignore_errors=True)
         workdir.mkdir(parents=True)
-        launches = phase_end_to_end(torch, np, opts.seed, workdir)
+        direct, hits, path, chunk_length, nchunks = phase_end_to_end(
+            torch, np, opts.seed, workdir)
+        hybrid = phase_e2e_hybrid(torch, np, workdir, path, chunk_length,
+                                  nchunks, hits)
     except CheckFailed as exc:
         print(f"chip_smoke: check failed: {exc}", file=sys.stderr)
         return 1
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
-    kernel = {
+    main_path = hybrid["snr_8"]
+    launches = {"direct sweep (e2e_search)": direct,
+                "hybrid at S/N 8 (e2e_hybrid)": main_path,
+                "hybrid at the certifiable floor (e2e_hybrid)":
+                    hybrid["certifiable"]}
+    shape = {"nchan": NCHAN, "nsamples": NSAMPLES}
+
+    def levels(kind):
+        return [r for r in fdmt_head if r["kernel"] == kind]
+
+    def total(recs, key):
+        return sum(r[key] for r in recs)
+
+    fused, merge = levels("B3 head"), levels("B2a merge")
+    merge4 = levels("B2b merge4")
+    fdmt_diff = max(r["max_abs_diff"] for r in fdmt_head + fdmt_records)
+    kernels = [{
         "name": "dedisperse_direct_sweep",
         "route": "cuda",
         "source": "pulsarutils_tpu_torch/csrc/dedisperse.cu",
@@ -381,7 +930,8 @@ def main(argv=None):
         "replaces_also": "pulsarutils_tpu/ops/pallas_dedisperse.py:265",
         "replaces_functions": "ops/pallas_dedisperse.py:_build_kernel_rows,"
                               "_build_kernel",
-        "launches": launches,
+        "launches": direct["B1"],
+        "launches_by_path": {k: v["B1"] for k, v in launches.items()},
         "max_abs_err": max(r["max_abs_diff"] for r in [head, *records]),
         "max_abs_diff": max(r["max_abs_diff"] for r in [head, *records]),
         "ms": head["kernel_ms"],
@@ -390,11 +940,97 @@ def main(argv=None):
         "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"],
         "library_ms": None,
-        "shape": {"nchan": NCHAN, "nsamples": NSAMPLES, "ndm": head["ndm"],
+        "shape": {**shape, "ndm": head["ndm"],
                   "launches_per_chunk": head["launches_per_call"]},
         "card": card,
-    }
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+    }, {
+        "name": "fdmt_merge_level",
+        "route": "cuda",
+        "source": "pulsarutils_tpu_torch/csrc/fdmt_merge.cu",
+        "replaces": "pulsarutils_tpu/ops/fdmt.py:480",
+        "replaces_functions": "ops/fdmt.py:_build_merge_kernel",
+        "launches": main_path["B2a"],
+        "launches_by_path": {k: v["B2a"] for k, v in launches.items()},
+        "max_abs_err": fdmt_diff,
+        "ms": total(merge, "kernel_ms"),
+        "plain_ms": total(merge, "plain_ms"),
+        "bound_ms": total(merge, "bound_ms"),
+        "bound_by": "bytes",
+        "library_ms": None,
+        "per_level_ms": [r["kernel_ms"] for r in merge],
+        "shape": {**shape, "levels": len(merge),
+                  "rows_out": [r["rows_out"] for r in merge],
+                  "launches_per_chunk": len(merge)},
+        "card": card,
+    }, {
+        "name": "fdmt_head_fused_levels",
+        "route": "cuda",
+        "source": "pulsarutils_tpu_torch/csrc/fdmt_merge.cu",
+        "replaces": "pulsarutils_tpu/ops/fdmt_resident.py:386",
+        "replaces_functions": "ops/fdmt_resident.py:_build_head_kernel",
+        "launches": main_path["B3"],
+        "launches_by_path": {k: v["B3"] for k, v in launches.items()},
+        "max_abs_err": fdmt_diff,
+        "ms": fused[0]["kernel_ms"],
+        "plain_ms": fused[0]["plain_ms"],
+        "bound_ms": fused[0]["bound_ms"],
+        "bound_by": fused[0]["bound_by"],
+        "library_ms": None,
+        "per_level_b2a_ms": fused[0]["per_level_b2a_ms"],
+        "shape": {**shape, "levels": fused[0]["levels"],
+                  "rows_in": fused[0]["rows_in"],
+                  "rows_out": fused[0]["rows_out"],
+                  "tile": fused[0]["tile"],
+                  "smem_bytes_per_block": fused[0]["smem_bytes_per_block"],
+                  "launches_per_chunk": 1},
+        "card": card,
+    }, {
+        "name": "fdmt_merge4_last_two_levels",
+        "route": "cuda",
+        "source": "pulsarutils_tpu_torch/csrc/fdmt_merge.cu",
+        "replaces": "pulsarutils_tpu/ops/fdmt.py:565",
+        "replaces_functions": "ops/fdmt.py:_build_merge4_kernel",
+        "launches": main_path["B2b"],
+        "launches_by_path": {k: v["B2b"] for k, v in launches.items()},
+        "max_abs_err": fdmt_diff,
+        "ms": total(merge4, "kernel_ms"),
+        "plain_ms": total(merge4, "plain_ms"),
+        "bound_ms": total(merge4, "bound_ms"),
+        "bound_by": merge4[0]["bound_by"],
+        "library_ms": None,
+        "shape": {**shape, "rows_in": merge4[0]["rows_in"],
+                  "rows_out": merge4[0]["rows_out"],
+                  "max_shift": merge4[0]["max_shift"],
+                  "launches_per_chunk": 1},
+        "card": card,
+    }, {
+        "name": "one_pass_scorer",
+        "route": "cuda",
+        "source": "pulsarutils_tpu_torch/csrc/score.cu",
+        "replaces": "pulsarutils_tpu/ops/score_pallas.py:256",
+        "replaces_functions": "ops/score_pallas.py:_build_score_kernel",
+        "launches": main_path["B4"],
+        "launches_by_path": {k: v["B4"] for k, v in launches.items()},
+        "max_abs_err": max(r["max_abs_diff"]
+                           for r in [score_head, *score_records]),
+        "ms": score_head["kernel_ms"],
+        "plain_ms": score_head["plain_ms"],
+        "bound_ms": score_head["bound_ms"],
+        "bound_by": score_head["bound_by"],
+        "library_ms": None,
+        "tolerance": score_head["tolerance"],
+        "shape": {"rows": score_head["rows"],
+                  "nsamples": score_head["nsamples"], "with_cert": True,
+                  "launches_per_chunk": 1},
+        "card": card,
+    }]
+    check_ok = all(k["launches"] > 0 for k in kernels)
+    if not check_ok:
+        print(f"chip_smoke: a kernel did not launch on its path: "
+              f"{[(k['name'], k['launches']) for k in kernels]}",
+              file=sys.stderr)
+        return 1
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

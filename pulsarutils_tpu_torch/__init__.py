@@ -2,9 +2,11 @@
 
 A search for dispersed single pulses (FRBs, pulsar giant pulses) in
 SIGPROC filterbank data, running on an NVIDIA GPU: the JAX package's
-default ``PUsearchfrb`` path (read, flag bad channels, clean on the
-device, exact direct dedispersion sweep through a hand-written CUDA
-kernel, boxcar scoring, candidates and a resume ledger).  The JAX
+``PUsearchfrb`` path (read, flag bad channels, clean on the device,
+search, boxcar scoring, candidates and a resume ledger) with the exact
+direct dedispersion sweep or the hybrid search (an FDMT coarse sweep,
+the noise certificate and an exact rescore), each device kernel
+hand-written in CUDA.  The JAX
 package stays the reference the port is tested against; this package
 imports nothing from it.
 

@@ -18,6 +18,16 @@ from ..pipeline.sift import sift_hits
 logger = logging.getLogger("pulsarutils_tpu_torch")
 
 
+def _snr_threshold(value):
+    if value in ("auto", "certifiable"):
+        return value
+    try:
+        return float(value)
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"{value!r}: expected a number, 'auto' or 'certifiable'")
+
+
 def build_parser():
     parser = argparse.ArgumentParser(
         description="Clean filterbank data and search for FRBs/single pulses")
@@ -33,13 +43,21 @@ def build_parser():
                              "crossing delay at dmmax")
     parser.add_argument("--tmin", type=float, default=0.0,
                         help="skip data before this time (s)")
-    parser.add_argument("--snr-threshold", type=float, default=6.0,
-                        help="hit criterion: best S/N above this")
+    parser.add_argument("--snr-threshold", type=_snr_threshold, default=6.0,
+                        help="hit criterion: a number (reference default "
+                             "6), 'auto' (noise-ceiling-matched floor for "
+                             "the chunk geometry) or 'certifiable' (the "
+                             "lowest floor whose hybrid noise certificate "
+                             "fires on signal-free chunks)")
     parser.add_argument("--surelybad", type=int, nargs="*", default=[])
     parser.add_argument("--kernel", default="auto",
-                        choices=("auto", "pallas", *LATER_KERNELS),
+                        choices=("auto", "pallas", "fdmt", "hybrid",
+                                 *LATER_KERNELS),
                         help="auto and pallas run the exact direct sweep; "
-                             "the others are not ported yet")
+                             "fdmt the tree transform (tree-rounded "
+                             "tracks); hybrid the FDMT coarse sweep plus "
+                             "an exact rescore of the hit region; the "
+                             "others are not ported yet")
     parser.add_argument("--fft-zap", action="store_true",
                         help="excise periodic RFI in the Fourier domain")
     parser.add_argument("--cut-outliers", action="store_true",

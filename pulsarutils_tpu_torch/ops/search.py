@@ -1,14 +1,30 @@
 """The dedispersion search: plan -> dedisperse every trial -> boxcar S/N.
 
-:func:`dedispersion_search` is the port of the JAX package's direct-sweep
-search (``kernel="pallas"``, which its ``kernel="auto"`` picks on the
-accelerator): host float64 plan and offsets, the sweep in trial
-superblocks through :func:`~.dedisperse_cuda.dedisperse_plane` (the CUDA
-kernel on the card, the plain version on the CPU), and the batched boxcar
-scorer of the reference (``pulsarutils/dedispersion.py:186-201``).
+:func:`dedispersion_search` is the port of the JAX package's search
+façade, with three kernels:
+
+* ``"auto"``/``"pallas"``: the exact direct sweep (the JAX package's
+  ``kernel="pallas"``, which its ``kernel="auto"`` picks on the
+  accelerator): host float64 plan and offsets, the sweep in trial
+  superblocks through :func:`~.dedisperse_cuda.dedisperse_plane`, and the
+  batched boxcar scorer of the reference
+  (``pulsarutils/dedispersion.py:186-201``);
+* ``"fdmt"``: the tree transform over every integer band-delay trial
+  (:func:`~.fdmt.fdmt_transform`) scored in one pass
+  (:func:`~.score_cuda.score_plane`), one host readback;
+* ``"hybrid"``: the FDMT coarse sweep with the sliding certificate row,
+  the noise certificate and guarantee loop (:mod:`.certify`), and an
+  exact direct-sweep rescore of every row that could hold the best hit
+  (or, with ``snr_floor``, any above-floor detection) — the two-stage
+  path of the JAX package's ``_search_jax_hybrid``.
+
+On a CUDA tensor each kernel wrapper launches its hand-written kernel; on
+a CPU tensor it runs its plain version.
 """
 
 from __future__ import annotations
+
+import logging
 
 import numpy as np
 import torch
@@ -19,8 +35,16 @@ from .dedisperse_cuda import dedisperse_plane
 from .plan import dedispersion_plan, offsets_for
 from .rebin import block_sum_time
 
+logger = logging.getLogger("pulsarutils_tpu_torch")
+
 #: boxcar widths tried by the scorer (reference ``dedispersion.py:190-191``)
 SEARCH_WINDOWS = (1, 2, 4, 8)
+
+#: sliding windows of the hybrid's certificate scorer.
+#: :func:`cert_profile_scores` and ``csrc/score.cu`` unroll exactly these
+#: widths, and ``certify._cert_retention_from_offsets`` bounds the same
+#: set: change all three together
+CERT_WINDOWS = (2, 3, 4)
 
 #: trials dedispersed per sweep call — bounds the live plane to
 #: superblock * nsamples floats (512 x 1M = 2 GB) regardless of ndm
@@ -29,12 +53,40 @@ SUPERBLOCK = 512
 #: kernels of the JAX package that later slices port, with their
 #: ROADMAP.md item
 LATER_KERNELS = {
-    "hybrid": "queue A, item 5 (hybrid and noise certificate)",
-    "fdmt": "queue A, item 4 (FDMT)",
-    "fourier": "queue A, item 6 (Fourier-domain dedispersion)",
-    "gather": "queue A, item 2 (the XLA gather/roll formulations)",
-    "roll": "queue A, item 2 (the XLA gather/roll formulations)",
+    "fourier": "queue A, item 5 (Fourier-domain dedispersion)",
+    "gather": "queue A, item 12 (the gather/roll direct-sweep "
+              "formulations)",
+    "roll": "queue A, item 12 (the gather/roll direct-sweep "
+            "formulations)",
 }
+
+#: rescore-call row buckets (requested rows pad up to the next bucket,
+#: as in the JAX package, so each rescore is one sweep launch of 8, 16
+#: or 32 trials)
+HYBRID_RESCORE_BUCKETS = (8, 16, 32)
+
+#: cap on guarantee-loop iterations before the hybrid rescores every
+#: remaining candidate row (correctness is then trivial)
+HYBRID_MAX_ROUNDS = 20
+
+#: the legacy structural trust fraction of the coarse sweep, used only
+#: when no certificate scores are supplied (``rho_cert=False``); the
+#: hybrid otherwise uses the per-config bound of :mod:`.certify`
+HYBRID_COARSE_TRUST = 0.60
+
+
+# ---------------------------------------------------------------------------
+# Scorers (plain PyTorch)
+# ---------------------------------------------------------------------------
+
+def _centred(plane):
+    """``plane`` minus its row means, each mean summed in float64 and
+    rounded to the plane's float32 once.  A float32 sum of a row with a
+    large DC offset is off by several of the mean's ulps (~1e-3 at 1e4,
+    a relative error of ~3e-4 in the maxima); the rounded exact mean is
+    within half an ulp, and the CUDA scorer reproduces it."""
+    mean = plane.mean(dim=1, keepdim=True, dtype=torch.float64)
+    return plane - mean.to(plane.dtype)
 
 
 def score_profiles(plane):
@@ -53,7 +105,7 @@ def score_profiles(plane):
     front: folding it into the reductions would read raw block sums that
     cancel catastrophically in float32 on planes with a large DC offset.
     """
-    x = plane - plane.mean(dim=1, keepdim=True)
+    x = _centred(plane)
     maxvalues = x.max(dim=1).values
     stds = torch.std(x, dim=1, correction=0)
     ndm = x.shape[0]
@@ -72,6 +124,71 @@ def score_profiles(plane):
         best_peaks = torch.where(better, arg * window, best_peaks)
     return maxvalues, stds, best_snrs, best_windows, best_peaks
 
+
+def score_profiles_stacked(plane):
+    """:func:`score_profiles` packed into ONE ``(5, ndm)`` float64 tensor
+    (rows ``max, std, snr, window, peak``), so a search reads its scores
+    back to the host in one transfer.  Float64 holds the float32 scores
+    and every integer window and peak exactly (the JAX package packs
+    float32, exact only below 2^24 samples)."""
+    return torch.stack([s.to(torch.float64) for s in score_profiles(plane)])
+
+
+def cert_profile_scores(plane):
+    """Sliding-window certificate score per row of a (coarse) plane:
+    ``max_t (x * box_w)(t) / (std * sqrt(w))`` for ``w`` in
+    :data:`CERT_WINDOWS` over all alignments, circular.  Pulse-phase
+    invariant, which is what makes the hybrid's retention bound usable."""
+    assert CERT_WINDOWS == (2, 3, 4), \
+        "cert_profile_scores structurally unrolls widths 2/3/4"
+    x = _centred(plane)
+    std = torch.std(x, dim=1, correction=0)
+    s2 = x + torch.roll(x, -1, dims=1)
+    best = s2.max(dim=1).values / (std * float(np.float32(np.sqrt(2.0))))
+    s3 = s2 + torch.roll(x, -2, dims=1)
+    best = torch.maximum(best, s3.max(dim=1).values
+                         / (std * float(np.float32(np.sqrt(3.0)))))
+    s4 = s2 + torch.roll(s2, -2, dims=1)
+    return torch.maximum(best, s4.max(dim=1).values / (std * 2.0))
+
+
+def score_profiles_chunked(plane, chunk=512, with_cert=False):
+    """:func:`score_profiles_stacked` over row chunks of a large plane,
+    bounding the scorer's temporaries to ``chunk`` rows (128 with the
+    certificate row, whose sliding sums add three plane-sized temps).
+    Returns ``(5, rows)`` float64, or ``(6, rows)`` with ``with_cert``
+    (the certificate scores appended)."""
+    if with_cert:
+        chunk = min(chunk, 128)
+    rows = plane.shape[0]
+
+    def one(sub):
+        stacked = score_profiles_stacked(sub)
+        if with_cert:
+            cert = cert_profile_scores(sub).to(torch.float64)
+            stacked = torch.cat([stacked, cert[None]])
+        return stacked
+
+    return torch.cat([one(plane[lo:min(lo + chunk, rows)])
+                      for lo in range(0, rows, chunk)], dim=1)
+
+
+def unstack_scores(stacked):
+    """Host side of a stacked score pack (one readback): ``(max, std, snr)``
+    float32, windows int32, peaks int64, and the certificate scores as a
+    sixth float32 element when the pack has them."""
+    stacked = to_numpy(stacked)
+    out = (stacked[0].astype(np.float32), stacked[1].astype(np.float32),
+           stacked[2].astype(np.float32), stacked[3].astype(np.int32),
+           stacked[4].astype(np.int64))
+    if stacked.shape[0] > 5:
+        out = out + (stacked[5].astype(np.float32),)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The exact direct sweep
+# ---------------------------------------------------------------------------
 
 def _search_direct(data, offsets, capture_plane):
     """Dedisperse in trial superblocks and score each; the scores come
@@ -95,47 +212,327 @@ def _search_direct(data, offsets, capture_plane):
     return (*fields, plane)
 
 
+# ---------------------------------------------------------------------------
+# The FDMT sweep and the hybrid
+# ---------------------------------------------------------------------------
+
+def _search_fdmt(data, dmmin, dmmax, start_freq, bandwidth, sample_time,
+                 capture_plane, with_cert=False):
+    """FDMT sweep over the integer band-delay grid on ``[dmmin, dmmax]``
+    (:func:`~.fdmt.fdmt_trial_dms`): the transform, the one-pass scorer,
+    one host readback.  Returns ``(trial_dms, scores, plane)``: the
+    :func:`unstack_scores` tuple (with the certificate row when
+    ``with_cert``) and the ``(ndm, T)`` plane or None."""
+    from .fdmt import fdmt_transform, fdmt_trial_dms
+    from .score_cuda import score_plane
+
+    nchan = data.shape[0]
+    trial_dms, n_lo, n_hi = fdmt_trial_dms(nchan, dmmin, dmmax, start_freq,
+                                           bandwidth, sample_time)
+    plane = fdmt_transform(data, n_hi, start_freq, bandwidth,
+                           min_delay=n_lo)
+    scores = unstack_scores(score_plane(plane, with_cert=with_cert))
+    return trial_dms, scores, (plane if capture_plane else None)
+
+
+def iter_rescore_buckets(rows):
+    """Yield ``(rows_block, padded_block)`` per fixed-size bucket: the
+    request split into :data:`HYBRID_RESCORE_BUCKETS`-sized blocks, each
+    padded (repeating its last row) up to the next bucket."""
+    rows = np.asarray(rows)
+    top = HYBRID_RESCORE_BUCKETS[-1]
+    for blk_lo in range(0, len(rows), top):
+        blk = rows[blk_lo:blk_lo + top]
+        bucket = next(b for b in HYBRID_RESCORE_BUCKETS if b >= len(blk))
+        yield blk, np.concatenate(
+            [blk, blk[-1:].repeat(bucket - len(blk))])
+
+
+def nearest_rows(sorted_grid, targets):
+    """Index of the nearest ``sorted_grid`` entry for each target value
+    (plan-grid trial DMs onto the coarse integer-band-delay grid)."""
+    sorted_grid = np.asarray(sorted_grid)
+    targets = np.asarray(targets)
+    pos = np.searchsorted(sorted_grid, targets)
+    lo = np.clip(pos - 1, 0, len(sorted_grid) - 1)
+    hi = np.clip(pos, 0, len(sorted_grid) - 1)
+    return np.where(np.abs(sorted_grid[lo] - targets)
+                    <= np.abs(sorted_grid[hi] - targets), lo, hi)
+
+
+def hybrid_guarantee_loop(coarse_snrs, snrs, exact, rescore,
+                          snr_floor=None, seed_done=False,
+                          cert_scores=None, rho_cert=None,
+                          cert_slack=None):
+    """The hybrid's seed + guarantee iteration.
+
+    ``snrs``/``exact`` are mutated in place by ``rescore(rows)``.  The
+    seed rescores the plausible-best rows (coarse S/N within 0.5 of the
+    coarse best; with ``snr_floor``, every row within 0.75 of the floor)
+    and their grid neighbours.  Each round then rescores every row that
+    could still beat the exact best: with ``cert_scores``/``rho_cert``,
+    a row whose sliding certificate score reaches ``rho_cert *
+    best_exact - cert_slack`` (or, with ``snr_floor``, ``rho_cert *
+    snr_floor - cert_slack``), and any row whose displayed coarse score
+    already beats the exact best or the floor; without them, the legacy
+    margins.  After :data:`HYBRID_MAX_ROUNDS` every remaining row is
+    rescored.  ``seed_done=True`` skips the seeding round.
+    """
+    from .certify import HYBRID_CERT_SLACK
+
+    if cert_slack is None:
+        cert_slack = HYBRID_CERT_SLACK
+    ndm = len(coarse_snrs)
+    if not seed_done:
+        seed = (coarse_snrs >= coarse_snrs.max() - 0.5)
+        if snr_floor is not None:
+            seed |= coarse_snrs >= snr_floor - 0.75
+        seed_idx = np.flatnonzero(seed)
+        grown = np.unique(np.clip(seed_idx[:, None]
+                                  + np.arange(-1, 2)[None, :], 0, ndm - 1))
+        rescore(grown)
+    cert_based = cert_scores is not None and rho_cert is not None
+    for _round in range(HYBRID_MAX_ROUNDS):
+        best_exact = snrs[exact].max()
+        if cert_based:
+            need = (~exact) & (cert_scores
+                               >= rho_cert * best_exact - cert_slack)
+            # a row DISPLAYING a coarse score above the exact best must be
+            # exact, or argbest could land on a non-exact row
+            need |= (~exact) & (coarse_snrs >= best_exact)
+            if snr_floor is not None:
+                need |= (~exact) & (cert_scores >= rho_cert * snr_floor
+                                    - cert_slack)
+                need |= (~exact) & (coarse_snrs >= snr_floor)
+        else:
+            under = (snrs[exact] - coarse_snrs[exact]).max(initial=0.0)
+            margin = max(1.5 * under, HYBRID_COARSE_TRUST * best_exact, 0.25)
+            need = (~exact) & (coarse_snrs >= best_exact - margin)
+            if snr_floor is not None:
+                need |= (~exact) & (coarse_snrs >= snr_floor - 0.75)
+        todo = np.flatnonzero(need)
+        if todo.size == 0:
+            break
+        rescore(todo)
+    else:
+        # round budget exhausted: rescore EVERY remaining row
+        todo = np.flatnonzero(~exact)
+        if todo.size:
+            rescore(todo)
+
+
+def hybrid_certificate_gate(cert_scores, coarse_snrs, snrs, exact, rescore,
+                            *, nchan, trial_dms, start_freq, bandwidth,
+                            sample_time, nsamples, snr_floor,
+                            noise_certificate, seed_done=False,
+                            rho_cert=None, cert_slack=None):
+    """The certificate check + guarantee loop.
+
+    Computes the per-config retention bound (unless ``rho_cert`` gives it;
+    ``rho_cert=False`` opts out of the certificate machinery and drops
+    the loop to the legacy margins), certifies the chunk signal-free when
+    ``noise_certificate`` and ``snr_floor`` permit (skipping the loop),
+    and otherwise runs :func:`hybrid_guarantee_loop` with the cert-based
+    skip criterion.  Returns ``(certified, rho_cert_min)``.
+
+    The JAX package also turns the certificate off when its TPU transform
+    zero-pads a time axis that no tile divides, because the bound assumes
+    circular time.  The port's transform is circular mod ``T`` at every
+    ``T`` and never pads, so that guard has nothing to catch here.
+    """
+    from .certify import certify_noise_only, retention_bound
+
+    if rho_cert is False:
+        cert_scores = None
+        noise_certificate = False
+
+    rho_cert_min = None
+    certified = False
+    if cert_scores is not None:
+        if rho_cert is not None:
+            rho_cert_min = float(rho_cert)
+        else:
+            rho_cert_min = retention_bound(nchan, trial_dms, start_freq,
+                                           bandwidth, sample_time, nsamples,
+                                           cert=True)
+        certified = bool(noise_certificate
+                         and certify_noise_only(cert_scores, snr_floor,
+                                                rho_cert_min,
+                                                coarse_snrs=coarse_snrs,
+                                                slack=cert_slack))
+    if not certified:
+        hybrid_guarantee_loop(coarse_snrs, snrs, exact, rescore,
+                              snr_floor=snr_floor, seed_done=seed_done,
+                              cert_scores=cert_scores,
+                              rho_cert=rho_cert_min,
+                              cert_slack=cert_slack)
+    return certified, rho_cert_min
+
+
+def _search_hybrid(data, trial_dms, start_freq, bandwidth, sample_time,
+                   capture_plane, snr_floor=None, noise_certificate=True,
+                   rho_cert=None, cert_slack=None):
+    """FDMT coarse sweep + exact rescore of the hit region.
+
+    1. coarse-score every plan trial with the FDMT (each plan row takes
+       the scores of its nearest integer-band-delay row), with the
+       sliding certificate row;
+    2. certify the chunk signal-free, or seed and iterate the guarantee
+       loop (:func:`hybrid_certificate_gate`), rescoring rows exactly —
+       same offsets, same sweep, same scorer as the direct search — in
+       :data:`HYBRID_RESCORE_BUCKETS`-sized sweep launches.
+
+    The argbest row (DM, snr, rebin, peak) is therefore the exact
+    sweep's; the ``exact`` column marks the rescored rows.  A certified
+    chunk keeps its coarse scores (the certificate's claim is the absence
+    of detections above ``snr_floor``).  ``capture_plane`` returns the
+    coarse plane gathered onto the plan rows.
+    """
+    ndm = len(trial_dms)
+    nchan, nsamples = data.shape
+    dmmin = float(np.min(trial_dms))
+    dmmax = float(np.max(trial_dms))
+
+    coarse_dms, coarse, plane = _search_fdmt(
+        data, dmmin, dmmax, start_freq, bandwidth, sample_time,
+        capture_plane, with_cert=True)
+    idx = nearest_rows(coarse_dms, trial_dms)
+    if plane is not None:
+        plane = plane[torch.from_numpy(idx).to(plane.device)]
+    c_max, c_std, c_snr, c_win, c_peak, c_cert = coarse
+    maxvalues = c_max.astype(np.float64)[idx]
+    stds = c_std.astype(np.float64)[idx]
+    snrs = c_snr.astype(np.float64)[idx]
+    windows = c_win[idx]
+    peaks = c_peak[idx]
+    cert_scores = c_cert.astype(np.float64)[idx]
+    coarse_snrs = snrs.copy()
+    exact = np.zeros(ndm, dtype=bool)
+
+    def rescore(rows):
+        """Exact scores for ``rows``: one direct-sweep launch and one
+        scorer pass per bucket."""
+        for blk, padded in iter_rescore_buckets(rows):
+            offsets = offsets_for(trial_dms[padded], nchan, start_freq,
+                                  bandwidth, sample_time, nsamples)
+            scored = score_profiles(dedisperse_plane(data, offsets))
+            m, s, b, w, p = (to_numpy(x) for x in scored)
+            k = len(blk)
+            maxvalues[blk] = m[:k]
+            stds[blk] = s[:k]
+            snrs[blk] = b[:k]
+            windows[blk] = w[:k]
+            peaks[blk] = p[:k]
+            exact[blk] = True
+
+    certified, rho_cert_min = hybrid_certificate_gate(
+        cert_scores, coarse_snrs, snrs, exact, rescore, nchan=nchan,
+        trial_dms=trial_dms, start_freq=start_freq, bandwidth=bandwidth,
+        sample_time=sample_time, nsamples=nsamples, snr_floor=snr_floor,
+        noise_certificate=noise_certificate, rho_cert=rho_cert,
+        cert_slack=cert_slack)
+    logger.debug("hybrid: %d/%d rows rescored exactly%s", exact.sum(), ndm,
+                 " (noise-certified)" if certified else "")
+    return (maxvalues, stds, snrs, windows, peaks, exact, plane,
+            cert_scores, certified, rho_cert_min)
+
+
+# ---------------------------------------------------------------------------
+# Public façade
+# ---------------------------------------------------------------------------
+
 def dedispersion_search(data, dmmin, dmmax, start_freq, bandwidth, sample_time,
                         show=False, *, capture_plane=None, trial_dms=None,
-                        kernel="auto", device="cuda"):
+                        kernel="auto", snr_floor=None, noise_certificate=True,
+                        rho_cert=None, cert_slack=None, device="cuda"):
     """Sweep trial DMs over ``data`` ``(nchan, T)`` and score each series.
 
-    ``kernel`` ``"auto"`` and ``"pallas"`` both run the exact direct sweep
-    (the JAX package's names, so its flags carry over); the JAX package's
-    other kernels raise ``NotImplementedError``.  ``trial_dms`` replaces
-    the default plan (one trial per integer sample of band-crossing
-    delay).  ``device`` is where the search runs: ``"cuda"`` (default;
-    raises without a card) or ``"cpu"``.
+    ``kernel``: ``"auto"`` and ``"pallas"`` run the exact direct sweep
+    (the JAX package's names, so its flags carry over); ``"fdmt"`` the
+    tree transform on its own integer band-delay grid (``trial_dms``, if
+    given, only bounds the DM range); ``"hybrid"`` the FDMT coarse sweep
+    plus the exact rescore of the hit region (exact hits on the plan
+    grid).  The JAX package's other kernels raise
+    ``NotImplementedError``.  ``trial_dms`` replaces the default plan (one
+    trial per integer sample of band-crossing delay).
+
+    Hybrid only: ``snr_floor`` makes every row that could hold an
+    above-floor detection exact and enables the noise certificate
+    (``noise_certificate``, default on; the verdict is in
+    ``table.meta["certified"]``); ``rho_cert`` gives the per-config
+    certificate retention bound (None: computed from the merge tables;
+    False: no certificate, legacy margins); ``cert_slack`` overrides
+    :data:`~.certify.HYBRID_CERT_SLACK`.
+
+    ``device`` is where the search runs: ``"cuda"`` (default; raises
+    without a card) or ``"cpu"``.
 
     Returns a :class:`~..utils.table.ResultTable` with columns
-    ``DM, max, std, snr, rebin, peak`` — plus the ``(ndm, T)`` plane
+    ``DM, max, std, snr, rebin, peak`` (the hybrid adds ``exact`` and
+    ``cert`` and a certificate ``meta``) — plus the ``(ndm, T)`` plane
     tensor when ``show`` or ``capture_plane`` is set.
     """
     if kernel in LATER_KERNELS:
         raise NotImplementedError(
             f"kernel={kernel!r} is not ported yet: ROADMAP.md "
             f"{LATER_KERNELS[kernel]}")
-    if kernel not in ("auto", "pallas"):
+    if kernel not in ("auto", "pallas", "fdmt", "hybrid"):
         raise ValueError(f"unknown kernel {kernel!r}")
     if capture_plane is None:
         capture_plane = bool(show)
     if capture_plane == "memmap":
         raise NotImplementedError(
             "capture_plane='memmap' is not ported yet (ROADMAP.md queue A, "
-            "item 2)")
+            "item 3)")
     dev = resolve_device(device)
     data = torch.as_tensor(data).to(device=dev, dtype=torch.float32)
     if data.ndim != 2:
         raise ValueError(f"data must be (nchan, T), got {tuple(data.shape)}")
+    data = data.contiguous()
     nchan, nsamples = data.shape
+
+    if kernel == "fdmt":
+        if trial_dms is not None:
+            dmmin = float(np.min(trial_dms))
+            dmmax = float(np.max(trial_dms))
+        trial_dms, scores, plane = _search_fdmt(
+            data, dmmin, dmmax, start_freq, bandwidth, sample_time,
+            capture_plane)
+        table = ResultTable(dict(zip(
+            ("DM", "max", "std", "snr", "rebin", "peak"),
+            (trial_dms, *scores))))
+        return (table, plane) if capture_plane else table
+
     if trial_dms is None:
         trial_dms = dedispersion_plan(nchan, dmmin, dmmax, start_freq,
                                       bandwidth, sample_time)
     trial_dms = np.asarray(trial_dms, dtype=np.float64)
+
+    if kernel == "hybrid":
+        from .certify import cert_meta
+
+        (maxvalues, stds, best_snrs, best_windows, best_peaks, exact,
+         plane, cert_scores, certified, rho_out) = _search_hybrid(
+            data, trial_dms, start_freq, bandwidth, sample_time,
+            capture_plane, snr_floor=snr_floor,
+            noise_certificate=noise_certificate, rho_cert=rho_cert,
+            cert_slack=cert_slack)
+        table = ResultTable({
+            "DM": trial_dms,
+            "max": maxvalues,
+            "std": stds,
+            "snr": best_snrs,
+            "rebin": best_windows,
+            "peak": best_peaks,
+            "exact": exact,
+            "cert": cert_scores,
+        }, meta=cert_meta(certified, rho_out, snr_floor, cert_slack))
+        return (table, plane) if capture_plane else table
+
     offsets = offsets_for(trial_dms, nchan, start_freq, bandwidth,
                           sample_time, nsamples)
     (maxvalues, stds, best_snrs, best_windows, best_peaks,
-     plane) = _search_direct(data.contiguous(), offsets, capture_plane)
+     plane) = _search_direct(data, offsets, capture_plane)
     table = ResultTable({
         "DM": trial_dms,
         "max": maxvalues,

@@ -1,8 +1,8 @@
 """The streaming search driver: file -> clean -> sweep -> candidates.
 
-The port of the JAX package's ``search_by_chunks`` on its default path
-(the exact direct sweep), itself the counterpart of the reference's
-``pulsarutils/clean.py:276-351``:
+The port of the JAX package's ``search_by_chunks`` with the exact direct
+sweep (the default) or the FDMT/hybrid kernels, itself the counterpart of
+the reference's ``pulsarutils/clean.py:276-351``:
 
 * bad channels are flagged once from the file's bandpass statistics;
 * the file is cut into 50%-overlap chunks sized by the search physics
@@ -27,7 +27,10 @@ import torch
 
 from ..io.candidates import CandidateStore, config_fingerprint
 from ..io.sigproc import FilterbankReader
+from ..ops.certify import (certifiable_snr_floor, matched_snr_floor,
+                           retention_bound)
 from ..ops.clean_ops import fft_zap_time, renormalize_data, zero_dm_filter
+from ..ops.plan import dedispersion_plan
 from ..ops.rebin import quick_resample
 from ..ops.search import dedispersion_search
 from ..parallel.stream import iter_chunk_starts, plan_chunks
@@ -41,22 +44,31 @@ logger = logging.getLogger("pulsarutils_tpu_torch")
 def plan_survey(fname, chunk_length=None, new_sample_time=None, tmin=0,
                 dmmin=200, dmmax=800, surelybad=(), *, kernel="auto",
                 snr_threshold=6.0, fft_zap=False, cut_outliers=False,
-                zero_dm=False):
-    """Resolve a survey's geometry and resume fingerprint without
-    searching anything.
+                zero_dm=False, exact_floor="auto"):
+    """Resolve a survey's geometry, threshold and resume fingerprint
+    without searching anything.
+
+    ``snr_threshold`` is a number or one of two floors adapted to the
+    chunk geometry (:mod:`..ops.certify`): ``"auto"``, the matched floor
+    (noise ceiling + 1, never below the reference's 6), and
+    ``"certifiable"``, the lowest floor whose hybrid noise certificate
+    fires on signal-free chunks; both resolve to a number rounded to two
+    decimals.  ``exact_floor`` decides whether the threshold also goes to
+    ``kernel="hybrid"`` as its ``snr_floor``: ``"auto"`` only when it sits
+    at or above the certifiable floor, ``True`` always, ``False`` never.
 
     Returns a dict: ``reader`` (the open reader), ``plan`` (the
     :class:`~..parallel.stream.ChunkPlan`), ``chunk_starts``,
-    ``snr_threshold``, ``fingerprint``, ``root`` (the candidate filename
+    ``snr_threshold`` (resolved), ``search_snr_floor`` (the hybrid's
+    floor or None), ``fingerprint``, ``root`` (the candidate filename
     stem), ``nsamples`` and ``sample_time``.  The fingerprint hashes the
     fields the JAX package hashes, with ``backend="torch"``: the two
     packages never share a ledger.
     """
-    if isinstance(snr_threshold, str):
-        raise NotImplementedError(
-            f"snr_threshold={snr_threshold!r}: the matched and certifiable "
-            "floors are not ported yet (ROADMAP.md queue A, item 5); pass "
-            "a number")
+    if exact_floor is not True and exact_floor is not False \
+            and exact_floor != "auto":
+        raise ValueError(f"exact_floor={exact_floor!r}: expected True, "
+                         "False or 'auto'")
     root = os.path.splitext(os.path.basename(str(fname)))[0]
     reader = FilterbankReader(fname)
     header = reader.header
@@ -65,6 +77,51 @@ def plan_survey(fname, chunk_length=None, new_sample_time=None, tmin=0,
                        header["fbottom"], header["ftop"], header["foff"],
                        chunk_length=chunk_length,
                        new_sample_time=new_sample_time)
+    eff_tsamp = plan.sample_time
+    t_eff = max(plan.step // plan.resample, 2)
+
+    def plan_dms():
+        return dedispersion_plan(header["nchans"], dmmin, dmmax,
+                                 header["fbottom"], header["bandwidth"],
+                                 eff_tsamp)
+
+    def chunk_cert_floor():
+        trial_dms = plan_dms()
+        rho = retention_bound(header["nchans"], trial_dms, header["fbottom"],
+                              header["bandwidth"], eff_tsamp, t_eff,
+                              cert=True)
+        return certifiable_snr_floor(t_eff, len(trial_dms), rho)
+
+    if isinstance(snr_threshold, str):
+        if snr_threshold == "auto":
+            # never more permissive than the reference's snr > 6
+            snr_threshold = max(matched_snr_floor(t_eff, len(plan_dms())),
+                                6.0)
+        elif snr_threshold == "certifiable":
+            snr_threshold = chunk_cert_floor()
+        else:
+            raise ValueError(
+                f"snr_threshold={snr_threshold!r}: expected a number, "
+                "'auto' or 'certifiable'")
+        snr_threshold = round(float(snr_threshold), 2)
+        logger.info("snr_threshold resolved to %.2f for %d-sample chunks",
+                    snr_threshold, t_eff)
+
+    # below the certifiable floor the hybrid runs floorless (exact best
+    # row only): a sub-certifiable floor would rescan toward a full exact
+    # sweep on every chunk
+    search_snr_floor = None
+    if kernel == "hybrid" and exact_floor is not False:
+        cert_floor = None if exact_floor is True else chunk_cert_floor()
+        if exact_floor is True \
+                or snr_threshold >= round(cert_floor, 2) - 1e-9:
+            search_snr_floor = snr_threshold
+        else:
+            logger.info(
+                "snr_threshold %.2f sits below the certifiable floor %.2f "
+                "for this chunk geometry: hybrid runs without snr_floor "
+                "(exact best row only)", snr_threshold, cert_floor)
+
     fingerprint = config_fingerprint(
         fname=os.path.abspath(str(fname)), dmmin=dmmin, dmmax=dmmax,
         step=plan.step, resample=plan.resample, backend="torch",
@@ -76,7 +133,8 @@ def plan_survey(fname, chunk_length=None, new_sample_time=None, tmin=0,
     return {
         "reader": reader, "plan": plan, "root": root,
         "nsamples": nsamples, "sample_time": header["tsamp"],
-        "snr_threshold": snr_threshold, "fingerprint": fingerprint,
+        "snr_threshold": snr_threshold,
+        "search_snr_floor": search_snr_floor, "fingerprint": fingerprint,
         "chunk_starts": list(iter_chunk_starts(
             nsamples, plan, tmin=tmin, sample_time=header["tsamp"])),
     }
@@ -129,15 +187,20 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
                      dmmin=200, dmmax=800, surelybad=(), *, kernel="auto",
                      snr_threshold=6.0, output_dir=None, resume=True,
                      fft_zap=False, cut_outliers=False, zero_dm=False,
-                     max_chunks=None, device="cuda", stage_seconds=None):
+                     max_chunks=None, exact_floor="auto", device="cuda",
+                     stage_seconds=None, summary=None):
     """Search a filterbank file for dispersed single pulses.
 
-    Parameters follow the JAX package's driver; ``device`` is where the
-    chunks are cleaned and searched (``"cuda"`` by default, raising
-    without a card; ``"cpu"`` on request).  ``max_chunks`` stops after
-    that many chunks (the rest stay un-marked for a resumed run).
+    Parameters follow the JAX package's driver (``snr_threshold`` and
+    ``exact_floor`` as :func:`plan_survey` resolves them); ``device`` is
+    where the chunks are cleaned and searched (``"cuda"`` by default,
+    raising without a card; ``"cpu"`` on request).  ``max_chunks`` stops
+    after that many chunks (the rest stay un-marked for a resumed run).
     ``stage_seconds``, a dict, receives the wall seconds of each stage
-    (``badchans``, ``read``, ``clean``, ``search``, ``persist``).
+    (``badchans``, ``read``, ``clean``, ``search``, ``persist``);
+    ``summary``, a dict, receives ``snr_threshold`` (resolved),
+    ``snr_floor`` (the hybrid's, or None), ``searched`` and
+    ``certified`` (the chunks the hybrid's noise certificate cleared).
 
     Returns ``(hits, store)``: ``hits`` is a list of ``(istart, iend,
     PulseInfo, ResultTable)`` — with ``resume``, including hits persisted
@@ -153,8 +216,9 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
                      dmmin=dmmin, dmmax=dmmax, surelybad=surelybad,
                      kernel=kernel, snr_threshold=snr_threshold,
                      fft_zap=fft_zap, cut_outliers=cut_outliers,
-                     zero_dm=zero_dm)
+                     zero_dm=zero_dm, exact_floor=exact_floor)
     reader = sp["reader"]
+    snr_threshold = sp["snr_threshold"]
     root = sp["root"]
     header = reader.header
     nsamples = sp["nsamples"]
@@ -173,6 +237,7 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
         todo = todo[:max_chunks]
 
     hits = []
+    ncertified = 0
     for istart in todo:
         iend = istart + min(plan.step, nsamples - istart)
         block = stages.run("read", reader.read_block_tensor, istart,
@@ -183,7 +248,12 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
         del block
         table = stages.run("search", dedispersion_search, array, dmmin,
                            dmmax, start_freq, bandwidth, eff_tsamp,
-                           kernel=kernel, device=dev)
+                           kernel=kernel, snr_floor=sp["search_snr_floor"],
+                           device=dev)
+        if table.meta.get("certified"):
+            # the noise certificate: no detection above the floor, no
+            # exact rescore paid (is_hit is False by construction)
+            ncertified += 1
         best = table.best_row()
         is_hit = bool(best["snr"] > snr_threshold)
         info = None
@@ -217,5 +287,10 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
                     and store.is_done(lo):
                 hits.append((lo, hi, *store.load_candidate(root, lo, hi)))
         hits.sort(key=lambda h: h[0])
-    logger.info("done: %d chunks searched, %d hits", len(todo), len(hits))
+    logger.info("done: %d chunks searched, %d hits, %d noise-certified",
+                len(todo), len(hits), ncertified)
+    if summary is not None:
+        summary.update(snr_threshold=snr_threshold,
+                       snr_floor=sp["search_snr_floor"], searched=len(todo),
+                       certified=ncertified)
     return hits, store

@@ -9,10 +9,17 @@ import numpy as np
 
 class ResultTable(Mapping):
     """Ordered mapping of column name -> 1-D numpy array (equal lengths),
-    saved as the same npz as the JAX package's table."""
+    saved as the same npz as the JAX package's table.
 
-    def __init__(self, columns):
+    ``meta`` is a free-form dict of per-table annotations that are not
+    columns (the hybrid's noise-certificate verdict).  As in the JAX
+    package it is NOT persisted by :meth:`to_npz`: the candidate npz
+    holds the columns only.
+    """
+
+    def __init__(self, columns, meta=None):
         self._cols = {}
+        self.meta = dict(meta) if meta else {}
         n = None
         for name, values in dict(columns).items():
             arr = np.asarray(values)

@@ -149,8 +149,18 @@ def test_cli_searches_and_sifts(reference, tmp_path):
     assert rc == 0
     assert list(tmp_path.glob("progress_*.json"))
     assert list(tmp_path.glob("pulse_*.info.npz"))
+    rc = search_main.main([path, "--dmmin", "100", "--dmmax", "200",
+                           "--chunk-length", "1.024", "--kernel", "hybrid",
+                           "--snr-threshold", "certifiable",
+                           "--output-dir", str(tmp_path / "hybrid"),
+                           "--device", "cpu"])
+    assert rc == 0
+    assert list((tmp_path / "hybrid").glob("pulse_*.info.npz"))
+    with pytest.raises(SystemExit):
+        search_main.build_parser().parse_args([path, "--snr-threshold",
+                                               "loose"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        search_main.main([path, "--kernel", "hybrid", "--device", "cpu",
+        search_main.main([path, "--kernel", "fourier", "--device", "cpu",
                           "--output-dir", str(tmp_path)])
 
 
@@ -191,6 +201,12 @@ import pulsarutils_tpu_torch
 hits, _ = pulsarutils_tpu_torch.search_by_chunks(
     {path!r}, dmmin=100.0, dmmax=200.0, chunk_length=1.024, device="cpu",
     output_dir={str(tmp_path / 'out')!r})
+assert hits
+# the hybrid path: FDMT, scorer, certificate, rescore
+hits, _ = pulsarutils_tpu_torch.search_by_chunks(
+    {path!r}, dmmin=100.0, dmmax=200.0, chunk_length=1.024, device="cpu",
+    kernel="hybrid", snr_threshold="certifiable",
+    output_dir={str(tmp_path / 'hybrid')!r})
 assert hits
 bad = [k for k in sys.modules if k == "jax" or k.startswith("jax.")
        or k == "pulsarutils_tpu" or k.startswith("pulsarutils_tpu.")]

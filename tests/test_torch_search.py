@@ -49,6 +49,47 @@ def test_scorer_matches_jax(seed, t, dc):
         np.testing.assert_allclose(ours, theirs, rtol=RTOL)
 
 
+def _float64_scores(plane):
+    """The scorer's definition in float64: centred on the exact mean,
+    boxcar block sums of width 1, 2, 4, 8, first argmax, strict ``>``."""
+    x = plane.astype(np.float64)
+    x -= x.mean(axis=1, keepdims=True)
+    best = np.zeros(len(x))
+    windows = np.zeros(len(x), np.int64)
+    peaks = np.zeros(len(x), np.int64)
+    for w in (1, 2, 4, 8):
+        n = x.shape[1] // w
+        sums = x[:, :n * w].reshape(len(x), n, w).sum(axis=2)
+        snr = sums.max(axis=1) / sums.std(axis=1)
+        better = snr > best
+        best = np.where(better, snr, best)
+        windows = np.where(better, w, windows)
+        peaks = np.where(better, sums.argmax(axis=1) * w, peaks)
+    return x.max(axis=1), x.std(axis=1), best, windows, peaks
+
+
+def test_direct_search_at_dc_1e4_matches_float64_truth():
+    # the scorer centres each row on its float64 mean rounded to float32
+    # once: at a DC offset of 1e4 a float32 mean is off by a few of its
+    # ulps (~1e-3), which moves the maxima by ~1e-3 / 4 relative; the
+    # rounded exact mean is off by at most half an ulp
+    array, header = simulate_test_data(150.0, nsamples=4096, nchan=32,
+                                       signal=2.0, noise=0.2, rng=11)
+    array = array.astype(np.float32) + np.float32(1e4 / 32)
+    args = (100.0, 200.0, header["fbottom"], header["bandwidth"],
+            header["tsamp"])
+    table, plane = dedispersion_search(array, *args, device="cpu", show=True)
+    plane = plane.numpy()
+    assert plane.mean() > 9e3 and plane.std(axis=1).max() < 2.0
+    m, s, snr, win, peak = _float64_scores(plane)
+    np.testing.assert_array_equal(table["rebin"], win)
+    np.testing.assert_array_equal(table["peak"], peak)
+    assert table.argbest() == int(np.argmax(snr))
+    for ours, truth in ((table["max"], m), (table["std"], s),
+                        (table["snr"], snr)):
+        np.testing.assert_allclose(ours, truth, rtol=2e-4)
+
+
 @pytest.mark.parametrize("n", [10, 11, 4096])
 def test_median_is_numpys_at_even_and_odd_length(n):
     x = np.random.default_rng(n).normal(size=n).astype(np.float32)
@@ -169,7 +210,11 @@ def test_search_kernel_names():
     a = dedispersion_search(array, *args, kernel="auto", device="cpu")
     b = dedispersion_search(array, *args, kernel="pallas", device="cpu")
     np.testing.assert_array_equal(a["snr"], b["snr"])
-    for kernel in ("hybrid", "fdmt", "fourier", "gather", "roll"):
+    for kernel in ("fdmt", "hybrid"):
+        table = dedispersion_search(array, *args, kernel=kernel,
+                                    device="cpu")
+        assert table.nrows and np.isfinite(table["snr"]).all()
+    for kernel in ("fourier", "gather", "roll"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             dedispersion_search(array, *args, kernel=kernel, device="cpu")
     with pytest.raises(ValueError):

@@ -9,8 +9,8 @@ Phases, one JSON line each:
    raw on a line of its own), PyTorch and CUDA versions; TF32 is turned
    off for matmuls and cuDNN;
 2. build: every CUDA source of the port's paths (the direct sweep, the
-   FDMT merges, the one-pass scorer), with ``nvcc``, all started
-   together;
+   FDMT merges, the one-pass scorer, the FDD rotate-accumulate, the
+   harmonic scorer), with ``nvcc``, all started together;
 3. kernels: each kernel against its plain PyTorch version on the same
    inputs, timed with CUDA events (one warm-up, median of 5), beside its
    bound:
@@ -26,6 +26,17 @@ Phases, one JSON line each:
    - the one-pass scorer (B4) on the headline coarse plane and on edge
      cases (odd T, rows not a multiple of 8, a DC offset of 1e4):
      windows and peaks equal, floats within rtol 2e-4, atol 1e-5;
+   - the FDD (B5): the path on edge cases (nchan not a multiple of the
+     channel block, odd T, one trial, superblock > ndm, trial-block
+     tails, a non-uniform grid) against the float64 oracle (atol 2e-3),
+     the kernel against plain on one 64-trial headline superblock
+     (within 1e-4 of the largest output), and the whole 514-trial sweep
+     of ``dedispersion_search(kernel="fourier")``, kernels timed apart;
+   - the harmonic scorer (B6) on edge cases (rows not a multiple of 8,
+     even and odd median lengths, an all-zero row, a half-zero row, a
+     band, an empty band, 1 and 4 harmonics) and on the power of a
+     512 x 2^20 plane: peak bins and values equal to plain's, the
+     false-alarm chain within rtol 1e-5 with depths and bins exact;
 4. hybrid headline: the JAX package's benchmark data (1024 x 2^20,
    |N(0,1)| / 2, an impulse at T/2 dispersed at DM 350) searched by
    ``dedispersion_search(kernel="hybrid")`` and by the full exact sweep;
@@ -34,12 +45,18 @@ Phases, one JSON line each:
 5. end to end: a simulated 1024-channel 8-bit filterbank with a dispersed
    pulse, searched by the port's ``search_by_chunks`` on the card in
    2^18-sample chunks with the direct sweep, then with the hybrid (at
-   S/N 8 and at the certifiable floor): the pulse must be found in its
-   chunk at the injected DM, the hybrid's hits must equal the direct
-   sweep's, and each path's kernels must have launched (their counts are
-   set to 0 before each run and read after it); the cleaned chunk and a
-   cut of the search are checked against the CPU path;
-6. the kernels line, then ``{"ok": true, "device": {...}}`` last.
+   S/N 8 and at the certifiable floor), then with the FDD: the pulse
+   must be found in its chunk at the injected DM, the hybrid's hits must
+   equal the direct sweep's, and each path's kernels must have launched
+   (their counts are set to 0 before each run and read after it); the
+   cleaned chunk and a cut of the search are checked against the CPU
+   path;
+6. periodicity: a 1024-channel 8-bit file of the same geometry holding
+   a ~10 Hz pulsar at DM 400, searched by ``search_by_chunks(
+   period_search=True)`` (the pulsar in every chunk) and by
+   ``periodicity_search`` with 5 acceleration trials and the canary
+   (the pulsar the best candidate, the canary recovered);
+7. the kernels line, then ``{"ok": true, "device": {...}}`` last.
 
 Any failed check exits non-zero before the last line.  Without a CUDA
 device, or without the package beside this script, it exits non-zero
@@ -154,7 +171,8 @@ def phase_build():
     from pulsarutils_tpu_torch.utils import nvcc
 
     t0 = time.perf_counter()
-    built = nvcc.build(["dedisperse", "fdmt_merge", "score"])
+    built = nvcc.build(["dedisperse", "fdmt_merge", "score", "fdd",
+                        "harmonic"])
     for name, (path, seconds, log) in built.items():
         resources = [line.strip() for line in log.splitlines()
                      if "registers" in line or "spill" in line]
@@ -542,26 +560,352 @@ def phase_score(torch, np, seed, quick, coarse_plane):
     return head, records
 
 
+#: B5: the kernel against its plain version, relative to the largest
+#: output (the two sum channels in different orders); the FDD path
+#: against the float64 oracle at the JAX package's test tolerance, on
+#: unit-normal data
+FDD_REL_TOL = 1e-4
+FDD_ORACLE_ATOL = 2e-3
+
+#: B6 and its chain: scores within the JAX package's harmonic_packs_match
+#: rtol; peak bins, depths and frequency bins exact
+HARMONIC_RTOL = 1e-5
+
+
+def _fdd_kernel_case(torch, name, u, step, superblock, chan_block, *,
+                     timed=True):
+    """B5 against its plain version on one superblock, launched per
+    channel block as the FDD path launches it."""
+    from pulsarutils_tpu_torch.ops import fourier_cuda as fc
+
+    nchan, nbin = u.shape
+    blocks = [(lo, min(lo + chan_block, nchan))
+              for lo in range(0, nchan, chan_block)]
+
+    def run(fn):
+        acc = torch.zeros((superblock, nbin), dtype=torch.complex64,
+                          device=u.device)
+        for lo, hi in blocks:
+            acc = fn(u[lo:hi], step[lo:hi], superblock, acc=acc)
+        return acc
+
+    def kernel():
+        return run(fc.fdd_superblock_spectra_cuda)
+
+    def plain():
+        return run(fc.fdd_superblock_spectra_plain)
+
+    got = run(fc.fdd_superblock_spectra)
+    want = plain()
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(torch.view_as_real(got)).all()),
+          f"{name}: non-finite spectra")
+    scale = float(want.abs().max())
+    diff = float((got - want).abs().max())
+    rel = diff / max(scale, 1e-30)
+    check(rel <= FDD_REL_TOL, f"{name}: kernel differs from plain by "
+          f"{diff} ({rel:.3g} of the largest output, tolerance "
+          f"{FDD_REL_TOL})")
+    # one complex multiply (2 FMUL + 2 FFMA) and one complex add (2 FADD)
+    # per (trial, channel, bin); u and step read once, the output once
+    bound, bound_by = bound_ms(6 * superblock * nchan * nbin,
+                               16 * nchan * nbin + 8 * superblock * nbin)
+    record = {"case": name, "nchan": nchan, "nbin": nbin,
+              "superblock": superblock, "chan_block": chan_block,
+              "launches_per_call": len(blocks), "max_abs_diff": diff,
+              "max_abs_plain": scale, "rel_diff": rel,
+              "tolerance": f"max_abs_diff <= {FDD_REL_TOL} x max|plain|",
+              "bound_ms": bound, "bound_by": bound_by}
+    if timed:
+        record["kernel_ms"], record["kernel_runs_ms"] = time_ms(torch, kernel)
+        record["plain_ms"], record["plain_runs_ms"] = time_ms(torch, plain)
+        record["bound_share"] = bound / record["kernel_ms"]
+    del got, want
+    emit("kernel_check", kernel="B5 fdd", **record)
+    return record
+
+
+def _timed_launches(torch, module, name):
+    """Wrap ``module.name`` so every call is timed with CUDA events;
+    returns the list of (start, end) events and an undo function."""
+    real = getattr(module, name)
+    spans = []
+
+    def wrapped(*args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(*args, **kwargs)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    setattr(module, name, wrapped)
+    return spans, lambda: setattr(module, name, real)
+
+
+def phase_fdd(torch, np, seed, quick):
+    """B5: the FDD path on edge cases against the float64 oracle, the
+    kernel against plain on one headline superblock, then the full
+    headline sweep through ``dedispersion_search(kernel="fourier")``."""
+    from pulsarutils_tpu_torch.ops import fourier as fo
+    from pulsarutils_tpu_torch.ops import fourier_cuda as fc
+    from pulsarutils_tpu_torch.ops.plan import dedispersion_plan
+    from pulsarutils_tpu_torch.ops.search import dedispersion_search
+
+    rng = np.random.default_rng(seed + 3)
+    geom = (START_FREQ, BANDWIDTH, TSAMP)
+    jagged = np.linspace(300.0, 400.0, 12)
+    jagged[5] += 3.0
+    cases = [
+        # (name, nchan, T, trial DMs, dm_block)
+        ("nchan_200_not_chan_block_multiple", 200, 4096,
+         np.linspace(300.0, 400.0, 40), None),
+        ("odd_T_4095", 64, 4095, np.linspace(300.0, 350.0, 20), None),
+        ("one_trial", 64, 4096, np.array([350.0]), None),
+        ("superblock_gt_ndm", 64, 4096, np.linspace(300.0, 320.0, 10), 64),
+        ("trial_block_tails", 96, 4096, np.linspace(300.0, 400.0, 70), 48),
+        ("non_uniform_fallback", 64, 4096, jagged, None),
+    ]
+    records = []
+    for name, nchan, t, dms, dm_block in cases:
+        data = rng.standard_normal((nchan, t)).astype(np.float32)
+        ref = fo._dedisperse_fourier_numpy(
+            data, fo.fractional_delays(dms, nchan, START_FREQ, BANDWIDTH),
+            TSAMP)
+        fc.launches = 0
+        got = fo.dedisperse_fourier(data, dms, *geom, dm_block=dm_block,
+                                    device="cuda")
+        torch.cuda.synchronize()
+        launched = fc.launches
+        cpu = fo.dedisperse_fourier(data, dms, *geom, dm_block=dm_block,
+                                    device="cpu").numpy()
+        got = got.cpu().numpy()
+        diff = float(np.abs(got - ref).max())
+        check(got.shape == ref.shape and np.isfinite(got).all(),
+              f"{name}: plane {got.shape}")
+        check(diff <= FDD_ORACLE_ATOL, f"{name}: FDD differs from the "
+              f"float64 oracle by {diff} (atol {FDD_ORACLE_ATOL})")
+        uniform = fo._uniform_spacing(dms) is not None
+        check((launched > 0) == uniform, f"{name}: {launched} B5 launches "
+              f"on a {'uniform' if uniform else 'non-uniform'} grid")
+        record = {"case": name, "nchan": nchan, "nsamples": t,
+                  "ndm": len(dms), "dm_block": dm_block,
+                  "uniform_grid": uniform, "launches": launched,
+                  "oracle_max_abs_diff": diff,
+                  "cpu_path_max_abs_diff": float(np.abs(got - cpu).max()),
+                  "tolerance": f"oracle atol {FDD_ORACLE_ATOL}"}
+        emit("fdd_check", **record)
+        records.append(record)
+    # the kernel alone on small odd shapes
+    for name, nchan, nbin, nsb in (("kernel_nchan_5_nbin_300", 5, 300, 16),
+                                   ("kernel_superblock_70", 37, 1025, 70)):
+        u = torch.from_numpy((rng.standard_normal((nchan, nbin))
+                              + 1j * rng.standard_normal((nchan, nbin)))
+                             .astype(np.complex64)).cuda()
+        step = torch.from_numpy(np.exp(1j * rng.uniform(
+            0, 2 * np.pi, (nchan, nbin))).astype(np.complex64)).cuda()
+        records.append(_fdd_kernel_case(torch, name, u, step, nsb, 16,
+                                        timed=False))
+    if quick:
+        torch.cuda.empty_cache()
+        return None, records
+    # the headline: one 64-trial superblock of the DM 300-635 plan
+    data = torch.from_numpy(rng.standard_normal(
+        (NCHAN, NSAMPLES), dtype=np.float32)).cuda()
+    dms = dedispersion_plan(NCHAN, DMMIN, DMMAX, *geom)
+    superblock, chan_block = fo.FOURIER_SUPERBLOCK, fo.FOURIER_CHAN_BLOCK
+    anchors, steps, ndm = fo._uniform_fourier_inputs(
+        dms, fo._uniform_spacing(dms), NCHAN, START_FREQ, BANDWIDTH, TSAMP,
+        NSAMPLES, superblock)
+    spec = fo._blocked_rfft(data, chan_block)
+    k = torch.arange(NSAMPLES // 2 + 1, dtype=torch.int64, device="cuda")
+    kf = k.to(torch.float32)
+    a64 = torch.from_numpy(anchors.astype(np.int64)).cuda()
+    s64 = torch.from_numpy(steps.astype(np.int64)).cuda()
+    u = torch.empty_like(spec)
+    step = torch.empty_like(spec)
+    for lo in range(0, NCHAN, chan_block):
+        hi = lo + chan_block
+        u[lo:hi] = spec[lo:hi] * fo.limb_phase(a64[:, 0, lo:hi], k, kf)
+        step[lo:hi] = fo.limb_phase(s64[:, lo:hi], k, kf)
+    del spec
+    head = _fdd_kernel_case(torch, "headline_superblock", u, step,
+                            superblock, chan_block)
+    del u, step
+    torch.cuda.empty_cache()
+
+    # the full sweep, kernel launches timed apart
+    args = (DMMIN, DMMAX, *geom)
+
+    def sweep():
+        return dedispersion_search(data, *args, kernel="fourier",
+                                   device="cuda")
+
+    sweep()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(3):
+        reset_counts()
+        spans, undo = _timed_launches(torch, fc,
+                                      "fdd_superblock_spectra_cuda")
+        try:
+            t0 = time.perf_counter()
+            table = sweep()
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0))
+        finally:
+            undo()
+        kernel_ms = sum(s.elapsed_time(e) for s, e in spans)
+        counts = read_counts()
+    nsuper = -(-ndm // superblock)
+    check(table.nrows == ndm and np.isfinite(table["snr"]).all(),
+          f"fourier sweep table {table.nrows} rows")
+    check(counts["B5"] == nsuper * (NCHAN // chan_block)
+          and counts["B4"] == nsuper, f"fourier sweep launches {counts}")
+    sweep_bound, sweep_by = bound_ms(6 * ndm * NCHAN * (NSAMPLES // 2 + 1),
+                                     16 * NCHAN * (NSAMPLES // 2 + 1)
+                                     * nsuper)
+    full = {"ndm": ndm, "superblocks": nsuper, "launches": counts,
+            "kernel_ms": kernel_ms, "sweep_ms": statistics.median(walls),
+            "sweep_runs_ms": walls, "kernel_bound_ms": sweep_bound,
+            "kernel_bound_by": sweep_by,
+            "dm_trials_per_s": ndm / (statistics.median(walls) / 1e3)}
+    emit("fdd_sweep", nchan=NCHAN, nsamples=NSAMPLES, dm_range=[DMMIN, DMMAX],
+         **full)
+    del data
+    torch.cuda.empty_cache()
+    return {**head, "sweep": full}, records
+
+
+def _harmonic_case(torch, np, name, power, nsamples, *, max_harmonics=16,
+                   fmin=None, fmax=None, timed=False):
+    """B6 against its plain version on raw spectra ``power``, then the
+    whole chain against the plain chain."""
+    from pulsarutils_tpu_torch.ops import harmonic_cuda as hc
+    from pulsarutils_tpu_torch.ops.periodicity import (
+        band_edges, harmonic_depths, harmonic_peaks_plain, normalize_power,
+        score_normalized_power)
+
+    rows, nbins = power.shape
+    lo, hi = band_edges(nbins, nsamples, TSAMP, fmin, fmax)
+    depths = harmonic_depths(max_harmonics)
+    vals, bins = hc.harmonic_peaks(power, depths, lo, hi)
+    pvals, pbins = harmonic_peaks_plain(normalize_power(power), depths, lo,
+                                        hi)
+    torch.cuda.synchronize()
+    check(torch.equal(bins, pbins), f"{name}: peak bins differ in "
+          f"{int((bins != pbins).sum())} of {bins.numel()} cells")
+    val_diff = float((vals - pvals).abs().max())
+    check(bool(torch.isfinite(vals).all()) and val_diff == 0.0,
+          f"{name}: peak values differ from plain by {val_diff}")
+    got = hc.score_power(power, nsamples, TSAMP, max_harmonics=max_harmonics,
+                         fmin=fmin, fmax=fmax)
+    want = score_normalized_power(normalize_power(power), nsamples, TSAMP,
+                                  max_harmonics=max_harmonics, fmin=fmin,
+                                  fmax=fmax)
+    got = {k: v.cpu().numpy() for k, v in got.items()}
+    want = {k: v.cpu().numpy() for k, v in want.items()}
+    scale = nsamples * TSAMP
+    check(np.array_equal(got["nharm"], want["nharm"])
+          and np.array_equal(np.rint(got["freq"] * scale),
+                             np.rint(want["freq"] * scale)),
+          f"{name}: depth or frequency bin differs")
+    for col in ("power", "log_sf", "sigma"):
+        check(np.allclose(got[col], want[col], rtol=HARMONIC_RTOL,
+                          atol=1e-6), f"{name}: {col} outside rtol "
+              f"{HARMONIC_RTOL}")
+    # one read of the power rows; the harmonic adds the stack needs
+    adds = rows * sum(-(-nbins // j) for j in range(1, depths[-1] + 1))
+    bound, bound_by = bound_ms(adds, 4 * rows * nbins + 8 * rows * len(depths))
+    record = {"case": name, "rows": rows, "nbins": nbins,
+              "nsamples": nsamples, "depths": list(depths), "band": [lo, hi],
+              "peak_bins_equal": True, "max_abs_diff": val_diff,
+              "tolerance": "peak bins and values equal; chain rtol "
+                           f"{HARMONIC_RTOL}",
+              "bound_ms": bound, "bound_by": bound_by}
+    if timed:
+        def kernel():
+            return hc.harmonic_peaks_cuda(power, depths, lo, hi)
+
+        def plain():
+            return harmonic_peaks_plain(normalize_power(power), depths, lo,
+                                        hi)
+        record["kernel_ms"], record["kernel_runs_ms"] = time_ms(torch, kernel)
+        record["plain_ms"], record["plain_runs_ms"] = time_ms(torch, plain)
+        record["bound_share"] = bound / record["kernel_ms"]
+    emit("kernel_check", kernel="B6 harmonic", **record)
+    return record
+
+
+def phase_harmonic(torch, np, seed, quick):
+    """B6 on edge cases, then on the power of a 512 x 2^20 plane."""
+    from pulsarutils_tpu_torch.ops.periodicity import power_spectrum
+
+    rng = np.random.default_rng(seed + 4)
+
+    def power_of(rows, t, zero_row=None, zero_tail=None):
+        x = rng.standard_normal((rows, t)).astype(np.float32)
+        tt = np.arange(t) * TSAMP
+        f0 = (t // 20) / (t * TSAMP)
+        x[rows // 3] += 1.5 * np.square(np.sin(np.pi * f0 * tt))  # tone row
+        x[rows // 2] += 0.4 * np.sin(2 * np.pi * f0 * tt)
+        p = power_spectrum(torch.from_numpy(x).cuda())
+        if zero_row is not None:
+            p[zero_row] = 0.0
+        if zero_tail is not None:
+            p[zero_tail, p.shape[1] // 2:] = 0.0  # many equal values
+        return p
+
+    records = [
+        _harmonic_case(torch, np, "rows_13_even_median", power_of(
+            13, 4096, zero_row=4, zero_tail=6), 4096),
+        _harmonic_case(torch, np, "odd_T_4095_odd_median", power_of(
+            13, 4095, zero_tail=1), 4095),
+        _harmonic_case(torch, np, "band_fmin_fmax", power_of(8, 8192),
+                       8192, fmin=20.0, fmax=300.0),
+        # fmin above Nyquist: an empty band, every peak at bin 0
+        _harmonic_case(torch, np, "empty_band", power_of(3, 4096), 4096,
+                       fmin=1001.0),
+        _harmonic_case(torch, np, "max_harmonics_1", power_of(9, 4096),
+                       4096, max_harmonics=1),
+        _harmonic_case(torch, np, "max_harmonics_4", power_of(9, 4096),
+                       4096, max_harmonics=4),
+    ]
+    if quick:
+        torch.cuda.empty_cache()
+        return None, records
+    head = _harmonic_case(torch, np, "headline_512x2^20",
+                          power_of(512, NSAMPLES), NSAMPLES, timed=True)
+    torch.cuda.empty_cache()
+    return head, records
+
+
 def reset_counts():
     """Set every kernel's launch count to 0."""
-    from pulsarutils_tpu_torch.ops import dedisperse_cuda, fdmt_cuda, \
-        score_cuda
+    from pulsarutils_tpu_torch.ops import (dedisperse_cuda, fdmt_cuda,
+                                           fourier_cuda, harmonic_cuda,
+                                           score_cuda)
 
     dedisperse_cuda.launches = 0
     fdmt_cuda.head_launches = 0
     fdmt_cuda.merge_launches = 0
     fdmt_cuda.merge4_launches = 0
     score_cuda.launches = 0
+    fourier_cuda.launches = 0
+    harmonic_cuda.launches = 0
 
 
 def read_counts():
     """Every kernel's launch count since :func:`reset_counts`."""
-    from pulsarutils_tpu_torch.ops import dedisperse_cuda, fdmt_cuda, \
-        score_cuda
+    from pulsarutils_tpu_torch.ops import (dedisperse_cuda, fdmt_cuda,
+                                           fourier_cuda, harmonic_cuda,
+                                           score_cuda)
 
     return {"B1": dedisperse_cuda.launches, "B2a": fdmt_cuda.merge_launches,
             "B2b": fdmt_cuda.merge4_launches, "B3": fdmt_cuda.head_launches,
-            "B4": score_cuda.launches}
+            "B4": score_cuda.launches, "B5": fourier_cuda.launches,
+            "B6": harmonic_cuda.launches}
 
 
 def fdmt_launches(nchan, dmmin, dmmax, f0=START_FREQ, bw=BANDWIDTH,
@@ -649,8 +993,9 @@ def phase_hybrid_headline(torch, np, seed):
     counts = read_counts()
     want = fdmt_launches(NCHAN, float(table["DM"].min()),
                          float(table["DM"].max()))
+    # one scorer launch for the coarse plane, one per rescore bucket
     check(want["B3"] == 1 and all(counts[k] == v for k, v in want.items())
-          and counts["B4"] == 1 and counts["B1"] >= 1,
+          and counts["B1"] >= 1 and counts["B4"] == 1 + counts["B1"],
           f"hybrid headline launches {counts}, schedule {want}")
     table, hybrid_ms, hybrid_runs = wall(hybrid)
     ref, exact_ms, exact_runs = wall(exact)
@@ -725,7 +1070,7 @@ def phase_e2e_hybrid(torch, np, workdir, path, chunk_length, nchunks,
         check(summary["searched"] == nchunks, f"{label}: searched "
               f"{summary['searched']} of {nchunks} chunks")
         check(all(counts[k] == v * nchunks for k, v in per_chunk.items())
-              and counts["B4"] == nchunks,
+              and counts["B4"] == nchunks + counts["B1"],
               f"{label}: launches {counts} for {nchunks} chunks "
               f"(schedule {per_chunk} a chunk)")
         uncertified = nchunks - summary["certified"]
@@ -752,6 +1097,160 @@ def phase_e2e_hybrid(torch, np, workdir, path, chunk_length, nchunks,
              hits_equal_direct=True)
         runs[label] = counts
     return runs
+
+
+def phase_e2e_fourier(torch, np, workdir, path, chunk_length, nchunks):
+    """The end-to-end file through ``kernel="fourier"``."""
+    from pulsarutils_tpu_torch.ops.fourier import (FOURIER_CHAN_BLOCK,
+                                                   FOURIER_SUPERBLOCK)
+    from pulsarutils_tpu_torch.ops.plan import dedispersion_plan
+    from pulsarutils_tpu_torch.pipeline.search_pipeline import \
+        search_by_chunks
+
+    dms = dedispersion_plan(NCHAN, DMMIN, DMMAX, START_FREQ, BANDWIDTH,
+                            TSAMP)
+    stages, summary = {}, {}
+    reset_counts()
+    t0 = time.perf_counter()
+    hits, store = search_by_chunks(
+        str(path), kernel="fourier", chunk_length=chunk_length, dmmin=DMMIN,
+        dmmax=DMMAX, snr_threshold=8.0, output_dir=str(workdir / "out_fdd"),
+        device="cuda", stage_seconds=stages, summary=summary)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    nsuper = -(-len(dms) // FOURIER_SUPERBLOCK)
+    check(counts["B5"] == nchunks * nsuper * (NCHAN // FOURIER_CHAN_BLOCK)
+          and counts["B4"] == nchunks * nsuper,
+          f"fourier e2e launches {counts} for {nchunks} chunks")
+    check(len(store.done_chunks) == nchunks, "fourier e2e ledger")
+    check(hits, "fourier e2e: the injected pulse was not found")
+    pulse_t = E2E_NSAMPLES // 2
+    istart, iend, info, table = max(hits, key=lambda h: h[2].snr)
+    spacing = float(dms[1] - dms[0])
+    check(istart <= pulse_t < iend, f"fourier best hit in chunk "
+          f"{istart}-{iend}")
+    check(abs(info.dm - E2E_DM) <= spacing, f"fourier DM {info.dm} vs "
+          f"injected {E2E_DM} (spacing {spacing})")
+    loop_s = wall - stages.get("badchans", 0.0)
+    emit("e2e_fourier", chunks=nchunks, trials=len(dms), hits=len(hits),
+         best={"istart": istart, "iend": iend, "dm": info.dm,
+               "snr": info.snr, "width_s": info.width},
+         launches=counts,
+         launches_per_chunk={k: v / nchunks for k, v in counts.items()},
+         wall_s=wall, chunk_loop_s=loop_s, chunks_per_s=nchunks / loop_s,
+         stage_seconds=stages)
+    return counts
+
+
+#: the periodic pulsar file: the e2e geometry, a pulse train at DM 400 on
+#: an exact Fourier bin of the whole observation (~10 Hz), 2 ms wide, its
+#: peak 3/8 of the per-channel noise (after the simulator's folded normal,
+#: ~S/N 3 a sample dedispersed: weak single pulses, a strong periodicity)
+PSR_BIN = 3277
+PSR_FREQ = PSR_BIN / (E2E_NSAMPLES * TSAMP)
+
+
+def _psr_match(freq, dm, spacing, t_obs):
+    """The recovered frequency is the pulsar's (or an integer harmonic or
+    sub-harmonic) within 1.5 / T_obs, its DM within five trials (a 2 ms
+    wide pulse stays coherent over a few DM trials, so noise picks the
+    best row among them)."""
+    ratio = max(freq, PSR_FREQ) / min(freq, PSR_FREQ)
+    r = round(ratio)
+    freq_ok = r >= 1 and abs(ratio - r) * min(freq, PSR_FREQ) <= 1.5 / t_obs
+    return bool(freq_ok and abs(dm - E2E_DM) <= 5 * spacing)
+
+
+def phase_e2e_period(torch, np, workdir, seed):
+    """A periodic pulsar file searched per chunk (``period_search``) and
+    by the full-observation periodicity job (with its canary)."""
+    from pulsarutils_tpu_torch.io.sigproc import write_simulated_filterbank
+    from pulsarutils_tpu_torch.models.simulate import \
+        simulate_accel_pulsar_data
+    from pulsarutils_tpu_torch.ops.plan import dedispersion_plan
+    from pulsarutils_tpu_torch.periodicity.driver import periodicity_search
+    from pulsarutils_tpu_torch.pipeline.search_pipeline import \
+        search_by_chunks
+
+    path = workdir / "pulsar.fil"
+    t0 = time.perf_counter()
+    array, header = simulate_accel_pulsar_data(
+        freq=PSR_FREQ, dm=E2E_DM, accel=0.0, tsamp=TSAMP,
+        nsamples=E2E_NSAMPLES, nchan=NCHAN, start_freq=START_FREQ,
+        bandwidth=BANDWIDTH, signal=3.0, noise=8.0, duty_cycle=0.02,
+        floor=20.0, rng=seed + 5)
+    write_simulated_filterbank(str(path), array, header, descending=True,
+                               nbits=8)
+    del array
+    emit("e2e_period_file", path=path.name, nchan=NCHAN,
+         nsamples=E2E_NSAMPLES, nbits=8, dm=E2E_DM, freq_hz=PSR_FREQ,
+         bytes=path.stat().st_size,
+         seconds=round(time.perf_counter() - t0, 3))
+    dms = dedispersion_plan(NCHAN, DMMIN, DMMAX, START_FREQ, BANDWIDTH,
+                            TSAMP)
+    spacing = float(dms[1] - dms[0])
+    chunk_length = E2E_CHUNK // 2 * TSAMP
+    common = dict(chunk_length=chunk_length, snr_threshold=8.0,
+                  device="cuda")
+
+    # 1. the per-chunk period stage of search_by_chunks
+    stages = {}
+    reset_counts()
+    t0 = time.perf_counter()
+    hits, store = search_by_chunks(
+        str(path), dmmin=DMMIN, dmmax=DMMAX, period_search=True,
+        output_dir=str(workdir / "out_period"), stage_seconds=stages,
+        **common)
+    wall = time.perf_counter() - t0
+    per_chunk = read_counts()
+    nchunks = len(store.done_chunks)
+    check(nchunks == 4 and per_chunk["B6"] > 0 and per_chunk["B1"] > 0,
+          f"period_search launches {per_chunk}, {nchunks} chunks")
+    t_chunk = E2E_CHUNK * TSAMP
+    found = [h for h in hits if h[2].period_freq is not None
+             and _psr_match(h[2].period_freq, h[2].period_dm, spacing,
+                            t_chunk)]
+    check(len(found) == nchunks, f"pulsar found in {len(found)} of "
+          f"{nchunks} chunks: {[(h[2].period_freq, h[2].period_dm, h[2].period_sigma) for h in hits]}")
+    loop_s = wall - stages.get("badchans", 0.0)
+    emit("e2e_period_chunks", chunks=nchunks, hits=len(hits),
+         periodic=[{"istart": h[0], "freq": h[2].period_freq,
+                    "dm": h[2].period_dm, "sigma": h[2].period_sigma,
+                    "m": h[2].period_M} for h in hits],
+         launches=per_chunk, wall_s=wall, chunk_loop_s=loop_s,
+         chunks_per_s=nchunks / loop_s, stage_seconds=stages)
+
+    # 2. the full-observation job with a small acceleration grid
+    stages = {}
+    reset_counts()
+    t0 = time.perf_counter()
+    res = periodicity_search(
+        str(path), DMMIN, DMMAX, accel_max=1000.0, n_accel=5, canary=True,
+        output_dir=str(workdir / "out_puperiod"), stage_seconds=stages,
+        **common)
+    wall = time.perf_counter() - t0
+    job = read_counts()
+    acc = res["accumulator"]
+    t_obs = acc.nout * acc.tsamp
+    check(res["complete"] and res["candidates"], "periodicity job: no "
+          "candidates")
+    best = res["candidates"][0]
+    check(_psr_match(best["freq"], best["dm"], spacing, t_obs),
+          f"periodicity job best candidate f={best['freq']} "
+          f"DM={best['dm']} vs {PSR_FREQ} Hz, DM {E2E_DM}")
+    check(res["canary"]["recovered"], f"canary missed: {res['canary']}")
+    check(job["B6"] >= len(res["accels"]) and job["B1"] > 0,
+          f"periodicity job launches {job}")
+    emit("e2e_puperiod", chunks=len(acc.chunk_starts), ndm=acc.ndm,
+         nout=acc.nout, rebin=acc.rebin, t_obs_s=t_obs,
+         accels=[float(a) for a in res["accels"]],
+         best={k: best[k] for k in ("dm", "accel", "freq", "freq_bin",
+                                    "nharm", "sigma", "h", "m")},
+         kept=len(res["candidates"]), sift=res["sift"],
+         canary=res["canary"], launches=job, wall_s=wall,
+         trial_sweep_s=res["seconds"]["trials"],
+         fold_s=res["seconds"]["fold"], stage_seconds=stages)
+    return {"period_search": per_chunk, "periodicity_search": job}
 
 
 def _write_e2e_file(np, path, seed):
@@ -800,8 +1299,9 @@ def phase_end_to_end(torch, np, seed, workdir):
     launches = counts["B1"]
     nchunks = len(sp["chunk_starts"])
     loop_s = wall - stages.get("badchans", 0.0)
-    check(launches == 2 * nchunks,
-          f"{launches} kernel launches for {nchunks} chunks")
+    check(launches == 2 * nchunks and counts["B4"] == launches,
+          f"{launches} sweep and {counts['B4']} scorer launches for "
+          f"{nchunks} chunks")
     check(store.done_chunks == sp["chunk_starts"], "ledger incomplete")
     check(Path(store._ledger_path).is_file(), "no ledger file")
     check(hits, "the injected pulse was not found")
@@ -891,6 +1391,9 @@ def main(argv=None):
                                                 opts.quick, coarse)
         del coarse
         torch.cuda.empty_cache()
+        fdd_head, fdd_records = phase_fdd(torch, np, opts.seed, opts.quick)
+        harm_head, harm_records = phase_harmonic(torch, np, opts.seed,
+                                                 opts.quick)
         if opts.quick:
             return 0
         phase_hybrid_headline(torch, np, opts.seed)
@@ -900,6 +1403,10 @@ def main(argv=None):
             torch, np, opts.seed, workdir)
         hybrid = phase_e2e_hybrid(torch, np, workdir, path, chunk_length,
                                   nchunks, hits)
+        fourier = phase_e2e_fourier(torch, np, workdir, path, chunk_length,
+                                    nchunks)
+        path.unlink()
+        period = phase_e2e_period(torch, np, workdir, opts.seed)
     except CheckFailed as exc:
         print(f"chip_smoke: check failed: {exc}", file=sys.stderr)
         return 1
@@ -910,7 +1417,12 @@ def main(argv=None):
     launches = {"direct sweep (e2e_search)": direct,
                 "hybrid at S/N 8 (e2e_hybrid)": main_path,
                 "hybrid at the certifiable floor (e2e_hybrid)":
-                    hybrid["certifiable"]}
+                    hybrid["certifiable"],
+                "fourier (e2e_fourier)": fourier,
+                "direct sweep with period_search (e2e_period_chunks)":
+                    period["period_search"],
+                "periodicity job (e2e_puperiod)":
+                    period["periodicity_search"]}
     shape = {"nchan": NCHAN, "nsamples": NSAMPLES}
 
     def levels(kind):
@@ -1022,6 +1534,48 @@ def main(argv=None):
         "shape": {"rows": score_head["rows"],
                   "nsamples": score_head["nsamples"], "with_cert": True,
                   "launches_per_chunk": 1},
+        "card": card,
+    }, {
+        "name": "fdd_rotate_accumulate",
+        "route": "cuda",
+        "source": "pulsarutils_tpu_torch/csrc/fdd.cu",
+        "replaces": "pulsarutils_tpu/ops/fourier_pallas.py:159",
+        "replaces_functions": "ops/fourier_pallas.py:_build_fdd_kernel",
+        "launches": fourier["B5"],
+        "launches_by_path": {k: v["B5"] for k, v in launches.items()},
+        "max_abs_err": max(r["max_abs_diff"] for r in [fdd_head]
+                           + [r for r in fdd_records if "max_abs_diff" in r]),
+        "ms": fdd_head["kernel_ms"],
+        "plain_ms": fdd_head["plain_ms"],
+        "bound_ms": fdd_head["bound_ms"],
+        "bound_by": fdd_head["bound_by"],
+        "library_ms": None,
+        "tolerance": fdd_head["tolerance"],
+        "full_sweep": fdd_head["sweep"],
+        "shape": {"nchan": fdd_head["nchan"], "nbin": fdd_head["nbin"],
+                  "superblock": fdd_head["superblock"],
+                  "chan_block": fdd_head["chan_block"],
+                  "launches_per_superblock": fdd_head["launches_per_call"]},
+        "card": card,
+    }, {
+        "name": "harmonic_scorer",
+        "route": "cuda",
+        "source": "pulsarutils_tpu_torch/csrc/harmonic.cu",
+        "replaces": "pulsarutils_tpu/ops/harmonic_pallas.py:124",
+        "replaces_functions":
+            "ops/harmonic_pallas.py:_build_harmonic_kernel",
+        "launches": period["period_search"]["B6"],
+        "launches_by_path": {k: v["B6"] for k, v in launches.items()},
+        "max_abs_err": max(r["max_abs_diff"]
+                           for r in [harm_head, *harm_records]),
+        "ms": harm_head["kernel_ms"],
+        "plain_ms": harm_head["plain_ms"],
+        "bound_ms": harm_head["bound_ms"],
+        "bound_by": harm_head["bound_by"],
+        "library_ms": None,
+        "tolerance": harm_head["tolerance"],
+        "shape": {"rows": harm_head["rows"], "nbins": harm_head["nbins"],
+                  "depths": harm_head["depths"]},
         "card": card,
     }]
     check_ok = all(k["launches"] > 0 for k in kernels)

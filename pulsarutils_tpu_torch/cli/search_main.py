@@ -52,18 +52,25 @@ def build_parser():
     parser.add_argument("--surelybad", type=int, nargs="*", default=[])
     parser.add_argument("--kernel", default="auto",
                         choices=("auto", "pallas", "fdmt", "hybrid",
-                                 *LATER_KERNELS),
+                                 "fourier", *LATER_KERNELS),
                         help="auto and pallas run the exact direct sweep; "
                              "fdmt the tree transform (tree-rounded "
                              "tracks); hybrid the FDMT coarse sweep plus "
-                             "an exact rescore of the hit region; the "
-                             "others are not ported yet")
+                             "an exact rescore of the hit region; fourier "
+                             "the Fourier-domain dedispersion (exact "
+                             "fractional-sample delays); the others are "
+                             "not ported yet")
     parser.add_argument("--fft-zap", action="store_true",
                         help="excise periodic RFI in the Fourier domain")
     parser.add_argument("--cut-outliers", action="store_true",
                         help="zero broadband outlier time bins")
     parser.add_argument("--zero-dm", action="store_true",
                         help="subtract the channel-averaged time series")
+    parser.add_argument("--period-search", action="store_true",
+                        help="also run the folded period search on every "
+                             "chunk's dedispersed plane")
+    parser.add_argument("--period-sigma", type=float, default=8.0,
+                        help="significance threshold for periodic hits")
     parser.add_argument("--output-dir", default=None)
     parser.add_argument("--no-resume", action="store_true",
                         help="reprocess chunks already in the ledger")
@@ -89,6 +96,8 @@ def main(args=None):
             output_dir=opts.output_dir, resume=not opts.no_resume,
             fft_zap=opts.fft_zap, cut_outliers=opts.cut_outliers,
             zero_dm=opts.zero_dm, max_chunks=opts.max_chunks,
+            period_search=opts.period_search,
+            period_sigma_threshold=opts.period_sigma,
             device=opts.device)
         total_raw += len(hits)
         if opts.no_sift:

@@ -1,6 +1,7 @@
-"""Rebinning: block-sum down-sampling along the time axis.
+"""Rebinning: block-sum down-sampling along the time axis, and the
+fractional stretch of the acceleration search.
 
-Both functions truncate trailing samples that do not fill a whole block,
+The block sums truncate trailing samples that do not fill a whole block,
 like the reference's ``quick_resample`` (``pulsarutils/dedispersion.py:
 38-57``).
 """
@@ -33,3 +34,12 @@ def block_sum_time(x, factor):
     truncating ``T`` to a multiple of ``factor``."""
     n = x.shape[-1] // factor
     return x[..., : n * factor].reshape(*x.shape[:-1], n, factor).sum(dim=-1)
+
+
+def stretch_resample(x, indices):
+    """``out[..., n] = x[..., indices[n]]``: resample the time (last) axis
+    at integer indices precomputed on the host in float64 and already
+    clipped to the axis (the acceleration search's quadratic stretch)."""
+    x = torch.as_tensor(x)
+    idx = torch.as_tensor(indices, device=x.device).to(torch.int64)
+    return torch.index_select(x, -1, idx)

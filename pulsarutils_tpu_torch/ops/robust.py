@@ -9,7 +9,8 @@
   (``scipy.signal.medfilt`` semantics).
 * :func:`z_n_test` / :func:`h_test` / :func:`digitize` — the Z^2_n and
   de Jager H statistics of a binned profile, and the count scaling they
-  are fed (reference ``clean.py:183-189,252-255``).
+  are fed (reference ``clean.py:183-189,252-255``);
+  :func:`h_test_batch` the H-test of a batch of profiles.
 
 Every function accepts a tensor or an array-like (turned into a CPU
 tensor) and returns tensors.
@@ -97,6 +98,35 @@ def h_test(profile, nmax=20):
     h_candidates = z2 - 4.0 * m + 4.0
     best = torch.argmax(h_candidates)
     return h_candidates[best], best + 1
+
+
+def h_test_batch(profiles, nmax=20, total=None):
+    """H-test of a batch of profiles ``(nprof, nbin)``: ``(H, m_best)``.
+
+    ``total`` overrides the ``2 / total`` normalisation (default: each
+    profile's sum, the event-count convention); for profiles folded from
+    Gaussian data pass ``T * sigma**2``.  A float tensor keeps its dtype
+    (the device path runs float32); anything else becomes float64.
+    """
+    profiles = torch.as_tensor(profiles)
+    if not profiles.is_floating_point():
+        profiles = profiles.to(torch.float64)
+    nbin = profiles.shape[1]
+    nmax = int(max(1, min(nmax, nbin // 2 if nbin >= 4 else 1)))
+    if total is None:
+        total = profiles.sum(dim=1, keepdim=True)
+    else:
+        total = torch.as_tensor(total).to(
+            device=profiles.device, dtype=profiles.dtype).reshape(-1, 1)
+    spec = torch.fft.rfft(profiles, dim=1)
+    powers = torch.abs(spec[:, 1:nmax + 1]) ** 2
+    # a tensor divide: Python's 2.0 / tensor is a reciprocal multiply
+    z2 = torch.full_like(total, 2.0) / total * torch.cumsum(powers, dim=1)
+    m = torch.arange(1, nmax + 1, device=profiles.device)[None, :]
+    h_candidates = z2 - 4.0 * m + 4.0
+    best = torch.argmax(h_candidates, dim=1)
+    h = torch.gather(h_candidates, 1, best[:, None])[:, 0]
+    return h, best + 1
 
 
 def digitize(data, center=None, scale=None):

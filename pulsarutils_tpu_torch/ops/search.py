@@ -1,7 +1,7 @@
 """The dedispersion search: plan -> dedisperse every trial -> boxcar S/N.
 
 :func:`dedispersion_search` is the port of the JAX package's search
-façade, with three kernels:
+façade, with four kernels:
 
 * ``"auto"``/``"pallas"``: the exact direct sweep (the JAX package's
   ``kernel="pallas"``, which its ``kernel="auto"`` picks on the
@@ -16,10 +16,13 @@ façade, with three kernels:
   the noise certificate and guarantee loop (:mod:`.certify`), and an
   exact direct-sweep rescore of every row that could hold the best hit
   (or, with ``snr_floor``, any above-floor detection) — the two-stage
-  path of the JAX package's ``_search_jax_hybrid``.
+  path of the JAX package's ``_search_jax_hybrid``;
+* ``"fourier"``: Fourier-domain dedispersion at exact fractional-sample
+  delays (:func:`~.fourier.search_fourier`).
 
-On a CUDA tensor each kernel wrapper launches its hand-written kernel; on
-a CPU tensor it runs its plain version.
+Every path scores its trials with :func:`~.score_cuda.score_plane`. On a
+CUDA tensor each kernel wrapper launches its hand-written kernel; on a
+CPU tensor it runs its plain version.
 """
 
 from __future__ import annotations
@@ -53,7 +56,6 @@ SUPERBLOCK = 512
 #: kernels of the JAX package that later slices port, with their
 #: ROADMAP.md item
 LATER_KERNELS = {
-    "fourier": "queue A, item 5 (Fourier-domain dedispersion)",
     "gather": "queue A, item 12 (the gather/roll direct-sweep "
               "formulations)",
     "roll": "queue A, item 12 (the gather/roll direct-sweep "
@@ -191,8 +193,11 @@ def unstack_scores(stacked):
 # ---------------------------------------------------------------------------
 
 def _search_direct(data, offsets, capture_plane):
-    """Dedisperse in trial superblocks and score each; the scores come
-    back to the host once, at the end."""
+    """Dedisperse in trial superblocks and score each (the one-pass
+    scorer on the card); the scores come back to the host once, at the
+    end."""
+    from .score_cuda import score_plane
+
     ndm, nsamples = offsets.shape[0], data.shape[1]
     if ndm == 0:  # an empty plan (inverted DM range): an empty table
         plane = (torch.zeros((0, nsamples), dtype=data.dtype,
@@ -202,10 +207,10 @@ def _search_direct(data, offsets, capture_plane):
     scores, planes = [], []
     for lo in range(0, ndm, SUPERBLOCK):
         plane = dedisperse_plane(data, offsets[lo:lo + SUPERBLOCK])
-        scores.append(score_profiles(plane))
+        scores.append(score_plane(plane))
         if capture_plane:
             planes.append(plane)
-    fields = [to_numpy(torch.cat([s[i] for s in scores])) for i in range(5)]
+    fields = unstack_scores(torch.cat(scores, dim=1))
     plane = None
     if capture_plane:
         plane = planes[0] if len(planes) == 1 else torch.cat(planes)
@@ -388,6 +393,8 @@ def _search_hybrid(data, trial_dms, start_freq, bandwidth, sample_time,
     of detections above ``snr_floor``).  ``capture_plane`` returns the
     coarse plane gathered onto the plan rows.
     """
+    from .score_cuda import score_plane
+
     ndm = len(trial_dms)
     nchan, nsamples = data.shape
     dmmin = float(np.min(trial_dms))
@@ -411,12 +418,12 @@ def _search_hybrid(data, trial_dms, start_freq, bandwidth, sample_time,
 
     def rescore(rows):
         """Exact scores for ``rows``: one direct-sweep launch and one
-        scorer pass per bucket."""
+        scorer launch per bucket."""
         for blk, padded in iter_rescore_buckets(rows):
             offsets = offsets_for(trial_dms[padded], nchan, start_freq,
                                   bandwidth, sample_time, nsamples)
-            scored = score_profiles(dedisperse_plane(data, offsets))
-            m, s, b, w, p = (to_numpy(x) for x in scored)
+            m, s, b, w, p = unstack_scores(
+                score_plane(dedisperse_plane(data, offsets)))
             k = len(blk)
             maxvalues[blk] = m[:k]
             stds[blk] = s[:k]
@@ -452,7 +459,8 @@ def dedispersion_search(data, dmmin, dmmax, start_freq, bandwidth, sample_time,
     tree transform on its own integer band-delay grid (``trial_dms``, if
     given, only bounds the DM range); ``"hybrid"`` the FDMT coarse sweep
     plus the exact rescore of the hit region (exact hits on the plan
-    grid).  The JAX package's other kernels raise
+    grid); ``"fourier"`` Fourier-domain dedispersion at the un-rounded
+    delays.  The JAX package's other kernels raise
     ``NotImplementedError``.  ``trial_dms`` replaces the default plan (one
     trial per integer sample of band-crossing delay).
 
@@ -476,11 +484,15 @@ def dedispersion_search(data, dmmin, dmmax, start_freq, bandwidth, sample_time,
         raise NotImplementedError(
             f"kernel={kernel!r} is not ported yet: ROADMAP.md "
             f"{LATER_KERNELS[kernel]}")
-    if kernel not in ("auto", "pallas", "fdmt", "hybrid"):
+    if kernel not in ("auto", "pallas", "fdmt", "hybrid", "fourier"):
         raise ValueError(f"unknown kernel {kernel!r}")
     if capture_plane is None:
         capture_plane = bool(show)
     if capture_plane == "memmap":
+        if kernel == "fourier":
+            raise ValueError("capture_plane='memmap' requires kernel="
+                             "'pallas'/'auto' (the FDD holds the plane in "
+                             "device memory)")
         raise NotImplementedError(
             "capture_plane='memmap' is not ported yet (ROADMAP.md queue A, "
             "item 3)")
@@ -507,6 +519,17 @@ def dedispersion_search(data, dmmin, dmmax, start_freq, bandwidth, sample_time,
         trial_dms = dedispersion_plan(nchan, dmmin, dmmax, start_freq,
                                       bandwidth, sample_time)
     trial_dms = np.asarray(trial_dms, dtype=np.float64)
+
+    if kernel == "fourier":
+        from .fourier import search_fourier
+
+        *scores, plane = search_fourier(
+            data, trial_dms, start_freq, bandwidth, sample_time,
+            capture_plane=capture_plane)
+        table = ResultTable(dict(zip(
+            ("DM", "max", "std", "snr", "rebin", "peak"),
+            (trial_dms, *scores))))
+        return (table, plane) if capture_plane else table
 
     if kernel == "hybrid":
         from .certify import cert_meta

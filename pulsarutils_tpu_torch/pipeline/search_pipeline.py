@@ -12,7 +12,11 @@ the reference's ``pulsarutils/clean.py:276-351``:
 * a chunk whose best S/N exceeds ``snr_threshold`` is persisted through
   :class:`..io.candidates.CandidateStore`, and every searched chunk is
   marked in the resume ledger, so a restarted run searches only what is
-  missing.
+  missing;
+* with ``period_search`` each chunk's dedispersed plane also gets the
+  folded period search (:func:`..ops.periodicity.period_search_plane`),
+  and ``plane_consumer`` hands each plane downstream (the periodicity
+  driver's accumulation seam).
 
 Everything downstream of the reader sees an *ascending* band.
 """
@@ -23,6 +27,7 @@ import logging
 import os
 import time
 
+import numpy as np
 import torch
 
 from ..io.candidates import CandidateStore, config_fingerprint
@@ -30,6 +35,7 @@ from ..io.sigproc import FilterbankReader
 from ..ops.certify import (certifiable_snr_floor, matched_snr_floor,
                            retention_bound)
 from ..ops.clean_ops import fft_zap_time, renormalize_data, zero_dm_filter
+from ..ops.periodicity import period_search_plane
 from ..ops.plan import dedispersion_plan
 from ..ops.rebin import quick_resample
 from ..ops.search import dedispersion_search
@@ -44,7 +50,8 @@ logger = logging.getLogger("pulsarutils_tpu_torch")
 def plan_survey(fname, chunk_length=None, new_sample_time=None, tmin=0,
                 dmmin=200, dmmax=800, surelybad=(), *, kernel="auto",
                 snr_threshold=6.0, fft_zap=False, cut_outliers=False,
-                zero_dm=False, exact_floor="auto"):
+                zero_dm=False, exact_floor="auto", period_search=False,
+                period_sigma_threshold=8.0, fingerprint_extra=None):
     """Resolve a survey's geometry, threshold and resume fingerprint
     without searching anything.
 
@@ -63,7 +70,10 @@ def plan_survey(fname, chunk_length=None, new_sample_time=None, tmin=0,
     floor or None), ``fingerprint``, ``root`` (the candidate filename
     stem), ``nsamples`` and ``sample_time``.  The fingerprint hashes the
     fields the JAX package hashes, with ``backend="torch"``: the two
-    packages never share a ledger.
+    packages never share a ledger.  ``fingerprint_extra`` (a flat
+    JSON-safe dict) is merged into it last, so another workload over the
+    same file (the periodicity driver) keeps a ledger of its own; None
+    leaves the fingerprint as it was.
     """
     if exact_floor is not True and exact_floor is not False \
             and exact_floor != "auto":
@@ -129,7 +139,9 @@ def plan_survey(fname, chunk_length=None, new_sample_time=None, tmin=0,
         cut_outliers=cut_outliers,
         **({"zero_dm": True} if zero_dm else {}),
         surelybad=sorted(int(c) for c in surelybad),
-        period_search=False, period_sigma_threshold=8.0)
+        period_search=bool(period_search),
+        period_sigma_threshold=float(period_sigma_threshold),
+        **(fingerprint_extra or {}))
     return {
         "reader": reader, "plan": plan, "root": root,
         "nsamples": nsamples, "sample_time": header["tsamp"],
@@ -187,20 +199,37 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
                      dmmin=200, dmmax=800, surelybad=(), *, kernel="auto",
                      snr_threshold=6.0, output_dir=None, resume=True,
                      fft_zap=False, cut_outliers=False, zero_dm=False,
-                     max_chunks=None, exact_floor="auto", device="cuda",
-                     stage_seconds=None, summary=None):
+                     max_chunks=None, exact_floor="auto",
+                     period_search=False, period_sigma_threshold=8.0,
+                     plane_consumer=None, fingerprint_extra=None,
+                     chunks=None, device="cuda", stage_seconds=None,
+                     summary=None):
     """Search a filterbank file for dispersed single pulses.
 
     Parameters follow the JAX package's driver (``snr_threshold`` and
     ``exact_floor`` as :func:`plan_survey` resolves them); ``device`` is
     where the chunks are cleaned and searched (``"cuda"`` by default,
     raising without a card; ``"cpu"`` on request).  ``max_chunks`` stops
-    after that many chunks (the rest stay un-marked for a resumed run).
+    after that many chunks (the rest stay un-marked for a resumed run);
+    ``chunks``, a list of chunk starts, searches only those (starts not
+    in the plan are ignored).
+
+    ``period_search=True`` adds the folded period search of every
+    chunk's plane (:func:`..ops.periodicity.period_search_plane`); a
+    chunk whose refined significance exceeds ``period_sigma_threshold``
+    is a hit even below ``snr_threshold`` and carries the ``period_*``
+    fields and ``fold_profile``.  ``plane_consumer``, a ``fn(istart,
+    plane, table)`` callable, receives every searched chunk's plane
+    before the chunk is marked done (a crash in between re-delivers the
+    chunk on resume; consumers de-duplicate by ``istart``).
+    ``fingerprint_extra`` goes to :func:`plan_survey`.
+
     ``stage_seconds``, a dict, receives the wall seconds of each stage
-    (``badchans``, ``read``, ``clean``, ``search``, ``persist``);
-    ``summary``, a dict, receives ``snr_threshold`` (resolved),
-    ``snr_floor`` (the hybrid's, or None), ``searched`` and
-    ``certified`` (the chunks the hybrid's noise certificate cleared).
+    (``badchans``, ``read``, ``clean``, ``search``, ``plane_consume``,
+    ``period``, ``persist``); ``summary``, a dict, receives
+    ``snr_threshold`` (resolved), ``snr_floor`` (the hybrid's, or None),
+    ``searched`` and ``certified`` (the chunks the hybrid's noise
+    certificate cleared).
 
     Returns ``(hits, store)``: ``hits`` is a list of ``(istart, iend,
     PulseInfo, ResultTable)`` — with ``resume``, including hits persisted
@@ -216,7 +245,10 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
                      dmmin=dmmin, dmmax=dmmax, surelybad=surelybad,
                      kernel=kernel, snr_threshold=snr_threshold,
                      fft_zap=fft_zap, cut_outliers=cut_outliers,
-                     zero_dm=zero_dm, exact_floor=exact_floor)
+                     zero_dm=zero_dm, exact_floor=exact_floor,
+                     period_search=period_search,
+                     period_sigma_threshold=period_sigma_threshold,
+                     fingerprint_extra=fingerprint_extra)
     reader = sp["reader"]
     snr_threshold = sp["snr_threshold"]
     root = sp["root"]
@@ -230,9 +262,13 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
     mask = mask_fileorder[::-1] if reader.band_descending else mask_fileorder
     mask_dev = torch.as_tensor(mask.copy(), device=dev)
     store = CandidateStore(output_dir, sp["fingerprint"] if resume else None)
+    capture = bool(period_search) or plane_consumer is not None
 
     todo = [s for s in sp["chunk_starts"]
             if not (resume and store.is_done(s))]
+    if chunks is not None:
+        wanted = {int(c) for c in chunks}
+        todo = [s for s in todo if s in wanted]
     if max_chunks is not None:
         todo = todo[:max_chunks]
 
@@ -246,27 +282,50 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
                            cut_outliers=cut_outliers, zero_dm=zero_dm,
                            fft_zap=fft_zap, resample=plan.resample)
         del block
-        table = stages.run("search", dedispersion_search, array, dmmin,
-                           dmmax, start_freq, bandwidth, eff_tsamp,
-                           kernel=kernel, snr_floor=sp["search_snr_floor"],
-                           device=dev)
+        result = stages.run("search", dedispersion_search, array, dmmin,
+                            dmmax, start_freq, bandwidth, eff_tsamp,
+                            kernel=kernel, snr_floor=sp["search_snr_floor"],
+                            capture_plane=capture, device=dev)
+        table, plane = result if capture else (result, None)
+        if plane_consumer is not None:
+            stages.run("plane_consume", plane_consumer, istart, plane,
+                       table)
         if table.meta.get("certified"):
             # the noise certificate: no detection above the floor, no
             # exact rescore paid (is_hit is False by construction)
             ncertified += 1
         best = table.best_row()
         is_hit = bool(best["snr"] > snr_threshold)
-        info = None
+        info = PulseInfo(
+            allprofs=array, start_freq=start_freq, bandwidth=bandwidth,
+            nbin=array.shape[1], nchan=array.shape[0],
+            date=header.get("tstart"), t0=istart * sample_time,
+            istart=istart, pulse_freq=1.0 / (array.shape[1] * eff_tsamp),
+            ibeam=reader.ibeam, nbeams=reader.nbeams)
+        if period_search:
+            pres = stages.run("period", period_search_plane, plane,
+                              eff_tsamp,
+                              fmin=4.0 / (plane.shape[1] * eff_tsamp),
+                              refine_top=1)
+            if pres["best_sigma"] > period_sigma_threshold:
+                info.period_freq = float(pres["best_freq"])
+                info.period_dm = float(table["DM"][pres["best_dm_index"]])
+                info.period_sigma = float(pres["best_sigma"])
+                info.period_H = float(pres["best_h"])
+                info.period_M = int(pres["best_m"])
+                if pres["best_profile"] is not None:
+                    info.fold_profile = np.asarray(pres["best_profile"])
+                is_hit = True
+                logger.info("PERIODIC chunk %d-%d: f=%.4f Hz DM=%.2f "
+                            "sigma=%.1f", istart, iend, info.period_freq,
+                            info.period_dm, info.period_sigma)
         if is_hit:
-            info = PulseInfo(
-                allprofs=array, start_freq=start_freq, bandwidth=bandwidth,
-                nbin=array.shape[1], nchan=array.shape[0],
-                date=header.get("tstart"), t0=istart * sample_time,
-                istart=istart, pulse_freq=1.0 / (array.shape[1] * eff_tsamp),
-                ibeam=reader.ibeam, nbeams=reader.nbeams,
-                dm=float(best["DM"]), snr=float(best["snr"]),
-                width=float(best["rebin"]) * eff_tsamp,
-                disp_profile=to_numpy(array.mean(0)))
+            info.dm = float(best["DM"])
+            info.snr = float(best["snr"])
+            info.width = float(best["rebin"]) * eff_tsamp
+            info.disp_profile = to_numpy(array.mean(0))
+            if plane is not None:
+                info.dedisp_profile = to_numpy(plane[table.argbest()])
             # the cutout is sliced on the device: the chunk stays there
             info = store.trim_waterfall(info, table)
             info.allprofs = to_numpy(info.allprofs)
@@ -274,7 +333,9 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
             hits.append((istart, iend, info, table))
             logger.info("HIT chunk %d-%d: DM=%.2f snr=%.2f width=%gs",
                         istart, iend, info.dm, info.snr, info.width)
-        del array
+        else:
+            info = None
+        del array, plane
         stages.run("persist", _persist, store, root, istart, iend, info,
                    table)
 

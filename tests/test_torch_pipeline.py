@@ -159,8 +159,15 @@ def test_cli_searches_and_sifts(reference, tmp_path):
     with pytest.raises(SystemExit):
         search_main.build_parser().parse_args([path, "--snr-threshold",
                                                "loose"])
+    rc = search_main.main([path, "--dmmin", "100", "--dmmax", "200",
+                           "--chunk-length", "1.024", "--kernel", "fourier",
+                           "--snr-threshold", "6", "--period-search",
+                           "--output-dir", str(tmp_path / "fourier"),
+                           "--device", "cpu"])
+    assert rc == 0
+    assert list((tmp_path / "fourier").glob("pulse_*.info.npz"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        search_main.main([path, "--kernel", "fourier", "--device", "cpu",
+        search_main.main([path, "--kernel", "gather", "--device", "cpu",
                           "--output-dir", str(tmp_path)])
 
 

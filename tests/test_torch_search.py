@@ -210,11 +210,16 @@ def test_search_kernel_names():
     a = dedispersion_search(array, *args, kernel="auto", device="cpu")
     b = dedispersion_search(array, *args, kernel="pallas", device="cpu")
     np.testing.assert_array_equal(a["snr"], b["snr"])
-    for kernel in ("fdmt", "hybrid"):
+    for kernel in ("fdmt", "hybrid", "fourier"):
         table = dedispersion_search(array, *args, kernel=kernel,
                                     device="cpu")
         assert table.nrows and np.isfinite(table["snr"]).all()
-    for kernel in ("fourier", "gather", "roll"):
+    # an inverted DM range gives the FDD an empty grid: an empty table
+    table, plane = dedispersion_search(array, 180, 120., *args[2:],
+                                       kernel="fourier", show=True,
+                                       device="cpu")
+    assert table.nrows == 0 and tuple(plane.shape) == (0, 1024)
+    for kernel in ("gather", "roll"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             dedispersion_search(array, *args, kernel=kernel, device="cpu")
     with pytest.raises(ValueError):
@@ -242,3 +247,67 @@ def test_entry_points_default_to_the_card():
                             header["bandwidth"], header["tsamp"])
     with pytest.raises(RuntimeError, match="cuda"):
         search_by_chunks("never-opened.fil", dmmin=100, dmmax=200)
+
+
+def _counting_score_plane(monkeypatch):
+    """Count the calls that reach ``score_cuda.score_plane``."""
+    from pulsarutils_tpu_torch.ops import score_cuda
+
+    calls = []
+    real = score_cuda.score_plane
+
+    def counting(plane, with_cert=False):
+        calls.append((tuple(plane.shape), with_cert))
+        return real(plane, with_cert=with_cert)
+
+    monkeypatch.setattr(score_cuda, "score_plane", counting)
+    return calls
+
+
+def test_direct_sweep_scores_through_the_one_pass_scorer(monkeypatch):
+    # one scorer on the card: the direct sweep's superblocks go through
+    # score_plane (B4 on a CUDA tensor); on the CPU its plain version
+    # gives the table score_profiles gave
+    from pulsarutils_tpu_torch.ops.dedisperse import dedisperse_plane_plain
+    from pulsarutils_tpu_torch.ops.plan import dedispersion_plan, offsets_for
+    from pulsarutils_tpu_torch.ops import search as tsearch
+
+    array, header = simulate_test_data(150.0, nsamples=2048, nchan=32,
+                                       signal=2.0, noise=0.3, rng=3)
+    args = (100.0, 200.0, header["fbottom"], header["bandwidth"],
+            header["tsamp"])
+    monkeypatch.setattr(tsearch, "SUPERBLOCK", 40)
+    calls = _counting_score_plane(monkeypatch)
+    table = dedispersion_search(array, *args, device="cpu")
+    dms = dedispersion_plan(32, *args)
+    assert [c[0][0] for c in calls] == [40] * (len(dms) // 40) \
+        + ([len(dms) % 40] if len(dms) % 40 else [])
+    assert not any(c[1] for c in calls)
+    plane = dedisperse_plane_plain(
+        torch.from_numpy(array.astype(np.float32)),
+        offsets_for(dms, 32, *args[2:], 2048))
+    for name, col in zip(("max", "std", "snr", "rebin", "peak"),
+                         score_profiles(plane)):
+        np.testing.assert_array_equal(table[name], col.numpy())
+        assert table[name].dtype == col.numpy().dtype
+
+
+def test_hybrid_rescore_scores_through_the_one_pass_scorer(monkeypatch):
+    array, header = simulate_test_data(150.0, nsamples=2048, nchan=32,
+                                       signal=2.0, noise=0.3, rng=4)
+    args = (100.0, 200.0, header["fbottom"], header["bandwidth"],
+            header["tsamp"])
+    calls = _counting_score_plane(monkeypatch)
+    table = dedispersion_search(array, *args, kernel="hybrid",
+                                device="cpu")
+    # the coarse plane with the certificate row, then one call per
+    # rescore bucket (8, 16 or 32 trials)
+    assert calls[0][1] and not any(c[1] for c in calls[1:])
+    assert len(calls) > 1
+    assert all(c[0][0] in (8, 16, 32) for c in calls[1:])
+    best = table.argbest()
+    assert table["exact"][best] and abs(table["DM"][best] - 150.0) < 1.5
+    exact = dedispersion_search(array, *args, device="cpu")
+    rows = np.flatnonzero(table["exact"])
+    for name in ("max", "std", "snr", "rebin", "peak"):
+        np.testing.assert_array_equal(table[name][rows], exact[name][rows])

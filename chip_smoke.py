@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``pulsarutils_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N] [--quick]
+    python3 chip_smoke.py [--seed N] [--quick | --breakdown]
 
 Phases, one JSON line each:
 
@@ -16,7 +16,11 @@ Phases, one JSON line each:
    bound:
    - the direct sweep (B1) at the headline geometry (1024 channels x
      2^20 samples, the 514-trial DM 300-635 plan, in the search's
-     512-trial superblocks) and on edge cases, max |diff| == 0;
+     512-trial superblocks), at 8 and 16 rows (the hybrid's rescore
+     buckets) and the plan's 2-trial tail, and on edge cases (rows in
+     any order with repeats among them, at 16 and at 32 rows; 40
+     trials), in the plan's branch and the other one, max |diff| == 0;
+     each launch's trial block and the share of distinct offsets;
    - the FDMT passes (B3: the first seven levels fused; B2a: one level;
      B2b: the last two levels fused), pass by pass through the headline
      transform (1024 x 2^20, the 512-trial DM 300+ grid of the JAX
@@ -29,9 +33,11 @@ Phases, one JSON line each:
    - the FDD (B5): the path on edge cases (nchan not a multiple of the
      channel block, odd T, one trial, superblock > ndm, trial-block
      tails, a non-uniform grid) against the float64 oracle (atol 2e-3),
-     the kernel against plain on one 64-trial headline superblock
-     (within 1e-4 of the largest output), and the whole 514-trial sweep
-     of ``dedispersion_search(kernel="fourier")``, kernels timed apart;
+     the fused kernel (spectrum and phase limbs in, one launch a
+     superblock) against plain on small odd shapes and one 64-trial
+     headline superblock (within 1e-4 of the largest output), and the
+     whole 514-trial sweep of ``dedispersion_search(kernel="fourier")``
+     (one B5 launch a superblock), kernels timed apart;
    - the harmonic scorer (B6) on edge cases (rows not a multiple of 8,
      even and odd median lengths, an all-zero row, a half-zero row, a
      band, an empty band, 1 and 4 harmonics) and on the power of a
@@ -41,7 +47,11 @@ Phases, one JSON line each:
    |N(0,1)| / 2, an impulse at T/2 dispersed at DM 350) searched by
    ``dedispersion_search(kernel="hybrid")`` and by the full exact sweep;
    the hybrid's best row must equal the sweep's (argbest, DM, rebin,
-   peak; snr within rel 1e-5); coarse, hybrid and sweep times;
+   peak; snr within rel 1e-5); coarse, hybrid and sweep times; then the
+   direct sweep through its entry points, phase by phase (B1 through
+   its wrapper at the superblocks, the rescore buckets and the tail; the
+   exact search's first call and its repeats split into B1, B4 and the
+   rest);
 5. end to end: a simulated 1024-channel 8-bit filterbank with a dispersed
    pulse, searched by the port's ``search_by_chunks`` on the card in
    2^18-sample chunks with the direct sweep, then with the hybrid (at
@@ -61,7 +71,11 @@ Phases, one JSON line each:
 Any failed check exits non-zero before the last line.  Without a CUDA
 device, or without the package beside this script, it exits non-zero
 and prints no result.  ``--quick`` stops after the kernel checks at small
-shapes (a first run of a new kernel).
+shapes (a first run of a new kernel).  ``--breakdown`` runs only the
+build and the direct sweep's breakdown, which needs nothing that earlier
+versions of the package lack: a copy of this script beside another
+checkout times that checkout the same way.  Neither prints the last
+line.
 """
 
 from __future__ import annotations
@@ -83,6 +97,9 @@ REPO = Path(__file__).resolve().parent
 #: so adds issue at half that: 33.5e12 adds/s.  HBM3 bandwidth 3.35 TB/s.
 PEAK_FP32_ADDS = 33.5e12
 PEAK_HBM_BYTES_S = 3.35e12
+
+#: dynamic shared memory one block may take on an H100 (227 KB)
+SMEM_PER_BLOCK = 232448
 
 #: the headline geometry of the JAX package's benchmark
 NCHAN, NSAMPLES = 1024, 1 << 20
@@ -117,10 +134,11 @@ def check(cond, what):
         raise CheckFailed(what)
 
 
-def time_ms(torch, fn, runs=5):
+def time_ms(torch, fn, runs=5, warm_up=True):
     """Median and all of ``runs`` CUDA-event timings of ``fn`` (ms), after
-    one warm-up call."""
-    fn()
+    one warm-up call unless ``warm_up`` is false."""
+    if warm_up:
+        fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(runs):
@@ -184,7 +202,11 @@ def phase_build():
 
 def _sweep_case(torch, name, data, offsets, *, timed=True,
                 superblock=None):
-    """Kernel vs plain on one input; returns the case's record."""
+    """Kernel vs plain on one input, in the plan's branch and forced into
+    the other (where its window fits a block's shared memory); returns
+    the case's record."""
+    import dataclasses
+
     from pulsarutils_tpu_torch.ops import dedisperse_cuda as dc
     from pulsarutils_tpu_torch.ops.dedisperse import dedisperse_plane_plain
 
@@ -194,12 +216,11 @@ def _sweep_case(torch, name, data, offsets, *, timed=True,
     blocks = [offsets[lo:lo + superblock]
               for lo in range(0, ndm, superblock)]
     plans = [dc.launch_plan(b, nsamples) for b in blocks]
-    dev_off = [torch.from_numpy(p.offsets).to(data.device) for p in plans]
+    metas = [torch.from_numpy(p.meta).to(data.device) for p in plans]
 
-    def kernel():
-        return [dc.dedisperse_plane_cuda(data, o, p.store_shift, p.win,
-                                         p.use_smem)
-                for o, p in zip(dev_off, plans)]
+    def kernel(plans=plans):
+        return [dc.dedisperse_plane_cuda(data, m, p)
+                for m, p in zip(metas, plans)]
 
     def wrapper():
         return [dc.dedisperse_plane(data, b) for b in blocks]
@@ -215,26 +236,41 @@ def _sweep_case(torch, name, data, offsets, *, timed=True,
     check(diff == 0.0, f"{name}: kernel differs from plain by {diff}")
     check(torch.equal(torch.cat(kernel()), want),
           f"{name}: kernel launch differs from the wrapper's")
+    branches = {"smem" if p.use_smem else "global" for p in plans}
+    for use_smem in (True, False):
+        other = [dataclasses.replace(p, use_smem=use_smem) for p in plans]
+        if (use_smem and any(o.smem_bytes > SMEM_PER_BLOCK for o in other)
+                or other == plans):
+            continue
+        check(torch.equal(torch.cat(kernel(other)), want),
+              f"{name}: the {'smem' if use_smem else 'global'} branch "
+              "differs from plain")
+        branches.add("smem" if use_smem else "global")
     bound, bound_by = sweep_bound_ms(ndm, nchan, nsamples)
     record = {"case": name, "ndm": ndm, "nchan": nchan,
               "nsamples": nsamples, "launches_per_call": len(blocks),
+              "trial_blocks": [p.trial_block for p in plans],
               "use_smem": [p.use_smem for p in plans],
+              "branches_checked": sorted(branches),
               "spread": max(p.spread for p in plans),
+              "smem_bytes": [p.smem_bytes for p in plans],
+              "distinct_share": sum(p.distinct_share * p.offsets.shape[0]
+                                    for p in plans) / ndm,
               "max_abs_diff": diff, "tolerance": "max_abs_diff == 0",
               "bound_ms": bound, "bound_by": bound_by}
     if timed:
         record["kernel_ms"], record["kernel_runs_ms"] = time_ms(torch, kernel)
-        record["wrapper_ms"], _ = time_ms(torch, wrapper)
         record["plain_ms"], record["plain_runs_ms"] = time_ms(torch, plain)
         record["bound_share"] = bound / record["kernel_ms"]
     del got, want
     torch.cuda.empty_cache()
-    emit("kernel_check", **record)
+    emit("kernel_check", kernel="B1 sweep", **record)
     return record
 
 
 def phase_kernels(torch, np, seed, quick):
-    from pulsarutils_tpu_torch.ops.dedisperse_cuda import launch_plan
+    from pulsarutils_tpu_torch.ops.dedisperse_cuda import (
+        TRIAL_BLOCKS, choose_trial_block, launch_plan)
     from pulsarutils_tpu_torch.ops.plan import dedispersion_plan, offsets_for
     from pulsarutils_tpu_torch.ops.search import SUPERBLOCK
 
@@ -263,6 +299,18 @@ def phase_kernels(torch, np, seed, quick):
         ("large_max_off_smem", 256, 4096, low),
         ("large_spread_global_branch", 256, 1 << 16,
          rng.integers(0, 1 << 16, (96, 256)).astype(np.int32)),
+        # the hybrid's rescore: plan rows in any order, repeated, padded
+        # by repeating the last row up to the bucket
+        ("rescore_rows_any_order", 1024, 1 << 16,
+         plan_offsets(1024, 1 << 16)[[301, 17, 480, 17, 99, 100, 5, 5, 5,
+                                      5, 5, 5, 5, 5, 5, 5]]),
+        # the hybrid's largest rescore bucket: 32 rows in any order with
+        # repeats (two 16-trial blocks)
+        ("rescore_bucket_32_any_order", 1024, 1 << 16,
+         plan_offsets(1024, 1 << 16)[rng.permutation(
+             np.r_[rng.integers(0, 514, 24), [7] * 8])]),
+        # a launch of 33-64 trials: three 16-trial blocks, the last partial
+        ("trials_40", 256, 1 << 16, plan_offsets(256, 1 << 16)[100:140]),
     ]
     for name, nchan, nsamples, off in cases:
         plan = launch_plan(off, nsamples)
@@ -272,16 +320,31 @@ def phase_kernels(torch, np, seed, quick):
             check(plan.use_smem and plan.offsets.max() > nsamples // 4,
                   f"{name}: max offset {plan.offsets.max()} / smem "
                   f"{plan.use_smem}")
-        records.append(_sweep_case(torch, name, data(nchan, nsamples), off,
-                                   timed=timed))
+        rec = _sweep_case(torch, name, data(nchan, nsamples), off,
+                          timed=timed)
+        check(rec["trial_blocks"] == [choose_trial_block(off.shape[0])],
+              f"{name}: trial blocks {rec['trial_blocks']}")
+        records.append(rec)
     if quick:
         return None, records, None
     head_data = data(NCHAN, NSAMPLES)
-    head = _sweep_case(torch, "headline", head_data,
-                       plan_offsets(NCHAN, NSAMPLES), superblock=SUPERBLOCK)
+    head_off = plan_offsets(NCHAN, NSAMPLES)
+    head = _sweep_case(torch, "headline", head_data, head_off,
+                       superblock=SUPERBLOCK)
     check(head["ndm"] == 514 and head["launches_per_call"] == 2,
           f"headline plan: {head['ndm']} trials, "
           f"{head['launches_per_call']} launches")
+    check(head["trial_blocks"] == [TRIAL_BLOCKS[-1], TRIAL_BLOCKS[0]],
+          f"headline trial blocks {head['trial_blocks']}")
+    # one launch each at the hybrid's rescore buckets and the plan's tail
+    head["buckets"] = {}
+    for label, rows in (("bucket_8", head_off[200:208]),
+                        ("bucket_16", head_off[200:216]),
+                        ("tail_2", head_off[SUPERBLOCK:])):
+        rec = _sweep_case(torch, label, head_data, rows)
+        check(rec["trial_blocks"] == [max(8, rows.shape[0])],
+              f"{label}: trial blocks {rec['trial_blocks']}")
+        head["buckets"][label] = rec
     torch.cuda.empty_cache()
     return head, records, head_data
 
@@ -572,32 +635,37 @@ FDD_ORACLE_ATOL = 2e-3
 HARMONIC_RTOL = 1e-5
 
 
-def _fdd_kernel_case(torch, name, u, step, superblock, chan_block, *,
-                     timed=True):
-    """B5 against its plain version on one superblock, launched per
-    channel block as the FDD path launches it."""
+#: B5's in-kernel phasor build per (channel, bin), counted from
+#: csrc/fdd.cu: two limb phasors (3 and 4 limbs: the integer products,
+#: masks, conversions and the float32 sum, 14 and 18 instructions; th *
+#: 2 pi; sincosf's reduction, two polynomials and quadrant selects, ~24
+#: each) and the complex product spec * rot0 (4)
+FDD_PHASOR_OPS = 14 + 18 + 2 * (1 + 24) + 4
+
+
+def _fdd_kernel_case(torch, name, spec, anchor, step, superblock,
+                     chan_block, *, timed=True):
+    """B5 against its plain version on one superblock: the kernel builds
+    the phasors from the limbs itself, in one launch over every
+    channel."""
     from pulsarutils_tpu_torch.ops import fourier_cuda as fc
 
-    nchan, nbin = u.shape
-    blocks = [(lo, min(lo + chan_block, nchan))
-              for lo in range(0, nchan, chan_block)]
-
-    def run(fn):
-        acc = torch.zeros((superblock, nbin), dtype=torch.complex64,
-                          device=u.device)
-        for lo, hi in blocks:
-            acc = fn(u[lo:hi], step[lo:hi], superblock, acc=acc)
-        return acc
+    nchan, nbin = spec.shape
 
     def kernel():
-        return run(fc.fdd_superblock_spectra_cuda)
+        return fc.fdd_superblock_spectra_cuda(spec, anchor, step, superblock)
 
     def plain():
-        return run(fc.fdd_superblock_spectra_plain)
+        return fc.fdd_fused_plain(spec, anchor, step, superblock,
+                                  chan_block=chan_block)
 
-    got = run(fc.fdd_superblock_spectra)
+    before = fc.launches
+    got = fc.fdd_superblock_spectra(spec, anchor, step, superblock,
+                                    chan_block=chan_block)
+    launched = fc.launches - before
     want = plain()
     torch.cuda.synchronize()
+    check(launched == 1, f"{name}: {launched} launches for one superblock")
     check(bool(torch.isfinite(torch.view_as_real(got)).all()),
           f"{name}: non-finite spectra")
     scale = float(want.abs().max())
@@ -606,20 +674,28 @@ def _fdd_kernel_case(torch, name, u, step, superblock, chan_block, *,
     check(rel <= FDD_REL_TOL, f"{name}: kernel differs from plain by "
           f"{diff} ({rel:.3g} of the largest output, tolerance "
           f"{FDD_REL_TOL})")
-    # one complex multiply (2 FMUL + 2 FFMA) and one complex add (2 FADD)
-    # per (trial, channel, bin); u and step read once, the output once
-    bound, bound_by = bound_ms(6 * superblock * nchan * nbin,
-                               16 * nchan * nbin + 8 * superblock * nbin)
+    # the recurrence: one complex multiply (2 FMUL + 2 FFMA) and one
+    # complex add (2 FADD) per (trial, channel, bin); the spectrum and
+    # the limbs read once, the output written once
+    nbytes = 8 * nchan * nbin + 4 * 7 * nchan + 8 * superblock * nbin
+    bound, bound_by = bound_ms(6 * superblock * nchan * nbin, nbytes)
+    # with the phasor build's instructions beside the recurrence's
+    bound_ph, bound_ph_by = bound_ms(
+        (6 * superblock + FDD_PHASOR_OPS) * nchan * nbin, nbytes)
     record = {"case": name, "nchan": nchan, "nbin": nbin,
-              "superblock": superblock, "chan_block": chan_block,
-              "launches_per_call": len(blocks), "max_abs_diff": diff,
+              "superblock": superblock, "chan_block_plain": chan_block,
+              "launches_per_call": launched, "max_abs_diff": diff,
               "max_abs_plain": scale, "rel_diff": rel,
               "tolerance": f"max_abs_diff <= {FDD_REL_TOL} x max|plain|",
-              "bound_ms": bound, "bound_by": bound_by}
+              "bound_ms": bound, "bound_by": bound_by,
+              "bound_with_phasors_ms": bound_ph,
+              "bound_with_phasors_by": bound_ph_by,
+              "phasor_ops_per_channel_bin": FDD_PHASOR_OPS}
     if timed:
         record["kernel_ms"], record["kernel_runs_ms"] = time_ms(torch, kernel)
         record["plain_ms"], record["plain_runs_ms"] = time_ms(torch, plain)
         record["bound_share"] = bound / record["kernel_ms"]
+        record["bound_with_phasors_share"] = bound_ph / record["kernel_ms"]
     del got, want
     emit("kernel_check", kernel="B5 fdd", **record)
     return record
@@ -697,16 +773,19 @@ def phase_fdd(torch, np, seed, quick):
                   "tolerance": f"oracle atol {FDD_ORACLE_ATOL}"}
         emit("fdd_check", **record)
         records.append(record)
-    # the kernel alone on small odd shapes
+    # the kernel alone on small odd shapes: random spectra and limbs
     for name, nchan, nbin, nsb in (("kernel_nchan_5_nbin_300", 5, 300, 16),
-                                   ("kernel_superblock_70", 37, 1025, 70)):
-        u = torch.from_numpy((rng.standard_normal((nchan, nbin))
-                              + 1j * rng.standard_normal((nchan, nbin)))
-                             .astype(np.complex64)).cuda()
-        step = torch.from_numpy(np.exp(1j * rng.uniform(
-            0, 2 * np.pi, (nchan, nbin))).astype(np.complex64)).cuda()
-        records.append(_fdd_kernel_case(torch, name, u, step, nsb, 16,
-                                        timed=False))
+                                   ("kernel_superblock_70", 37, 1025, 70),
+                                   ("kernel_nchan_300", 300, 777, 64)):
+        spec = torch.from_numpy((rng.standard_normal((nchan, nbin))
+                                 + 1j * rng.standard_normal((nchan, nbin)))
+                                .astype(np.complex64)).cuda()
+        anchor = torch.from_numpy(rng.integers(0, 1 << 12, (3, nchan))
+                                  .astype(np.int32)).cuda()
+        step = torch.from_numpy(rng.integers(0, 1 << 12, (4, nchan))
+                                .astype(np.int32)).cuda()
+        records.append(_fdd_kernel_case(torch, name, spec, anchor, step,
+                                        nsb, 16, timed=False))
     if quick:
         torch.cuda.empty_cache()
         return None, records
@@ -719,20 +798,11 @@ def phase_fdd(torch, np, seed, quick):
         dms, fo._uniform_spacing(dms), NCHAN, START_FREQ, BANDWIDTH, TSAMP,
         NSAMPLES, superblock)
     spec = fo._blocked_rfft(data, chan_block)
-    k = torch.arange(NSAMPLES // 2 + 1, dtype=torch.int64, device="cuda")
-    kf = k.to(torch.float32)
-    a64 = torch.from_numpy(anchors.astype(np.int64)).cuda()
-    s64 = torch.from_numpy(steps.astype(np.int64)).cuda()
-    u = torch.empty_like(spec)
-    step = torch.empty_like(spec)
-    for lo in range(0, NCHAN, chan_block):
-        hi = lo + chan_block
-        u[lo:hi] = spec[lo:hi] * fo.limb_phase(a64[:, 0, lo:hi], k, kf)
-        step[lo:hi] = fo.limb_phase(s64[:, lo:hi], k, kf)
+    anchor0 = torch.from_numpy(np.ascontiguousarray(anchors[:, 0])).cuda()
+    step_limbs = torch.from_numpy(np.ascontiguousarray(steps)).cuda()
+    head = _fdd_kernel_case(torch, "headline_superblock", spec, anchor0,
+                            step_limbs, superblock, chan_block)
     del spec
-    head = _fdd_kernel_case(torch, "headline_superblock", u, step,
-                            superblock, chan_block)
-    del u, step
     torch.cuda.empty_cache()
 
     # the full sweep, kernel launches timed apart
@@ -761,15 +831,19 @@ def phase_fdd(torch, np, seed, quick):
     nsuper = -(-ndm // superblock)
     check(table.nrows == ndm and np.isfinite(table["snr"]).all(),
           f"fourier sweep table {table.nrows} rows")
-    check(counts["B5"] == nsuper * (NCHAN // chan_block)
-          and counts["B4"] == nsuper, f"fourier sweep launches {counts}")
-    sweep_bound, sweep_by = bound_ms(6 * ndm * NCHAN * (NSAMPLES // 2 + 1),
-                                     16 * NCHAN * (NSAMPLES // 2 + 1)
-                                     * nsuper)
+    check(counts["B5"] == nsuper and counts["B4"] == nsuper,
+          f"fourier sweep launches {counts}: one B5 and one B4 launch a "
+          f"superblock expected ({nsuper})")
+    nbin = NSAMPLES // 2 + 1
+    sweep_bytes = (8 * NCHAN * nbin + 28 * NCHAN) * nsuper + 8 * ndm * nbin
+    sweep_bound, sweep_by = bound_ms(6 * ndm * NCHAN * nbin, sweep_bytes)
+    sweep_bound_ph, _ = bound_ms(
+        (6 * ndm + FDD_PHASOR_OPS * nsuper) * NCHAN * nbin, sweep_bytes)
     full = {"ndm": ndm, "superblocks": nsuper, "launches": counts,
             "kernel_ms": kernel_ms, "sweep_ms": statistics.median(walls),
             "sweep_runs_ms": walls, "kernel_bound_ms": sweep_bound,
             "kernel_bound_by": sweep_by,
+            "kernel_bound_with_phasors_ms": sweep_bound_ph,
             "dm_trials_per_s": ndm / (statistics.median(walls) / 1e3)}
     emit("fdd_sweep", nchan=NCHAN, nsamples=NSAMPLES, dm_range=[DMMIN, DMMAX],
          **full)
@@ -1041,6 +1115,88 @@ def phase_hybrid_headline(torch, np, seed):
             "exact_ms": exact_ms}
 
 
+def phase_sweep_breakdown(torch, np, seed):
+    """The direct sweep through its entry points only, at the headline
+    geometry: B1 through ``dedisperse_plane`` (host planning and upload
+    included) at the search's superblocks, the hybrid's 8- and 16-row
+    rescore buckets and the plan's 2-trial tail, with the card time of
+    its kernel launches; then ``dedispersion_search(kernel="auto")``, its
+    first call on the geometry and its repeats split into B1, B4 and the
+    rest.  It uses no name that earlier versions of the package lack, so
+    this script can time another checkout of the package (``--breakdown``
+    in a copy of the script beside it)."""
+    from pulsarutils_tpu_torch.ops import dedisperse_cuda as dc
+    from pulsarutils_tpu_torch.ops import score_cuda as sc
+    from pulsarutils_tpu_torch.ops.plan import dedispersion_plan, offsets_for
+    from pulsarutils_tpu_torch.ops.search import dedispersion_search
+
+    rng = np.random.default_rng(seed + 5)
+    data = torch.from_numpy(rng.standard_normal(
+        (NCHAN, NSAMPLES), dtype=np.float32)).cuda()
+    geom = (START_FREQ, BANDWIDTH, TSAMP)
+    offsets = offsets_for(dedispersion_plan(NCHAN, DMMIN, DMMAX, *geom),
+                          NCHAN, *geom, NSAMPLES)
+    superblock = 512
+    record = {"nchan": NCHAN, "nsamples": NSAMPLES, "b1": {}}
+
+    def spans_ms(spans, runs):
+        return sum(s.elapsed_time(e) for s, e in spans) / runs
+
+    for label, rows in (("superblocks_514", offsets),
+                        ("bucket_8", offsets[200:208]),
+                        ("bucket_16", offsets[200:216]),
+                        ("tail_2", offsets[superblock:])):
+        blocks = [rows[lo:lo + superblock]
+                  for lo in range(0, rows.shape[0], superblock)]
+
+        def sweep(blocks=blocks):
+            return [dc.dedisperse_plane(data, b) for b in blocks]
+
+        sweep()  # the warm-up, untimed
+        spans, undo = _timed_launches(torch, dc, "dedisperse_plane_cuda")
+        try:
+            wrapper_ms, runs = time_ms(torch, sweep, warm_up=False)
+        finally:
+            undo()
+        record["b1"][label] = {
+            "trials": int(rows.shape[0]), "launches": len(blocks),
+            "wrapper_ms": wrapper_ms, "wrapper_runs_ms": runs,
+            "kernel_ms": spans_ms(spans, len(runs))}
+        torch.cuda.empty_cache()
+
+    def search():
+        dedispersion_search(data, DMMIN, DMMAX, *geom, kernel="auto",
+                            device="cuda")
+        torch.cuda.synchronize()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    search()
+    first_ms = 1e3 * (time.perf_counter() - t0)
+    walls = []
+    b1, undo1 = _timed_launches(torch, dc, "dedisperse_plane_cuda")
+    b4, undo4 = _timed_launches(torch, sc, "score_plane_cuda")
+    try:
+        for _ in range(3):
+            t0 = time.perf_counter()
+            search()
+            walls.append(1e3 * (time.perf_counter() - t0))
+    finally:
+        undo1()
+        undo4()
+    wall = statistics.median(walls)
+    kernels = {"B1": spans_ms(b1, 3), "B4": spans_ms(b4, 3)}
+    record["exact_sweep"] = {
+        "trials": int(offsets.shape[0]), "first_call_ms": first_ms,
+        "wall_ms": wall, "wall_runs_ms": walls,
+        "launches": {"B1": len(b1) // 3, "B4": len(b4) // 3},
+        "kernel_ms": kernels, "beside_kernels_ms": wall - sum(kernels.values())}
+    emit("sweep_breakdown", **record)
+    del data
+    torch.cuda.empty_cache()
+    return record
+
+
 def phase_e2e_hybrid(torch, np, workdir, path, chunk_length, nchunks,
                      direct_hits):
     """The end-to-end file through the hybrid: at S/N 8 (floorless), then
@@ -1101,8 +1257,7 @@ def phase_e2e_hybrid(torch, np, workdir, path, chunk_length, nchunks,
 
 def phase_e2e_fourier(torch, np, workdir, path, chunk_length, nchunks):
     """The end-to-end file through ``kernel="fourier"``."""
-    from pulsarutils_tpu_torch.ops.fourier import (FOURIER_CHAN_BLOCK,
-                                                   FOURIER_SUPERBLOCK)
+    from pulsarutils_tpu_torch.ops.fourier import FOURIER_SUPERBLOCK
     from pulsarutils_tpu_torch.ops.plan import dedispersion_plan
     from pulsarutils_tpu_torch.pipeline.search_pipeline import \
         search_by_chunks
@@ -1119,7 +1274,7 @@ def phase_e2e_fourier(torch, np, workdir, path, chunk_length, nchunks):
     wall = time.perf_counter() - t0
     counts = read_counts()
     nsuper = -(-len(dms) // FOURIER_SUPERBLOCK)
-    check(counts["B5"] == nchunks * nsuper * (NCHAN // FOURIER_CHAN_BLOCK)
+    check(counts["B5"] == nchunks * nsuper
           and counts["B4"] == nchunks * nsuper,
           f"fourier e2e launches {counts} for {nchunks} chunks")
     check(len(store.done_chunks) == nchunks, "fourier e2e ledger")
@@ -1353,6 +1508,8 @@ def main(argv=None):
     parser.add_argument("--quick", action="store_true",
                         help="build and check the kernels at small shapes "
                              "only")
+    parser.add_argument("--breakdown", action="store_true",
+                        help="time the direct sweep phase by phase only")
     opts = parser.parse_args(argv)
 
     import numpy as np
@@ -1382,6 +1539,9 @@ def main(argv=None):
     try:
         card = phase_environment(torch)
         phase_build()
+        if opts.breakdown:
+            phase_sweep_breakdown(torch, np, opts.seed)
+            return 0
         head, records, head_data = phase_kernels(torch, np, opts.seed,
                                                  opts.quick)
         fdmt_head, fdmt_records, coarse = phase_fdmt(
@@ -1397,6 +1557,7 @@ def main(argv=None):
         if opts.quick:
             return 0
         phase_hybrid_headline(torch, np, opts.seed)
+        breakdown = phase_sweep_breakdown(torch, np, opts.seed)
         shutil.rmtree(workdir, ignore_errors=True)
         workdir.mkdir(parents=True)
         direct, hits, path, chunk_length, nchunks = phase_end_to_end(
@@ -1431,6 +1592,7 @@ def main(argv=None):
     def total(recs, key):
         return sum(r[key] for r in recs)
 
+    sweep_recs = [head, *head["buckets"].values(), *records]
     fused, merge = levels("B3 head"), levels("B2a merge")
     merge4 = levels("B2b merge4")
     fdmt_diff = max(r["max_abs_diff"] for r in fdmt_head + fdmt_records)
@@ -1444,8 +1606,8 @@ def main(argv=None):
                               "_build_kernel",
         "launches": direct["B1"],
         "launches_by_path": {k: v["B1"] for k, v in launches.items()},
-        "max_abs_err": max(r["max_abs_diff"] for r in [head, *records]),
-        "max_abs_diff": max(r["max_abs_diff"] for r in [head, *records]),
+        "max_abs_err": max(r["max_abs_diff"] for r in sweep_recs),
+        "max_abs_diff": max(r["max_abs_diff"] for r in sweep_recs),
         "ms": head["kernel_ms"],
         "kernel_ms": head["kernel_ms"],
         "plain_ms": head["plain_ms"],
@@ -1453,7 +1615,14 @@ def main(argv=None):
         "bound_by": head["bound_by"],
         "library_ms": None,
         "shape": {**shape, "ndm": head["ndm"],
-                  "launches_per_chunk": head["launches_per_call"]},
+                  "launches_per_chunk": head["launches_per_call"],
+                  "trial_blocks": head["trial_blocks"]},
+        "distinct_share": head["distinct_share"],
+        "through_entry_points": breakdown,
+        "launches_at": {k: {f: r[f] for f in (
+            "ndm", "trial_blocks", "kernel_ms", "plain_ms", "bound_ms",
+            "bound_share", "max_abs_diff")}
+            for k, r in head["buckets"].items()},
         "card": card,
     }, {
         "name": "fdmt_merge_level",
@@ -1549,12 +1718,12 @@ def main(argv=None):
         "plain_ms": fdd_head["plain_ms"],
         "bound_ms": fdd_head["bound_ms"],
         "bound_by": fdd_head["bound_by"],
+        "bound_with_phasors_ms": fdd_head["bound_with_phasors_ms"],
         "library_ms": None,
         "tolerance": fdd_head["tolerance"],
         "full_sweep": fdd_head["sweep"],
         "shape": {"nchan": fdd_head["nchan"], "nbin": fdd_head["nbin"],
                   "superblock": fdd_head["superblock"],
-                  "chan_block": fdd_head["chan_block"],
                   "launches_per_superblock": fdd_head["launches_per_call"]},
         "card": card,
     }, {

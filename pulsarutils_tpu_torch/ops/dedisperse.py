@@ -13,6 +13,7 @@ its start.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -21,6 +22,8 @@ def dedisperse_plane_plain(data, offsets):
     gather offsets ``offsets`` ``(ndm, nchan)`` (any integers; wrapped
     mod ``T``)."""
     nchan, nsamples = data.shape
+    if not isinstance(offsets, torch.Tensor):
+        offsets = np.array(offsets, dtype=np.int64)  # a writable copy
     off = torch.as_tensor(offsets, device=data.device).to(torch.int64)
     off = off % nsamples
     out = torch.zeros(off.shape[0], nsamples, dtype=data.dtype,

@@ -6,10 +6,17 @@ plain version :func:`~.dedisperse.dedisperse_plane_plain`.  Both give the
 same plane bit for bit.
 
 The host side of a launch (:func:`launch_plan`) rebases the offsets so
-that a block of trials never straddles the circular wrap, folds the
-rebase constant into the kernel's store index, and measures the largest
-per-channel offset spread within one block of trials, which sizes the
-shared-memory window or sends the kernel to its global-memory branch.
+that they never straddle the circular wrap, folds the rebase constant
+into the kernel's store index, chooses the trial block (8 trials for a
+launch of at most 8, else 16), and writes the kernel's per (trial block,
+channel) rows: the channel's least offset in the block, a mask of the
+trials whose offset differs from the previous trial's (the kernel loads
+its window values only there and reuses its registers otherwise), and
+each trial's offset relative to the least.  The largest relative offset
+sizes the shared-memory window or sends the kernel to its global-memory
+branch.  :func:`device_plan` adds the rows' upload; a caller that sweeps
+one geometry chunk after chunk keeps its result (the direct search does)
+and passes it back to :func:`dedisperse_plane`.
 """
 
 from __future__ import annotations
@@ -23,15 +30,17 @@ import torch
 from ..utils.device import to_numpy
 from .dedisperse import dedisperse_plane_plain
 
-#: tiling compiled into csrc/dedisperse.cu (checked against the library
-#: when it is loaded)
-TRIAL_BLOCK = 32
-TIME_TILE = 512
-CHAN_BLOCK = 16
+#: trial blocks compiled into csrc/dedisperse.cu: 8 for a launch of at
+#: most 8 trials (the hybrid's smallest rescore bucket), else 16 (wider
+#: blocks ran slower on an H100 at 512 trials; PERF.md)
+TRIAL_BLOCKS = (8, 16)
+#: the kernel's samples per block, channels per shared-memory stage and
+#: stages in its ring (checked against the library when it is loaded)
+TIME_TILE, CHAN_BLOCK, STAGES = 1024, 4, 3
 
 #: dynamic shared memory a block may use for its channel windows; a
 #: larger window takes the global-memory branch
-SMEM_BUDGET = 96 * 1024
+SMEM_BUDGET = 192 * 1024
 
 #: kernel launches made so far (the number of calls that reached the card)
 launches = 0
@@ -46,7 +55,7 @@ def _library():
 
         lib = nvcc.load("dedisperse")
         lib.dedisperse_launch.argtypes = (
-            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
         lib.dedisperse_launch.restype = ctypes.c_int
         lib.dedisperse_error_string.argtypes = [ctypes.c_int]
         lib.dedisperse_error_string.restype = ctypes.c_char_p
@@ -55,10 +64,10 @@ def _library():
         dims = [ctypes.c_int() for _ in range(3)]
         lib.dedisperse_geometry(*[ctypes.byref(d) for d in dims])
         built = tuple(d.value for d in dims)
-        if built != (TRIAL_BLOCK, TIME_TILE, CHAN_BLOCK):
+        if built != (TIME_TILE, CHAN_BLOCK, STAGES):
             raise RuntimeError(
-                f"csrc/dedisperse.cu tiling {built} differs from the host's "
-                f"{(TRIAL_BLOCK, TIME_TILE, CHAN_BLOCK)}")
+                f"csrc/dedisperse.cu tiling {built} differs from the "
+                f"host's {(TIME_TILE, CHAN_BLOCK, STAGES)}")
         _lib = lib
     return _lib
 
@@ -78,64 +87,119 @@ def rebase_offsets(offsets, nsamples):
     return (signed - k).astype(np.int32), k
 
 
+def choose_trial_block(ndm):
+    """The trial block of a launch of ``ndm`` trials."""
+    return TRIAL_BLOCKS[0] if ndm <= TRIAL_BLOCKS[0] else TRIAL_BLOCKS[1]
+
+
 @dataclasses.dataclass(frozen=True)
 class LaunchPlan:
     """Host-side arguments of one kernel launch."""
     offsets: np.ndarray   # (ndm, nchan) int32, rebased
+    meta: np.ndarray      # (nblocks, nchan, trial_block + 2) int32 rows
+    trial_block: int      # trials per block (a compiled template)
+    time_tile: int        # samples per block
+    chan_block: int       # channels per shared-memory stage
     store_shift: int      # the kernel's value at u is stored at (u + shift) mod T
     spread: int           # largest per-channel offset range in a trial block
     win: int              # shared-memory window length per channel
     use_smem: bool        # False: the kernel's global-memory branch
+    distinct_share: float  # window loads per add: marked trials / trials
+
+    @property
+    def smem_bytes(self):
+        """Dynamic shared memory of one block of this launch."""
+        per_chan = self.trial_block + 2 + (self.win if self.use_smem else 0)
+        return 4 * STAGES * self.chan_block * per_chan
 
 
-def launch_plan(offsets, nsamples):
-    """Plan a launch for ``offsets`` ``(ndm, nchan)`` over ``nsamples``."""
+def _window_bytes(win, chan_block):
+    return 4 * STAGES * chan_block * win
+
+
+def launch_plan(offsets, nsamples, trial_block=None):
+    """Plan a launch for ``offsets`` ``(ndm, nchan)`` over ``nsamples``;
+    ``trial_block`` overrides :func:`choose_trial_block`."""
     rebased, k = rebase_offsets(offsets, nsamples)
-    starts = np.arange(0, rebased.shape[0], TRIAL_BLOCK)
-    spread = int((np.maximum.reduceat(rebased, starts, axis=0)
-                  - np.minimum.reduceat(rebased, starts, axis=0)).max())
-    win = TIME_TILE + spread
-    return LaunchPlan(offsets=rebased, store_shift=(-k) % nsamples,
-                      spread=spread, win=win,
-                      use_smem=CHAN_BLOCK * win * 4 <= SMEM_BUDGET)
+    ndm, nchan = rebased.shape
+    block = trial_block or choose_trial_block(ndm)
+    if block not in TRIAL_BLOCKS:
+        raise ValueError(f"trial block {block} not one of {TRIAL_BLOCKS}")
+    tile, chan_block = TIME_TILE, CHAN_BLOCK
+    nblocks = -(-ndm // block)
+    # the last block's padding repeats the last trial: never a new load
+    full = np.concatenate(
+        [rebased, np.repeat(rebased[-1:], nblocks * block - ndm, axis=0)])
+    blocks = full.reshape(nblocks, block, nchan)
+    base = blocks.min(axis=1)
+    rel = blocks - base[:, None, :]
+    change = np.ones(rel.shape, dtype=bool)
+    change[:, 1:] = rel[:, 1:] != rel[:, :-1]
+    bits = (change.astype(np.int32)
+            << np.arange(block, dtype=np.int32)[None, :, None]).sum(
+                axis=1, dtype=np.int32)
+    meta = np.concatenate(
+        [base[..., None], bits[..., None], rel.transpose(0, 2, 1)],
+        axis=2).astype(np.int32)
+    spread = int(rel.max(initial=0))
+    win = tile + spread
+    use_smem = _window_bytes(win, chan_block) <= SMEM_BUDGET
+    return LaunchPlan(offsets=rebased, meta=np.ascontiguousarray(meta),
+                      trial_block=block, time_tile=tile,
+                      chan_block=chan_block, store_shift=(-k) % nsamples,
+                      spread=spread, win=win, use_smem=use_smem,
+                      distinct_share=float(change.sum()) / max(1, ndm * nchan))
 
 
-def dedisperse_plane_cuda(data, offsets, store_shift, win, use_smem):
-    """Launch the kernel on ``data`` (nchan, T) float32 and the rebased
-    ``offsets`` (ndm, nchan) int32, both contiguous on one CUDA device.
+def device_plan(offsets, nsamples, device):
+    """``(plan, rows)``: :func:`launch_plan` of ``offsets`` over
+    ``nsamples`` and its rows uploaded to ``device``."""
+    plan = launch_plan(offsets, nsamples)
+    return plan, torch.from_numpy(plan.meta).to(device)
+
+
+def dedisperse_plane_cuda(data, meta, plan):
+    """Launch the kernel on ``data`` (nchan, T) float32 with the plan's
+    rows ``meta`` (an int32 tensor shaped like ``plan.meta``), both
+    contiguous on one CUDA device.
 
     Returns the ``(ndm, T)`` plane, allocated here; the launch is queued
     on the current stream and not synchronised.
     """
     global launches
     for name, t, dtype in (("data", data, torch.float32),
-                           ("offsets", offsets, torch.int32)):
+                           ("meta", meta, torch.int32)):
         if not isinstance(t, torch.Tensor) or t.dtype != dtype:
             raise TypeError(f"{name} must be a {dtype} tensor, got "
                             f"{getattr(t, 'dtype', type(t))}")
-        if t.ndim != 2:
-            raise ValueError(f"{name} must be 2-D, got shape "
-                             f"{tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if data.ndim != 2:
+        raise ValueError(f"data must be 2-D, got shape {tuple(data.shape)}")
     nchan, nsamples = data.shape
-    ndm = offsets.shape[0]
-    if offsets.shape[1] != nchan or ndm == 0 or nchan == 0:
-        raise ValueError(f"offsets shape {tuple(offsets.shape)} does not "
-                         f"match data shape {tuple(data.shape)}")
-    if nsamples >= 2 ** 30 or not TIME_TILE <= win < 2 ** 30:
-        raise ValueError(f"nsamples={nsamples}, win={win} out of range")
-    if data.device.type != "cuda" or offsets.device != data.device:
-        raise ValueError(f"data and offsets must be on one CUDA device, got "
-                         f"{data.device} and {offsets.device}")
+    ndm = plan.offsets.shape[0]
+    block = plan.trial_block
+    want = (-(-ndm // block), nchan, block + 2)
+    if tuple(meta.shape) != want or plan.offsets.shape[1] != nchan \
+            or ndm == 0 or nchan == 0:
+        raise ValueError(f"plan rows {tuple(meta.shape)} (offsets "
+                         f"{plan.offsets.shape}) does not match data shape "
+                         f"{tuple(data.shape)}: expected {want}")
+    if block not in TRIAL_BLOCKS:
+        raise ValueError(f"trial block {block} not one of {TRIAL_BLOCKS}")
+    if nsamples >= 2 ** 29 or not plan.time_tile <= plan.win < 2 ** 29:
+        raise ValueError(f"nsamples={nsamples}, win={plan.win} out of range")
+    if data.device.type != "cuda" or meta.device != data.device:
+        raise ValueError(f"data and meta must be on one CUDA device, got "
+                         f"{data.device} and {meta.device}")
     lib = _library()
     out = torch.empty((ndm, nsamples), dtype=torch.float32,
                       device=data.device)
     stream = torch.cuda.current_stream(data.device).cuda_stream
     err = lib.dedisperse_launch(
-        data.data_ptr(), offsets.data_ptr(), out.data_ptr(), nchan, nsamples,
-        ndm, int(store_shift), int(win), int(bool(use_smem)),
-        data.device.index or 0, stream)
+        data.data_ptr(), meta.data_ptr(), out.data_ptr(), nchan, nsamples,
+        ndm, int(plan.store_shift), int(plan.win), int(bool(plan.use_smem)),
+        block, data.device.index or 0, stream)
     if err != 0:
         raise RuntimeError("dedisperse kernel launch failed: "
                            + lib.dedisperse_error_string(err).decode())
@@ -143,18 +207,19 @@ def dedisperse_plane_cuda(data, offsets, store_shift, win, use_smem):
     return out
 
 
-def dedisperse_plane(data, offsets):
+def dedisperse_plane(data, offsets, planned=None):
     """Dedispersed plane ``out[d, t] = sum_c data[c, (t + off[d, c]) % T]``.
 
     ``data`` is a float32 ``(nchan, T)`` tensor; ``offsets`` the host
     ``(ndm, nchan)`` integer table (numpy array or CPU tensor).  A CUDA
     tensor runs the kernel; a CPU tensor runs the plain version.
+    ``planned``, the :func:`device_plan` of these offsets on the data's
+    device, saves planning them again.
     """
     if data.device.type == "cpu":
         return dedisperse_plane_plain(data, offsets)
     if data.device.type != "cuda":
         raise ValueError(f"no dedispersion sweep for device {data.device}")
-    plan = launch_plan(to_numpy(offsets), data.shape[1])
-    off = torch.from_numpy(plan.offsets).to(data.device)
-    return dedisperse_plane_cuda(data, off, plan.store_shift, plan.win,
-                                 plan.use_smem)
+    plan, meta = planned or device_plan(to_numpy(offsets), data.shape[1],
+                                        data.device)
+    return dedisperse_plane_cuda(data, meta, plan)

@@ -16,9 +16,12 @@ Two device paths, both on torch tensors:
   uniform in DM, and the delay is linear in DM): trials run in anchored
   superblocks.  Each superblock's first trial takes its phase from the
   exact integer-limb table; each next trial is one complex multiply by
-  the constant per-channel step ramp.  The rotate-accumulate recurrence
-  is :func:`~.fourier_cuda.fdd_superblock_spectra` — the hand-written
-  kernel on the card, its plain version on the CPU;
+  the constant per-channel step ramp.  Both phasors and the
+  rotate-accumulate recurrence are
+  :func:`~.fourier_cuda.fdd_superblock_spectra`, which takes the
+  spectrum and the limb tables: the hand-written kernel on the card (one
+  launch a superblock, the phasors built in registers), its plain
+  version in channel blocks on the CPU;
 * **arbitrary-grid fallback**: the phase table is built from the limbs
   in bounded ``(dm_block, chan_block, nbin)`` pieces and consumed at
   once, in plain torch.
@@ -26,8 +29,9 @@ Two device paths, both on torch tensors:
 Phases never come from ``f * tau`` in float32 (~0.1 rad off at
 ``T = 2^20``): the host splits each phase slope into 12-bit integer
 limbs (36 bits for anchors, 48 for the accumulated step) and the device
-forms ``k * limb`` in int64 and masks it, which gives the values of the
-JAX package's wrapping int32 products.  The spectrum is ``torch.fft``'s
+forms ``k * limb`` and masks it (int64 in plain torch, wrapping
+unsigned 32-bit in the kernel), which gives the values of the JAX
+package's wrapping int32 products.  The spectrum is ``torch.fft``'s
 (a library FFT, as the JAX package leaves it to XLA), taken in channel
 blocks; every superblock is scored with :func:`~.score_cuda.score_plane`.
 """
@@ -226,28 +230,21 @@ def _uniform_run(data, trial_dms, dm_step, start_freq, bandwidth,
     from .fourier_cuda import fdd_superblock_spectra
 
     nchan, t = data.shape
-    nbin = t // 2 + 1
     dev = data.device
     anchor_limbs, step_limbs, ndm = _uniform_fourier_inputs(
         trial_dms, dm_step, nchan, start_freq, bandwidth, sample_time, t,
         superblock)
     spec = _blocked_rfft(data, chan_block)
-    k = torch.arange(nbin, dtype=torch.int64, device=dev)
-    kf = k.to(torch.float32)
-    anchors = torch.from_numpy(anchor_limbs.astype(np.int64)).to(dev)
-    steps = torch.from_numpy(step_limbs.astype(np.int64)).to(dev)
+    # (nblocks, 3, nchan): each superblock's anchor table contiguous
+    anchors = torch.from_numpy(np.ascontiguousarray(
+        anchor_limbs.transpose(1, 0, 2))).to(dev)
+    steps = torch.from_numpy(np.ascontiguousarray(step_limbs)).to(dev)
     scores, planes = [], []
-    for i in range(anchor_limbs.shape[1]):
+    for i in range(anchors.shape[0]):
         # the last superblock runs only the trials the grid has
         nsb = min(superblock, ndm - i * superblock)
-        acc = torch.zeros((nsb, nbin), dtype=torch.complex64, device=dev)
-        for lo in range(0, nchan, chan_block):
-            hi = min(lo + chan_block, nchan)
-            rot0 = limb_phase(anchors[:, i, lo:hi], k, kf)
-            step = limb_phase(steps[:, lo:hi], k, kf)
-            acc = fdd_superblock_spectra(spec[lo:hi] * rot0, step, nsb,
-                                         acc=acc)
-            del rot0, step
+        acc = fdd_superblock_spectra(spec, anchors[i], steps, nsb,
+                                     chan_block=chan_block)
         series = torch.fft.irfft(acc, n=t, dim=1)
         del acc
         _emit(series, with_scores, keep_plane, scores, planes)

@@ -27,6 +27,7 @@ CPU tensor it runs its plain version.
 
 from __future__ import annotations
 
+import functools
 import logging
 
 import numpy as np
@@ -34,7 +35,7 @@ import torch
 
 from ..utils.device import resolve_device, to_numpy
 from ..utils.table import ResultTable
-from .dedisperse_cuda import dedisperse_plane
+from .dedisperse_cuda import dedisperse_plane, device_plan
 from .plan import dedispersion_plan, offsets_for
 from .rebin import block_sum_time
 
@@ -192,21 +193,37 @@ def unstack_scores(stacked):
 # The exact direct sweep
 # ---------------------------------------------------------------------------
 
-def _search_direct(data, offsets, capture_plane):
-    """Dedisperse in trial superblocks and score each (the one-pass
-    scorer on the card); the scores come back to the host once, at the
-    end."""
+@functools.lru_cache(maxsize=16)
+def _direct_sweep(dms_bytes, nchan, start_freq, bandwidth, sample_time,
+                  nsamples, superblock, device):
+    """The sweep's superblocks for one geometry, made once and kept (the
+    shift table is the same for every chunk of a file): per superblock,
+    its read-only ``(rows, nchan)`` offsets and, off the CPU, their
+    :func:`~.dedisperse_cuda.device_plan` (else None)."""
+    offsets = offsets_for(np.frombuffer(dms_bytes, dtype=np.float64), nchan,
+                          start_freq, bandwidth, sample_time, nsamples)
+    offsets.flags.writeable = False
+    blocks = [offsets[lo:lo + superblock]
+              for lo in range(0, offsets.shape[0], superblock)]
+    return [(b, None if device.type == "cpu"
+             else device_plan(b, nsamples, device)) for b in blocks]
+
+
+def _search_direct(data, superblocks, capture_plane):
+    """Dedisperse ``superblocks`` (:func:`_direct_sweep`'s) and score each
+    (the one-pass scorer on the card); the scores come back to the host
+    once, at the end."""
     from .score_cuda import score_plane
 
-    ndm, nsamples = offsets.shape[0], data.shape[1]
-    if ndm == 0:  # an empty plan (inverted DM range): an empty table
+    nsamples = data.shape[1]
+    if not superblocks:  # an empty plan (inverted DM range): an empty table
         plane = (torch.zeros((0, nsamples), dtype=data.dtype,
                              device=data.device) if capture_plane else None)
         return (*[np.zeros(0, np.float32)] * 3, np.zeros(0, np.int32),
                 np.zeros(0, np.int64), plane)
     scores, planes = [], []
-    for lo in range(0, ndm, SUPERBLOCK):
-        plane = dedisperse_plane(data, offsets[lo:lo + SUPERBLOCK])
+    for rows, planned in superblocks:
+        plane = dedisperse_plane(data, rows, planned)
         scores.append(score_plane(plane))
         if capture_plane:
             planes.append(plane)
@@ -552,10 +569,11 @@ def dedispersion_search(data, dmmin, dmmax, start_freq, bandwidth, sample_time,
         }, meta=cert_meta(certified, rho_out, snr_floor, cert_slack))
         return (table, plane) if capture_plane else table
 
-    offsets = offsets_for(trial_dms, nchan, start_freq, bandwidth,
-                          sample_time, nsamples)
+    superblocks = _direct_sweep(
+        trial_dms.tobytes(), nchan, float(start_freq), float(bandwidth),
+        float(sample_time), nsamples, SUPERBLOCK, data.device)
     (maxvalues, stds, best_snrs, best_windows, best_peaks,
-     plane) = _search_direct(data, offsets, capture_plane)
+     plane) = _search_direct(data, superblocks, capture_plane)
     table = ResultTable({
         "DM": trial_dms,
         "max": maxvalues,

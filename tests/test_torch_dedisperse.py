@@ -1,7 +1,9 @@
 """The direct sweep: the port's plain plane equals the JAX Pallas kernel's
 (both layouts, interpret mode) and ``dedisperse_block_roll_jax``'s with
-max |diff| = 0; the CUDA launch plan's index arithmetic, replayed on the
-host, gives the same plane; the CUDA wrapper's argument checks."""
+max |diff| = 0; the CUDA launch plan (trial block, reuse marks, staged
+windows), replayed on the host, gives the same plane for every compiled
+trial block and both branches; the direct search's per-geometry plan
+cache; the CUDA wrapper's argument checks."""
 import dataclasses
 
 import numpy as np
@@ -16,10 +18,11 @@ from pulsarutils_tpu.ops.plan import dedispersion_plan as jax_plan
 from pulsarutils_tpu.ops.search import _offsets_for as jax_offsets_for
 
 from pulsarutils_tpu_torch.ops import dedisperse_cuda
+from pulsarutils_tpu_torch.ops import search as tsearch
 from pulsarutils_tpu_torch.ops.dedisperse import dedisperse_plane_plain
 from pulsarutils_tpu_torch.ops.dedisperse_cuda import (
-    CHAN_BLOCK, TIME_TILE, TRIAL_BLOCK, dedisperse_plane,
-    dedisperse_plane_cuda, launch_plan)
+    TRIAL_BLOCKS, choose_trial_block, dedisperse_plane, dedisperse_plane_cuda,
+    launch_plan)
 from pulsarutils_tpu_torch.ops.plan import dedispersion_plan, offsets_for
 from pulsarutils_tpu_torch.utils import nvcc
 
@@ -46,6 +49,24 @@ def _case(name):
     elif name == "random_offsets":
         nchan, t = 19, 2500
         off = rng.integers(0, t, (37, nchan)).astype(np.int32)
+    elif name == "rescore_rows_any_order":
+        # the hybrid's rescore: plan rows in any order, repeated, and
+        # padded by repeating the last row up to the bucket
+        nchan, t = 32, 3000
+        dms = dedispersion_plan(nchan, 300, 635, 1200.0, 200.0, 5e-4)
+        rows = [17, 3, 29, 3, 40, 41, 2, 2, 2, 2, 2]
+        off = offsets_for(dms[rows], nchan, 1200.0, 200.0, 5e-4, t)
+    elif name == "rescore_bucket_32_any_order":
+        # the hybrid's largest bucket: 32 rows, shuffled, with repeats
+        nchan, t = 32, 3000
+        dms = dedispersion_plan(nchan, 300, 635, 1200.0, 200.0, 5e-4)
+        rows = rng.permutation(np.r_[rng.integers(0, len(dms), 24), [7] * 8])
+        off = offsets_for(dms[rows], nchan, 1200.0, 200.0, 5e-4, t)
+    elif name == "two_trial_tail":
+        # the last two trials of a plan, alone in their launch
+        nchan, t = 48, 2048
+        dms = dedispersion_plan(nchan, 300, 635, 1200.0, 200.0, 5e-4)[-2:]
+        off = offsets_for(dms, nchan, 1200.0, 200.0, 5e-4, t)
     else:
         raise KeyError(name)
     data = rng.normal(0, 1, (nchan, t)).astype(np.float32)
@@ -53,7 +74,8 @@ def _case(name):
 
 
 CASES = ["plan_300_635", "one_trial", "low_freq_large_delay",
-         "random_offsets"]
+         "random_offsets", "rescore_rows_any_order",
+         "rescore_bucket_32_any_order", "two_trial_tail"]
 
 
 def _plain(data, off):
@@ -105,33 +127,45 @@ def test_dedisperse_plane_runs_plain_on_cpu():
 
 
 def _replay_kernel(x, plan):
-    """The kernel's loops, on the host: per block of trials and time tile,
-    channels ascending, windows staged from the per-channel minimum
-    offset (shared-memory branch) or read with circular indexing (global
-    branch), float32 accumulation from zero, stores at ``u + shift``."""
+    """The kernel's loops, on the host, from the plan rows it reads: per
+    block of trials and time tile, channels ascending; the window staged
+    from the channel's least offset in two pieces split at ``T``
+    (shared-memory branch) or the input read with circular indexing
+    (global branch); each trial's values loaded only at a marked trial
+    and reused from the last marked one otherwise; float32 accumulation
+    from zero; stores at ``u + shift``."""
     nchan, t = x.shape
-    off = plan.offsets.astype(np.int64)
-    ndm = off.shape[0]
+    block, tile = plan.trial_block, plan.time_tile
+    ndm = plan.offsets.shape[0]
     out = np.full((ndm, t), np.nan, np.float32)
-    lane = np.arange(TIME_TILE)
-    for d0 in range(0, ndm, TRIAL_BLOCK):
-        blk = off[d0:d0 + TRIAL_BLOCK]
-        for u0 in range(0, t, TIME_TILE):
+    lane = np.arange(tile)
+    trials = np.arange(block)
+    for b, rows in enumerate(plan.meta.astype(np.int64)):
+        nd = min(block, ndm - b * block)
+        for u0 in range(0, t, tile):
             u = u0 + lane
-            acc = np.zeros((blk.shape[0], TIME_TILE), np.float32)
+            acc = np.zeros((block, tile), np.float32)
             for c in range(nchan):
-                r = blk[:, c]
+                base, mask = rows[c, :2]
+                rel = rows[c, 2:]
+                marked = ((mask & 0xFFFFFFFF) >> trials) & 1 == 1
+                assert marked[0]
+                # the trial whose load each trial's registers hold
+                src = np.maximum.accumulate(np.where(marked, trials, 0))
+                r = rel[src]
                 if plan.use_smem:
-                    base = r.min()
-                    window = x[c, (u0 + base + np.arange(plan.win)) % t]
-                    rel = r - base
-                    assert rel.max() + TIME_TILE <= plan.win
-                    acc += window[rel[:, None] + lane[None, :]]
+                    start = (u0 + base) % t
+                    n1 = min(plan.win, t - start)
+                    rest = np.arange(plan.win - n1) % t
+                    window = np.concatenate([x[c, start:start + n1],
+                                             x[c, rest]])
+                    assert r.max() + tile <= plan.win
+                    acc += window[r[:, None] + lane[None, :]]
                 else:
-                    acc += x[c, (u[None, :] + r[:, None]) % t]
+                    acc += x[c, (u[None, :] + base + r[:, None]) % t]
             keep = u < t
-            out[d0:d0 + blk.shape[0], (u[keep] + plan.store_shift) % t] = \
-                acc[:, keep]
+            out[b * block:b * block + nd,
+                (u[keep] + plan.store_shift) % t] = acc[:nd][:, keep]
     return out
 
 
@@ -141,10 +175,23 @@ def test_launch_plan_replay_equals_plain(name, branch):
     data, off = _case(name)
     plan = launch_plan(off, data.shape[1])
     assert plan.offsets.min() >= 0 and plan.offsets.max() < data.shape[1]
-    assert plan.win == TIME_TILE + plan.spread
+    assert plan.win == plan.time_tile + plan.spread
     plan = dataclasses.replace(plan, use_smem=branch == "smem")
     assert np.max(np.abs(_replay_kernel(data, plan)
                          - _plain(data, off))) == 0.0
+
+
+@pytest.mark.parametrize("branch", ["smem", "global"])
+@pytest.mark.parametrize("block", TRIAL_BLOCKS)
+@pytest.mark.parametrize("name", CASES)
+def test_replay_each_trial_block_equals_plain(name, block, branch):
+    data, off = _case(name)
+    plan = launch_plan(off, data.shape[1], trial_block=block)
+    assert plan.trial_block == block
+    assert plan.meta.shape == (-(-off.shape[0] // block), off.shape[1],
+                               block + 2)
+    plan = dataclasses.replace(plan, use_smem=branch == "smem")
+    assert np.array_equal(_replay_kernel(data, plan), _plain(data, off))
 
 
 def test_launch_plan_spread_and_branch():
@@ -155,11 +202,72 @@ def test_launch_plan_spread_and_branch():
     dms = dedispersion_plan(1024, 300, 635, 1200.0, 200.0, 5e-4)
     head = launch_plan(offsets_for(dms, 1024, 1200.0, 200.0, 5e-4, 1 << 20),
                        1 << 20)
-    assert head.spread <= TRIAL_BLOCK + 1 and head.use_smem
+    assert head.spread <= head.trial_block + 1 and head.use_smem
+    # most neighbouring trials share a channel's offset: loads per add
+    # well below one
+    assert head.distinct_share < 0.6
     rng = np.random.default_rng(0)
     wide = launch_plan(rng.integers(0, 1 << 16, (64, 32)), 1 << 16)
     assert not wide.use_smem
-    assert CHAN_BLOCK * wide.win * 4 > dedisperse_cuda.SMEM_BUDGET
+    assert 4 * 3 * wide.chan_block * wide.win > dedisperse_cuda.SMEM_BUDGET
+
+
+@pytest.mark.parametrize("ndm, block", [(1, 8), (2, 8), (8, 8), (9, 16),
+                                        (16, 16), (32, 16), (33, 16),
+                                        (64, 16), (512, 16)])
+def test_plan_chooses_the_covering_trial_block(ndm, block):
+    # 8 trials a block covers a launch of up to 8; wider launches run in
+    # 16-trial blocks
+    assert choose_trial_block(ndm) == block
+    plan = launch_plan(np.zeros((ndm, 5), np.int32), 4096)
+    assert plan.trial_block == block
+    assert plan.meta.shape == (-(-ndm // block), 5, block + 2)
+
+
+def test_plan_marks_only_changed_offsets():
+    off = np.array([[0, 5], [0, 6], [1, 6], [1, 5], [3, 5]], np.int32)
+    plan = launch_plan(off, 100, trial_block=8)
+    rows = plan.meta[0]
+    assert list(rows[:, 0]) == [0, 5]                  # least offsets
+    assert list(rows[0, 2:]) == [0, 0, 1, 1, 3, 3, 3, 3]   # padded
+    assert list(rows[1, 2:]) == [0, 1, 1, 0, 0, 0, 0, 0]
+    assert rows[0, 1] == 0b10101 and rows[1, 1] == 0b1011
+    assert plan.distinct_share == 6 / 10
+    # a 16-trial block: every trial of channel 0 changes, none of channel 1
+    off16 = np.arange(16, dtype=np.int32)[:, None].repeat(2, axis=1)
+    off16[:, 1] = 7
+    rows = launch_plan(off16, 1000, trial_block=16).meta[0]
+    assert rows[0, 1] == 0xFFFF and rows[1, 1] == 1
+
+
+def test_plan_cache_keys_on_content_t_and_device():
+    # the direct search plans each superblock once per geometry and device
+    # (the trial grid's content, T, the superblock size): a repeat hands
+    # back the same plans and rows; a changed grid or T plans anew
+    dms = dedispersion_plan(32, 300, 635, 1200.0, 200.0, 5e-4)[:40]
+    geom = (32, 1200.0, 200.0, 5e-4)
+    meta = torch.device("meta")
+
+    def sweep(grid=dms, t=3000, superblock=16, device=meta):
+        return tsearch._direct_sweep(grid.tobytes(), *geom, t, superblock,
+                                     device)
+
+    first = sweep()
+    assert [rows.shape[0] for rows, _ in first] == [16, 16, 8]
+    for rows, (plan, rows_on_device) in first:
+        assert not rows.flags.writeable
+        assert np.array_equal(plan.meta, launch_plan(rows, 3000).meta)
+        assert rows_on_device.device == meta
+        assert tuple(rows_on_device.shape) == plan.meta.shape
+    assert np.array_equal(np.concatenate([r for r, _ in first]),
+                          offsets_for(dms, *geom, 3000))
+    again = sweep(grid=dms.copy())
+    assert all(a[1] is f[1] for a, f in zip(again, first))
+    changed = dms.copy()
+    changed[3] += 0.5
+    assert sweep(grid=changed)[0][1] is not first[0][1]
+    assert sweep(t=3001)[0][1] is not first[0][1]
+    assert [p for _, p in sweep(device=torch.device("cpu"))] == [None] * 3
 
 
 @pytest.fixture
@@ -170,25 +278,28 @@ def no_build(monkeypatch):
     monkeypatch.setattr(nvcc, "load", refuse)
 
 
+def _meta(nchan=4, dtype=torch.int32):
+    return torch.zeros((1, nchan, 8 + 2), dtype=dtype)
+
+
+#: a plan for 3 trials over 4 channels and 64 samples
+_PLAN = launch_plan(np.zeros((3, 4), np.int32), 64)
+
+
 @pytest.mark.parametrize("data, off, exc, match", [
-    (torch.zeros(4, 64), torch.zeros(3, 4, dtype=torch.int32),
-     ValueError, "CUDA device"),
-    (torch.zeros(4, 64, dtype=torch.float64),
-     torch.zeros(3, 4, dtype=torch.int32), TypeError, "float32"),
-    (torch.zeros(64, 4).t(), torch.zeros(3, 4, dtype=torch.int32),
-     ValueError, "contiguous"),
-    (torch.zeros(4, 64), torch.zeros(3, 4, dtype=torch.int64),
-     TypeError, "int32"),
-    (torch.zeros(4, 64), torch.zeros(3, 5, dtype=torch.int32),
-     ValueError, "does not match"),
-    (torch.zeros(64), torch.zeros(3, 4, dtype=torch.int32),
-     ValueError, "2-D"),
+    (torch.zeros(4, 64), _meta(), ValueError, "CUDA device"),
+    (torch.zeros(4, 64, dtype=torch.float64), _meta(), TypeError,
+     "float32"),
+    (torch.zeros(64, 4).t(), _meta(), ValueError, "contiguous"),
+    (torch.zeros(4, 64), _meta(dtype=torch.int64), TypeError, "int32"),
+    (torch.zeros(4, 64), _meta(nchan=5), ValueError, "does not match"),
+    (torch.zeros(64), _meta(), ValueError, "2-D"),
 ])
 def test_wrapper_rejects_bad_arguments_without_building(no_build, data, off,
                                                         exc, match):
     before = dedisperse_cuda.launches
     with pytest.raises(exc, match=match):
-        dedisperse_plane_cuda(data, off, 0, TIME_TILE, True)
+        dedisperse_plane_cuda(data, off, _PLAN)
     assert dedisperse_cuda.launches == before
 
 

@@ -1,8 +1,9 @@
 """The port's Fourier-domain dedispersion against the JAX package's: the
-host limb tables, the rotate-accumulate recurrence (B5's plain version)
-against the Pallas kernel in interpret mode, the planes against the
-float64 oracle, and ``kernel="fourier"`` through the search façade, the
-driver and the CLI."""
+host limb tables, the rotate-accumulate recurrence against the Pallas
+kernel in interpret mode, B5's fused plain version (spectrum + limbs)
+against the composition it replaces, the planes against the float64
+oracle, and ``kernel="fourier"`` through the search façade, the chunk pipeline
+and the CLI."""
 import warnings
 
 import numpy as np
@@ -20,6 +21,7 @@ from pulsarutils_tpu_torch.ops import fourier as tf
 from pulsarutils_tpu_torch.ops import fourier_cuda
 from pulsarutils_tpu_torch.ops.search import dedispersion_search
 from pulsarutils_tpu_torch.models.simulate import simulate_test_data
+from pulsarutils_tpu_torch.utils import nvcc
 
 torch.set_num_threads(1)
 
@@ -78,7 +80,7 @@ def test_plain_rotate_accumulate_matches_pallas_kernel(nchan, nbin, nsb):
         .astype(np.complex64)
     ref = np.asarray(jax_fdd_superblock_spectra(
         jnp.asarray(u), jnp.asarray(step), nsb, interpret=True))
-    got = fourier_cuda.fdd_superblock_spectra(
+    got = fourier_cuda.fdd_superblock_spectra_plain(
         torch.from_numpy(u), torch.from_numpy(step), nsb).numpy()
     np.testing.assert_allclose(got, ref, **KERNEL_TOL)
     # and the naive geometric sum in float64
@@ -88,20 +90,112 @@ def test_plain_rotate_accumulate_matches_pallas_kernel(nchan, nbin, nsb):
     np.testing.assert_allclose(got, naive, rtol=1e-4, atol=1e-4)
     # with an accumulator: acc + sum, in place
     acc = torch.full((nsb, nbin), 1 + 2j, dtype=torch.complex64)
-    out = fourier_cuda.fdd_superblock_spectra(
+    out = fourier_cuda.fdd_superblock_spectra_plain(
         torch.from_numpy(u), torch.from_numpy(step), nsb, acc=acc)
     assert out is acc
     np.testing.assert_allclose(out.numpy(), got + (1 + 2j), **KERNEL_TOL)
 
 
-def test_kernel_wrapper_refuses_bad_inputs():
-    u = torch.zeros((4, 10), dtype=torch.complex64)
+def _fused_inputs(nchan, nbin, seed=0):
+    rng = np.random.default_rng(seed)
+    spec = torch.from_numpy((rng.normal(size=(nchan, nbin))
+                             + 1j * rng.normal(size=(nchan, nbin)))
+                            .astype(np.complex64))
+    anchor = torch.from_numpy(rng.integers(0, 1 << 12, (3, nchan))
+                              .astype(np.int32))
+    step = torch.from_numpy(rng.integers(0, 1 << 12, (4, nchan))
+                            .astype(np.int32))
+    return spec, anchor, step
+
+
+@pytest.fixture
+def no_build(monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("the wrapper built or loaded the library")
+    monkeypatch.setattr(nvcc, "build", refuse)
+    monkeypatch.setattr(nvcc, "load", refuse)
+
+
+def test_kernel_wrapper_refuses_bad_inputs(no_build):
+    spec, anchor, step = _fused_inputs(4, 10)
     with pytest.raises(TypeError):
-        fourier_cuda.fdd_superblock_spectra_cuda(u.real.contiguous(), u, 8)
+        fourier_cuda.fdd_superblock_spectra_cuda(spec.real.contiguous(),
+                                                 anchor, step, 8)
     with pytest.raises(ValueError, match="CUDA"):
-        fourier_cuda.fdd_superblock_spectra_cuda(u, u, 8)
-    with pytest.raises(ValueError, match="bins"):
-        fourier_cuda.fdd_superblock_spectra_cuda(u, u[:, :5].contiguous(), 8)
+        fourier_cuda.fdd_superblock_spectra_cuda(spec, anchor, step, 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        fourier_cuda.fdd_superblock_spectra_cuda(spec.t(), anchor, step, 8)
+    with pytest.raises(ValueError, match="out of range"):
+        fourier_cuda.fdd_superblock_spectra_cuda(spec, anchor, step, 0)
+
+
+@pytest.mark.parametrize("which, table, exc, match", [
+    ("anchor", lambda a: a.to(torch.int64), TypeError, "int32"),
+    ("anchor", lambda a: a[:2].contiguous(), ValueError, r"\(3, 4\)"),
+    ("anchor", lambda a: a[:, :3].contiguous(), ValueError, "limb table"),
+    ("anchor", lambda a: a.t().contiguous().t(), ValueError, "contiguous"),
+    ("anchor", lambda a: a.to("meta"), ValueError, "is on meta"),
+    ("step", lambda a: a.to(torch.float32), TypeError, "int32"),
+    ("step", lambda a: a[:3].contiguous(), ValueError, r"\(4, 4\)"),
+    ("step", lambda a: a.to("meta"), ValueError, "is on meta"),
+])
+def test_wrapper_refuses_bad_limb_tables_without_building(
+        no_build, which, table, exc, match):
+    # the limb tables are checked before the spectrum's device
+    spec, anchor, step = _fused_inputs(4, 10)
+    tables = dict(anchor=anchor, step=step)
+    tables[which] = table(tables[which])
+    before = fourier_cuda.launches
+    with pytest.raises(exc, match=match):
+        fourier_cuda.fdd_superblock_spectra_cuda(spec, tables["anchor"],
+                                                 tables["step"], 8)
+    assert fourier_cuda.launches == before
+
+
+@pytest.mark.parametrize("nchan, nbin, nsb, chan_block", [
+    (5, 300, 16, 128), (12, 1025, 8, 4), (3, 64, 40, 2), (130, 257, 64, 128),
+])
+def test_fused_plain_equals_the_composition_bit_for_bit(nchan, nbin, nsb,
+                                                        chan_block):
+    spec, anchor, step = _fused_inputs(nchan, nbin, seed=nchan + nbin)
+    got = fourier_cuda.fdd_superblock_spectra(spec, anchor, step, nsb,
+                                              chan_block=chan_block)
+    # the composition the fused kernel replaces: phasors from the limbs
+    # in int64, u = spec * rot0, the recurrence added per channel block
+    k = torch.arange(nbin, dtype=torch.int64)
+    kf = k.to(torch.float32)
+    want = torch.zeros((nsb, nbin), dtype=torch.complex64)
+    for lo in range(0, nchan, chan_block):
+        hi = min(lo + chan_block, nchan)
+        rot0 = tf.limb_phase(anchor[:, lo:hi].to(torch.int64), k, kf)
+        ramp = tf.limb_phase(step[:, lo:hi].to(torch.int64), k, kf)
+        want = fourier_cuda.fdd_superblock_spectra_plain(
+            spec[lo:hi] * rot0, ramp, nsb, acc=want)
+    assert torch.equal(got, want)
+    # against the float64 geometric sum of the same phases
+    a = anchor.numpy().astype(np.float64)
+    b = step.numpy().astype(np.float64)
+    f = np.arange(nbin, dtype=np.float64)
+    pa = (a[0][:, None] * 2.0 ** -12 + a[1][:, None] * 2.0 ** -24
+          + a[2][:, None] * 2.0 ** -36) * f
+    pb = (b[0][:, None] * 2.0 ** -12 + b[1][:, None] * 2.0 ** -24
+          + b[2][:, None] * 2.0 ** -36 + b[3][:, None] * 2.0 ** -48) * f
+    n = np.arange(nsb)[:, None, None]
+    naive = (spec.numpy().astype(np.complex128)[None]
+             * np.exp(2j * np.pi * (pa[None] + n * pb[None]))).sum(axis=1)
+    scale = np.abs(naive).max()
+    assert np.abs(got.numpy() - naive).max() <= 1e-4 * scale
+
+
+def test_fused_wrapper_runs_plain_on_cpu_without_launching(no_build):
+    spec, anchor, step = _fused_inputs(6, 33)
+    before = fourier_cuda.launches
+    out = fourier_cuda.fdd_superblock_spectra(spec, anchor, step, 5)
+    assert out.shape == (5, 33) and out.dtype == torch.complex64
+    assert fourier_cuda.launches == before
+    with pytest.raises(ValueError, match="no FDD kernel"):
+        fourier_cuda.fdd_superblock_spectra(spec.to("meta"), anchor, step,
+                                            5)
 
 
 @pytest.mark.parametrize("nchan, t, dms, dm_block, chan_block", [

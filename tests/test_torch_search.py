@@ -311,3 +311,32 @@ def test_hybrid_rescore_scores_through_the_one_pass_scorer(monkeypatch):
     rows = np.flatnonzero(table["exact"])
     for name in ("max", "std", "snr", "rebin", "peak"):
         np.testing.assert_array_equal(table[name][rows], exact[name][rows])
+
+
+def test_direct_sweep_offsets_are_computed_once_per_geometry():
+    # the float64 shift table is built once per (trial grid, geometry, T)
+    # and handed out read-only; a new T or grid builds a new one
+    from pulsarutils_tpu_torch.ops import search as tsearch
+    from pulsarutils_tpu_torch.ops.plan import dedispersion_plan, offsets_for
+
+    array, header = simulate_test_data(150.0, nsamples=2048, nchan=32,
+                                       signal=2.0, noise=0.3, rng=5)
+    args = (100.0, 200.0, header["fbottom"], header["bandwidth"],
+            header["tsamp"])
+    tsearch._direct_sweep.cache_clear()
+    first = dedispersion_search(array, *args, device="cpu")
+    again = dedispersion_search(array, *args, device="cpu")
+    info = tsearch._direct_sweep.cache_info()
+    assert (info.misses, info.hits) == (1, 1)
+    for name in ("DM", "max", "std", "snr", "rebin", "peak"):
+        np.testing.assert_array_equal(first[name], again[name])
+    dms = dedispersion_plan(32, *args)
+    cached = tsearch._direct_sweep(dms.tobytes(), 32, *map(float, args[2:]),
+                                   2048, tsearch.SUPERBLOCK,
+                                   torch.device("cpu"))
+    assert all(not rows.flags.writeable and planned is None
+               for rows, planned in cached)
+    np.testing.assert_array_equal(np.concatenate([r for r, _ in cached]),
+                                  offsets_for(dms, 32, *args[2:], 2048))
+    dedispersion_search(array[:, :1024], *args, device="cpu")
+    assert tsearch._direct_sweep.cache_info().misses == 2

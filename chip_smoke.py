@@ -25,8 +25,10 @@ Phases, one JSON line each:
      B2b: the last two levels fused), pass by pass through the headline
      transform (1024 x 2^20, the 512-trial DM 300+ grid of the JAX
      package's benchmark) and on edge cases (nchan 1000, T = 300007,
-     T = 150, a pruned range), max |diff| == 0; B3 also against B2a over
-     its seven levels;
+     T = 150, a pruned range, a group of zero channels with blocks that
+     own no rows, a wide range) and through the end-to-end hybrid's
+     1024 x 2^18 chunk, max |diff| == 0; B3 also against B2a over its
+     seven levels;
    - the one-pass scorer (B4) on the headline coarse plane and on edge
      cases (odd T, rows not a multiple of 8, a DC offset of 1e4):
      windows and peaks equal, floats within rtol 2e-4, atol 1e-5;
@@ -39,10 +41,17 @@ Phases, one JSON line each:
      whole 514-trial sweep of ``dedispersion_search(kernel="fourier")``
      (one B5 launch a superblock), kernels timed apart;
    - the harmonic scorer (B6) on edge cases (rows not a multiple of 8,
-     even and odd median lengths, an all-zero row, a half-zero row, a
-     band, an empty band, 1 and 4 harmonics) and on the power of a
-     512 x 2^20 plane: peak bins and values equal to plain's, the
-     false-alarm chain within rtol 1e-5 with depths and bins exact;
+     even and odd median lengths, an all-zero row, a half-zero row, zero
+     tails that cross a slice boundary, the two middle values in the
+     first and the last slice, a lower middle value that ends its run,
+     rows long enough for the global branch alone, a band, an empty
+     band, 1 and 4 harmonics), each through the branch the wrapper picks
+     and through every branch that holds its rows (the global one and
+     every cluster size), then the same, each branch timed, at the main
+     paths' shapes (512 and 2 x 131,073 bins of ``period_search``, 514 x
+     327,681 of a ``PUperiod`` trial) and on the power of a 512 x 2^20
+     plane: peak bins and values equal to plain's, the false-alarm chain
+     within rtol 1e-5 with depths and bins exact;
 4. hybrid headline: the JAX package's benchmark data (1024 x 2^20,
    |N(0,1)| / 2, an impulse at T/2 dispersed at DM 350) searched by
    ``dedispersion_search(kernel="hybrid")`` and by the full exact sweep;
@@ -51,7 +60,12 @@ Phases, one JSON line each:
    direct sweep through its entry points, phase by phase (B1 through
    its wrapper at the superblocks, the rescore buckets and the tail; the
    exact search's first call and its repeats split into B1, B4 and the
-   rest);
+   rest); then B6 and B3 at the main paths' shapes, phase by phase (B6
+   at 512 and 2 x 131,073 bins of ``period_search``, 514 x 327,681 of
+   the ``PUperiod`` job and 512 x 524,289, the whole stack against one
+   harmonic; B3 at 1024 x 2^20 and 1024 x 2^18, the launch against one
+   that stages its input and passes its barriers only, and against the
+   first four levels alone and the last three alone);
 5. end to end: a simulated 1024-channel 8-bit filterbank with a dispersed
    pulse, searched by the port's ``search_by_chunks`` on the card in
    2^18-sample chunks with the direct sweep, then with the hybrid (at
@@ -72,8 +86,8 @@ Any failed check exits non-zero before the last line.  Without a CUDA
 device, or without the package beside this script, it exits non-zero
 and prints no result.  ``--quick`` stops after the kernel checks at small
 shapes (a first run of a new kernel).  ``--breakdown`` runs only the
-build and the direct sweep's breakdown, which needs nothing that earlier
-versions of the package lack: a copy of this script beside another
+build and the breakdowns of the direct sweep, B6 and B3, which call
+only the wrappers' entry points: a copy of this script beside another
 checkout times that checkout the same way.  Neither prints the last
 line.
 """
@@ -395,8 +409,12 @@ def _fdmt_case(torch, name, data, max_delay, min_delay, *, f0=START_FREQ,
             extra = {"levels": len(step.iterations), "tile": params[4],
                      "tiles_per_group": params[3], "groups": step.n_groups,
                      "halo": step.halo, "buffer_rows": list(step.buf_rows),
-                     "smem_bytes_per_block":
-                         4 * sum(step.buf_rows) * params[5]}
+                     "smem_bytes_per_block": step.smem_bytes(params[4]),
+                     "remote_levels": [lev for lev, r in
+                                       enumerate(step.remote) if r],
+                     "cluster_barriers": bin(step.barriers).count("1") + 1,
+                     "blocks_without_rows": int(
+                         (step.block_counts == 0).sum())}
         elif kind == "merge":
             table = torch.from_numpy(fc.merge_table(step, nsamples))
             rows_out = table.shape[1]
@@ -511,6 +529,11 @@ def phase_fdmt(torch, np, seed, quick, head_data):
         # T shorter than the head's window: it wraps T twice
         ("t_150", data(1024, 150), rows(1024, DMMIN, DMMAX), {},
          head_first),
+        # a group of zero channels only, blocks that own no row of the
+        # wide sub-bands' levels, a partial last tile
+        ("zero_group_384", data(384, 65521), (300, 250), {}, None),
+        # a wide range: a block owns no row of the last head level
+        ("wide_range_1000", data(1000, 1 << 15), (400, 0), {}, None),
         # a narrow pruned range: min_delay > 0, few rows per level
         ("pruned_narrow", data(256, 1 << 16), rows(256, 500.0, 505.0), {},
          None),
@@ -544,8 +567,16 @@ def phase_fdmt(torch, np, seed, quick, head_data):
           and head[0]["max_shift_high"] > 0,
           f"headline transform: rows {n_lo}..{n_hi}, passes "
           f"{[r['kernel'] for r in head]}")
+    # the end-to-end hybrid's chunk, made on the card
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    chunk = torch.randn((NCHAN, E2E_CHUNK), generator=gen, device="cuda")
+    e2e, e2e_plane = _fdmt_case(torch, "e2e_hybrid_chunk", chunk,
+                                *rows(NCHAN, DMMIN, DMMAX))
+    check([r["kernel"] for r in e2e] == head_first,
+          f"e2e hybrid chunk: passes {[r['kernel'] for r in e2e]}")
+    del chunk, e2e_plane
     torch.cuda.empty_cache()
-    return head, records, plane
+    return head, records + e2e, plane
 
 
 def _score_case(torch, np, name, plane, *, with_cert=True, timed=True):
@@ -873,6 +904,24 @@ def _harmonic_case(torch, np, name, power, nsamples, *, max_harmonics=16,
     val_diff = float((vals - pvals).abs().max())
     check(bool(torch.isfinite(vals).all()) and val_diff == 0.0,
           f"{name}: peak values differ from plain by {val_diff}")
+    # every branch that holds the row, each bit for bit
+    auto = hc.choose_cluster(nbins, rows, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    branches = [1] + [c for c in hc.CLUSTER_SIZES
+                      if hc.cluster_fits(nbins, c)]
+    branch_ms = {}
+    for cluster in branches:
+        def branch(cluster=cluster):
+            return hc.harmonic_peaks_cuda(power, depths, lo, hi,
+                                          cluster=cluster)
+        bv, bb = branch()
+        torch.cuda.synchronize()
+        check(torch.equal(bb, pbins) and torch.equal(bv, pvals),
+              f"{name}: the {cluster}-block branch differs from plain "
+              f"(bins in {int((bb != pbins).sum())} cells, values by "
+              f"{float((bv - pvals).abs().max())})")
+        if timed:
+            branch_ms[cluster], _ = time_ms(torch, branch)
     got = hc.score_power(power, nsamples, TSAMP, max_harmonics=max_harmonics,
                          fmin=fmin, fmax=fmax)
     want = score_normalized_power(normalize_power(power), nsamples, TSAMP,
@@ -895,6 +944,7 @@ def _harmonic_case(torch, np, name, power, nsamples, *, max_harmonics=16,
     record = {"case": name, "rows": rows, "nbins": nbins,
               "nsamples": nsamples, "depths": list(depths), "band": [lo, hi],
               "peak_bins_equal": True, "max_abs_diff": val_diff,
+              "cluster": auto, "branches_equal": branches,
               "tolerance": "peak bins and values equal; chain rtol "
                            f"{HARMONIC_RTOL}",
               "bound_ms": bound, "bound_by": bound_by}
@@ -906,14 +956,38 @@ def _harmonic_case(torch, np, name, power, nsamples, *, max_harmonics=16,
             return harmonic_peaks_plain(normalize_power(power), depths, lo,
                                         hi)
         record["kernel_ms"], record["kernel_runs_ms"] = time_ms(torch, kernel)
+        record["branch_ms"] = branch_ms
         record["plain_ms"], record["plain_runs_ms"] = time_ms(torch, plain)
         record["bound_share"] = bound / record["kernel_ms"]
     emit("kernel_check", kernel="B6 harmonic", **record)
     return record
 
 
+def _device_power(torch, gen, rows, t):
+    """Raw power spectra of ``rows`` white-noise series of ``t`` samples,
+    made on the card from ``gen`` (the rFFT in slabs of 64 rows)."""
+    from pulsarutils_tpu_torch.ops.periodicity import power_spectrum
+
+    power = torch.empty((rows, t // 2 + 1), device="cuda")
+    for lo in range(0, rows, 64):
+        hi = min(rows, lo + 64)
+        power[lo:hi] = power_spectrum(torch.randn(
+            (hi - lo, t), generator=gen, device="cuda"))
+    return power
+
+
+#: the shapes B6 runs at on its main paths: (rows, samples a series):
+#: ``period_search``'s 512-row launch and its 2-row tail a chunk, and a
+#: ``PUperiod`` acceleration trial
+HARMONIC_MAIN_SHAPES = {"period_search_512": (512, E2E_CHUNK),
+                        "period_search_tail_2": (2, E2E_CHUNK),
+                        "puperiod_514": (514, E2E_NSAMPLES)}
+
+
 def phase_harmonic(torch, np, seed, quick):
-    """B6 on edge cases, then on the power of a 512 x 2^20 plane."""
+    """B6 on edge cases, then at the main paths' shapes and on the power
+    of a 512 x 2^20 plane; returns the headline record, the edge cases'
+    and the main shapes' (by label)."""
     from pulsarutils_tpu_torch.ops.periodicity import power_spectrum
 
     rng = np.random.default_rng(seed + 4)
@@ -931,9 +1005,43 @@ def phase_harmonic(torch, np, seed, quick):
             p[zero_tail, p.shape[1] // 2:] = 0.0  # many equal values
         return p
 
+    from pulsarutils_tpu_torch.ops import harmonic_cuda as hc
+
+    def straddling(rows, t):
+        # zero tails from 5 bins before the start of a chunk of 32 bins,
+        # a different chunk a row, over the chunks of every block
+        p = power_of(rows, t)
+        for r in range(rows):
+            p[r, 32 * (37 * r + 101) - 5:] = 0.0
+        return p
+
+    def middles_apart(t):
+        # an even-length median whose two middle values lie in block 0's
+        # first chunk and in a chunk of the last block (bin nbins - 2, in
+        # chunk 2^k - 1), and one whose lower middle value ends a run
+        nbins = t // 2 + 1
+        half = nbins // 2
+        p = np.zeros((2, nbins), np.float32)
+        p[0, 1], p[0, nbins - 2] = 100.0, 101.0
+        p[0, 2:half + 1] = np.linspace(1.0, 99.0, half - 1)
+        p[0, half + 1:nbins - 2] = np.linspace(102.0, 199.0,
+                                               nbins - half - 3)
+        p[0, nbins - 1] = 200.0
+        p[1, 1:half + 1] = 3.0
+        p[1, half + 1:] = 5.0 + np.arange(nbins - half - 1,
+                                          dtype=np.float32)
+        return torch.from_numpy(p).cuda()
+
     records = [
         _harmonic_case(torch, np, "rows_13_even_median", power_of(
             13, 4096, zero_row=4, zero_tail=6), 4096),
+        _harmonic_case(torch, np, "zero_tail_across_slices",
+                       straddling(6, 1 << 16), 1 << 16),
+        _harmonic_case(torch, np, "middle_values_in_two_slices",
+                       middles_apart(1 << 16), 1 << 16),
+        # rows longer than 16 blocks hold: the global branch on its own
+        _harmonic_case(torch, np, "global_branch_2^21", power_of(
+            3, 1 << 21, zero_tail=1), 1 << 21),
         _harmonic_case(torch, np, "odd_T_4095_odd_median", power_of(
             13, 4095, zero_tail=1), 4095),
         _harmonic_case(torch, np, "band_fmin_fmax", power_of(8, 8192),
@@ -946,13 +1054,28 @@ def phase_harmonic(torch, np, seed, quick):
         _harmonic_case(torch, np, "max_harmonics_4", power_of(9, 4096),
                        4096, max_harmonics=4),
     ]
+    checked = set().union(*(r["branches_equal"] for r in records))
+    check(checked == {1, *hc.CLUSTER_SIZES}, f"B6 branches checked: "
+          f"{sorted(checked)}")
+    check([r["cluster"] for r in records if r["case"] ==
+           "global_branch_2^21"] == [1], "the 2^21 rows did not take the "
+          "global branch")
     if quick:
         torch.cuda.empty_cache()
-        return None, records
+        return None, records, {}
+    # every branch that holds the row, bit for bit, at the main paths'
+    # shapes (the automatic choice included)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 5)
+    main = {}
+    for label, (rows, t) in HARMONIC_MAIN_SHAPES.items():
+        main[label] = _harmonic_case(torch, np, label,
+                                     _device_power(torch, gen, rows, t), t,
+                                     timed=True)
+        torch.cuda.empty_cache()
     head = _harmonic_case(torch, np, "headline_512x2^20",
                           power_of(512, NSAMPLES), NSAMPLES, timed=True)
     torch.cuda.empty_cache()
-    return head, records
+    return head, records, main
 
 
 def reset_counts():
@@ -1194,6 +1317,95 @@ def phase_sweep_breakdown(torch, np, seed):
     emit("sweep_breakdown", **record)
     del data
     torch.cuda.empty_cache()
+    return record
+
+
+def phase_kernel_breakdown(torch, np, seed):
+    """B6 and B3 split into their phases at the main paths' shapes,
+    through the wrappers' entry points only (so that the script also
+    times an older checkout of the package).
+
+    B6: the whole stack (16 harmonics) against one harmonic, which is
+    the median and a single read of the row, so the difference is the
+    stack's harmonics 2-16.  B3: the launch against the same launch with
+    every level's row count set to 0 in its table, which stages the
+    input and passes the barriers but computes no level, and against
+    launches that compute levels 0-3 only and levels 4-6 only."""
+    from pulsarutils_tpu_torch.ops import fdmt_cuda as fc
+    from pulsarutils_tpu_torch.ops import harmonic_cuda as hc
+    from pulsarutils_tpu_torch.ops.fdmt import (fdmt_plan, fdmt_trial_dms,
+                                                head_plan)
+    from pulsarutils_tpu_torch.ops.plan import dmmax_for_trials
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 6)
+    record = {"b6": {}, "b3": {}}
+    depths = (1, 2, 4, 8, 16)
+    shapes = {**HARMONIC_MAIN_SHAPES, "timed_512": (512, NSAMPLES)}
+    for label, (rows, t) in shapes.items():
+        power = _device_power(torch, gen, rows, t)
+        nbins = power.shape[1]
+        # one read of the power rows; the harmonic adds the stack needs
+        bound, bound_by = bound_ms(
+            rows * sum(-(-nbins // j) for j in range(1, depths[-1] + 1)),
+            4 * rows * nbins + 8 * rows * len(depths))
+
+        def run(d, power=power, nbins=nbins):
+            return hc.harmonic_peaks_cuda(power, d, 1, nbins)
+
+        full_ms, full_runs = time_ms(torch, lambda: run(depths))
+        one_ms, _ = time_ms(torch, lambda: run((1,)))
+        record["b6"][label] = {
+            "rows": rows, "nbins": nbins, "ms": full_ms,
+            "runs_ms": full_runs, "median_and_one_harmonic_ms": one_ms,
+            "harmonics_2_16_ms": full_ms - one_ms, "bound_ms": bound,
+            "bound_by": bound_by, "bound_share": bound / full_ms}
+        del power
+        torch.cuda.empty_cache()
+
+    headline_dmmax = dmmax_for_trials(DMMIN, HYB_NTRIALS, START_FREQ,
+                                      BANDWIDTH, TSAMP)
+    for label, t, dmmax in (("headline", NSAMPLES, headline_dmmax),
+                            ("e2e_hybrid_chunk", E2E_CHUNK, DMMAX)):
+        _, n_lo, n_hi = fdmt_trial_dms(NCHAN, DMMIN, dmmax, START_FREQ,
+                                       BANDWIDTH, TSAMP)
+        hp = head_plan(fdmt_plan(NCHAN, START_FREQ, BANDWIDTH, int(n_hi),
+                                 int(n_lo)))
+        state = torch.randn((NCHAN, t), generator=gen, device="cuda")
+        table, offsets = fc.head_table(hp)
+        params = fc.head_params(hp, offsets, t, NCHAN)
+
+        def counts_zeroed(levels, table=table, offsets=offsets):
+            # the row counts, levels first, zeroed at ``levels``
+            out = table.copy()
+            out[offsets[-2]:offsets[-1]].reshape(len(hp.max_shift), -1)[
+                list(levels)] = 0
+            return torch.from_numpy(out).cuda()
+
+        def launch(tab, state=state, params=params, hp=hp):
+            return lambda: fc.head_cuda(state, tab, params, hp.rows_out)
+
+        nlev = len(hp.max_shift)
+        idle = counts_zeroed(range(nlev))
+        table = torch.from_numpy(table).cuda()
+        full_ms, full_runs = time_ms(torch, launch(table))
+        stage_ms, _ = time_ms(torch, launch(idle))
+        # the first four levels alone, and the other three alone
+        first_ms, _ = time_ms(torch, launch(counts_zeroed(range(4, nlev))))
+        last_ms, _ = time_ms(torch, launch(counts_zeroed(range(4))))
+        bound, bound_by = bound_ms(
+            t * int(hp.counts.sum()),
+            4 * t * (NCHAN + hp.rows_out) + 4 * table.numel())
+        record["b3"][label] = {
+            "nsamples": t, "rows": [int(n_lo), int(n_hi)],
+            "rows_out": hp.rows_out, "ms": full_ms, "runs_ms": full_runs,
+            "staging_and_barriers_ms": stage_ms,
+            "levels_ms": full_ms - stage_ms,
+            "levels_0_3_ms": first_ms - stage_ms,
+            "levels_4_6_ms": last_ms - stage_ms, "bound_ms": bound,
+            "bound_by": bound_by, "bound_share": bound / full_ms}
+        del state, table, idle
+        torch.cuda.empty_cache()
+    emit("kernel_breakdown", **record)
     return record
 
 
@@ -1509,7 +1721,8 @@ def main(argv=None):
                         help="build and check the kernels at small shapes "
                              "only")
     parser.add_argument("--breakdown", action="store_true",
-                        help="time the direct sweep phase by phase only")
+                        help="time the direct sweep, B6 and B3 phase by "
+                             "phase only")
     opts = parser.parse_args(argv)
 
     import numpy as np
@@ -1541,6 +1754,7 @@ def main(argv=None):
         phase_build()
         if opts.breakdown:
             phase_sweep_breakdown(torch, np, opts.seed)
+            phase_kernel_breakdown(torch, np, opts.seed)
             return 0
         head, records, head_data = phase_kernels(torch, np, opts.seed,
                                                  opts.quick)
@@ -1552,12 +1766,13 @@ def main(argv=None):
         del coarse
         torch.cuda.empty_cache()
         fdd_head, fdd_records = phase_fdd(torch, np, opts.seed, opts.quick)
-        harm_head, harm_records = phase_harmonic(torch, np, opts.seed,
-                                                 opts.quick)
+        harm_head, harm_records, harm_main = phase_harmonic(
+            torch, np, opts.seed, opts.quick)
         if opts.quick:
             return 0
         phase_hybrid_headline(torch, np, opts.seed)
         breakdown = phase_sweep_breakdown(torch, np, opts.seed)
+        kernel_breakdown = phase_kernel_breakdown(torch, np, opts.seed)
         shutil.rmtree(workdir, ignore_errors=True)
         workdir.mkdir(parents=True)
         direct, hits, path, chunk_length, nchunks = phase_end_to_end(
@@ -1596,6 +1811,10 @@ def main(argv=None):
     fused, merge = levels("B3 head"), levels("B2a merge")
     merge4 = levels("B2b merge4")
     fdmt_diff = max(r["max_abs_diff"] for r in fdmt_head + fdmt_records)
+    head_chunk, = [r for r in fdmt_records if r["case"] == "e2e_hybrid_chunk"
+                   and r["kernel"] == "B3 head"]
+    checked = ("max_abs_diff", "per_level_b2a_max_abs_diff", "kernel_ms",
+               "plain_ms", "per_level_b2a_ms", "bound_ms", "bound_share")
     kernels = [{
         "name": "dedisperse_direct_sweep",
         "route": "cuda",
@@ -1658,6 +1877,10 @@ def main(argv=None):
         "bound_by": fused[0]["bound_by"],
         "library_ms": None,
         "per_level_b2a_ms": fused[0]["per_level_b2a_ms"],
+        "main_path_shapes": {"e2e_hybrid_chunk": {
+            "nsamples": head_chunk["nsamples"],
+            **{f: head_chunk[f] for f in checked}}},
+        "phases": kernel_breakdown["b3"],
         "shape": {**shape, "levels": fused[0]["levels"],
                   "rows_in": fused[0]["rows_in"],
                   "rows_out": fused[0]["rows_out"],
@@ -1735,8 +1958,8 @@ def main(argv=None):
             "ops/harmonic_pallas.py:_build_harmonic_kernel",
         "launches": period["period_search"]["B6"],
         "launches_by_path": {k: v["B6"] for k, v in launches.items()},
-        "max_abs_err": max(r["max_abs_diff"]
-                           for r in [harm_head, *harm_records]),
+        "max_abs_err": max(r["max_abs_diff"] for r in [
+            harm_head, *harm_records, *harm_main.values()]),
         "ms": harm_head["kernel_ms"],
         "plain_ms": harm_head["plain_ms"],
         "bound_ms": harm_head["bound_ms"],
@@ -1744,7 +1967,13 @@ def main(argv=None):
         "library_ms": None,
         "tolerance": harm_head["tolerance"],
         "shape": {"rows": harm_head["rows"], "nbins": harm_head["nbins"],
-                  "depths": harm_head["depths"]},
+                  "depths": harm_head["depths"],
+                  "cluster": harm_head["cluster"]},
+        "main_path_shapes": {label: {f: r[f] for f in (
+            "rows", "nbins", "cluster", "branches_equal", "peak_bins_equal",
+            "max_abs_diff", "kernel_ms", "branch_ms", "plain_ms", "bound_ms",
+            "bound_share")} for label, r in harm_main.items()},
+        "phases": kernel_breakdown["b6"],
         "card": card,
     }]
     check_ok = all(k["launches"] > 0 for k in kernels)

@@ -127,10 +127,25 @@ dim3 grid_for(int rows_out, int nsamples) {
 // The TPU kernel keeps one group's whole sub-tree (~5 MB) in VMEM.  An SM
 // has 227 KB, too little for one group's two ping-pong states (~250 rows at
 // the 1024-channel headline) over a useful time tile.  So one group and one
-// time tile go to a cluster of kCluster blocks: each block holds its share
-// of every level's rows (rows [rank*R_l, (rank+1)*R_l) of level l) in its
-// shared memory, and reads a parent row that another block holds through
-// distributed shared memory.  A cluster barrier separates the levels.
+// time tile go to a cluster of kCluster blocks, each holding its rows of
+// every level in its shared memory.
+//
+// Ownership follows the bands.  Block b stages the kInRows = 16 input
+// channels of band b, and owns every row of levels 0-3, whose sub-bands (2,
+// 4, 8, 16 channels) lie inside band b: those levels read only the block's
+// own rows, with no cluster barrier between them.  A row of levels 4-6
+// (sub-bands of 2, 4, 8 bands) goes to the block that holds one of its two
+// parents (the one with fewer rows so far), and reads the other parent, if
+// another block holds it, through distributed shared memory: at most one
+// remote read an output, the traffic that bounds these levels.  The host
+// plans it all (ops/fdmt.py: HeadPlan): per level, block and row, the two
+// parents as owner << 16 | local row and their shifts, and the last
+// level's output rows; each level's barrier is the block's own where
+// neither it nor the level before reads another block, else the cluster's
+// (levels 4, 5, 6 and the end at the 1024-channel headline: four cluster
+// barriers a tile).  A block copies its tables into shared memory at the
+// start, beside the input it stages with cp.async (16 bytes a copy where
+// T and the data's address allow it).
 //
 // Time: the cluster's output is samples [t0, t0 + tile) of the last head
 // level.  Level l computes width[l] = tile + (shifts of the levels after
@@ -157,7 +172,6 @@ constexpr int kHeadWarps = kHeadThreads / 32;
 constexpr int kInRows = kHeadGroup / kCluster;  // input rows per block
 constexpr int kSegment = 256;                   // columns per warp item
 constexpr int kLaneCols = kSegment / 32;        // columns per lane per item
-constexpr int kStageCols = 16;  // staged columns per lane per round
 
 // The launch parameters, passed from the host as one int array in this
 // order (fdmt_head_params_len gives its length).
@@ -167,32 +181,50 @@ struct HeadParams {
   int n_groups;
   int tiles;       // time tiles per group
   int tile;        // output samples per tile
-  int stride;      // floats per row in shared memory (tile + halo)
+  int stride;      // floats per row in shared memory (tile + halo, up to
+                   // a multiple of 4), all of them staged
   int buf0_rows;   // rows of buffer 0 (the input, odd levels' outputs)
   int buf1_rows;   // rows of buffer 1 (even levels' outputs)
-  int rows[kHeadLevels];   // rows per block at level l (R_l)
+  int rows[kHeadLevels];   // most rows a block owns at level l (R_l)
   int width[kHeadLevels];  // columns level l computes
-  int tab[kHeadLevels];    // offset of level l's (n_groups, 4, R_l *
-                           // kCluster) table: ih, il, sh, sl
-  int counts;              // offset of the (kHeadLevels, n_groups) rows
-  int starts;              // offset of each group's first output row
+  int tab[kHeadLevels];    // offset of level l's (n_groups, kCluster, 4,
+                           // R_l) table: ph, pl, sh, sl
+  int counts;              // offset of the (kHeadLevels, n_groups,
+                           // kCluster) rows each block owns
+  int outs;                // offset of the (n_groups, kCluster, R_last)
+                           // output rows of the last level's rows
+  int barriers;            // bit l: a cluster barrier before level l
 };
 
-// Row `row` of the state the blocks of this cluster hold `per_block` rows
-// each of, in buffer `buf` at `stride` floats a row.
-__device__ __forceinline__ const float* cluster_row(
-    cooperative_groups::cluster_group& cluster, float* buf, int row,
-    int per_block, int rank, int stride) {
-  const int owner = row / per_block;
+// Parent row `ref` (owner << 16 | local row) of the state the cluster
+// holds in buffer `buf`, at `stride` floats a row.
+__device__ __forceinline__ const float* parent_row(
+    cooperative_groups::cluster_group& cluster, float* buf, int ref,
+    int rank, int stride) {
+  const int owner = ref >> 16;
   float* base = owner == rank ? buf : cluster.map_shared_rank(buf, owner);
-  return base + (size_t)(row - owner * per_block) * stride;
+  return base + (size_t)(ref & 0xffff) * stride;
+}
+
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
 }
 
 __global__ void __cluster_dims__(kCluster, 1, 1)
     __launch_bounds__(kHeadThreads, 2)
 head_kernel(const float* __restrict__ x, const int* __restrict__ tab,
             float* __restrict__ out, const HeadParams p) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) int smem_i[];
   cooperative_groups::cluster_group cluster =
       cooperative_groups::this_cluster();
   const int rank = (int)cluster.block_rank();
@@ -202,10 +234,28 @@ head_kernel(const float* __restrict__ x, const int* __restrict__ tab,
   const int nsamples = p.nsamples;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  float* buf0 = smem;
-  float* buf1 = smem + (size_t)p.buf0_rows * p.stride;
 
-  // stage this block's input rows over the tile's window
+  // shared memory: this block's tables of every level, its row counts,
+  // its output rows of the last level, then the two buffers
+  int level_at[kHeadLevels];
+  int meta = 0;
+#pragma unroll
+  for (int l = 0; l < kHeadLevels; ++l) {
+    level_at[l] = meta;
+    meta += 4 * p.rows[l];
+  }
+  constexpr int kLast = kHeadLevels - 1;
+  int* counts = smem_i + meta;
+  int* outs = counts + kHeadLevels;
+  float* buf0 = reinterpret_cast<float*>(
+      smem_i + ((meta + kHeadLevels + p.rows[kLast] + 3) & ~3));
+  float* buf1 = buf0 + (size_t)p.buf0_rows * p.stride;
+
+  // stage band `rank`'s input rows over the tile's window; 16 bytes a
+  // copy where T and the data's address keep every piece aligned (t0 and
+  // the row stride are multiples of 4)
+  const bool wide = (nsamples & 3) == 0 &&
+                    (reinterpret_cast<size_t>(x) & 15) == 0;
   for (int rr = warp; rr < kInRows; rr += kHeadWarps) {
     const int ch = g * kHeadGroup + rank * kInRows + rr;
     float* dst = buf0 + (size_t)rr * p.stride;
@@ -215,52 +265,65 @@ head_kernel(const float* __restrict__ x, const int* __restrict__ tab,
     }
     const float* src = x + (size_t)ch * nsamples;
     if (t0 + p.stride <= 2 * nsamples) {
-      // all of a round's loads are issued before its stores
-      for (int j0 = lane; j0 < p.stride; j0 += 32 * kStageCols) {
-        float v[kStageCols];
-#pragma unroll
-        for (int k = 0; k < kStageCols; ++k) {
-          const int j = j0 + 32 * k;
-          int u = t0 + j;
-          if (u >= nsamples) u -= nsamples;
-          if (j < p.stride) v[k] = __ldg(src + u);
-        }
-#pragma unroll
-        for (int k = 0; k < kStageCols; ++k)
-          if (j0 + 32 * k < p.stride) dst[j0 + 32 * k] = v[k];
+      // at most one wrap: two contiguous pieces
+      const int first = min(p.stride, nsamples - t0);
+      if (wide) {
+        for (int j = 4 * lane; j < first; j += 128)
+          cp_async16(dst + j, src + t0 + j);
+        for (int j = first + 4 * lane; j < p.stride; j += 128)
+          cp_async16(dst + j, src + (t0 + j - nsamples));
+      } else {
+        for (int j = lane; j < first; j += 32)
+          cp_async4(dst + j, src + t0 + j);
+        for (int j = first + lane; j < p.stride; j += 32)
+          cp_async4(dst + j, src + (t0 + j - nsamples));
       }
     } else {  // a window longer than T wraps more than once
       for (int j = lane; j < p.stride; j += 32)
-        dst[j] = __ldg(src + (t0 + j) % nsamples);
+        cp_async4(dst + j, src + (t0 + j) % nsamples);
     }
   }
-  cluster.sync();
-
-  const int* counts = tab + p.counts;
 #pragma unroll
   for (int l = 0; l < kHeadLevels; ++l) {
+    const int* src = tab + p.tab[l] + (size_t)(g * kCluster + rank) * 4 *
+                                          p.rows[l];
+    for (int i = threadIdx.x; i < 4 * p.rows[l]; i += kHeadThreads)
+      smem_i[level_at[l] + i] = __ldg(src + i);
+  }
+  if (threadIdx.x < kHeadLevels)
+    counts[threadIdx.x] = __ldg(
+        tab + p.counts + (threadIdx.x * p.n_groups + g) * kCluster + rank);
+  for (int i = threadIdx.x; i < p.rows[kLast]; i += kHeadThreads)
+    outs[i] = __ldg(tab + p.outs +
+                    (size_t)(g * kCluster + rank) * p.rows[kLast] + i);
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+#pragma unroll
+  for (int l = 0; l < kHeadLevels; ++l) {
+    if (l > 0) {
+      // the level before is complete wherever this level reads it, and no
+      // block still reads the rows this level overwrites
+      if ((p.barriers >> l) & 1)
+        cluster.sync();
+      else
+        __syncthreads();
+    }
     float* src = (l & 1) ? buf1 : buf0;
     float* dst = (l & 1) ? buf0 : buf1;
-    const int prev_rows = l == 0 ? kInRows : p.rows[l - 1];
-    const int per_block = p.rows[l];
+    const int rows = p.rows[l];
     const int width = p.width[l];
-    const int r_lo = rank * per_block;
-    const int count = __ldg(counts + l * p.n_groups + g) - r_lo;
-    const int mine = count < per_block ? (count > 0 ? count : 0) : per_block;
+    const int mine = counts[l];
     const int nseg = (width + kSegment - 1) / kSegment;
-    const int padded = per_block * kCluster;
-    const int* tl = tab + p.tab[l] + (size_t)g * 4 * padded;
+    const int* tl = smem_i + level_at[l];
     for (int item = warp; item < mine * nseg; item += kHeadWarps) {
       const int rl = item / nseg;
       const int j0 = (item - rl * nseg) * kSegment;
       const int j1 = min(j0 + kSegment, width);
-      const int r = r_lo + rl;
       const float* high =
-          cluster_row(cluster, src, __ldg(tl + r), prev_rows, rank,
-                      p.stride) + __ldg(tl + 2 * padded + r);
-      const float* low =
-          cluster_row(cluster, src, __ldg(tl + padded + r), prev_rows, rank,
-                      p.stride) + __ldg(tl + 3 * padded + r);
+          parent_row(cluster, src, tl[rl], rank, p.stride) + tl[2 * rows + rl];
+      const float* low = parent_row(cluster, src, tl[rows + rl], rank,
+                                    p.stride) + tl[3 * rows + rl];
       // every parent load of the item is in flight before the first store
       // (a store may alias a parent as far as the compiler knows, and a
       // parent in another block's shared memory is a long-latency load)
@@ -276,8 +339,8 @@ head_kernel(const float* __restrict__ x, const int* __restrict__ tab,
       }
       float* o;
       int end = j1;
-      if (l == kHeadLevels - 1) {
-        o = out + (size_t)(__ldg(tab + p.starts + g) + r) * nsamples + t0;
+      if (l == kLast) {
+        o = out + (size_t)outs[rl] * nsamples + t0;
         end = min(j1, nsamples - t0);  // the last tile is partial
       } else {
         o = dst + (size_t)rl * p.stride;
@@ -288,10 +351,9 @@ head_kernel(const float* __restrict__ x, const int* __restrict__ tab,
         if (j < end) o[j] = sum[k];
       }
     }
-    // the level is complete in every block before any block reads it, and
-    // no block leaves while another may still read its shared memory
-    cluster.sync();
   }
+  // no block leaves while another may still read its shared memory
+  cluster.sync();
 }
 
 }  // namespace
@@ -333,7 +395,10 @@ int fdmt_head_launch(const float* x, const int* tab, float* out,
   if (err != cudaSuccess) return (int)err;
   HeadParams p;
   memcpy(&p, params, sizeof(HeadParams));
+  int meta = kHeadLevels + p.rows[kHeadLevels - 1];
+  for (int l = 0; l < kHeadLevels; ++l) meta += 4 * p.rows[l];
   const size_t smem =
+      sizeof(int) * (((size_t)meta + 3) & ~(size_t)3) +
       (size_t)(p.buf0_rows + p.buf1_rows) * p.stride * sizeof(float);
   err = cudaFuncSetAttribute(head_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -362,12 +362,46 @@ HEAD_GROUP = 1 << HEAD_LEVELS
 #: csrc/fdmt_merge.cu)
 HEAD_CLUSTER = 8
 
+#: input channels one block stages: one band of the group
+HEAD_BAND = HEAD_GROUP // HEAD_CLUSTER
+
 #: shared memory a head block takes: two blocks fit on one SM (227 KB)
 HEAD_SMEM_BYTES = 113 * 1024
 
 
 def _ceil_div(a, b):
     return -(-a // b)
+
+
+def _row_owners(ndelay, p_owner, ih, il):
+    """The block of a group's cluster that owns each output row of one
+    level, and the row's index among that block's rows, for a group whose
+    sub-bands hold ``ndelay`` rows each (rows in the level's order), whose
+    rows' parents ``ih``, ``il`` the level before's blocks ``p_owner``
+    hold.
+
+    Where the level's sub-bands are no wider than a band (``HEAD_BAND``
+    channels), block ``b`` owns every row of the sub-bands inside band
+    ``b``, whose parents it holds itself.  A row of a wider sub-band goes
+    to the owner of one of its two parents, so it reads at most one
+    parent from another block: to the one that owns fewer rows so far
+    (the low parent's owner on a tie)."""
+    nsub = len(ndelay)
+    owner, local = [], []
+    if nsub >= HEAD_CLUSTER:
+        per = nsub // HEAD_CLUSTER
+        for b in range(HEAD_CLUSTER):
+            n = int(sum(ndelay[b * per:(b + 1) * per]))
+            owner += [b] * n
+            local += range(n)
+    else:
+        counts = [0] * HEAD_CLUSTER
+        for high, low in zip(p_owner[ih], p_owner[il]):
+            b = int(high if counts[high] < counts[low] else low)
+            owner.append(b)
+            local.append(counts[b])
+            counts[b] += 1
+    return np.asarray(owner, np.int64), np.asarray(local, np.int64)
 
 
 class HeadPlan:
@@ -386,8 +420,20 @@ class HeadPlan:
     row_starts : each group's first row in the head's output (group ``g``
         is band ``g`` of the last head level).
     max_shift : the largest shift of each level; ``halo`` their sum.
+    owners : per level, per group, ``(owner, local)``: the cluster block
+        that computes each output row and the row's index among that
+        block's rows (:func:`_row_owners`).
+    refs : per level, per group, ``(ph, pl)``: each row's high and low
+        parent as ``owner << 16 | local`` of the level before (level 0:
+        the input channels, channel ``c`` of the group staged by block
+        ``c // HEAD_BAND`` at row ``c % HEAD_BAND``).
+    block_counts : ``(HEAD_LEVELS, n_groups, HEAD_CLUSTER)`` rows each
+        block computes.
+    remote : per level, whether a row reads a parent another block holds.
     rows : rows a block of the cluster holds at each level.
     buf_rows : rows of the block's two shared-memory buffers.
+    meta_ints : int32 words of shared memory before the buffers (the
+        block's tables, counts and output rows, rounded up to 4).
     max_tile : the widest output tile the shared-memory budget holds.
     """
 
@@ -432,15 +478,42 @@ class HeadPlan:
         self.max_shift = [int(max(max(t[2].max(), t[3].max()) for t in lev))
                           for lev in self.tables]
         self.halo = int(sum(self.max_shift))
+        channel = np.arange(HEAD_GROUP)
+        prev = [(channel // HEAD_BAND, channel % HEAD_BAND)] * self.n_groups
+        self.owners, self.refs, self.remote = [], [], []
+        counts = np.zeros((HEAD_LEVELS, self.n_groups, HEAD_CLUSTER),
+                          np.int64)
+        for lev, it in enumerate(self.iterations):
+            ndelay = np.asarray(it["ndelay"])
+            bpg = len(ndelay) // self.n_groups
+            owners, refs, remote = [], [], False
+            for g in range(self.n_groups):
+                ih, il = (self.tables[lev][g][k].astype(np.int64)
+                          for k in (0, 1))
+                p_owner, p_local = prev[g]
+                owner, local = _row_owners(ndelay[g * bpg:(g + 1) * bpg],
+                                           p_owner, ih, il)
+                refs.append(tuple((p_owner[i] << 16 | p_local[i])
+                                  .astype(np.int32) for i in (ih, il)))
+                remote |= bool((p_owner[ih] != owner).any()
+                               or (p_owner[il] != owner).any())
+                counts[lev, g] = np.bincount(owner, minlength=HEAD_CLUSTER)
+                owners.append((owner, local))
+            self.owners.append(owners)
+            self.refs.append(refs)
+            self.remote.append(remote)
+            prev = owners
+        self.block_counts = counts
         # level l's rows (l < last) go to buffer (l + 1) % 2; buffer 0
-        # first holds the input, HEAD_GROUP // HEAD_CLUSTER rows a block
-        self.rows = [_ceil_div(int(c.max()), HEAD_CLUSTER)
-                     for c in self.counts]
+        # first holds the input, HEAD_BAND rows a block
+        self.rows = [int(c.max()) for c in counts]
         self.buf_rows = (
-            max([HEAD_GROUP // HEAD_CLUSTER]
-                + self.rows[1:HEAD_LEVELS - 1:2]),
+            max([HEAD_BAND] + self.rows[1:HEAD_LEVELS - 1:2]),
             max(self.rows[0:HEAD_LEVELS - 1:2]))
-        stride = HEAD_SMEM_BYTES // (4 * sum(self.buf_rows))
+        self.meta_ints = _ceil_div(4 * sum(self.rows) + HEAD_LEVELS
+                                   + self.rows[-1], 4) * 4
+        stride = ((HEAD_SMEM_BYTES - 4 * self.meta_ints)
+                  // (4 * sum(self.buf_rows))) // 4 * 4
         self.max_tile = (stride - self.halo) // 32 * 32
 
     @property
@@ -454,10 +527,28 @@ class HeadPlan:
         holds, but no wider than ``T`` rounded up to 32."""
         return min(self.max_tile, _ceil_div(nsamples, 32) * 32)
 
+    def stride(self, tile):
+        """Floats a row of a block's buffers holds at an output tile of
+        ``tile``: the tile and its halo, up to a multiple of 4 (16-byte
+        copies); the kernel stages all of them."""
+        return _ceil_div(tile + self.halo, 4) * 4
+
     def widths(self, tile):
         """Columns each level computes for an output tile of ``tile``."""
         return [tile + sum(self.max_shift[lev + 1:])
                 for lev in range(HEAD_LEVELS)]
+
+    @property
+    def barriers(self):
+        """Bit ``l`` set: level ``l`` needs a cluster barrier before it (it
+        or the level before it reads another block's rows), else the
+        block's own barrier does."""
+        return sum(1 << lev for lev in range(1, HEAD_LEVELS)
+                   if self.remote[lev] or self.remote[lev - 1])
+
+    def smem_bytes(self, tile):
+        """Shared memory of one block at an output tile of ``tile``."""
+        return 4 * (self.meta_ints + sum(self.buf_rows) * self.stride(tile))
 
 
 @functools.lru_cache(maxsize=32)

@@ -10,7 +10,7 @@ version (:func:`~.fdmt.head_plain`, :func:`~.fdmt.merge_plain`,
 The host side of a launch (:func:`merge_table`, :func:`merge4_table`)
 packs a level's int32 tables into one array and reduces every shift into
 ``[0, T)``, so the kernel wraps an index with one subtraction;
-:func:`head_table` and :func:`head_params` lay out the head's group-local
+:func:`head_table` and :func:`head_params` lay out the head's per-block
 tables and tile geometry.
 """
 
@@ -31,7 +31,7 @@ TIME_TILE = 1024
 MAX_ROW_BLOCKS = 65535
 
 #: length of the head's parameter array (``HeadParams``)
-HEAD_PARAMS_LEN = 8 + 3 * HEAD_LEVELS + 2
+HEAD_PARAMS_LEN = 8 + 3 * HEAD_LEVELS + 3
 
 #: kernel launches made so far, per entry point (B2a: one tree level;
 #: B2b: the fused last two levels; B3: the fused head)
@@ -107,26 +107,34 @@ def merge4_table(idx, shift, nsamples):
 
 @functools.lru_cache(maxsize=32)
 def head_table(head):
-    """The head's int32 launch table, flat: per level ``(n_groups, 4,
-    rows[l] * HEAD_CLUSTER)`` (``ih, il, sh, sl`` of each group's rows,
-    zero past its count), then the ``(HEAD_LEVELS, n_groups)`` row counts,
-    then each group's first output row.  Returns ``(table, offsets)``,
-    ``offsets`` the level tables' starts, the counts' and the starts'."""
+    """The head's int32 launch table, flat: per level ``(n_groups,
+    HEAD_CLUSTER, 4, rows[l])`` (``ph, pl, sh, sl`` of each block's rows:
+    the parents as ``owner << 16 | local``, then their shifts; zero past
+    the block's count), then the ``(HEAD_LEVELS, n_groups, HEAD_CLUSTER)``
+    row counts, then the head's output row of each block's rows of the
+    last level ``(n_groups, HEAD_CLUSTER, rows[-1])``.  Returns ``(table,
+    offsets)``, ``offsets`` the level tables' starts, the counts' and the
+    output rows'."""
     parts, offsets, at = [], [], 0
     for lev, per_group in enumerate(head.tables):
-        padded = head.rows[lev] * HEAD_CLUSTER
-        block = np.zeros((head.n_groups, 4, padded), np.int32)
-        for g, arrays in enumerate(per_group):
-            for k, a in enumerate(arrays):
-                block[g, k, :len(a)] = a
+        block = np.zeros((head.n_groups, HEAD_CLUSTER, 4, head.rows[lev]),
+                         np.int32)
+        for g, (_, _, sh, sl) in enumerate(per_group):
+            owner, local = head.owners[lev][g]
+            ph, pl = head.refs[lev][g]
+            for k, a in enumerate((ph, pl, sh, sl)):
+                block[g, owner, k, local] = a
         parts.append(block.ravel())
         offsets.append(at)
         at += block.size
-    parts.append(head.counts.astype(np.int32).ravel())
-    offsets.append(at)
-    at += head.counts.size
-    parts.append(np.asarray(head.row_starts, np.int32))
-    offsets.append(at)
+    # the head's output row of each block's rows of the last level
+    outs = np.zeros((head.n_groups, HEAD_CLUSTER, head.rows[-1]), np.int32)
+    for g, (owner, local) in enumerate(head.owners[-1]):
+        outs[g, owner, local] = head.row_starts[g] + np.arange(len(owner))
+    for extra in (head.block_counts, outs):
+        parts.append(extra.astype(np.int32).ravel())
+        offsets.append(at)
+        at += extra.size
     return np.concatenate(parts), offsets
 
 
@@ -135,8 +143,8 @@ def head_params(head, offsets, nsamples, rows_valid):
     a list of ints in the struct's order."""
     tile = head.tile(nsamples)
     params = [nsamples, rows_valid, head.n_groups,
-              -(-nsamples // tile), tile, tile + head.halo, *head.buf_rows,
-              *head.rows, *head.widths(tile), *offsets]
+              -(-nsamples // tile), tile, head.stride(tile), *head.buf_rows,
+              *head.rows, *head.widths(tile), *offsets, head.barriers]
     assert len(params) == HEAD_PARAMS_LEN
     return params
 

@@ -9,11 +9,19 @@ kernel (or raises), on a CPU tensor it runs the plain version
 divides and add the harmonics in the same order, so the peaks agree bit
 for bit.  :func:`score_power` adds the false-alarm / best-depth / sigma
 chain in PyTorch, as the JAX package's wrapper does in XLA.
+
+The kernel has two branches (:func:`choose_cluster` picks one per
+launch): a row held in the shared memory of a thread-block cluster of 2,
+4, 8 or 16 blocks, each block a slice of ``slice_bins`` bins (read from
+device memory once), the harmonic stack reading each harmonic's
+decimated copy of the row from a scratch buffer; or, for rows longer
+than 16 blocks hold, one block a row reading the row from device memory.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -24,6 +32,84 @@ from .periodicity import (HARMONIC_SUMS, band_edges, best_depth,
 #: geometry compiled into csrc/harmonic.cu (checked when the library loads)
 THREADS = 512
 MAX_DEPTHS = 5
+
+#: blocks a row in the cluster branch; sizes above 8 are non-portable
+#: cluster sizes, which an H100 schedules
+CLUSTER_SIZES = (2, 4, 8, 16)
+
+#: keys of the first radix pass's bucket a cluster block keeps for the
+#: later passes (``kCand``); a block with more scans its slice instead
+CLUSTER_CANDIDATES = 3072
+
+#: shared memory of a cluster block besides its slice (``ClusterShared``:
+#: two 2048-bin histograms, 3072 candidate keys, the scan, the selection,
+#: the harmonic arrays' offsets and the peaks)
+CLUSTER_FIXED_SMEM = 29508
+
+#: shared memory one block may take (227 KB), and one SM holds (228 KB,
+#: of which the card keeps 1 KB for each resident block)
+SMEM_PER_BLOCK = 232448
+SMEM_PER_SM = 233472
+
+
+def padded(q):
+    """Where local bin ``q`` of a slice sits in shared memory: chunks of
+    32 bins, one pad word after each."""
+    return q + q // 32
+
+
+def cluster_smem_bytes(slice_bins):
+    """Shared memory of a cluster block that holds ``slice_bins`` bins."""
+    return CLUSTER_FIXED_SMEM + 4 * (padded(slice_bins) + 1)
+
+
+def _max_slice():
+    lo, hi = 0, SMEM_PER_BLOCK
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        lo, hi = (mid, hi) if cluster_smem_bytes(mid) <= SMEM_PER_BLOCK \
+            else (lo, mid - 1)
+    return lo
+
+
+#: the most bins one cluster block holds
+MAX_SLICE = _max_slice()
+
+
+def slice_bins(nbins, cluster):
+    """Bins each block of a ``cluster``-block row holds (the last block
+    holds the rest): a multiple of 32."""
+    per_block = -(-int(nbins) // int(cluster))
+    return -(-per_block // 32) * 32
+
+
+def scratch_floats(nbins, depths):
+    """Floats of one cluster's harmonic arrays: ``D_j[i] = norm[i*j]`` for
+    ``i < ceil(nbins / j)``, ``j`` up to the deepest depth."""
+    return sum(-(-int(nbins) // j) for j in range(1, depths[-1] + 1))
+
+
+def cluster_fits(nbins, cluster):
+    """Whether a ``cluster``-block cluster holds a row of ``nbins``."""
+    return int(cluster) in CLUSTER_SIZES and slice_bins(
+        nbins, cluster) <= MAX_SLICE
+
+
+def choose_cluster(nbins, rows, sms):
+    """The branch for ``rows`` rows of ``nbins`` bins on a card of ``sms``
+    SMs: 1 (the global branch) where no cluster holds a row; else the
+    smallest cluster size at which two blocks share an SM (one block's
+    copy-in then overlaps the other's work), or the smallest that holds
+    the row; raised while ``rows x size`` blocks leave SMs idle."""
+    fits = [c for c in CLUSTER_SIZES if cluster_fits(nbins, c)]
+    if not fits:
+        return 1
+    two = [c for c in fits if 2 * (cluster_smem_bytes(
+        slice_bins(nbins, c)) + 1024) <= SMEM_PER_SM]
+    cluster = (two or fits)[0]
+    while rows * cluster < sms and cluster < fits[-1]:
+        cluster = fits[fits.index(cluster) + 1]
+    return cluster
 
 #: kernel launches made so far (the number of calls that reached the card)
 launches = 0
@@ -37,20 +123,24 @@ def _library():
         from ..utils import nvcc
 
         lib = nvcc.load("harmonic")
-        lib.harmonic_launch.argtypes = ([ctypes.c_void_p] * 3
-                                        + [ctypes.c_int] * 6
+        lib.harmonic_launch.argtypes = ([ctypes.c_void_p] * 4
+                                        + [ctypes.c_int] * 8
                                         + [ctypes.c_void_p])
         lib.harmonic_launch.restype = ctypes.c_int
+        lib.harmonic_active_clusters.argtypes = [ctypes.c_int] * 3
+        lib.harmonic_active_clusters.restype = ctypes.c_int
         lib.harmonic_error_string.argtypes = [ctypes.c_int]
         lib.harmonic_error_string.restype = ctypes.c_char_p
-        lib.harmonic_geometry.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+        lib.harmonic_geometry.argtypes = [ctypes.POINTER(ctypes.c_int)] * 5
         lib.harmonic_geometry.restype = None
-        dims = [ctypes.c_int() for _ in range(2)]
+        dims = [ctypes.c_int() for _ in range(5)]
         lib.harmonic_geometry(*[ctypes.byref(d) for d in dims])
         built = tuple(d.value for d in dims)
-        if built != (THREADS, MAX_DEPTHS):
+        host = (THREADS, MAX_DEPTHS, CLUSTER_SIZES[-1], CLUSTER_FIXED_SMEM,
+                MAX_SLICE)
+        if built != host:
             raise RuntimeError(f"csrc/harmonic.cu geometry {built} differs "
-                               f"from the host's {(THREADS, MAX_DEPTHS)}")
+                               f"from the host's {host}")
         _lib = lib
     return _lib
 
@@ -63,13 +153,28 @@ def _check_depths(depths):
     return depths
 
 
-def harmonic_peaks_cuda(power, depths, lo, hi):
-    """Launch the kernel on raw power spectra ``power`` (rows, nbins)
-    float32, contiguous, on a CUDA device.  Returns ``(vals (rows,
-    ndepth) float32, bins (rows, ndepth) int32)``, allocated here;
-    queued on the current stream."""
-    global launches
-    depths = _check_depths(depths)
+@functools.lru_cache(maxsize=None)
+def _sms(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _active_clusters(nbins, cluster, index):
+    got = _library().harmonic_active_clusters(nbins, cluster, index)
+    if got < 0:
+        raise RuntimeError("harmonic_active_clusters failed: "
+                           + _library().harmonic_error_string(-got).decode())
+    return got
+
+
+def active_clusters(nbins, cluster, device):
+    """How many ``cluster``-block clusters holding a row of ``nbins`` bins
+    the card of ``device`` runs at once (0: it cannot run one)."""
+    return _active_clusters(int(nbins), int(cluster),
+                            torch.device(device).index or 0)
+
+
+def _check_power(power):
     if not isinstance(power, torch.Tensor) or power.dtype != torch.float32:
         raise TypeError(f"power must be a torch.float32 tensor, got "
                         f"{getattr(power, 'dtype', type(power))}")
@@ -83,14 +188,44 @@ def harmonic_peaks_cuda(power, depths, lo, hi):
     if power.device.type != "cuda":
         raise ValueError(f"power must be on a CUDA device, got "
                          f"{power.device}")
-    lib = _library()
+    return rows, nbins
+
+
+def harmonic_peaks_cuda(power, depths, lo, hi, cluster=None):
+    """Launch the kernel on raw power spectra ``power`` (rows, nbins)
+    float32, contiguous, on a CUDA device.  ``cluster``: blocks a row (1
+    takes the global branch; None lets :func:`choose_cluster` pick).  The
+    cluster branch runs as many clusters as the card holds at once (at
+    most one a row), each walking its rows.  Returns ``(vals (rows,
+    ndepth) float32, bins (rows, ndepth) int32)``, allocated here with the
+    clusters' scratch; queued on the current stream."""
+    global launches
+    depths = _check_depths(depths)
+    rows, nbins = _check_power(power)
+    if cluster is None:
+        cluster = choose_cluster(nbins, rows, _sms(power.device.index or 0))
+    elif cluster != 1 and not cluster_fits(nbins, cluster):
+        raise ValueError(f"no {cluster}-block cluster holds {nbins} bins "
+                         f"(sizes {CLUSTER_SIZES}, {MAX_SLICE} bins a "
+                         "block)")
     nd = len(depths)
     vals = torch.empty((rows, nd), dtype=torch.float32, device=power.device)
     bins = torch.empty((rows, nd), dtype=torch.int32, device=power.device)
+    clusters, scratch = 0, None
+    if cluster > 1:
+        clusters = min(rows, active_clusters(nbins, cluster, power.device))
+        if clusters < 1:
+            raise RuntimeError(f"the card runs no {cluster}-block cluster "
+                               f"of {nbins}-bin rows")
+        scratch = torch.empty(clusters * scratch_floats(nbins, depths),
+                              dtype=torch.float32, device=power.device)
+    lib = _library()
     stream = torch.cuda.current_stream(power.device).cuda_stream
-    err = lib.harmonic_launch(power.data_ptr(), vals.data_ptr(),
-                              bins.data_ptr(), rows, nbins, nd, int(lo),
-                              int(hi), power.device.index or 0, stream)
+    err = lib.harmonic_launch(
+        power.data_ptr(), vals.data_ptr(), bins.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), rows, nbins, nd,
+        int(lo), int(hi), int(cluster), clusters, power.device.index or 0,
+        stream)
     if err != 0:
         raise RuntimeError("harmonic kernel launch failed: "
                            + lib.harmonic_error_string(err).decode())

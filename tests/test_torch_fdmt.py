@@ -15,9 +15,10 @@ from pulsarutils_tpu.ops import fdmt_resident as jhead
 
 from pulsarutils_tpu_torch.ops import fdmt as tfdmt
 from pulsarutils_tpu_torch.ops import fdmt_cuda
-from pulsarutils_tpu_torch.ops.fdmt import (HEAD_CLUSTER, HEAD_GROUP,
-                                            HEAD_LEVELS)
-from pulsarutils_tpu_torch.ops.fdmt_cuda import (MAX_ROW_BLOCKS, TIME_TILE,
+from pulsarutils_tpu_torch.ops.fdmt import (HEAD_BAND, HEAD_CLUSTER,
+                                            HEAD_GROUP, HEAD_LEVELS)
+from pulsarutils_tpu_torch.ops.fdmt_cuda import (HEAD_PARAMS_LEN,
+                                                 MAX_ROW_BLOCKS, TIME_TILE,
                                                  head_params, head_table,
                                                  merge4_table, merge_table)
 from pulsarutils_tpu_torch.utils import nvcc
@@ -351,17 +352,18 @@ def test_head_schedule_gates():
 
 
 def _replay_head(data, hp, table, params):
-    """The head as the kernel computes it: one cluster per (group, tile),
-    each block staging its input rows over the tile's window (wrapping at
-    T) and computing its share of each level's rows from the rows the
-    blocks hold.  Buffers start as NaN, so a read of a column or row no
-    block wrote shows in the output."""
+    """The head as the kernel computes it: one cluster per (group, tile);
+    block ``b`` stages band ``b``'s input rows over the tile's window
+    (wrapping at T) and computes the rows it owns at each level from its
+    table in the flat launch table, reading each parent from the block
+    its ``owner << 16 | local`` names; levels whose barrier is the block's
+    own read only the block's rows.  Buffers start as NaN, so a read of a
+    column or row no block wrote shows in the output."""
     nsamples, rows_valid, n_groups, tiles, tile, stride, b0, b1 = params[:8]
     rows = params[8:8 + HEAD_LEVELS]
     widths = params[8 + HEAD_LEVELS:8 + 2 * HEAD_LEVELS]
     tabs = params[8 + 2 * HEAD_LEVELS:8 + 3 * HEAD_LEVELS]
-    counts_at, starts_at = params[8 + 3 * HEAD_LEVELS:]
-    in_rows = HEAD_GROUP // HEAD_CLUSTER
+    counts_at, outs_at, barriers = params[8 + 3 * HEAD_LEVELS:]
     out = np.full((hp.rows_out, nsamples), np.nan, np.float32)
     for g in range(n_groups):
         for tile_index in range(tiles):
@@ -370,31 +372,36 @@ def _replay_head(data, hp, table, params):
                      np.full((b1, stride), np.nan, np.float32)]
                     for _ in range(HEAD_CLUSTER)]
             for rank in range(HEAD_CLUSTER):
-                for rr in range(in_rows):
-                    ch = g * HEAD_GROUP + rank * in_rows + rr
+                for rr in range(HEAD_BAND):
+                    ch = g * HEAD_GROUP + rank * HEAD_BAND + rr
                     bufs[rank][0][rr] = (
                         0.0 if ch >= rows_valid
                         else data[ch, (t0 + np.arange(stride)) % nsamples])
             for lev in range(HEAD_LEVELS):
                 src = lev % 2
-                prev = in_rows if lev == 0 else rows[lev - 1]
                 per_block, width = rows[lev], widths[lev]
-                padded = per_block * HEAD_CLUSTER
-                base = tabs[lev] + g * 4 * padded
-                count = table[counts_at + lev * n_groups + g]
+                local_only = not (barriers >> lev) & 1 if lev else True
                 for rank in range(HEAD_CLUSTER):
-                    mine = max(0, min(per_block, count - rank * per_block))
+                    base = tabs[lev] + (g * HEAD_CLUSTER + rank) * 4 * (
+                        per_block)
+                    mine = table[counts_at + (lev * n_groups + g)
+                                 * HEAD_CLUSTER + rank]
                     for rl in range(mine):
-                        r = rank * per_block + rl
-                        ih, il, sh, sl = (int(table[base + k * padded + r])
-                                          for k in range(4))
-                        high = bufs[ih // prev][src][ih % prev, sh:sh + width]
-                        low = bufs[il // prev][src][il % prev, sl:sl + width]
+                        ph, pl, sh, sl = (int(table[base + k * per_block
+                                                    + rl]) for k in range(4))
+                        parents = []
+                        for ref, shift in ((ph, sh), (pl, sl)):
+                            owner, local = ref >> 16, ref & 0xFFFF
+                            assert owner == rank or not local_only
+                            parents.append(bufs[owner][src][
+                                local, shift:shift + width])
+                        high, low = parents
                         assert high.shape == low.shape == (width,)
                         value = high + low
                         if lev == HEAD_LEVELS - 1:
                             end = min(width, nsamples - t0)
-                            row = table[starts_at + g] + r
+                            row = table[outs_at + (g * HEAD_CLUSTER
+                                                   + rank) * per_block + rl]
                             out[row, t0:t0 + end] = value[:end]
                         else:
                             bufs[rank][1 - src][rl, :width] = value
@@ -407,6 +414,11 @@ def _replay_head(data, hp, table, params):
     (1024, 150, 970, 459),      # the window wraps T twice
     (256, 4096, 250, 100),      # 7 tiles
     (200, 777, 180, 40),
+    # a wide range: a block of the top group owns no row of the last level
+    (1000, 1500, 400, 0),
+    # 4 groups, the last of zero channels only; blocks that own no row of
+    # the wide sub-bands' levels; a partial last tile
+    (384, 641, 300, 250),
 ])
 def test_head_launch_replay_equals_plain(nchan, t, max_delay, min_delay):
     data = _data(nchan, t, nchan + 3 * t)
@@ -416,19 +428,48 @@ def test_head_launch_replay_equals_plain(nchan, t, max_delay, min_delay):
     table, offsets = head_table(hp)
     params = head_params(hp, offsets, t, nchan)
     tile, stride = params[4], params[5]
-    assert table.dtype == np.int32 and len(params) == 31
-    assert stride == tile + hp.halo and params[3] * tile >= t
-    # both buffers fit the budget, and every level's reads stay inside
-    # the window the level before it computed
-    assert 4 * sum(hp.buf_rows) * (hp.max_tile + hp.halo) <= (
-        tfdmt.HEAD_SMEM_BYTES)
+    assert table.dtype == np.int32 and len(params) == HEAD_PARAMS_LEN == 32
+    assert stride == hp.stride(tile) and params[3] * tile >= t
+    assert stride % 4 == 0 and 0 <= stride - (tile + hp.halo) < 4
+    # the tables, both buffers and the block's tables fit the budget, and
+    # every level's reads stay inside the window the level before it
+    # computed
+    assert hp.smem_bytes(hp.max_tile) <= tfdmt.HEAD_SMEM_BYTES
     widths = hp.widths(tile)
-    assert widths[-1] == tile and widths[0] + hp.max_shift[0] == stride
+    assert widths[-1] == tile
+    assert widths[0] + hp.max_shift[0] == tile + hp.halo <= stride
+    # band ownership: levels 0-3 read only the block's own rows, the
+    # levels of wider sub-bands another block's
+    assert hp.remote == [False] * 4 + [True] * 3
+    assert params[-1] == 0b1110000
     replay = _replay_head(data, hp, table, params)
     plain = fdmt_cuda.head(torch.from_numpy(data), hp).numpy()
     assert np.array_equal(plain, _per_level(data, plan, HEAD_LEVELS))
     assert not np.isnan(replay).any()
     assert np.max(np.abs(replay - plain)) == 0.0
+
+
+def test_head_ownership_covers_every_row_once():
+    # every row of every level has one owner and one local slot; a row of
+    # a wide sub-band belongs to one of its parents' owners (one remote
+    # read at most), and its sub-band's blocks share the rows within two
+    hp = tfdmt.head_plan(tfdmt.fdmt_plan(1000, 1200.0, 200.0, 970, 459))
+    for lev in range(HEAD_LEVELS):
+        for g in range(hp.n_groups):
+            owner, local = hp.owners[lev][g]
+            slots = set(zip(owner.tolist(), local.tolist()))
+            assert len(slots) == len(owner) == hp.counts[lev][g]
+            counts = np.bincount(owner, minlength=HEAD_CLUSTER)
+            assert np.array_equal(counts, hp.block_counts[lev, g])
+            assert counts.max() <= hp.rows[lev]
+            ph, pl = hp.refs[lev][g]
+            nsub = len(hp.iterations[lev]["ndelay"]) // hp.n_groups
+            if nsub < HEAD_CLUSTER:
+                assert ((ph >> 16 == owner) | (pl >> 16 == owner)).all()
+                per_sub = counts.reshape(nsub, HEAD_CLUSTER // nsub)
+                assert (per_sub.max(1) - per_sub.min(1) <= 2).all()
+            else:
+                assert ((ph >> 16 == owner) & (pl >> 16 == owner)).all()
 
 
 @pytest.mark.parametrize("nchan, t, max_delay, min_delay", [

@@ -96,68 +96,163 @@ def test_policies_other_than_f32_are_not_ported():
                            policy="f32_compensated")
 
 
-def _replay_harmonic(power, depths, lo, hi):
-    """The CUDA kernel's algorithm on the host: the two middle order
-    statistics of p[1:] by a 3-pass radix select over order-preserving
-    keys (11, 11, 10 bits; the upper one by a min-above pass only when
-    the lower one ends its run of equal keys), IEEE divides, the harmonic
-    stack with out-of-range harmonics adding 0, first argmax."""
+def _keys(values):
+    bits = np.asarray(values, np.float32).view(np.uint32).astype(np.int64)
+    return np.where(bits & 0x80000000, ~bits & 0xFFFFFFFF,
+                    bits | 0x80000000)
+
+
+def _value(key):
+    b = key & 0x7FFFFFFF if key & 0x80000000 else ~key & 0xFFFFFFFF
+    return np.array([b], np.uint32).view(np.float32)[0]
+
+
+#: the cluster branch's stack batches by the harmonics in range of their
+#: first bin: (more than this many harmonics, chunks a batch, harmonics
+#: read)
+_BATCHES = ((8, 1, 16), (4, 2, 8), (2, 4, 4), (1, 8, 2), (0, 8, 1))
+
+
+def _replay_harmonic(power, depths, lo, hi, cluster=1,
+                     candidates=harmonic_cuda.CLUSTER_CANDIDATES):
+    """The CUDA kernel's algorithm on the host, branch by branch.
+
+    ``cluster`` 1 is the global branch: one block holds the row, the radix
+    select scans it three times, thread ``t`` takes bins ``t, t + 512,
+    ...`` and divides each harmonic as it reads it.  Above 1, the cluster
+    branch: block ``b`` holds bins ``[b*S, (b+1)*S)`` (``S =
+    slice_bins``, a multiple of 32).  The radix select's histograms (11,
+    11, 10 bits of order-preserving keys) are each block's own, summed
+    share by share (block ``b`` sums bins ``[b*share, (b+1)*share)`` over
+    the blocks, then every block gathers the other shares); after the
+    first pass a block keeps its keys in the chosen bucket (at most
+    ``candidates`` of them, else it scans its slice again) and its least
+    key above the bucket, and the later passes and the upper middle
+    value's look (only when the lower one ends its run of equal keys) run
+    over those.  Each block divides its slice by the median (IEEE) and
+    writes harmonic ``j``'s array ``D_j[i] = norm[i*j]`` for the ``i*j``
+    it holds.  Chunk ``c`` of 32 bins goes to block ``c % cluster`` and
+    warp ``c // cluster % 16``, which takes its chunks in batches sized by
+    the harmonics the batch's first bin has in range (:data:`_BATCHES`);
+    the stack adds ``D_j[i]`` (0 where ``i*j`` is out of range) in
+    ascending ``j``; each thread keeps its first strict maximum over its
+    bins in ascending order, and the reductions take the larger value,
+    then the smaller bin."""
     power = np.asarray(power, dtype=np.float32)
     rows, nbins = power.shape
+    s_bins = nbins if cluster == 1 else harmonic_cuda.slice_bins(nbins,
+                                                                 cluster)
+    nblk = -(-nbins // s_bins)
+    share = -(-2048 // cluster)
+    hmax = depths[-1]
     vals = np.zeros((rows, len(depths)), np.float32)
     bins = np.zeros((rows, len(depths)), np.int32)
     for r in range(rows):
         p = power[r]
-        bits = p[1:].view(np.uint32)
-        keys = np.where(bits & 0x80000000, ~bits, bits | 0x80000000)
-        n = keys.size
+        slices = [p[b * s_bins:(b + 1) * s_bins] for b in range(nblk)]
+        keys = [_keys(sl) for sl in slices]
+        keys[0] = keys[0][1:]                     # p[1:]: no DC bin
+        n = nbins - 1
         k = (n - 1) // 2
-        prefix, pmask = 0, 0
-        for shift, width in ((21, 11), (10, 11), (0, 10)):
-            sel = keys[(keys & pmask) == prefix]
-            hist = np.bincount((sel >> shift) & ((1 << width) - 1),
-                               minlength=1 << width)
-            below = np.cumsum(hist) - hist
-            b = int(np.flatnonzero(below + hist > k)[0])
-            k -= int(below[b])
-            last = int(hist[b])
-            prefix |= b << shift
+        prefix, pmask, above = 0, 0, []
+        for pas, (shift, width) in enumerate(((21, 11), (10, 11), (0, 10))):
+            hists = [np.bincount(
+                (kb[(kb & pmask) == prefix] >> shift) & ((1 << width) - 1),
+                minlength=2048) for kb in keys]
+            full = np.zeros(2048, np.int64)
+            for b in range(max(cluster, 1)):      # each block's share
+                part = slice(b * share, min(2048, (b + 1) * share))
+                full[part] = sum(h[part] for h in hists)
+            below = np.cumsum(full) - full
+            bucket = int(np.flatnonzero(below + full > k)[0])
+            k -= int(below[bucket])
+            last = int(full[bucket])
+            if pas == 0 and cluster > 1:
+                # each block: its keys in the bucket, or all of them where
+                # they are more than it keeps, and its least key above
+                above = [kb[(kb >> 21) > bucket] for kb in keys]
+                keys = [kb[(kb >> 21) == bucket]
+                        if hists[b][bucket] <= candidates else kb
+                        for b, kb in enumerate(keys)]
+            prefix |= bucket << shift
             pmask |= ((1 << width) - 1) << shift
         key_lo = key_hi = prefix
         if n % 2 == 0 and last - 1 - k == 0:
-            key_hi = int(keys[keys > key_lo].min())
-
-        def value(key):
-            b = key & 0x7FFFFFFF if key & 0x80000000 else ~key & 0xFFFFFFFF
-            return np.array([b], np.uint32).view(np.float32)[0]
-
-        med = (value(key_lo) + value(key_hi)) * np.float32(0.5)
+            key_hi = min(int(kk.min()) for kk in
+                         [kb[kb > key_lo] for kb in keys] + above
+                         if kk.size)
+        med = (_value(key_lo) + _value(key_hi)) * np.float32(0.5)
         div = (med / np.float32(np.log(2.0)) if med > 0
                else np.float32(1.0))
-        band = np.zeros(nbins, np.float32)
-        band[lo:hi] = 1.0
-        acc = np.zeros(nbins, np.float32)
-        i = np.arange(nbins)
-        for d, h in enumerate(depths):
-            for j in range((depths[d - 1] if d else 0) + 1, h + 1):
-                idx = i * j
-                v = np.zeros(nbins, np.float32)
-                ok = idx < nbins
-                v[ok] = p[idx[ok]] / div
-                acc = acc + v
-            hsum = acc * band
-            bins[r, d] = int(np.argmax(hsum))
-            vals[r, d] = hsum[bins[r, d]]
+        norm = [sl / div for sl in slices]        # in place, per block
+        # harmonic j's arrays, written block by block
+        arrays = {}
+        for j in range(1, hmax + 1):
+            dj = np.full(-(-nbins // j), np.nan, np.float32)
+            for b in range(nblk):
+                base, size = b * s_bins, len(norm[b])
+                for i in range(-(-base // j), -(-(base + size) // j)):
+                    assert np.isnan(dj[i])
+                    dj[i] = norm[b][i * j - base]
+            assert not np.isnan(dj).any()
+            arrays[j] = dj
+        # (thread, chunk) in the order each thread visits its chunks
+        nchunks, warps = -(-nbins // 32), harmonic_cuda.THREADS // 32
+        step = max(cluster, 1) * warps
+        visits = []
+        for b in range(max(cluster, 1)):
+            for w in range(warps):
+                c = b + max(cluster, 1) * w
+                while c < nchunks:
+                    first = 32 * c
+                    jw = hmax if first == 0 else min(hmax,
+                                                     (nbins - 1) // first)
+                    size = 1 if cluster == 1 else next(
+                        g for lim, g, _ in _BATCHES if jw > lim)
+                    visits += [((b, w), cc) for cc in
+                               range(c, c + size * step, step)
+                               if cc < nchunks]
+                    c += size * step
+        best = {}
+        seen = np.zeros(nbins, np.int64)
+        for thread, c in visits:
+            for lane in range(32):
+                i = 32 * c + lane
+                if i >= nbins:
+                    continue
+                seen[i] += 1
+                band = np.float32(1.0 if lo <= i < hi else 0.0)
+                acc = np.float32(0.0)
+                d = 0
+                for j in range(1, hmax + 1):
+                    v = arrays[j][i] if i * j < nbins else np.float32(0.0)
+                    acc = np.float32(acc + v)
+                    if j == depths[d]:
+                        h = np.float32(acc * band)
+                        key = (thread, lane, d)
+                        if key not in best or h > best[key][0]:
+                            best[key] = (h, i)
+                        d += 1
+        assert (seen == 1).all()
+        for d in range(len(depths)):
+            v, i = max(((h, -i) for (t, ln, dd), (h, i) in best.items()
+                        if dd == d))
+            vals[r, d], bins[r, d] = v, -i
     return vals, bins
+
+
+def _harmonic_power(t, seed):
+    plane = _plane(rows=9, t=t, seed=seed)
+    power = tp.power_spectrum(torch.from_numpy(plane))
+    power[3, power.shape[1] // 2:] = 0.0    # many equal keys
+    power[6, 1:40] = power[6, 40]           # a run of equal values
+    return power
 
 
 @pytest.mark.parametrize("t, lo_hi", [(4096, None), (4095, None),
                                       (4096, (30, 700))])
 def test_kernel_replay_equals_plain_bit_for_bit(t, lo_hi):
-    plane = _plane(rows=9, t=t, seed=t)
-    power = tp.power_spectrum(torch.from_numpy(plane))
-    power[3, power.shape[1] // 2:] = 0.0    # many equal keys
-    power[6, 1:40] = power[6, 40]           # a run of equal values
+    power = _harmonic_power(t, t)
     nbins = power.shape[1]
     lo, hi = lo_hi or (1, nbins)
     depths = tp.harmonic_depths(16)
@@ -169,6 +264,84 @@ def test_kernel_replay_equals_plain_bit_for_bit(t, lo_hi):
     # the wrapper's CPU path is the plain version
     wv, wb = harmonic_cuda.harmonic_peaks(power, depths, lo, hi)
     assert torch.equal(wv, pv) and torch.equal(wb, pb)
+
+
+@pytest.mark.parametrize("cluster", harmonic_cuda.CLUSTER_SIZES)
+@pytest.mark.parametrize("t, lo_hi, depth, candidates", [
+    (4096, None, 16, None),      # even median length (2048 bins of p[1:])
+    (4095, None, 16, None),      # odd median length
+    (2050, (30, 700), 4, None),  # a band, 4 harmonics
+    (1024, None, 1, None),       # one harmonic
+    # blocks with more keys in the first bucket than they keep scan their
+    # slice in the later passes
+    (4096, None, 16, 8),
+])
+def test_cluster_replay_equals_plain_bit_for_bit(cluster, t, lo_hi, depth,
+                                                 candidates):
+    power = _harmonic_power(t, t + cluster)
+    nbins = power.shape[1]
+    # a zero tail that starts inside one slice and runs over the next
+    s_bins = harmonic_cuda.slice_bins(nbins, cluster)
+    power[8, s_bins - 5:] = 0.0
+    lo, hi = lo_hi or (1, nbins)
+    depths = tp.harmonic_depths(depth)
+    pv, pb = tp.harmonic_peaks_plain(tp.normalize_power(power), depths, lo,
+                                     hi)
+    rv, rb = _replay_harmonic(power.numpy(), depths, lo, hi, cluster,
+                              candidates or harmonic_cuda.CLUSTER_CANDIDATES)
+    np.testing.assert_array_equal(rb, pb.numpy())
+    np.testing.assert_array_equal(rv, pv.numpy())
+
+
+def test_cluster_replay_middle_values_in_two_slices():
+    # an even-length median whose two middle values sit in different
+    # slices, and one whose lower middle value ends a run of equal keys
+    # (the least-key-above pass over every block)
+    nbins = 1025
+    p = np.zeros((2, nbins), np.float32)
+    p[0, 1], p[0, 1023] = 100.0, 101.0    # ranks 511 and 512
+    p[0, 2:513] = np.linspace(1.0, 99.0, 511)
+    p[0, 513:1023] = np.linspace(102.0, 199.0, 510)
+    p[0, 1024] = 200.0
+    p[1, 1:513] = 3.0
+    p[1, 513:] = 5.0 + np.arange(512, dtype=np.float32)
+    power = torch.from_numpy(p)
+    depths = tp.harmonic_depths(16)
+    pv, pb = tp.harmonic_peaks_plain(tp.normalize_power(power), depths, 1,
+                                     nbins)
+    for cluster in harmonic_cuda.CLUSTER_SIZES:
+        # bin 1 in the first slice, bin 1023 in the last
+        s_bins = harmonic_cuda.slice_bins(nbins, cluster)
+        assert 1023 // s_bins == -(-nbins // s_bins) - 1 > 0
+        for candidates in (harmonic_cuda.CLUSTER_CANDIDATES, 1):
+            rv, rb = _replay_harmonic(p, depths, 1, nbins, cluster,
+                                      candidates)
+            np.testing.assert_array_equal(rb, pb.numpy())
+            np.testing.assert_array_equal(rv, pv.numpy())
+    med = tp.normalize_power(power)
+    assert float(power[1, 1] / med[1, 1]) == pytest.approx(4.0 / np.log(2))
+
+
+def test_cluster_plan():
+    # the main paths' rows: 8 blocks a period_search row (two blocks an
+    # SM), 16 for its 2-row tail and the longer rows; rows no cluster
+    # holds take the global branch
+    sms = 132
+    assert harmonic_cuda.choose_cluster(131073, 512, sms) == 8
+    assert harmonic_cuda.choose_cluster(131073, 2, sms) == 16
+    assert harmonic_cuda.choose_cluster(327681, 514, sms) == 16
+    assert harmonic_cuda.choose_cluster(524289, 512, sms) == 16
+    assert harmonic_cuda.choose_cluster(1048577, 512, sms) == 1
+    for nbins in (2, 33, 4097, 131073, 524289, 834000):
+        for c in harmonic_cuda.CLUSTER_SIZES:
+            s_bins = harmonic_cuda.slice_bins(nbins, c)
+            assert s_bins % 32 == 0 and c * s_bins >= nbins
+            assert harmonic_cuda.cluster_fits(nbins, c) == (
+                harmonic_cuda.cluster_smem_bytes(s_bins)
+                <= harmonic_cuda.SMEM_PER_BLOCK)
+    assert harmonic_cuda.cluster_smem_bytes(harmonic_cuda.MAX_SLICE) <= (
+        harmonic_cuda.SMEM_PER_BLOCK) < harmonic_cuda.cluster_smem_bytes(
+        harmonic_cuda.MAX_SLICE + 1)
 
 
 def test_harmonic_wrapper_refuses_bad_inputs():

@@ -40,7 +40,9 @@ Phases, one JSON line each:
      headline superblock (within 1e-4 of the largest output), and the
      whole 514-trial sweep of ``dedispersion_search(kernel="fourier")``
      (one B5 launch a superblock), kernels timed apart;
-   - the harmonic scorer (B6) on edge cases (rows not a multiple of 8,
+   - the harmonic scorer (B6), under each of its four precision policies
+     (``f32``, ``f32_compensated``, ``split_f32``,
+     ``bf16_operand_f32_accum``), on edge cases (rows not a multiple of 8,
      even and odd median lengths, an all-zero row, a half-zero row, zero
      tails that cross a slice boundary, the two middle values in the
      first and the last slice, a lower middle value that ends its run,
@@ -50,8 +52,8 @@ Phases, one JSON line each:
      every cluster size), then the same, each branch timed, at the main
      paths' shapes (512 and 2 x 131,073 bins of ``period_search``, 514 x
      327,681 of a ``PUperiod`` trial) and on the power of a 512 x 2^20
-     plane: peak bins and values equal to plain's, the false-alarm chain
-     within rtol 1e-5 with depths and bins exact;
+     plane: peak bins and values equal to plain's under the same policy,
+     the false-alarm chain within rtol 1e-5 with depths and bins exact;
 4. hybrid headline: the JAX package's benchmark data (1024 x 2^20,
    |N(0,1)| / 2, an impulse at T/2 dispersed at DM 350) searched by
    ``dedispersion_search(kernel="hybrid")`` and by the full exact sweep;
@@ -74,13 +76,23 @@ Phases, one JSON line each:
    equal the direct sweep's, and each path's kernels must have launched
    (their counts are set to 0 before each run and read after it); the
    cleaned chunk and a cut of the search are checked against the CPU
-   path;
+   path; then the precision policies (``e2e_precision``): the file with
+   ``kernel="roll"`` under ``PUTPU_PRECISION=f32_compensated`` and
+   ``kernel="gather"`` under ``bf16_operand_f32_accum``, each beside its
+   ``f32`` run (hits equal, snr within the strategy's ``score_rtol``;
+   roll's ``f32`` hits equal the direct sweep's), the roll ``f32`` plane
+   of the pulse's chunk equal to B1's bit for bit, and
+   ``spectral_search`` of that 514-trial plane under every policy
+   (each row's best bin and depth equal to ``f32``'s with its power
+   within the strategy's ``score_rtol``, or, where a noise row's best
+   moved, its sigma within that tolerance);
 6. periodicity: a 1024-channel 8-bit file of the same geometry holding
    a ~10 Hz pulsar at DM 400, searched by ``search_by_chunks(
    period_search=True)`` (the pulsar in every chunk) and by
    ``periodicity_search`` with 5 acceleration trials and the canary
    (the pulsar the best candidate, the canary recovered);
-7. the kernels line, then ``{"ok": true, "device": {...}}`` last.
+7. the kernels line (B6 once per policy), then ``{"ok": true,
+   "device": {...}}`` last.
 
 Any failed check exits non-zero before the last line.  Without a CUDA
 device, or without the package beside this script, it exits non-zero
@@ -883,10 +895,36 @@ def phase_fdd(torch, np, seed, quick):
     return {**head, "sweep": full}, records
 
 
+#: B6's precision policies (the Pallas kernel's ``policy`` branches)
+B6_POLICIES = ("f32", "f32_compensated", "split_f32",
+               "bf16_operand_f32_accum")
+
+#: float32 operations of one harmonic add of B6's stack under each policy:
+#: a TwoSum step is 7 (compensated, split); a bf16 rounding costs 2 a bin
+#: (the conversion there and back), counted apart
+B6_OPS_PER_ADD = {"f32": 1, "f32_compensated": 7, "split_f32": 7,
+                  "bf16_operand_f32_accum": 1}
+
+
+def b6_bound_ms(rows, nbins, depths, policy):
+    """B6's bound under ``policy``: one read of the power rows and the
+    peaks written, against the stack's operations (its harmonic adds, the
+    TwoSum's and the depths' ``acc + comp`` under compensation, the bf16
+    roundings)."""
+    adds = rows * sum(-(-nbins // j) for j in range(1, depths[-1] + 1))
+    ops = B6_OPS_PER_ADD[policy] * adds
+    if B6_OPS_PER_ADD[policy] > 1:
+        ops += rows * nbins * len(depths)
+    if policy == "bf16_operand_f32_accum":
+        ops += 2 * rows * nbins
+    return bound_ms(ops, 4 * rows * nbins + 8 * rows * len(depths))
+
+
 def _harmonic_case(torch, np, name, power, nsamples, *, max_harmonics=16,
-                   fmin=None, fmax=None, timed=False):
-    """B6 against its plain version on raw spectra ``power``, then the
-    whole chain against the plain chain."""
+                   fmin=None, fmax=None, timed=False, policy="f32"):
+    """B6 under ``policy`` against its plain version on raw spectra
+    ``power``, through the wrapper's branch and every branch that holds
+    the rows, then the whole chain against the plain chain."""
     from pulsarutils_tpu_torch.ops import harmonic_cuda as hc
     from pulsarutils_tpu_torch.ops.periodicity import (
         band_edges, harmonic_depths, harmonic_peaks_plain, normalize_power,
@@ -895,10 +933,11 @@ def _harmonic_case(torch, np, name, power, nsamples, *, max_harmonics=16,
     rows, nbins = power.shape
     lo, hi = band_edges(nbins, nsamples, TSAMP, fmin, fmax)
     depths = harmonic_depths(max_harmonics)
-    vals, bins = hc.harmonic_peaks(power, depths, lo, hi)
+    vals, bins = hc.harmonic_peaks(power, depths, lo, hi, policy=policy)
     pvals, pbins = harmonic_peaks_plain(normalize_power(power), depths, lo,
-                                        hi)
+                                        hi, policy=policy)
     torch.cuda.synchronize()
+    name = f"{name}[{policy}]"
     check(torch.equal(bins, pbins), f"{name}: peak bins differ in "
           f"{int((bins != pbins).sum())} of {bins.numel()} cells")
     val_diff = float((vals - pvals).abs().max())
@@ -913,7 +952,7 @@ def _harmonic_case(torch, np, name, power, nsamples, *, max_harmonics=16,
     for cluster in branches:
         def branch(cluster=cluster):
             return hc.harmonic_peaks_cuda(power, depths, lo, hi,
-                                          cluster=cluster)
+                                          cluster=cluster, policy=policy)
         bv, bb = branch()
         torch.cuda.synchronize()
         check(torch.equal(bb, pbins) and torch.equal(bv, pvals),
@@ -923,10 +962,10 @@ def _harmonic_case(torch, np, name, power, nsamples, *, max_harmonics=16,
         if timed:
             branch_ms[cluster], _ = time_ms(torch, branch)
     got = hc.score_power(power, nsamples, TSAMP, max_harmonics=max_harmonics,
-                         fmin=fmin, fmax=fmax)
+                         fmin=fmin, fmax=fmax, policy=policy)
     want = score_normalized_power(normalize_power(power), nsamples, TSAMP,
                                   max_harmonics=max_harmonics, fmin=fmin,
-                                  fmax=fmax)
+                                  fmax=fmax, policy=policy)
     got = {k: v.cpu().numpy() for k, v in got.items()}
     want = {k: v.cpu().numpy() for k, v in want.items()}
     scale = nsamples * TSAMP
@@ -938,10 +977,8 @@ def _harmonic_case(torch, np, name, power, nsamples, *, max_harmonics=16,
         check(np.allclose(got[col], want[col], rtol=HARMONIC_RTOL,
                           atol=1e-6), f"{name}: {col} outside rtol "
               f"{HARMONIC_RTOL}")
-    # one read of the power rows; the harmonic adds the stack needs
-    adds = rows * sum(-(-nbins // j) for j in range(1, depths[-1] + 1))
-    bound, bound_by = bound_ms(adds, 4 * rows * nbins + 8 * rows * len(depths))
-    record = {"case": name, "rows": rows, "nbins": nbins,
+    bound, bound_by = b6_bound_ms(rows, nbins, depths, policy)
+    record = {"case": name, "policy": policy, "rows": rows, "nbins": nbins,
               "nsamples": nsamples, "depths": list(depths), "band": [lo, hi],
               "peak_bins_equal": True, "max_abs_diff": val_diff,
               "cluster": auto, "branches_equal": branches,
@@ -950,13 +987,16 @@ def _harmonic_case(torch, np, name, power, nsamples, *, max_harmonics=16,
               "bound_ms": bound, "bound_by": bound_by}
     if timed:
         def kernel():
-            return hc.harmonic_peaks_cuda(power, depths, lo, hi)
+            return hc.harmonic_peaks_cuda(power, depths, lo, hi,
+                                          policy=policy)
 
         def plain():
             return harmonic_peaks_plain(normalize_power(power), depths, lo,
-                                        hi)
+                                        hi, policy=policy)
         record["kernel_ms"], record["kernel_runs_ms"] = time_ms(torch, kernel)
         record["branch_ms"] = branch_ms
+        # the wrapper's choice against the fastest branch in this run
+        record["auto_fastest"] = branch_ms[auto] <= min(branch_ms.values())
         record["plain_ms"], record["plain_runs_ms"] = time_ms(torch, plain)
         record["bound_share"] = bound / record["kernel_ms"]
     emit("kernel_check", kernel="B6 harmonic", **record)
@@ -977,17 +1017,19 @@ def _device_power(torch, gen, rows, t):
 
 
 #: the shapes B6 runs at on its main paths: (rows, samples a series):
-#: ``period_search``'s 512-row launch and its 2-row tail a chunk, and a
-#: ``PUperiod`` acceleration trial
+#: ``period_search``'s 512-row launch and its 2-row tail a chunk, the
+#: ``spectral_search`` of a single-pulse chunk's 514-trial plane
+#: (``e2e_precision``), and a ``PUperiod`` acceleration trial
 HARMONIC_MAIN_SHAPES = {"period_search_512": (512, E2E_CHUNK),
                         "period_search_tail_2": (2, E2E_CHUNK),
+                        "spectral_search_514": (514, E2E_CHUNK),
                         "puperiod_514": (514, E2E_NSAMPLES)}
 
 
 def phase_harmonic(torch, np, seed, quick):
-    """B6 on edge cases, then at the main paths' shapes and on the power
-    of a 512 x 2^20 plane; returns the headline record, the edge cases'
-    and the main shapes' (by label)."""
+    """B6 under every policy on edge cases, then at the main paths' shapes
+    and on the power of a 512 x 2^20 plane; returns, by policy, the
+    headline record, the edge cases' and the main shapes' (by label)."""
     from pulsarutils_tpu_torch.ops.periodicity import power_spectrum
 
     rng = np.random.default_rng(seed + 4)
@@ -1032,48 +1074,53 @@ def phase_harmonic(torch, np, seed, quick):
                                           dtype=np.float32)
         return torch.from_numpy(p).cuda()
 
-    records = [
-        _harmonic_case(torch, np, "rows_13_even_median", power_of(
-            13, 4096, zero_row=4, zero_tail=6), 4096),
-        _harmonic_case(torch, np, "zero_tail_across_slices",
-                       straddling(6, 1 << 16), 1 << 16),
-        _harmonic_case(torch, np, "middle_values_in_two_slices",
-                       middles_apart(1 << 16), 1 << 16),
+    cases = [
+        ("rows_13_even_median", power_of(13, 4096, zero_row=4, zero_tail=6),
+         4096, {}),
+        ("zero_tail_across_slices", straddling(6, 1 << 16), 1 << 16, {}),
+        ("middle_values_in_two_slices", middles_apart(1 << 16), 1 << 16, {}),
         # rows longer than 16 blocks hold: the global branch on its own
-        _harmonic_case(torch, np, "global_branch_2^21", power_of(
-            3, 1 << 21, zero_tail=1), 1 << 21),
-        _harmonic_case(torch, np, "odd_T_4095_odd_median", power_of(
-            13, 4095, zero_tail=1), 4095),
-        _harmonic_case(torch, np, "band_fmin_fmax", power_of(8, 8192),
-                       8192, fmin=20.0, fmax=300.0),
+        ("global_branch_2^21", power_of(3, 1 << 21, zero_tail=1), 1 << 21,
+         {}),
+        ("odd_T_4095_odd_median", power_of(13, 4095, zero_tail=1), 4095, {}),
+        ("band_fmin_fmax", power_of(8, 8192), 8192,
+         {"fmin": 20.0, "fmax": 300.0}),
         # fmin above Nyquist: an empty band, every peak at bin 0
-        _harmonic_case(torch, np, "empty_band", power_of(3, 4096), 4096,
-                       fmin=1001.0),
-        _harmonic_case(torch, np, "max_harmonics_1", power_of(9, 4096),
-                       4096, max_harmonics=1),
-        _harmonic_case(torch, np, "max_harmonics_4", power_of(9, 4096),
-                       4096, max_harmonics=4),
+        ("empty_band", power_of(3, 4096), 4096, {"fmin": 1001.0}),
+        ("max_harmonics_1", power_of(9, 4096), 4096, {"max_harmonics": 1}),
+        ("max_harmonics_4", power_of(9, 4096), 4096, {"max_harmonics": 4}),
     ]
-    checked = set().union(*(r["branches_equal"] for r in records))
-    check(checked == {1, *hc.CLUSTER_SIZES}, f"B6 branches checked: "
-          f"{sorted(checked)}")
-    check([r["cluster"] for r in records if r["case"] ==
-           "global_branch_2^21"] == [1], "the 2^21 rows did not take the "
-          "global branch")
+    records = {policy: [_harmonic_case(torch, np, label, power, t,
+                                       policy=policy, **kw)
+                        for label, power, t, kw in cases]
+               for policy in B6_POLICIES}
+    del cases
+    for policy, recs in records.items():
+        checked = set().union(*(r["branches_equal"] for r in recs))
+        check(checked == {1, *hc.CLUSTER_SIZES}, f"B6 {policy} branches "
+              f"checked: {sorted(checked)}")
+        check([r["cluster"] for r in recs if r["case"].startswith(
+            "global_branch_2^21")] == [1], "the 2^21 rows did not take the "
+              "global branch")
     if quick:
         torch.cuda.empty_cache()
         return None, records, {}
     # every branch that holds the row, bit for bit, at the main paths'
-    # shapes (the automatic choice included)
+    # shapes (the automatic choice included), under every policy
     gen = torch.Generator(device="cuda").manual_seed(seed + 5)
-    main = {}
+    main = {policy: {} for policy in B6_POLICIES}
     for label, (rows, t) in HARMONIC_MAIN_SHAPES.items():
-        main[label] = _harmonic_case(torch, np, label,
-                                     _device_power(torch, gen, rows, t), t,
-                                     timed=True)
+        power = _device_power(torch, gen, rows, t)
+        for policy in B6_POLICIES:
+            main[policy][label] = _harmonic_case(torch, np, label, power, t,
+                                                 timed=True, policy=policy)
+        del power
         torch.cuda.empty_cache()
-    head = _harmonic_case(torch, np, "headline_512x2^20",
-                          power_of(512, NSAMPLES), NSAMPLES, timed=True)
+    power = power_of(512, NSAMPLES)
+    head = {policy: _harmonic_case(torch, np, "headline_512x2^20", power,
+                                   NSAMPLES, timed=True, policy=policy)
+            for policy in B6_POLICIES}
+    del power
     torch.cuda.empty_cache()
     return head, records, main
 
@@ -1090,11 +1137,13 @@ def reset_counts():
     fdmt_cuda.merge4_launches = 0
     score_cuda.launches = 0
     fourier_cuda.launches = 0
-    harmonic_cuda.launches = 0
+    for policy in harmonic_cuda.launches:
+        harmonic_cuda.launches[policy] = 0
 
 
 def read_counts():
-    """Every kernel's launch count since :func:`reset_counts`."""
+    """Every kernel's launch count since :func:`reset_counts`: B6 under
+    ``f32`` as "B6", under another policy as "B6[policy]"."""
     from pulsarutils_tpu_torch.ops import (dedisperse_cuda, fdmt_cuda,
                                            fourier_cuda, harmonic_cuda,
                                            score_cuda)
@@ -1102,7 +1151,8 @@ def read_counts():
     return {"B1": dedisperse_cuda.launches, "B2a": fdmt_cuda.merge_launches,
             "B2b": fdmt_cuda.merge4_launches, "B3": fdmt_cuda.head_launches,
             "B4": score_cuda.launches, "B5": fourier_cuda.launches,
-            "B6": harmonic_cuda.launches}
+            **{("B6" if policy == "f32" else f"B6[{policy}]"): n
+               for policy, n in harmonic_cuda.launches.items()}}
 
 
 def fdmt_launches(nchan, dmmin, dmmax, f0=START_FREQ, bw=BANDWIDTH,
@@ -1509,6 +1559,187 @@ def phase_e2e_fourier(torch, np, workdir, path, chunk_length, nchunks):
     return counts
 
 
+#: the e2e_precision runs: a formulation under a policy, each beside the
+#: same formulation under f32
+PRECISION_RUNS = (("roll", "f32_compensated"),
+                  ("gather", "bf16_operand_f32_accum"))
+
+
+def _policy_hit_mismatch(ours, ref, rtol):
+    """The first difference between two hit lists (chunks, best DM, rebin,
+    peak, snr within ``rtol``), or None."""
+    if [(h[0], h[1]) for h in ours] != [(h[0], h[1]) for h in ref]:
+        return (f"chunks {[(h[0], h[1]) for h in ours]} vs "
+                f"{[(h[0], h[1]) for h in ref]}")
+    for (lo, _, _, table), (_, _, _, rtable) in zip(ours, ref):
+        best, rbest = table.best_row(), rtable.best_row()
+        for col in ("DM", "rebin", "peak"):
+            if best[col] != rbest[col]:
+                return f"chunk {lo}: {col} {best[col]} vs {rbest[col]}"
+        if abs(best["snr"] - rbest["snr"]) > rtol * abs(rbest["snr"]):
+            return f"chunk {lo}: snr {best['snr']} vs {rbest['snr']}"
+    return None
+
+
+def phase_e2e_precision(torch, np, workdir, path, chunk_length, nchunks,
+                        direct_hits):
+    """The precision policies end to end: ``search_by_chunks`` on the
+    end-to-end file with ``kernel="roll"`` under ``PUTPU_PRECISION=
+    f32_compensated`` and ``kernel="gather"`` under
+    ``bf16_operand_f32_accum``, each beside its ``f32`` run (the hits
+    equal, snr within the strategy's ``score_rtol``; roll's ``f32`` hits
+    equal the direct sweep's); then, on the pulse's chunk, the roll
+    ``f32`` plane against B1's bit for bit, ``spectral_search`` of that
+    514-trial plane under every policy (B6 at 514 x 131,073) against the
+    ``f32`` search, and B6 on that plane's power under every policy,
+    through every branch, against its plain version bit for bit."""
+    import os
+
+    from pulsarutils_tpu_torch.io.sigproc import FilterbankReader
+    from pulsarutils_tpu_torch.ops.periodicity import (power_spectrum,
+                                                       spectral_search)
+    from pulsarutils_tpu_torch.ops.plan import dedispersion_plan
+    from pulsarutils_tpu_torch.ops.search import dedispersion_search
+    from pulsarutils_tpu_torch.pipeline.search_pipeline import (
+        clean_chunk, search_by_chunks)
+    from pulsarutils_tpu_torch.precision import STRATEGIES
+
+    dms = dedispersion_plan(NCHAN, DMMIN, DMMAX, START_FREQ, BANDWIDTH,
+                            TSAMP)
+    blocks = -(-len(dms) // 32)  # the formulations' default trial block
+    launches = {}
+    try:
+        for kernel, policy in PRECISION_RUNS:
+            hits_by = {}
+            for pol in ("f32", policy):
+                os.environ["PUTPU_PRECISION"] = pol
+                stages, summary = {}, {}
+                reset_counts()
+                t0 = time.perf_counter()
+                hits, store = search_by_chunks(
+                    str(path), kernel=kernel, chunk_length=chunk_length,
+                    dmmin=DMMIN, dmmax=DMMAX, snr_threshold=8.0,
+                    output_dir=str(workdir / f"out_{kernel}_{pol}"),
+                    device="cuda", stage_seconds=stages, summary=summary)
+                wall = time.perf_counter() - t0
+                counts = read_counts()
+                check(counts["B4"] == nchunks * blocks and counts["B1"] == 0,
+                      f"{kernel} {pol}: launches {counts} for {nchunks} "
+                      f"chunks of {blocks} trial blocks")
+                check(len(store.done_chunks) == nchunks,
+                      f"{kernel} {pol}: ledger")
+                check(hits, f"{kernel} {pol}: the pulse was not found")
+                hits_by[pol] = hits
+                launches[f"{kernel} under {pol} (e2e_precision)"] = counts
+                loop_s = wall - stages.get("badchans", 0.0)
+                emit("e2e_precision", kernel=kernel, policy=pol,
+                     chunks=nchunks, trials=len(dms), hits=len(hits),
+                     best=[{"istart": h[0], "dm": h[2].dm, "snr": h[2].snr,
+                            "rebin": int(h[3].best_row()["rebin"]),
+                            "peak": int(h[3].best_row()["peak"])}
+                           for h in hits],
+                     launches=counts, wall_s=wall, chunk_loop_s=loop_s,
+                     chunks_per_s=nchunks / loop_s, stage_seconds=stages)
+            rtol = STRATEGIES[policy].score_rtol
+            bad = _policy_hit_mismatch(hits_by[policy], hits_by["f32"], rtol)
+            check(bad is None, f"{kernel}: hits under {policy} differ from "
+                  f"f32's: {bad}")
+            if kernel == "roll":
+                # roll adds the channels in B1's order: the same scores
+                bad = _hit_mismatch(hits_by["f32"], direct_hits)
+                check(bad is None, f"roll f32 hits differ from the direct "
+                      f"sweep's: {bad}")
+    finally:
+        os.environ.pop("PUTPU_PRECISION", None)
+
+    # the pulse's chunk: the roll f32 plane against B1's
+    istart = max(direct_hits, key=lambda h: h[2].snr)[0]
+    reader = FilterbankReader(str(path))
+    raw = reader.read_block_tensor(istart, E2E_CHUNK, "cuda")
+    chunk = clean_chunk(raw, torch.zeros(NCHAN, dtype=torch.bool,
+                                         device="cuda"))
+    del raw
+    args = (DMMIN, DMMAX, START_FREQ, BANDWIDTH, TSAMP)
+    t_b1, plane = dedispersion_search(chunk, *args, capture_plane=True,
+                                      device="cuda")
+    t_roll, plane_roll = dedispersion_search(
+        chunk, *args, kernel="roll", precision="f32", capture_plane=True,
+        device="cuda")
+    torch.cuda.synchronize()
+    check(torch.equal(plane_roll, plane), "the roll f32 plane differs from "
+          f"B1's in {int((plane_roll != plane).sum())} cells")
+    check(all(np.array_equal(t_roll[c], t_b1[c]) for c in t_b1),
+          "the roll f32 table differs from B1's")
+    del plane_roll, chunk
+
+    # the spectral search of that plane under every policy
+    scale = E2E_CHUNK * TSAMP
+    spec, spectral = {}, {}
+    for policy in B6_POLICIES:
+        reset_counts()
+        out = spectral_search(plane, TSAMP, policy=policy)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        key = "B6" if policy == "f32" else f"B6[{policy}]"
+        check(counts[key] == 1, f"spectral_search {policy}: launches "
+              f"{counts}")
+        spec[policy] = {k: v.cpu().numpy() for k, v in out.items()}
+        ms, runs = time_ms(torch, lambda policy=policy: spectral_search(
+            plane, TSAMP, policy=policy))
+        spectral[policy] = {"launches": counts[key], "launch_counts": counts,
+                            "spectral_search_ms": ms,
+                            "spectral_search_runs_ms": runs}
+    ref = spec["f32"]
+    ref_bins = np.rint(ref["freq"] * scale)
+    for policy in B6_POLICIES:
+        got = spec[policy]
+        rtol = STRATEGIES[policy].score_rtol
+        same = ((np.rint(got["freq"] * scale) == ref_bins)
+                & (got["nharm"] == ref["nharm"]))
+        rel = (np.abs(got["power"] - ref["power"])
+               / np.maximum(np.abs(ref["power"]), 1e-30))
+        rel_sigma = (np.abs(got["sigma"] - ref["sigma"])
+                     / np.maximum(np.abs(ref["sigma"]), 1e-30))
+        check(bool(np.all(np.isfinite(got["power"]))), f"spectral_search "
+              f"{policy}: non-finite powers")
+        check(bool(np.all(rel[same] <= rtol)), f"spectral_search {policy}: "
+              f"power at the same bin and depth off by "
+              f"{float(rel[same].max(initial=0.0))}, above rtol {rtol}")
+        # a row whose best bin or depth moved is a near-tie of noise (of
+        # bins, or of depths by false-alarm probability): its best
+        # significance within the strategy's tolerance of f32's
+        check(bool(np.all(rel_sigma[~same] <= rtol)), f"spectral_search "
+              f"{policy}: {int((~same).sum())} rows moved, the largest "
+              f"sigma change {float(rel_sigma[~same].max(initial=0.0))} "
+              f"above rtol {rtol}")
+        best = int(np.argmax(got["sigma"]))
+        spectral[policy].update(
+            rows=len(same), rows_same_bin_and_nharm=int(same.sum()),
+            rows_moved=np.flatnonzero(~same).tolist()[:20],
+            max_power_rel_diff_same_rows=float(rel[same].max(initial=0.0)),
+            max_sigma_rel_diff_moved_rows=float(
+                rel_sigma[~same].max(initial=0.0)),
+            best_row={"row": best, "freq": float(got["freq"][best]),
+                      "nharm": int(got["nharm"][best]),
+                      "sigma": float(got["sigma"][best])},
+            score_rtol=rtol)
+    # B6 on that plane's power, the launch the search made, against its
+    # plain version under every policy, every branch bit for bit
+    shape = list(plane.shape)
+    power = power_spectrum(plane)
+    del plane
+    plane_records = {policy: _harmonic_case(
+        torch, np, "e2e_precision_plane", power, E2E_CHUNK, timed=True,
+        policy=policy) for policy in B6_POLICIES}
+    del power
+    emit("e2e_precision_chunk", istart=int(istart),
+         plane=shape, roll_f32_plane_equals_b1=True,
+         b6_equals_plain_on_plane=True, spectral=spectral)
+    torch.cuda.empty_cache()
+    return {"runs": launches, "spectral": spectral,
+            "plane_records": plane_records}
+
+
 #: the periodic pulsar file: the e2e geometry, a pulse train at DM 400 on
 #: an exact Fourier bin of the whole observation (~10 Hz), 2 ms wide, its
 #: peak 3/8 of the per-channel noise (after the simulator's folded normal,
@@ -1781,6 +2012,8 @@ def main(argv=None):
                                   nchunks, hits)
         fourier = phase_e2e_fourier(torch, np, workdir, path, chunk_length,
                                     nchunks)
+        precision = phase_e2e_precision(torch, np, workdir, path,
+                                        chunk_length, nchunks, hits)
         path.unlink()
         period = phase_e2e_period(torch, np, workdir, opts.seed)
     except CheckFailed as exc:
@@ -1798,7 +2031,8 @@ def main(argv=None):
                 "direct sweep with period_search (e2e_period_chunks)":
                     period["period_search"],
                 "periodicity job (e2e_puperiod)":
-                    period["periodicity_search"]}
+                    period["periodicity_search"],
+                **precision["runs"]}
     shape = {"nchan": NCHAN, "nsamples": NSAMPLES}
 
     def levels(kind):
@@ -1949,33 +2183,55 @@ def main(argv=None):
                   "superblock": fdd_head["superblock"],
                   "launches_per_superblock": fdd_head["launches_per_call"]},
         "card": card,
-    }, {
-        "name": "harmonic_scorer",
-        "route": "cuda",
-        "source": "pulsarutils_tpu_torch/csrc/harmonic.cu",
-        "replaces": "pulsarutils_tpu/ops/harmonic_pallas.py:124",
-        "replaces_functions":
-            "ops/harmonic_pallas.py:_build_harmonic_kernel",
-        "launches": period["period_search"]["B6"],
-        "launches_by_path": {k: v["B6"] for k, v in launches.items()},
-        "max_abs_err": max(r["max_abs_diff"] for r in [
-            harm_head, *harm_records, *harm_main.values()]),
-        "ms": harm_head["kernel_ms"],
-        "plain_ms": harm_head["plain_ms"],
-        "bound_ms": harm_head["bound_ms"],
-        "bound_by": harm_head["bound_by"],
-        "library_ms": None,
-        "tolerance": harm_head["tolerance"],
-        "shape": {"rows": harm_head["rows"], "nbins": harm_head["nbins"],
-                  "depths": harm_head["depths"],
-                  "cluster": harm_head["cluster"]},
-        "main_path_shapes": {label: {f: r[f] for f in (
-            "rows", "nbins", "cluster", "branches_equal", "peak_bins_equal",
-            "max_abs_diff", "kernel_ms", "branch_ms", "plain_ms", "bound_ms",
-            "bound_share")} for label, r in harm_main.items()},
-        "phases": kernel_breakdown["b6"],
-        "card": card,
     }]
+
+    def b6_entry(policy):
+        """B6's entry under ``policy``: launches on its main path (f32:
+        ``period_search``; the other policies: e2e_precision's spectral
+        search of the chunk's plane), times at the headline and the main
+        shapes."""
+        head = harm_head[policy]
+        main = {**harm_main[policy], "e2e_precision_plane":
+                precision["plane_records"][policy]}
+        key = "B6" if policy == "f32" else f"B6[{policy}]"
+        entry = {
+            "name": ("harmonic_scorer" if policy == "f32"
+                     else f"harmonic_scorer[{policy}]"),
+            "policy": policy,
+            "route": "cuda",
+            "source": "pulsarutils_tpu_torch/csrc/harmonic.cu",
+            "replaces": "pulsarutils_tpu/ops/harmonic_pallas.py:124",
+            "replaces_functions":
+                "ops/harmonic_pallas.py:_build_harmonic_kernel",
+            "replaces_branch": "ops/harmonic_pallas.py:75-114",
+            "launches": (period["period_search"][key] if policy == "f32"
+                         else precision["spectral"][policy]["launches"]),
+            "launches_by_path": {
+                **{k: v[key] for k, v in launches.items()},
+                "spectral_search of the e2e chunk (e2e_precision_chunk)":
+                    precision["spectral"][policy]["launches"]},
+            "max_abs_err": max(r["max_abs_diff"] for r in [
+                head, *harm_records[policy], *main.values()]),
+            "ms": head["kernel_ms"],
+            "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"],
+            "library_ms": None,
+            "tolerance": head["tolerance"],
+            "shape": {"rows": head["rows"], "nbins": head["nbins"],
+                      "depths": head["depths"], "cluster": head["cluster"]},
+            "main_path_shapes": {label: {f: r[f] for f in (
+                "rows", "nbins", "cluster", "branches_equal",
+                "peak_bins_equal", "max_abs_diff", "kernel_ms", "branch_ms",
+                "auto_fastest", "plain_ms", "bound_ms", "bound_by",
+                "bound_share")} for label, r in main.items()},
+            "card": card,
+        }
+        if policy == "f32":
+            entry["phases"] = kernel_breakdown["b6"]
+        return entry
+
+    kernels += [b6_entry(policy) for policy in B6_POLICIES]
     check_ok = all(k["launches"] > 0 for k in kernels)
     if not check_ok:
         print(f"chip_smoke: a kernel did not launch on its path: "

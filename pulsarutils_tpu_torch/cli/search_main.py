@@ -11,7 +11,6 @@ from __future__ import annotations
 import argparse
 import logging
 
-from ..ops.search import LATER_KERNELS
 from ..pipeline.search_pipeline import search_by_chunks
 from ..pipeline.sift import sift_hits
 
@@ -51,15 +50,16 @@ def build_parser():
                              "fires on signal-free chunks)")
     parser.add_argument("--surelybad", type=int, nargs="*", default=[])
     parser.add_argument("--kernel", default="auto",
-                        choices=("auto", "pallas", "fdmt", "hybrid",
-                                 "fourier", *LATER_KERNELS),
+                        choices=("auto", "pallas", "gather", "fdmt",
+                                 "hybrid", "fourier"),
                         help="auto and pallas run the exact direct sweep; "
-                             "fdmt the tree transform (tree-rounded "
-                             "tracks); hybrid the FDMT coarse sweep plus "
-                             "an exact rescore of the hit region; fourier "
-                             "the Fourier-domain dedispersion (exact "
-                             "fractional-sample delays); the others are "
-                             "not ported yet")
+                             "gather its portable formulation, whose "
+                             "channel sums follow PUTPU_PRECISION; fdmt "
+                             "the tree transform (tree-rounded tracks); "
+                             "hybrid the FDMT coarse sweep plus an exact "
+                             "rescore of the hit region; fourier the "
+                             "Fourier-domain dedispersion (exact "
+                             "fractional-sample delays)")
     parser.add_argument("--fft-zap", action="store_true",
                         help="excise periodic RFI in the Fourier domain")
     parser.add_argument("--cut-outliers", action="store_true",

@@ -17,6 +17,21 @@
 // (rows, ndepth) float32 and bins (rows, ndepth) int32.  The false-alarm
 // and sigma chain runs afterwards in PyTorch (ops/harmonic_cuda.py).
 //
+// The stack follows the precision policy of the Pallas kernel (a template
+// parameter of both kernels, so the f32 code is unchanged):
+// - kF32: acc = acc + v;
+// - kCompensated (the policies f32_compensated and split_f32, which the
+//   Pallas kernel treats alike): a TwoSum carry beside each accumulator,
+//     s = acc + v; bp = s - acc; comp = comp + ((acc - (s - bp)) + (v - bp));
+//     acc = s
+//   in that association, every add written __fadd_rn / __fsub_rn so that
+//   nvcc neither reassociates nor contracts it, each depth scoring
+//   (acc + comp) * band;
+// - kBf16 (bf16_operand_f32_accum): each normalised bin rounded to
+//   bfloat16 (round to nearest even) before the gather, the first
+//   harmonic's too, and added in float32.
+// The median and the normalise are the same under every policy.
+//
 // What bounds it on an H100: memory.  The least traffic is one read of the
 // row (4 bytes a bin) against ~60 float32 operations a bin.
 //
@@ -72,6 +87,7 @@
 //   is written).
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <atomic>
@@ -87,6 +103,38 @@ constexpr int kMaxDepths = 5;         // HARMONIC_SUMS = 1, 2, 4, 8, 16
 constexpr unsigned kFull = 0xffffffffu;
 // float32(ln 2), the JAX package's _LN2 rounded as its weak-typed divide does
 constexpr float kLn2 = 0.693147182464599609375f;
+
+// the stack's precision policies (ops/harmonic_cuda.py: POLICY_CODES)
+constexpr int kF32 = 0;
+constexpr int kCompensated = 1;
+constexpr int kBf16 = 2;
+
+// A normalised bin as the stack adds it under policy P.
+template <int P>
+__device__ __forceinline__ float operand(float v) {
+  if (P == kBf16) return __bfloat162float(__float2bfloat16_rn(v));
+  return v;
+}
+
+// acc += v under policy P; comp is the TwoSum carry of kCompensated.
+template <int P>
+__device__ __forceinline__ void stack_add(float& acc, float& comp, float v) {
+  if (P == kCompensated) {
+    const float s = __fadd_rn(acc, v);
+    const float bp = __fsub_rn(s, acc);
+    comp = __fadd_rn(comp, __fadd_rn(__fsub_rn(acc, __fsub_rn(s, bp)),
+                                     __fsub_rn(v, bp)));
+    acc = s;
+  } else {
+    acc = acc + v;
+  }
+}
+
+// The value a depth scores under policy P.
+template <int P>
+__device__ __forceinline__ float stacked(float acc, float comp) {
+  return P == kCompensated ? __fadd_rn(acc, comp) : acc;
+}
 
 __device__ __forceinline__ unsigned to_key(float v) {
   const unsigned b = __float_as_uint(v);
@@ -213,6 +261,7 @@ __device__ __forceinline__ Peak better_of(Peak a, Peak b) {
   return a;
 }
 
+template <int P>
 __global__ void __launch_bounds__(kThreads)
 harmonic_global_kernel(const float* __restrict__ power,
                        float* __restrict__ vals, int* __restrict__ bins,
@@ -245,16 +294,17 @@ harmonic_global_kernel(const float* __restrict__ power,
   const int hmax = 1 << (ndepth - 1);
   for (int i = threadIdx.x; i < nbins; i += kThreads) {
     const float band = (i >= lo && i < hi) ? 1.f : 0.f;
-    float acc = 0.f;
+    float acc = 0.f, comp = 0.f;
 #pragma unroll
     for (int j = 1; j <= 16; ++j) {
       if (j > hmax) break;
       const int idx = i * j;
-      const float v = idx < nbins ? __fdiv_rn(__ldg(p + idx), div) : 0.f;
-      acc = acc + v;
+      const float v =
+          idx < nbins ? operand<P>(__fdiv_rn(__ldg(p + idx), div)) : 0.f;
+      stack_add<P>(acc, comp, v);
       if ((j & (j - 1)) == 0) {  // j = 1, 2, 4, 8, 16: a scored depth
         const int d = j >= 16 ? 4 : j >= 8 ? 3 : j >= 4 ? 2 : j >= 2 ? 1 : 0;
-        const float h = acc * band;
+        const float h = stacked<P>(acc, comp) * band;
         if (h > best[d].v) best[d] = Peak{h, i};
       }
     }
@@ -528,8 +578,9 @@ __device__ float cluster_median(cooperative_groups::cluster_group& cluster,
 // them) from the harmonic arrays D_j[i] = norm[i*j] at `scr`: all G x J
 // loads in flight together, then the adds in ascending j (0 for a
 // harmonic out of range) and each depth's running peak over the bins in
-// ascending order.
-template <int G, int J>
+// ascending order.  Harmonics J+1..hmax would add 0, which changes neither
+// a finite acc (never -0) nor its TwoSum carry: they are skipped.
+template <int P, int G, int J>
 __device__ __forceinline__ void stack_batch(const float* __restrict__ scr,
                                             const int* offs, int c0,
                                             int cstep, int nbins, int lo,
@@ -548,22 +599,24 @@ __device__ __forceinline__ void stack_batch(const float* __restrict__ scr,
       v[g][j - 1] = in_range ? t : 0.f;
     }
   }
-  float acc[G];
+  float acc[G], comp[G];
 #pragma unroll
-  for (int g = 0; g < G; ++g) acc[g] = 0.f;
+  for (int g = 0; g < G; ++g) acc[g] = comp[g] = 0.f;
 #pragma unroll
   for (int j = 1; j <= kMaxHarmonic; ++j) {
     if (j > hmax) break;
     if (j <= J) {
 #pragma unroll
-      for (int g = 0; g < G; ++g) acc[g] = acc[g] + v[g][j <= J ? j - 1 : 0];
+      for (int g = 0; g < G; ++g)
+        stack_add<P>(acc[g], comp[g], v[g][j <= J ? j - 1 : 0]);
     }
     if ((j & (j - 1)) == 0) {  // j = 1, 2, 4, 8, 16: a scored depth
       const int d = j >= 16 ? 4 : j >= 8 ? 3 : j >= 4 ? 2 : j >= 2 ? 1 : 0;
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         const int i = ((c0 + g * cstep) << 5) + lane;
-        const float h = acc[g] * ((i >= lo && i < hi) ? 1.f : 0.f);
+        const float h =
+            stacked<P>(acc[g], comp[g]) * ((i >= lo && i < hi) ? 1.f : 0.f);
         if (i < nbins && h > best[d].v) best[d] = Peak{h, i};
       }
     }
@@ -574,6 +627,7 @@ __device__ __forceinline__ void stack_batch(const float* __restrict__ scr,
 // (nslots = gridDim.x / cluster); block `rank` holds bins [rank * slice,
 // rank * slice + slice) of the row, and `scratch` holds each cluster's
 // harmonic arrays at slot * scr_len.
+template <int P>
 __global__ void __launch_bounds__(kThreads, 2)
 harmonic_cluster_kernel(const float* __restrict__ power,
                         float* __restrict__ vals, int* __restrict__ bins,
@@ -618,7 +672,7 @@ harmonic_cluster_kernel(const float* __restrict__ power,
     const float med = cluster_median(cluster, s, len, dc, nbins, cs);
     const float div = med > 0.f ? __fdiv_rn(med, kLn2) : 1.f;
     for (int q = threadIdx.x; q < len; q += kThreads)
-      s[padded(q)] = __fdiv_rn(s[padded(q)], div);
+      s[padded(q)] = operand<P>(__fdiv_rn(s[padded(q)], div));
     __syncthreads();
     // harmonic j of bin i is bin i*j of some slice: this block writes
     // D_j[i] for the i*j it holds, consecutive i to consecutive words
@@ -647,23 +701,23 @@ harmonic_cluster_kernel(const float* __restrict__ power,
       const int first = c << 5;
       const int jw = first == 0 ? hmax : min(hmax, (nbins - 1) / first);
       if (jw > 8) {
-        stack_batch<1, 16>(scr, cs.offs, c, cstep, nbins, lo, hi, hmax,
+        stack_batch<P, 1, 16>(scr, cs.offs, c, cstep, nbins, lo, hi, hmax,
                            best);
         c += cstep;
       } else if (jw > 4) {
-        stack_batch<2, 8>(scr, cs.offs, c, cstep, nbins, lo, hi, hmax,
+        stack_batch<P, 2, 8>(scr, cs.offs, c, cstep, nbins, lo, hi, hmax,
                           best);
         c += 2 * cstep;
       } else if (jw > 2) {
-        stack_batch<4, 4>(scr, cs.offs, c, cstep, nbins, lo, hi, hmax,
+        stack_batch<P, 4, 4>(scr, cs.offs, c, cstep, nbins, lo, hi, hmax,
                           best);
         c += 4 * cstep;
       } else if (jw == 2) {
-        stack_batch<8, 2>(scr, cs.offs, c, cstep, nbins, lo, hi, hmax,
+        stack_batch<P, 8, 2>(scr, cs.offs, c, cstep, nbins, lo, hi, hmax,
                           best);
         c += 8 * cstep;
       } else {
-        stack_batch<8, 1>(scr, cs.offs, c, cstep, nbins, lo, hi, hmax,
+        stack_batch<P, 8, 1>(scr, cs.offs, c, cstep, nbins, lo, hi, hmax,
                           best);
         c += 8 * cstep;
       }
@@ -725,18 +779,19 @@ constexpr int max_slice() {
   return lo;
 }
 
-// Sets the cluster kernel's attributes on `device` (the current device)
-// once: the most shared memory a block may take, and cluster sizes above
-// 8.  0 or a cudaError_t.
+// Sets policy P's cluster kernel attributes on `device` (the current
+// device) once: the most shared memory a block may take, and cluster sizes
+// above 8.  0 or a cudaError_t.
+template <int P>
 int configure_cluster_kernel(int device) {
   static std::atomic<unsigned long long> done{0};  // a bit a device
   const unsigned long long bit = device < 64 ? 1ull << device : 0ull;
   if (done.load() & bit) return 0;
   cudaError_t err = cudaFuncSetAttribute(
-      harmonic_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      harmonic_cluster_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kSmemPerBlock);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(harmonic_cluster_kernel,
+    err = cudaFuncSetAttribute(harmonic_cluster_kernel<P>,
                                cudaFuncAttributeNonPortableClusterSizeAllowed,
                                1);
   if (err != cudaSuccess) return (int)err;
@@ -744,14 +799,15 @@ int configure_cluster_kernel(int device) {
   return 0;
 }
 
-// The cluster launch's configuration; 0 or a cudaError_t.
+// Policy P's cluster launch configuration; 0 or a cudaError_t.
+template <int P>
 int cluster_config(int nbins, int cluster, int clusters, int device,
                    cudaStream_t stream, cudaLaunchConfig_t* config,
                    cudaLaunchAttribute* attr) {
   const int slice = slice_bins(nbins, cluster);
   if (slice > max_slice()) return (int)cudaErrorInvalidValue;
   const size_t smem = cluster_smem_bytes(slice);
-  const int err = configure_cluster_kernel(device);
+  const int err = configure_cluster_kernel<P>(device);
   if (err != 0) return err;
   *config = cudaLaunchConfig_t{};
   config->gridDim = dim3((unsigned)(clusters * cluster));
@@ -767,13 +823,53 @@ int cluster_config(int nbins, int cluster, int clusters, int device,
   return 0;
 }
 
+// harmonic_launch under policy P.
+template <int P>
+int launch(const float* power, float* vals, int* bins, float* scratch,
+           int rows, int nbins, int ndepth, int lo, int hi, int cluster,
+           int clusters, int device, cudaStream_t stream) {
+  if (cluster == 1) {
+    harmonic_global_kernel<P><<<rows, kThreads, 0, stream>>>(
+        power, vals, bins, nbins, ndepth, lo, hi);
+    return (int)cudaGetLastError();
+  }
+  if (clusters < 1 || (long long)clusters * cluster > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t config;
+  cudaLaunchAttribute attr[1];
+  const int got = cluster_config<P>(nbins, cluster, clusters, device, stream,
+                                    &config, attr);
+  if (got != 0) return got;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &config, harmonic_cluster_kernel<P>, power, vals, bins, scratch, rows,
+      nbins, ndepth, lo, hi, slice_bins(nbins, cluster),
+      scratch_floats(nbins, ndepth));
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// harmonic_active_clusters under policy P.
+template <int P>
+int active_clusters(int nbins, int cluster, int device) {
+  cudaLaunchConfig_t config;
+  cudaLaunchAttribute attr[1];
+  const int got = cluster_config<P>(nbins, cluster, 1, device, 0, &config,
+                                    attr);
+  if (got != 0) return -got;
+  int active = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveClusters(
+      &active, harmonic_cluster_kernel<P>, &config);
+  return err == cudaSuccess ? active : -(int)err;
+}
+
 }  // namespace
 
 extern "C" {
 
 // Launches on `stream` (a cudaStream_t) of `device`; returns the
 // cudaError_t of the launch (0 on success).  No synchronisation.
-// `cluster` 1 takes the global branch (one block a row); 2..16 the
+// `policy`: the stack's precision policy code (0 f32, 1 compensated, 2
+// bf16).  `cluster` 1 takes the global branch (one block a row); 2..16 the
 // cluster branch with that many blocks a row, each holding
 // slice_bins(nbins, cluster) bins, over `clusters` clusters that walk the
 // rows, with `scratch` (clusters x scratch_floats floats) for their
@@ -782,50 +878,45 @@ extern "C" {
 // run fails in cudaLaunchKernelEx.
 int harmonic_launch(const float* power, float* vals, int* bins,
                     float* scratch, int rows, int nbins, int ndepth, int lo,
-                    int hi, int cluster, int clusters, int device,
-                    void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+                    int hi, int cluster, int clusters, int policy,
+                    int device, void* stream) {
+  const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (ndepth < 1 || ndepth > kMaxDepths || nbins < 2 || rows < 1 ||
       cluster < 1 || cluster > kMaxCluster)
     return (int)cudaErrorInvalidValue;
-  if (cluster == 1) {
-    harmonic_global_kernel<<<rows, kThreads, 0, (cudaStream_t)stream>>>(
-        power, vals, bins, nbins, ndepth, lo, hi);
-    return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (policy) {
+    case kF32:
+      return launch<kF32>(power, vals, bins, scratch, rows, nbins, ndepth,
+                          lo, hi, cluster, clusters, device, st);
+    case kCompensated:
+      return launch<kCompensated>(power, vals, bins, scratch, rows, nbins,
+                                  ndepth, lo, hi, cluster, clusters, device,
+                                  st);
+    case kBf16:
+      return launch<kBf16>(power, vals, bins, scratch, rows, nbins, ndepth,
+                           lo, hi, cluster, clusters, device, st);
   }
-  if (clusters < 1 || (long long)clusters * cluster > 0x7fffffffLL)
-    return (int)cudaErrorInvalidValue;
-  cudaLaunchConfig_t config;
-  cudaLaunchAttribute attr[1];
-  const int got = cluster_config(nbins, cluster, clusters, device,
-                                 (cudaStream_t)stream, &config, attr);
-  if (got != 0) return got;
-  err = cudaLaunchKernelEx(&config, harmonic_cluster_kernel, power, vals,
-                           bins, scratch, rows, nbins, ndepth, lo, hi,
-                           slice_bins(nbins, cluster),
-                           scratch_floats(nbins, ndepth));
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
 }
 
 // How many clusters of `cluster` blocks holding a row of `nbins` bins the
-// card runs at once (0: none), or a negative cudaError_t.
-int harmonic_active_clusters(int nbins, int cluster, int device) {
-  cudaError_t err = cudaSetDevice(device);
+// card runs at once under `policy` (0: none), or a negative cudaError_t.
+int harmonic_active_clusters(int nbins, int cluster, int policy,
+                             int device) {
+  const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return -(int)err;
   if (cluster < 2 || cluster > kMaxCluster ||
       slice_bins(nbins, cluster) > max_slice())
     return 0;
-  cudaLaunchConfig_t config;
-  cudaLaunchAttribute attr[1];
-  const int got = cluster_config(nbins, cluster, 1, device, 0, &config,
-                                 attr);
-  if (got != 0) return -got;
-  int active = 0;
-  err = cudaOccupancyMaxActiveClusters(&active, harmonic_cluster_kernel,
-                                       &config);
-  return err == cudaSuccess ? active : -(int)err;
+  switch (policy) {
+    case kF32: return active_clusters<kF32>(nbins, cluster, device);
+    case kCompensated:
+      return active_clusters<kCompensated>(nbins, cluster, device);
+    case kBf16: return active_clusters<kBf16>(nbins, cluster, device);
+  }
+  return 0;
 }
 
 const char* harmonic_error_string(int code) {

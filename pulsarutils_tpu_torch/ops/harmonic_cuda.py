@@ -10,6 +10,12 @@ divides and add the harmonics in the same order, so the peaks agree bit
 for bit.  :func:`score_power` adds the false-alarm / best-depth / sigma
 chain in PyTorch, as the JAX package's wrapper does in XLA.
 
+The stack follows a :mod:`..precision` policy, as the Pallas kernel's
+does: ``f32``; ``f32_compensated`` and ``split_f32`` (one branch: a
+TwoSum carry beside each accumulator); ``bf16_operand_f32_accum``
+(bfloat16-rounded bins added in float32).  The kernel is a template on
+the policy (:data:`POLICY_CODES`).
+
 The kernel has two branches (:func:`choose_cluster` picks one per
 launch): a row held in the shared memory of a thread-block cluster of 2,
 4, 8 or 16 blocks, each block a slice of ``slice_bins`` bins (read from
@@ -25,6 +31,7 @@ import functools
 
 import torch
 
+from ..precision import static_policy
 from .periodicity import (HARMONIC_SUMS, band_edges, best_depth,
                           harmonic_depths, harmonic_peaks_plain,
                           normalize_power)
@@ -50,6 +57,11 @@ CLUSTER_FIXED_SMEM = 29508
 #: of which the card keeps 1 KB for each resident block)
 SMEM_PER_BLOCK = 232448
 SMEM_PER_SM = 233472
+
+
+#: the kernel's policy code of each :mod:`..precision` policy
+POLICY_CODES = {"f32": 0, "f32_compensated": 1, "split_f32": 1,
+                "bf16_operand_f32_accum": 2}
 
 
 def padded(q):
@@ -111,8 +123,8 @@ def choose_cluster(nbins, rows, sms):
         cluster = fits[fits.index(cluster) + 1]
     return cluster
 
-#: kernel launches made so far (the number of calls that reached the card)
-launches = 0
+#: kernel launches made so far, by policy (the calls that reached the card)
+launches = dict.fromkeys(POLICY_CODES, 0)
 
 _lib = None
 
@@ -124,10 +136,10 @@ def _library():
 
         lib = nvcc.load("harmonic")
         lib.harmonic_launch.argtypes = ([ctypes.c_void_p] * 4
-                                        + [ctypes.c_int] * 8
+                                        + [ctypes.c_int] * 9
                                         + [ctypes.c_void_p])
         lib.harmonic_launch.restype = ctypes.c_int
-        lib.harmonic_active_clusters.argtypes = [ctypes.c_int] * 3
+        lib.harmonic_active_clusters.argtypes = [ctypes.c_int] * 4
         lib.harmonic_active_clusters.restype = ctypes.c_int
         lib.harmonic_error_string.argtypes = [ctypes.c_int]
         lib.harmonic_error_string.restype = ctypes.c_char_p
@@ -159,18 +171,20 @@ def _sms(index):
 
 
 @functools.lru_cache(maxsize=None)
-def _active_clusters(nbins, cluster, index):
-    got = _library().harmonic_active_clusters(nbins, cluster, index)
+def _active_clusters(nbins, cluster, code, index):
+    got = _library().harmonic_active_clusters(nbins, cluster, code, index)
     if got < 0:
         raise RuntimeError("harmonic_active_clusters failed: "
                            + _library().harmonic_error_string(-got).decode())
     return got
 
 
-def active_clusters(nbins, cluster, device):
+def active_clusters(nbins, cluster, device, policy=None):
     """How many ``cluster``-block clusters holding a row of ``nbins`` bins
-    the card of ``device`` runs at once (0: it cannot run one)."""
+    the card of ``device`` runs at once under ``policy`` (0: it cannot
+    run one)."""
     return _active_clusters(int(nbins), int(cluster),
+                            POLICY_CODES[static_policy(policy)],
                             torch.device(device).index or 0)
 
 
@@ -191,15 +205,16 @@ def _check_power(power):
     return rows, nbins
 
 
-def harmonic_peaks_cuda(power, depths, lo, hi, cluster=None):
+def harmonic_peaks_cuda(power, depths, lo, hi, cluster=None, policy=None):
     """Launch the kernel on raw power spectra ``power`` (rows, nbins)
-    float32, contiguous, on a CUDA device.  ``cluster``: blocks a row (1
-    takes the global branch; None lets :func:`choose_cluster` pick).  The
-    cluster branch runs as many clusters as the card holds at once (at
-    most one a row), each walking its rows.  Returns ``(vals (rows,
-    ndepth) float32, bins (rows, ndepth) int32)``, allocated here with the
-    clusters' scratch; queued on the current stream."""
-    global launches
+    float32, contiguous, on a CUDA device, the stack under the precision
+    ``policy``.  ``cluster``: blocks a row (1 takes the global branch;
+    None lets :func:`choose_cluster` pick).  The cluster branch runs as
+    many clusters as the card holds at once (at most one a row), each
+    walking its rows.  Returns ``(vals (rows, ndepth) float32, bins (rows,
+    ndepth) int32)``, allocated here with the clusters' scratch; queued on
+    the current stream."""
+    policy = static_policy(policy)
     depths = _check_depths(depths)
     rows, nbins = _check_power(power)
     if cluster is None:
@@ -213,7 +228,8 @@ def harmonic_peaks_cuda(power, depths, lo, hi, cluster=None):
     bins = torch.empty((rows, nd), dtype=torch.int32, device=power.device)
     clusters, scratch = 0, None
     if cluster > 1:
-        clusters = min(rows, active_clusters(nbins, cluster, power.device))
+        clusters = min(rows, active_clusters(nbins, cluster, power.device,
+                                             policy))
         if clusters < 1:
             raise RuntimeError(f"the card runs no {cluster}-block cluster "
                                f"of {nbins}-bin rows")
@@ -224,37 +240,42 @@ def harmonic_peaks_cuda(power, depths, lo, hi, cluster=None):
     err = lib.harmonic_launch(
         power.data_ptr(), vals.data_ptr(), bins.data_ptr(),
         None if scratch is None else scratch.data_ptr(), rows, nbins, nd,
-        int(lo), int(hi), int(cluster), clusters, power.device.index or 0,
-        stream)
+        int(lo), int(hi), int(cluster), clusters, POLICY_CODES[policy],
+        power.device.index or 0, stream)
     if err != 0:
         raise RuntimeError("harmonic kernel launch failed: "
                            + lib.harmonic_error_string(err).decode())
-    launches += 1
+    launches[policy] += 1
     return vals, bins
 
 
-def harmonic_peaks(power, depths, lo, hi):
+def harmonic_peaks(power, depths, lo, hi, policy=None):
     """Per-depth peak values and first peak bins of the median-normalised
-    harmonic stack of raw spectra ``power`` (rows, nbins): the kernel for
-    a CUDA tensor, the plain version for a CPU tensor."""
+    harmonic stack of raw spectra ``power`` (rows, nbins) under the
+    precision ``policy``: the kernel for a CUDA tensor, the plain version
+    for a CPU tensor."""
     if power.device.type == "cpu":
         return harmonic_peaks_plain(normalize_power(power),
-                                    _check_depths(depths), lo, hi)
+                                    _check_depths(depths), lo, hi,
+                                    policy=policy)
     if power.device.type != "cuda":
         raise ValueError(f"no harmonic scorer for device {power.device}")
-    return harmonic_peaks_cuda(power.contiguous(), depths, lo, hi)
+    return harmonic_peaks_cuda(power.contiguous(), depths, lo, hi,
+                               policy=policy)
 
 
 def score_power(power, nsamples, tsamp, max_harmonics=16, fmin=None,
-                fmax=None):
-    """``normalize_power`` -> harmonic stack -> best depth of raw spectra
-    ``power`` (..., nbins) of a length-``nsamples`` series: the dict
-    ``freq, power, nharm, log_sf, sigma`` (tensors on its device)."""
+                fmax=None, policy=None):
+    """``normalize_power`` -> harmonic stack (under the precision
+    ``policy``) -> best depth of raw spectra ``power`` (..., nbins) of a
+    length-``nsamples`` series: the dict ``freq, power, nharm, log_sf,
+    sigma`` (tensors on its device)."""
     power = torch.as_tensor(power).to(torch.float32)
     lead, nbins = power.shape[:-1], power.shape[-1]
     lo, hi = band_edges(nbins, nsamples, tsamp, fmin, fmax)
     depths = harmonic_depths(max_harmonics)
-    vals, bins = harmonic_peaks(power.reshape(-1, nbins), depths, lo, hi)
+    vals, bins = harmonic_peaks(power.reshape(-1, nbins), depths, lo, hi,
+                                policy=policy)
     vals = vals.reshape(*lead, len(depths))
     bins = bins.reshape(*lead, len(depths))
     return best_depth(vals, bins, depths, nsamples, tsamp)

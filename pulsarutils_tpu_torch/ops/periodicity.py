@@ -23,6 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..precision import cast_operand, strategy
 from ..utils.device import to_numpy
 from .robust import h_test_batch, median, ref_mad
 
@@ -65,20 +66,58 @@ def normalize_power(power):
 # Harmonic summing and the scoring chain
 # ---------------------------------------------------------------------------
 
-def _add_harmonic(acc, power, j):
-    """Add harmonic ``j`` of every fundamental bin: ``acc[i] +=
-    power[i*j]`` where ``i*j < nbins``, else ``+= 0``."""
+def _harmonic_addend(power, j):
+    """Harmonic ``j`` of every fundamental bin: ``power[i*j]`` where ``i*j <
+    nbins``, else 0."""
     strided = power[..., ::j]
     v = torch.zeros_like(power)
     v[..., :strided.shape[-1]] = strided
-    return acc + v
+    return v
 
 
-def harmonic_sum(power, nharm):
+def _add_harmonic(acc, power, j):
+    """``acc[i] += power[i*j]`` where ``i*j < nbins``, else ``+= 0``."""
+    return acc + _harmonic_addend(power, j)
+
+
+def _add_harmonic_comp(acc, comp, power, j):
+    """The compensated (TwoSum) :func:`_add_harmonic`: returns ``(acc,
+    comp)``, the add's rounding error carried in ``comp`` (the
+    ``f32_compensated`` and ``split_f32`` policies' stack: the harmonic
+    count is small, so the two share the sequential form)."""
+    v = _harmonic_addend(power, j)
+    s = acc + v
+    bp = s - acc
+    comp = comp + ((acc - (s - bp)) + (v - bp))
+    return s, comp
+
+
+def _compensated(policy):
+    strat = strategy(policy)
+    return strat is not None and strat.accumulator != "plain"
+
+
+def _operand(norm, policy):
+    """The stack's addends under ``policy``: ``norm`` rounded to bfloat16
+    (and held in float32) under ``bf16_operand_f32_accum``, else
+    ``norm``."""
+    strat = strategy(policy)
+    if strat is not None and strat.operand_dtype == "bfloat16":
+        return cast_operand(norm, strat.name).to(norm.dtype)
+    return norm
+
+
+def harmonic_sum(power, nharm, policy=None):
     """``out[..., i] = sum_{j=1..nharm} power[..., i * j]`` (out-of-range
-    harmonics contribute zero), ``j`` ascending."""
+    harmonics contribute zero), ``j`` ascending; under ``f32_compensated``
+    and ``split_f32`` with a TwoSum carry, returning ``out + comp``."""
     power = torch.as_tensor(power)
     out = torch.zeros_like(power)
+    if _compensated(policy):
+        comp = torch.zeros_like(power)
+        for j in range(1, int(nharm) + 1):
+            out, comp = _add_harmonic_comp(out, comp, power, j)
+        return out + comp
     for j in range(1, int(nharm) + 1):
         out = _add_harmonic(out, power, j)
     return out
@@ -97,22 +136,31 @@ def harmonic_depths(max_harmonics):
     return tuple(h for h in HARMONIC_SUMS if h <= int(max_harmonics))
 
 
-def harmonic_peaks_plain(norm, depths, lo, hi):
+def harmonic_peaks_plain(norm, depths, lo, hi, policy=None):
     """Peak value and first argmax of ``acc_h * band`` per depth ``h`` of
     the incremental harmonic stack of normalised spectra ``norm`` (rows,
     nbins): ``(vals (rows, ndepth) float32, bins (rows, ndepth) int32)``.
-    The plain version of the harmonic kernel's stack."""
+    The plain version of the harmonic kernel's stack, under ``policy``:
+    ``f32_compensated`` and ``split_f32`` add with a TwoSum carry beside
+    each bin and score ``acc + comp``; ``bf16_operand_f32_accum`` adds the
+    bins rounded to bfloat16 (the first harmonic's too) in float32."""
     nbins = norm.shape[-1]
     band = torch.zeros(nbins, dtype=norm.dtype, device=norm.device)
     band[lo:hi] = 1.0
+    compensated = _compensated(policy)
+    addends = _operand(norm, policy)
     acc = torch.zeros_like(norm)
+    comp = torch.zeros_like(norm) if compensated else None
     vals, bins = [], []
     depth = 0
     for h in depths:
         for j in range(depth + 1, h + 1):
-            acc = _add_harmonic(acc, norm, j)
+            if compensated:
+                acc, comp = _add_harmonic_comp(acc, comp, norm, j)
+            else:
+                acc = _add_harmonic(acc, addends, j)
         depth = h
-        hsum = acc * band
+        hsum = (acc + comp if compensated else acc) * band
         peak = torch.argmax(hsum, dim=-1)
         vals.append(torch.gather(hsum, -1, peak[..., None])[..., 0])
         bins.append(peak.to(torch.int32))
@@ -176,23 +224,17 @@ def best_depth(vals, bins, depths, nsamples, tsamp):
             "log_sf": best_logsf, "sigma": sf_log_to_sigma(best_logsf)}
 
 
-def _check_policy(policy):
-    if policy not in (None, "f32"):
-        raise NotImplementedError(
-            f"precision policy {policy!r} is not ported yet: ROADMAP.md "
-            "queue A, item 8 (only the float32 harmonic stack exists)")
-
-
 def score_normalized_power(power, nsamples, tsamp, max_harmonics=16,
                            fmin=None, fmax=None, policy=None):
     """Harmonic-sum scoring of an already Exp(1)-normalised spectrum
     ``power`` (..., nbins) of a length-``nsamples`` series, plain PyTorch
-    on any device: the dict ``freq, power, nharm, log_sf, sigma``."""
-    _check_policy(policy)
+    on any device, the stack under the :mod:`..precision` ``policy``
+    (:func:`harmonic_peaks_plain`): the dict ``freq, power, nharm,
+    log_sf, sigma``."""
     power = torch.as_tensor(power)
     lo, hi = band_edges(power.shape[-1], nsamples, tsamp, fmin, fmax)
     depths = harmonic_depths(max_harmonics)
-    vals, bins = harmonic_peaks_plain(power, depths, lo, hi)
+    vals, bins = harmonic_peaks_plain(power, depths, lo, hi, policy=policy)
     return best_depth(vals, bins, depths, nsamples, tsamp)
 
 
@@ -201,34 +243,35 @@ def spectral_search(series, tsamp, max_harmonics=16, fmin=None, fmax=None,
     """FFT periodicity search of ``series`` (..., T): per row the best of
     every harmonic depth up to ``max_harmonics``, as the dict ``freq``
     (Hz), ``power``, ``nharm``, ``log_sf``, ``sigma``.  The scoring runs
-    through :func:`~.harmonic_cuda.score_power` (the kernel on the
-    card)."""
+    through :func:`~.harmonic_cuda.score_power` (the kernel on the card),
+    its harmonic stack under the :mod:`..precision` ``policy``."""
     from .harmonic_cuda import score_power
 
-    _check_policy(policy)
     series = torch.as_tensor(series)
     t = series.shape[-1]
     return score_power(power_spectrum(series), t, tsamp,
-                       max_harmonics=max_harmonics, fmin=fmin, fmax=fmax)
+                       max_harmonics=max_harmonics, fmin=fmin, fmax=fmax,
+                       policy=policy)
 
 
 def spectral_stacked(series, tsamp, max_harmonics=16, fmin=None,
-                     fmax=None):
+                     fmax=None, policy=None):
     """:func:`spectral_search` packed as one ``(5, rows)`` float32 tensor
     on the series' device (rows in :data:`_SPEC_KEYS` order)."""
     spec = spectral_search(series, tsamp, max_harmonics=max_harmonics,
-                           fmin=fmin, fmax=fmax)
+                           fmin=fmin, fmax=fmax, policy=policy)
     return torch.stack([spec[k].to(torch.float32) for k in _SPEC_KEYS])
 
 
-def _spectral_chunk(plane_chunk, tsamp, max_harmonics, fmin, fmax):
+def _spectral_chunk(plane_chunk, tsamp, max_harmonics, fmin, fmax,
+                    policy=None):
     """Spectral-search one row chunk; a host dict out, one readback.  The
     card always scores with the harmonic kernel (the JAX package chooses
     between its kernels with an autotuner the port does not have yet,
     ROADMAP.md queue A, item 8); the CPU with the plain chain."""
     stacked = to_numpy(spectral_stacked(plane_chunk, tsamp,
                                         max_harmonics=max_harmonics,
-                                        fmin=fmin, fmax=fmax))
+                                        fmin=fmin, fmax=fmax, policy=policy))
     out = dict(zip(_SPEC_KEYS, stacked))
     out["nharm"] = np.rint(out["nharm"]).astype(np.int32)
     return out

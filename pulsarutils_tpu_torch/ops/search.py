@@ -1,7 +1,7 @@
 """The dedispersion search: plan -> dedisperse every trial -> boxcar S/N.
 
 :func:`dedispersion_search` is the port of the JAX package's search
-façade, with four kernels:
+façade, with six kernels:
 
 * ``"auto"``/``"pallas"``: the exact direct sweep (the JAX package's
   ``kernel="pallas"``, which its ``kernel="auto"`` picks on the
@@ -9,6 +9,10 @@ façade, with four kernels:
   superblocks through :func:`~.dedisperse_cuda.dedisperse_plane`, and the
   batched boxcar scorer of the reference
   (``pulsarutils/dedispersion.py:186-201``);
+* ``"gather"``/``"roll"``: the JAX package's portable formulations of the
+  same sweep (:func:`~.dedisperse.dedisperse_block_chunked`), trial block
+  by trial block, whose channel sums follow a :mod:`..precision` policy
+  (``precision=``, else ``PUTPU_PRECISION``);
 * ``"fdmt"``: the tree transform over every integer band-delay trial
   (:func:`~.fdmt.fdmt_transform`) scored in one pass
   (:func:`~.score_cuda.score_plane`), one host readback;
@@ -54,14 +58,11 @@ CERT_WINDOWS = (2, 3, 4)
 #: superblock * nsamples floats (512 x 1M = 2 GB) regardless of ndm
 SUPERBLOCK = 512
 
-#: kernels of the JAX package that later slices port, with their
-#: ROADMAP.md item
-LATER_KERNELS = {
-    "gather": "queue A, item 12 (the gather/roll direct-sweep "
-              "formulations)",
-    "roll": "queue A, item 12 (the gather/roll direct-sweep "
-            "formulations)",
-}
+#: the kernels :func:`dedispersion_search` takes
+KERNELS = ("auto", "pallas", "gather", "roll", "fdmt", "hybrid", "fourier")
+
+#: soft cap on the gather workspace (elements) of one trial block
+GATHER_BUDGET_ELEMENTS = 1 << 28
 
 #: rescore-call row buckets (requested rows pad up to the next bucket,
 #: as in the JAX package, so each rescore is one sweep launch of 8, 16
@@ -232,6 +233,105 @@ def _search_direct(data, superblocks, capture_plane):
     if capture_plane:
         plane = planes[0] if len(planes) == 1 else torch.cat(planes)
     return (*fields, plane)
+
+
+# ---------------------------------------------------------------------------
+# The gather and roll formulations
+# ---------------------------------------------------------------------------
+
+def auto_chan_block(nchan, nsamples, dm_block):
+    """Largest power-of-two channel block that divides ``nchan`` and keeps
+    ``dm_block * chan_block * nsamples`` within
+    :data:`GATHER_BUDGET_ELEMENTS`; None where the whole channel axis
+    fits."""
+    if dm_block * nchan * nsamples <= GATHER_BUDGET_ELEMENTS:
+        return None
+    block = 1
+    candidate = 2
+    while candidate <= nchan:
+        if (nchan % candidate == 0
+                and dm_block * candidate * nsamples <= GATHER_BUDGET_ELEMENTS):
+            block = candidate
+        candidate *= 2
+    return block
+
+
+def block_offsets(offsets, dm_block):
+    """Pad the trial axis of ``offsets`` ``(ndm, nchan)`` to a multiple of
+    ``dm_block`` (repeating the last trial, sliced off after the sweep)
+    and reshape it to ``(nblocks, dm_block, nchan)``."""
+    ndm, nchan = offsets.shape
+    npad = (-ndm) % dm_block
+    if npad:
+        offsets = np.concatenate([offsets, offsets[-1:].repeat(npad, axis=0)])
+    return offsets.reshape(-1, dm_block, nchan)
+
+
+def _search_formulation(data, offsets, capture_plane, formulation, policy,
+                        dm_block, chan_block):
+    """Dedisperse ``offsets`` ``(ndm, nchan)`` with the gather or roll
+    formulation, ``dm_block`` trials at a time (default up to 32), the
+    gather in blocks of ``chan_block`` channels (default
+    :func:`auto_chan_block`), and score each trial block through
+    :func:`~.score_cuda.score_plane`; one readback at the end."""
+    from .dedisperse import dedisperse_block_chunked
+    from .score_cuda import score_plane
+
+    ndm = offsets.shape[0]
+    nchan, nsamples = data.shape
+    if ndm == 0:  # an empty plan (inverted DM range): an empty table
+        plane = (torch.zeros((0, nsamples), dtype=data.dtype,
+                             device=data.device) if capture_plane else None)
+        return (*[np.zeros(0, np.float32)] * 3, np.zeros(0, np.int32),
+                np.zeros(0, np.int64), plane)
+    if dm_block is None:
+        dm_block = max(1, min(ndm, 32))
+    if chan_block is None:
+        chan_block = auto_chan_block(nchan, nsamples, dm_block)
+    blocks = torch.from_numpy(block_offsets(offsets, dm_block)).to(
+        data.device)
+    scores, planes = [], []
+    for offs in blocks:
+        plane = dedisperse_block_chunked(data, offs, chan_block, formulation,
+                                         policy)
+        scores.append(score_plane(plane))
+        if capture_plane:
+            planes.append(plane)
+    fields = unstack_scores(torch.cat(scores, dim=1)[:, :ndm])
+    plane = torch.cat(planes)[:ndm] if capture_plane else None
+    return (*fields, plane)
+
+
+def _sweep_policy(kernel, precision):
+    """The precision policy a sweep of ``kernel`` runs under, validated as
+    the JAX package validates it: ``precision`` if given, else
+    ``PUTPU_PRECISION``, else ``f32``.  Only the gather and roll channel
+    sums take a policy other than ``f32``.  The direct sweep and the FDD
+    declare float32 and raise ``ValueError`` on any other; the FDMT and
+    the hybrid raise on an explicit one, the FDMT ignores the variable
+    and the hybrid checks its name (its rescore is the float32 direct
+    sweep).  ``"auto"`` is the static ``f32`` pairing (the autotuner is
+    not ported).  Returns None for ``f32``, else the strategy name."""
+    from ..precision import engage, resolve_policy, static_policy
+
+    if kernel in ("fdmt", "hybrid"):
+        if precision not in (None, "f32", "auto"):
+            raise ValueError(
+                "precision policies apply to the gather/roll channel "
+                f"reductions; got precision={precision!r} with "
+                f"kernel={kernel!r}")
+        if kernel == "hybrid":
+            resolve_policy(None)
+        return None
+    name = static_policy(resolve_policy(precision))
+    if name != "f32" and kernel not in ("gather", "roll"):
+        raise ValueError(
+            "precision policies apply to the gather/roll channel "
+            f"reductions; kernel={kernel!r} is float32-only (got policy "
+            f"{name!r})")
+    if name == "f32":
+        return None
+    return engage(name)
 
 
 # ---------------------------------------------------------------------------
@@ -468,18 +568,32 @@ def _search_hybrid(data, trial_dms, start_freq, bandwidth, sample_time,
 def dedispersion_search(data, dmmin, dmmax, start_freq, bandwidth, sample_time,
                         show=False, *, capture_plane=None, trial_dms=None,
                         kernel="auto", snr_floor=None, noise_certificate=True,
-                        rho_cert=None, cert_slack=None, device="cuda"):
+                        rho_cert=None, cert_slack=None, precision=None,
+                        dm_block=None, chan_block=None, device="cuda"):
     """Sweep trial DMs over ``data`` ``(nchan, T)`` and score each series.
 
     ``kernel``: ``"auto"`` and ``"pallas"`` run the exact direct sweep
-    (the JAX package's names, so its flags carry over); ``"fdmt"`` the
-    tree transform on its own integer band-delay grid (``trial_dms``, if
-    given, only bounds the DM range); ``"hybrid"`` the FDMT coarse sweep
-    plus the exact rescore of the hit region (exact hits on the plan
-    grid); ``"fourier"`` Fourier-domain dedispersion at the un-rounded
-    delays.  The JAX package's other kernels raise
-    ``NotImplementedError``.  ``trial_dms`` replaces the default plan (one
-    trial per integer sample of band-crossing delay).
+    (the JAX package's names, so its flags carry over); ``"gather"`` and
+    ``"roll"`` the JAX package's portable formulations of it, whose
+    channel sums follow ``precision``; ``"fdmt"`` the tree transform on
+    its own integer band-delay grid (``trial_dms``, if given, only bounds
+    the DM range); ``"hybrid"`` the FDMT coarse sweep plus the exact
+    rescore of the hit region (exact hits on the plan grid);
+    ``"fourier"`` Fourier-domain dedispersion at the un-rounded delays.
+    ``trial_dms`` replaces the default plan (one trial per integer sample
+    of band-crossing delay).
+
+    ``precision``: the :mod:`..precision` policy of the gather and roll
+    channel sums (``"f32"``, ``"f32_compensated"``, ``"split_f32"``,
+    ``"bf16_operand_f32_accum"``, or ``"auto"``, the static ``f32``
+    pairing); None reads ``PUTPU_PRECISION``, else ``f32``.  A policy
+    other than ``f32`` raises ``ValueError`` with the direct sweep and
+    the FDD (from the argument or the variable) and with the FDMT and the
+    hybrid (from the argument; the FDMT ignores the variable, the hybrid
+    checks its name and rescores in float32), as in the JAX package.
+    ``dm_block`` and ``chan_block``: the gather and roll formulations'
+    trial and channel blocks (defaults: up to 32 trials, the channel
+    block that keeps a gather within :data:`GATHER_BUDGET_ELEMENTS`).
 
     Hybrid only: ``snr_floor`` makes every row that could hold an
     above-floor detection exact and enables the noise certificate
@@ -497,19 +611,16 @@ def dedispersion_search(data, dmmin, dmmax, start_freq, bandwidth, sample_time,
     ``cert`` and a certificate ``meta``) — plus the ``(ndm, T)`` plane
     tensor when ``show`` or ``capture_plane`` is set.
     """
-    if kernel in LATER_KERNELS:
-        raise NotImplementedError(
-            f"kernel={kernel!r} is not ported yet: ROADMAP.md "
-            f"{LATER_KERNELS[kernel]}")
-    if kernel not in ("auto", "pallas", "fdmt", "hybrid", "fourier"):
+    if kernel not in KERNELS:
         raise ValueError(f"unknown kernel {kernel!r}")
+    policy = _sweep_policy(kernel, precision)
     if capture_plane is None:
         capture_plane = bool(show)
     if capture_plane == "memmap":
-        if kernel == "fourier":
+        if kernel in ("fourier", "gather", "roll"):
             raise ValueError("capture_plane='memmap' requires kernel="
-                             "'pallas'/'auto' (the FDD holds the plane in "
-                             "device memory)")
+                             "'pallas'/'auto' (the gather, roll and FDD "
+                             "kernels hold the plane in device memory)")
         raise NotImplementedError(
             "capture_plane='memmap' is not ported yet (ROADMAP.md queue A, "
             "item 3)")
@@ -569,11 +680,18 @@ def dedispersion_search(data, dmmin, dmmax, start_freq, bandwidth, sample_time,
         }, meta=cert_meta(certified, rho_out, snr_floor, cert_slack))
         return (table, plane) if capture_plane else table
 
-    superblocks = _direct_sweep(
-        trial_dms.tobytes(), nchan, float(start_freq), float(bandwidth),
-        float(sample_time), nsamples, SUPERBLOCK, data.device)
-    (maxvalues, stds, best_snrs, best_windows, best_peaks,
-     plane) = _search_direct(data, superblocks, capture_plane)
+    if kernel in ("gather", "roll"):
+        offsets = offsets_for(trial_dms, nchan, start_freq, bandwidth,
+                              sample_time, nsamples)
+        (maxvalues, stds, best_snrs, best_windows, best_peaks,
+         plane) = _search_formulation(data, offsets, capture_plane, kernel,
+                                      policy, dm_block, chan_block)
+    else:
+        superblocks = _direct_sweep(
+            trial_dms.tobytes(), nchan, float(start_freq), float(bandwidth),
+            float(sample_time), nsamples, SUPERBLOCK, data.device)
+        (maxvalues, stds, best_snrs, best_windows, best_peaks,
+         plane) = _search_direct(data, superblocks, capture_plane)
     table = ResultTable({
         "DM": trial_dms,
         "max": maxvalues,

@@ -40,6 +40,7 @@ from pulsarutils_tpu_torch.periodicity import accel as taccel
 from pulsarutils_tpu_torch.periodicity import accumulate as tacc
 from pulsarutils_tpu_torch.periodicity import candidates as tcands
 from pulsarutils_tpu_torch.periodicity.driver import periodicity_search
+from pulsarutils_tpu_torch.precision import STRATEGIES
 from pulsarutils_tpu_torch.pipeline.search_pipeline import (plan_survey,
                                                             search_by_chunks)
 
@@ -49,6 +50,9 @@ TSAMP = 1e-3
 #: the JAX package's cross-program rule (harmonic_packs_match): depth and
 #: frequency bin exact, scores within rtol 1e-5
 HARM_RTOL = 1e-5
+
+#: the harmonic stack's precision policies
+POLICIES = ("f32", "f32_compensated", "split_f32", "bf16_operand_f32_accum")
 
 
 def _plane(rows=13, t=4096, seed=11):
@@ -90,10 +94,64 @@ def test_scoring_chain_matches_xla_and_pallas(t, max_harmonics, fmin, fmax):
     assert got["freq"][5] == 0.0 and got["nharm"][5] == 0
 
 
+def _score_rtol(policy):
+    """The JAX package's tolerance between its Pallas and XLA harmonic
+    scorers under a policy (``tests/test_harmonic_pallas.py``)."""
+    if policy in (None, "f32"):
+        return 1e-5
+    return max(1e-5, STRATEGIES[policy].score_rtol * 1e-2)
+
+
+@pytest.mark.parametrize("policy", POLICIES)
+@pytest.mark.parametrize("t, max_harmonics, fmin, fmax", [
+    (4096, 16, None, None),
+    (4095, 8, 5.0, 40.0),    # odd median length, a band, 8 harmonics
+])
+def test_harmonic_stack_policies_match_jax(policy, t, max_harmonics, fmin,
+                                           fmax):
+    plane = _plane(rows=8, t=t)
+    kw = dict(max_harmonics=max_harmonics, fmin=fmin, fmax=fmax)
+    jpolicy = None if policy == "f32" else policy
+    power = tp.power_spectrum(torch.from_numpy(plane))
+    norm = tp.normalize_power(power)
+    jpower = jp.power_spectrum(jnp.asarray(plane), xp=jnp)
+    jnorm = jp.normalize_power(jpower, xp=jnp)
+    pairs = [
+        (tp.score_normalized_power(norm, t, TSAMP, policy=policy, **kw),
+         jp.score_normalized_power(jnorm, t, TSAMP, xp=jnp, policy=jpolicy,
+                                   **kw)),
+        (tp.spectral_search(torch.from_numpy(plane), TSAMP, policy=policy,
+                            **kw),
+         spectral_search_pallas(plane, TSAMP, policy=jpolicy,
+                                interpret=True, **kw)),
+    ]
+    scale = t * TSAMP
+    for got, want in pairs:
+        got, want = _host(got), _host(want)
+        np.testing.assert_array_equal(got["nharm"], want["nharm"])
+        np.testing.assert_array_equal(np.rint(got["freq"] * scale),
+                                      np.rint(want["freq"] * scale))
+        for col in ("power", "log_sf", "sigma"):
+            np.testing.assert_allclose(got[col], want[col],
+                                       rtol=_score_rtol(policy), atol=1e-6,
+                                       err_msg=col)
+    # the harmonic sum alone, on the same normalised spectra: the same
+    # adds in the same order
+    for nharm in (1, 5, 16):
+        np.testing.assert_array_equal(
+            tp.harmonic_sum(norm, nharm, policy=policy).numpy(),
+            np.asarray(jp.harmonic_sum(jnp.asarray(norm.numpy()), nharm,
+                                       xp=jnp, policy=jpolicy)))
+
+
 def test_policies_other_than_f32_are_not_ported():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tp.spectral_search(torch.zeros(2, 64), TSAMP,
-                           policy="f32_compensated")
+    # every policy of the JAX package is ported now: each runs, and a name
+    # outside them raises ValueError, as policy_name does there
+    for policy in (None, "auto", *STRATEGIES):
+        spec = tp.spectral_search(torch.zeros(2, 64), TSAMP, policy=policy)
+        assert spec["nharm"].shape == (2,)
+    with pytest.raises(ValueError, match="precision policy"):
+        tp.spectral_search(torch.zeros(2, 64), TSAMP, policy="f64")
 
 
 def _keys(values):
@@ -113,8 +171,15 @@ def _value(key):
 _BATCHES = ((8, 1, 16), (4, 2, 8), (2, 4, 4), (1, 8, 2), (0, 8, 1))
 
 
+def _bf16(x):
+    """float32 values rounded to bfloat16 (to nearest even), as float32."""
+    return torch.from_numpy(np.asarray(x, np.float32)).to(
+        torch.bfloat16).to(torch.float32).numpy()
+
+
 def _replay_harmonic(power, depths, lo, hi, cluster=1,
-                     candidates=harmonic_cuda.CLUSTER_CANDIDATES):
+                     candidates=harmonic_cuda.CLUSTER_CANDIDATES,
+                     policy="f32"):
     """The CUDA kernel's algorithm on the host, branch by branch.
 
     ``cluster`` 1 is the global branch: one block holds the row, the radix
@@ -137,7 +202,11 @@ def _replay_harmonic(power, depths, lo, hi, cluster=1,
     the stack adds ``D_j[i]`` (0 where ``i*j`` is out of range) in
     ascending ``j``; each thread keeps its first strict maximum over its
     bins in ascending order, and the reductions take the larger value,
-    then the smaller bin."""
+    then the smaller bin.  ``policy``: under ``bf16_operand_f32_accum``
+    each block rounds its divided slice to bfloat16; under
+    ``f32_compensated`` and ``split_f32`` each add is a TwoSum step beside
+    a carry and a depth scores ``acc + comp``."""
+    code = harmonic_cuda.POLICY_CODES[policy]
     power = np.asarray(power, dtype=np.float32)
     rows, nbins = power.shape
     s_bins = nbins if cluster == 1 else harmonic_cuda.slice_bins(nbins,
@@ -185,6 +254,8 @@ def _replay_harmonic(power, depths, lo, hi, cluster=1,
         div = (med / np.float32(np.log(2.0)) if med > 0
                else np.float32(1.0))
         norm = [sl / div for sl in slices]        # in place, per block
+        if code == 2:
+            norm = [_bf16(sl) for sl in norm]
         # harmonic j's arrays, written block by block
         arrays = {}
         for j in range(1, hmax + 1):
@@ -222,13 +293,22 @@ def _replay_harmonic(power, depths, lo, hi, cluster=1,
                     continue
                 seen[i] += 1
                 band = np.float32(1.0 if lo <= i < hi else 0.0)
-                acc = np.float32(0.0)
+                acc = comp = np.float32(0.0)
                 d = 0
                 for j in range(1, hmax + 1):
                     v = arrays[j][i] if i * j < nbins else np.float32(0.0)
-                    acc = np.float32(acc + v)
+                    if code == 1:
+                        s = np.float32(acc + v)
+                        bp = np.float32(s - acc)
+                        comp = np.float32(comp + np.float32(
+                            np.float32(acc - np.float32(s - bp))
+                            + np.float32(v - bp)))
+                        acc = s
+                    else:
+                        acc = np.float32(acc + v)
                     if j == depths[d]:
-                        h = np.float32(acc * band)
+                        total = np.float32(acc + comp) if code == 1 else acc
+                        h = np.float32(total * band)
                         key = (thread, lane, d)
                         if key not in best or h > best[key][0]:
                             best[key] = (h, i)
@@ -252,17 +332,31 @@ def _harmonic_power(t, seed):
 @pytest.mark.parametrize("t, lo_hi", [(4096, None), (4095, None),
                                       (4096, (30, 700))])
 def test_kernel_replay_equals_plain_bit_for_bit(t, lo_hi):
+    _check_global_replay(t, lo_hi, "f32")
+
+
+@pytest.mark.parametrize("policy", POLICIES[1:])
+@pytest.mark.parametrize("t, lo_hi", [(4096, None), (4095, None),
+                                      (4096, (30, 700))])
+def test_kernel_replay_policies_bit_for_bit(t, lo_hi, policy):
+    _check_global_replay(t, lo_hi, policy)
+
+
+def _check_global_replay(t, lo_hi, policy):
+    """The global branch's replay and the wrapper's CPU path against the
+    plain version under ``policy``."""
     power = _harmonic_power(t, t)
     nbins = power.shape[1]
     lo, hi = lo_hi or (1, nbins)
     depths = tp.harmonic_depths(16)
     pv, pb = tp.harmonic_peaks_plain(tp.normalize_power(power), depths, lo,
-                                     hi)
-    rv, rb = _replay_harmonic(power.numpy(), depths, lo, hi)
+                                     hi, policy=policy)
+    rv, rb = _replay_harmonic(power.numpy(), depths, lo, hi, policy=policy)
     np.testing.assert_array_equal(rb, pb.numpy())
     np.testing.assert_array_equal(rv, pv.numpy())
     # the wrapper's CPU path is the plain version
-    wv, wb = harmonic_cuda.harmonic_peaks(power, depths, lo, hi)
+    wv, wb = harmonic_cuda.harmonic_peaks(power, depths, lo, hi,
+                                          policy=policy)
     assert torch.equal(wv, pv) and torch.equal(wb, pb)
 
 
@@ -289,6 +383,27 @@ def test_cluster_replay_equals_plain_bit_for_bit(cluster, t, lo_hi, depth,
                                      hi)
     rv, rb = _replay_harmonic(power.numpy(), depths, lo, hi, cluster,
                               candidates or harmonic_cuda.CLUSTER_CANDIDATES)
+    np.testing.assert_array_equal(rb, pb.numpy())
+    np.testing.assert_array_equal(rv, pv.numpy())
+
+
+@pytest.mark.parametrize("policy", POLICIES[1:])
+@pytest.mark.parametrize("cluster", harmonic_cuda.CLUSTER_SIZES)
+@pytest.mark.parametrize("t, lo_hi, depth", [
+    (4096, None, 16),        # every stack batch, a zero tail across slices
+    (2050, (30, 700), 4),    # a band, 4 harmonics
+])
+def test_cluster_replay_policies_bit_for_bit(cluster, t, lo_hi, depth,
+                                             policy):
+    power = _harmonic_power(t, t + cluster)
+    nbins = power.shape[1]
+    power[8, harmonic_cuda.slice_bins(nbins, cluster) - 5:] = 0.0
+    lo, hi = lo_hi or (1, nbins)
+    depths = tp.harmonic_depths(depth)
+    pv, pb = tp.harmonic_peaks_plain(tp.normalize_power(power), depths, lo,
+                                     hi, policy=policy)
+    rv, rb = _replay_harmonic(power.numpy(), depths, lo, hi, cluster,
+                              policy=policy)
     np.testing.assert_array_equal(rb, pb.numpy())
     np.testing.assert_array_equal(rv, pv.numpy())
 

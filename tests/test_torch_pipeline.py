@@ -166,9 +166,21 @@ def test_cli_searches_and_sifts(reference, tmp_path):
                            "--device", "cpu"])
     assert rc == 0
     assert list((tmp_path / "fourier").glob("pulse_*.info.npz"))
+    rc = search_main.main([path, "--dmmin", "100", "--dmmax", "200",
+                           "--chunk-length", "1.024", "--kernel", "gather",
+                           "--snr-threshold", "6",
+                           "--output-dir", str(tmp_path / "gather"),
+                           "--device", "cpu"])
+    assert rc == 0
+    assert list((tmp_path / "gather").glob("pulse_*.info.npz"))
+    # roll stays API-only, as in the JAX CLI
+    with pytest.raises(SystemExit):
+        search_main.build_parser().parse_args([path, "--kernel", "roll"])
+    # what is not ported yet still says where it stands
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        search_main.main([path, "--kernel", "gather", "--device", "cpu",
-                          "--output-dir", str(tmp_path)])
+        search_pipeline.dedispersion_search(
+            np.zeros((32, 256), np.float32), 100.0, 200.0, 1200.0, 200.0,
+            5e-4, capture_plane="memmap", device="cpu")
 
 
 def _port_sources():
@@ -215,6 +227,16 @@ hits, _ = pulsarutils_tpu_torch.search_by_chunks(
     kernel="hybrid", snr_threshold="certifiable",
     output_dir={str(tmp_path / 'hybrid')!r})
 assert hits
+# the gather formulation under a precision policy
+import os
+from pulsarutils_tpu_torch.precision import COUNTS
+os.environ["PUTPU_PRECISION"] = "f32_compensated"
+hits, _ = pulsarutils_tpu_torch.search_by_chunks(
+    {path!r}, dmmin=100.0, dmmax=200.0, chunk_length=1.024, device="cpu",
+    kernel="gather", output_dir={str(tmp_path / 'gather')!r})
+assert hits
+assert COUNTS[("putpu_precision_compensated_engagements_total",
+               "f32_compensated")] > 0
 bad = [k for k in sys.modules if k == "jax" or k.startswith("jax.")
        or k == "pulsarutils_tpu" or k.startswith("pulsarutils_tpu.")]
 assert not bad, bad

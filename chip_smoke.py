@@ -85,13 +85,32 @@ Phases, one JSON line each:
    ``spectral_search`` of that 514-trial plane under every policy
    (each row's best bin and depth equal to ``f32``'s with its power
    within the strategy's ``score_rtol``, or, where a noise row's best
-   moved, its sigma within that tolerance);
+   moved, its sigma within that tolerance); every main-path run must
+   report no fallback, no OOM descent and no quarantined chunk;
+   then the failure drill (``e2e_faults``): on the same file, each
+   scenario a FaultPlan armed against a clean run — a transient dispatch
+   error (one retry, equal tables), NaNs below the gate's threshold
+   (sanitized, equal files), a hard corruption (quarantined, recorded,
+   not searched on resume), a transient and a persistent persist error
+   (retried; dead-lettered), a persistent read error (``read_error``,
+   the other chunks searched), a ``torch.OutOfMemoryError`` at the
+   dispatch (the ladder descends, the tables and files bit for bit the
+   clean run's), a 5 s hang under a 1 s deadline (the chunk moves on,
+   the watchdog joined), a persistent OOM at the dispatch (the ladder
+   to its floor, then ``oom_floor``, the other chunks' tables the clean
+   run's) and a persistent dispatch fault (the error propagates after
+   its retry: the card never falls back to the host);
 6. periodicity: a 1024-channel 8-bit file of the same geometry holding
    a ~10 Hz pulsar at DM 400, searched by ``search_by_chunks(
    period_search=True)`` (the pulsar in every chunk) and by
    ``periodicity_search`` with 5 acceleration trials and the canary
    (the pulsar the best candidate, the canary recovered);
-7. the kernels line (B6 once per policy), then ``{"ok": true,
+7. the overlapped loop (``e2e_overlap``): a 12-chunk, 1.74 GB file of
+   the same geometry (DM 400 pulses in 8 chunks) searched serially and
+   overlapped in the order S, O, O, S: equal hits, byte-equal ledgers
+   and candidate files, B1 and B4 twice a chunk, stage seconds, chunks/s
+   and peak device bytes per run;
+8. the kernels line (B6 once per policy), then ``{"ok": true,
    "device": {...}}`` last.
 
 Any failed check exits non-zero before the last line.  Without a CUDA
@@ -100,8 +119,8 @@ and prints no result.  ``--quick`` stops after the kernel checks at small
 shapes (a first run of a new kernel).  ``--breakdown`` runs only the
 build and the breakdowns of the direct sweep, B6 and B3, which call
 only the wrappers' entry points: a copy of this script beside another
-checkout times that checkout the same way.  Neither prints the last
-line.
+checkout times that checkout the same way.  ``--overlap`` runs only the
+build and ``e2e_overlap``.  None of the three prints the last line.
 """
 
 from __future__ import annotations
@@ -1187,6 +1206,16 @@ def _hit_mismatch(ours, ref):
     return None
 
 
+def check_clean_run(summary, label):
+    """A main-path run: no fallback, no OOM descent, nothing quarantined."""
+    check(summary.get("fallback") is None,
+          f"{label}: fell back: {summary.get('fallback')}")
+    check(summary.get("oom_descents") == 0,
+          f"{label}: {summary.get('oom_descents')} OOM descents")
+    check(summary.get("quarantined") == 0,
+          f"{label}: {summary.get('quarantined')} chunks quarantined")
+
+
 def phase_hybrid_headline(torch, np, seed):
     """The JAX package's benchmark: hybrid vs the full exact sweep."""
     from pulsarutils_tpu_torch.ops.fdmt import fdmt_trial_dms
@@ -1485,6 +1514,7 @@ def phase_e2e_hybrid(torch, np, workdir, path, chunk_length, nchunks,
         wall = time.perf_counter() - t0
         counts = read_counts()
         floor = summary["snr_threshold"]
+        check_clean_run(summary, f"e2e_hybrid {label}")
         check(summary["searched"] == nchunks, f"{label}: searched "
               f"{summary['searched']} of {nchunks} chunks")
         check(all(counts[k] == v * nchunks for k, v in per_chunk.items())
@@ -1497,9 +1527,12 @@ def phase_e2e_hybrid(torch, np, workdir, path, chunk_length, nchunks,
         if floor >= 8.0:
             ref = [h for h in direct_hits if h[2].snr > floor]
         else:
+            ref_summary = {}
             ref, _ = search_by_chunks(
                 str(path), snr_threshold=floor,
-                output_dir=str(workdir / f"out_direct_{label}"), **common)
+                output_dir=str(workdir / f"out_direct_{label}"),
+                summary=ref_summary, **common)
+            check_clean_run(ref_summary, f"e2e_hybrid direct {label}")
         bad = _hit_mismatch(hits, ref)
         check(bad is None, f"{label}: hybrid hits differ from the direct "
               f"sweep's at S/N {floor}: {bad}")
@@ -1535,6 +1568,7 @@ def phase_e2e_fourier(torch, np, workdir, path, chunk_length, nchunks):
         device="cuda", stage_seconds=stages, summary=summary)
     wall = time.perf_counter() - t0
     counts = read_counts()
+    check_clean_run(summary, "e2e_fourier")
     nsuper = -(-len(dms) // FOURIER_SUPERBLOCK)
     check(counts["B5"] == nchunks * nsuper
           and counts["B4"] == nchunks * nsuper,
@@ -1623,6 +1657,7 @@ def phase_e2e_precision(torch, np, workdir, path, chunk_length, nchunks,
                     device="cuda", stage_seconds=stages, summary=summary)
                 wall = time.perf_counter() - t0
                 counts = read_counts()
+                check_clean_run(summary, f"e2e_precision {kernel} {pol}")
                 check(counts["B4"] == nchunks * blocks and counts["B1"] == 0,
                       f"{kernel} {pol}: launches {counts} for {nchunks} "
                       f"chunks of {blocks} trial blocks")
@@ -1792,15 +1827,16 @@ def phase_e2e_period(torch, np, workdir, seed):
                   device="cuda")
 
     # 1. the per-chunk period stage of search_by_chunks
-    stages = {}
+    stages, summary = {}, {}
     reset_counts()
     t0 = time.perf_counter()
     hits, store = search_by_chunks(
         str(path), dmmin=DMMIN, dmmax=DMMAX, period_search=True,
         output_dir=str(workdir / "out_period"), stage_seconds=stages,
-        **common)
+        summary=summary, **common)
     wall = time.perf_counter() - t0
     per_chunk = read_counts()
+    check_clean_run(summary, "e2e_period_chunks")
     nchunks = len(store.done_chunks)
     check(nchunks == 4 and per_chunk["B6"] > 0 and per_chunk["B1"] > 0,
           f"period_search launches {per_chunk}, {nchunks} chunks")
@@ -1819,15 +1855,16 @@ def phase_e2e_period(torch, np, workdir, seed):
          chunks_per_s=nchunks / loop_s, stage_seconds=stages)
 
     # 2. the full-observation job with a small acceleration grid
-    stages = {}
+    stages, summary = {}, {}
     reset_counts()
     t0 = time.perf_counter()
     res = periodicity_search(
         str(path), DMMIN, DMMAX, accel_max=1000.0, n_accel=5, canary=True,
         output_dir=str(workdir / "out_puperiod"), stage_seconds=stages,
-        **common)
+        summary=summary, **common)
     wall = time.perf_counter() - t0
     job = read_counts()
+    check_clean_run(summary, "e2e_puperiod")
     acc = res["accumulator"]
     t_obs = acc.nout * acc.tsamp
     check(res["complete"] and res["candidates"], "periodicity job: no "
@@ -1884,16 +1921,17 @@ def phase_end_to_end(torch, np, seed, workdir):
     check(sp["plan"].step == E2E_CHUNK, f"chunk of {sp['plan'].step}")
     dms = dedispersion_plan(NCHAN, DMMIN, DMMAX, START_FREQ, BANDWIDTH,
                             TSAMP)
-    stages = {}
+    stages, summary = {}, {}
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
     hits, store = search_by_chunks(
         str(path), chunk_length=chunk_length, dmmin=DMMIN, dmmax=DMMAX,
         snr_threshold=8.0, output_dir=str(workdir / "out"), device="cuda",
-        stage_seconds=stages)
+        stage_seconds=stages, summary=summary)
     wall = time.perf_counter() - t0
     counts = read_counts()
+    check_clean_run(summary, "e2e_search")
     launches = counts["B1"]
     nchunks = len(sp["chunk_starts"])
     loop_s = wall - stages.get("badchans", 0.0)
@@ -1945,6 +1983,366 @@ def phase_end_to_end(torch, np, seed, workdir):
     return counts, hits, path, chunk_length, nchunks
 
 
+#: e2e_overlap: the e2e geometry over 13 blocks of 2^17 samples (12 chunks
+#: of 2^18 at 50% overlap, 1.74 GB), a DM 400 pulse mid-block in these
+#: blocks: chunks 0-1, 3-4, 6-7 and 9-10 hold one, 2, 5, 8 and 11 none
+OVERLAP_BLOCKS = 13
+OVERLAP_PULSE_BLOCKS = (1, 4, 7, 10)
+
+
+def _write_block_file(torch, np, path, nchan, nblocks, block, pulse_blocks,
+                      seed):
+    """An 8-bit descending-band filterbank written block by block (host
+    memory stays at one block): the seeded simulator's model
+    (``models/simulate.simulate_test_data``: ``|N(impulse, 8)|`` noise,
+    an impulse of 12 mid-block in every channel of ``pulse_blocks``,
+    channels rolled by their DM 400 delays), plus 20, drawn on the card
+    from a generator seeded with ``seed`` and rounded as the writer
+    rounds."""
+    from pulsarutils_tpu_torch.io.sigproc import (FilterbankWriter,
+                                                  header_from_simulated)
+    from pulsarutils_tpu_torch.ops.plan import dedispersion_shifts
+
+    sim = {"nchans": nchan, "bandwidth": BANDWIDTH, "fbottom": START_FREQ,
+           "tsamp": TSAMP}
+    header = {"nchans": nchan, "nbits": 8, "nifs": 1, "tstart": 0.0,
+              "source_name": "chip_smoke", "machine_id": 0,
+              "telescope_id": 0, "data_type": 1,
+              **header_from_simulated(sim, descending=True)}
+    shifts = np.rint(dedispersion_shifts(nchan, E2E_DM, START_FREQ,
+                                         BANDWIDTH, TSAMP)).astype(np.int64)
+    idx = ((torch.arange(block, device="cuda")[None, :]
+            - torch.from_numpy(shifts).cuda()[:, None]) % block)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    with FilterbankWriter(str(path), header) as writer:
+        for b in range(nblocks):
+            x = torch.randn((nchan, block), generator=gen, device="cuda")
+            x *= 8.0
+            if b in pulse_blocks:
+                x[:, block // 2] += 12.0
+            x = torch.gather(x.abs_(), 1, idx) + 20.0
+            writer.write_block(x.flip(0).cpu().numpy())  # file order
+            del x
+    torch.cuda.empty_cache()
+
+
+def _snapshot(np, outdir):
+    """Ledger bytes and every candidate file's members, byte for byte."""
+    out = {}
+    for name in sorted(p.name for p in outdir.iterdir()):
+        if name.startswith("progress_"):
+            out[name] = (outdir / name).read_bytes()
+        elif name.endswith(".npz"):
+            with np.load(outdir / name, allow_pickle=False) as d:
+                out[name] = {k: d[k].tobytes() for k in d.files}
+    return out
+
+
+def _tables_equal(np, ours, ref):
+    """Two hit lists with equal chunks and every table column equal."""
+    if [h[:2] for h in ours] != [h[:2] for h in ref]:
+        return False
+    return all(np.array_equal(a[3][c], b[3][c])
+               for a, b in zip(ours, ref) for c in b[3].colnames)
+
+
+def phase_e2e_overlap(torch, np, workdir, seed):
+    """The chunk loop on a 12-chunk file: serial (``overlap_persist=
+    False``) and overlapped runs in the order S, O, O, S, each into a
+    fresh directory.  Every run: equal hits and tables, byte-equal
+    ledgers and candidate files, B1 and B4 twice a chunk, no fallback."""
+    from pulsarutils_tpu_torch.pipeline.search_pipeline import (
+        plan_survey, search_by_chunks)
+    from pulsarutils_tpu_torch.pipeline.spectral_stats import get_bad_chans
+
+    path = workdir / "overlap.fil"
+    t0 = time.perf_counter()
+    _write_block_file(torch, np, path, NCHAN, OVERLAP_BLOCKS, E2E_CHUNK // 2,
+                      OVERLAP_PULSE_BLOCKS, seed + 11)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    get_bad_chans(str(path))  # the cache, before the timed runs
+    badchans_s = time.perf_counter() - t0
+    chunk_length = E2E_CHUNK // 2 * TSAMP
+    sp = plan_survey(str(path), chunk_length=chunk_length, dmmin=DMMIN,
+                     dmmax=DMMAX)
+    nchunks = len(sp["chunk_starts"])
+    check(nchunks == OVERLAP_BLOCKS - 1, f"overlap file: {nchunks} chunks")
+    emit("e2e_overlap_file", path=path.name, nchan=NCHAN,
+         nsamples=OVERLAP_BLOCKS * E2E_CHUNK // 2, nbits=8, dm=E2E_DM,
+         pulse_blocks=list(OVERLAP_PULSE_BLOCKS),
+         bytes=path.stat().st_size, write_s=write_s, badchans_s=badchans_s)
+    runs, first = [], None
+    for i, overlap in enumerate((False, True, True, False)):
+        label = f"{i + 1}_{'overlapped' if overlap else 'serial'}"
+        out = workdir / f"out_overlap_{label}"
+        stages, summary = {}, {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        hits, store = search_by_chunks(
+            str(path), chunk_length=chunk_length, dmmin=DMMIN, dmmax=DMMAX,
+            snr_threshold=8.0, output_dir=str(out), device="cuda",
+            stage_seconds=stages, summary=summary, overlap_persist=overlap)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        check_clean_run(summary, f"e2e_overlap {label}")
+        check(counts["B1"] == 2 * nchunks and counts["B4"] == 2 * nchunks,
+              f"e2e_overlap {label}: launches {counts} for {nchunks} chunks")
+        check(store.done_chunks == sp["chunk_starts"],
+              f"e2e_overlap {label}: ledger")
+        check(len(hits) >= 6, f"e2e_overlap {label}: {len(hits)} hits")
+        snap = _snapshot(np, out)
+        loaded = [store.load_candidate(path.stem, h[0], h[1])
+                  for h in hits]
+        if first is None:
+            first = (hits, snap, loaded)
+        else:
+            check(_tables_equal(np, hits, first[0]),
+                  f"e2e_overlap {label}: hits differ from run 1")
+            check(snap == first[1], f"e2e_overlap {label}: ledger or "
+                  "candidate bytes differ from run 1")
+            for (info, table), (rinfo, rtable) in zip(loaded, first[2]):
+                check(np.array_equal(info.allprofs, rinfo.allprofs)
+                      and info.dm == rinfo.dm and info.snr == rinfo.snr
+                      and all(np.array_equal(table[c], rtable[c])
+                              for c in rtable.colnames),
+                      f"e2e_overlap {label}: loaded candidates differ")
+        loop_s = wall - stages.get("badchans", 0.0)
+        rec = dict(run=label, overlap_persist=overlap, chunks=nchunks,
+                   hits=len(hits), launches=counts, wall_s=wall,
+                   chunk_loop_s=loop_s, chunks_per_s=nchunks / loop_s,
+                   stage_seconds=stages,
+                   peak_device_bytes=torch.cuda.max_memory_allocated(),
+                   fallback=summary.get("fallback"),
+                   oom_descents=summary.get("oom_descents"))
+        emit("e2e_overlap", **rec)
+        runs.append(rec)
+        shutil.rmtree(out, ignore_errors=True)
+    path.unlink()
+    return runs
+
+
+def _counter_deltas(before):
+    from pulsarutils_tpu_torch.obs.metrics import REGISTRY
+
+    now = {}
+    for m in REGISTRY.snapshot():
+        key = m["name"] + "".join(f"{{{k}={v}}}"
+                                  for k, v in sorted(m["labels"].items()))
+        now[key] = m["value"]
+    if before is None:
+        return now
+    return {k: v - before.get(k, 0) for k, v in now.items()
+            if v != before.get(k, 0)}
+
+
+def phase_e2e_faults(torch, np, workdir, path, chunk_length, nchunks, seed):
+    """The failure drill on the card: each scenario arms a FaultPlan and
+    checks its outcome against a clean run of the same file."""
+    from pulsarutils_tpu_torch.faults import FaultPlan, FaultSpec
+    from pulsarutils_tpu_torch.faults import inject
+    from pulsarutils_tpu_torch.faults.policy import join_abandoned
+    from pulsarutils_tpu_torch.ops.search import ladder_blocks
+    from pulsarutils_tpu_torch.pipeline.search_pipeline import (
+        plan_survey, search_by_chunks)
+
+    common = dict(chunk_length=chunk_length, dmmin=DMMIN, dmmax=DMMAX,
+                  snr_threshold=8.0, device="cuda")
+    starts = plan_survey(str(path), **{k: common[k] for k in (
+        "chunk_length", "dmmin", "dmmax")})["chunk_starts"]
+    pulse_t = E2E_NSAMPLES // 2
+    hit_chunks = [s for s in starts if s <= pulse_t < s + E2E_CHUNK]
+    noise_chunk = starts[0]
+    check(noise_chunk not in hit_chunks and len(hit_chunks) == 2,
+          f"drill chunks {starts}, hits in {hit_chunks}")
+
+    def run(label, specs=(), out=None, expect_error=False, **kw):
+        """One drill run; with ``expect_error`` an exception out of the
+        search is returned as ``error`` for the scenario to check."""
+        out = workdir / f"out_drill_{label}" if out is None else out
+        plan = FaultPlan([FaultSpec(**s) for s in specs])
+        before = _counter_deltas(None)
+        summary, stages = {}, {}
+        hits, store, error = [], None, None
+        reset_counts()
+        t0 = time.perf_counter()
+        inject.arm(plan)
+        try:
+            hits, store = search_by_chunks(
+                str(path), output_dir=str(out), summary=summary,
+                stage_seconds=stages, **{**common, **kw})
+        except Exception as exc:  # noqa: BLE001 — checked by the scenario
+            if not expect_error:
+                raise
+            error = exc
+        finally:
+            inject.disarm()
+        return dict(label=label, hits=hits, store=store, out=out,
+                    summary=summary, plan=plan, error=error,
+                    seconds=time.perf_counter() - t0,
+                    counters=_counter_deltas(before), launches=read_counts())
+
+    def report(r, **extra):
+        store = r["store"]
+        emit("e2e_faults", scenario=r["label"], seconds=r["seconds"],
+             fired=r["plan"].fired(), counters=r["counters"],
+             launches=r["launches"], hits=[h[0] for h in r["hits"]],
+             error=None if r["error"] is None else repr(r["error"]),
+             done=None if store is None else store.done_chunks,
+             quarantined=None if store is None else store.quarantined_chunks,
+             summary={k: r["summary"].get(k) for k in (
+                 "searched", "quarantined", "fallback", "oom_descents")},
+             **extra)
+
+    def manifest(r):
+        p = r["out"] / f"quarantine_{r['store'].fingerprint}.jsonl"
+        return ([json.loads(line) for line in p.read_text().splitlines()]
+                if p.exists() else [])
+
+    clean = run("clean")
+    check_clean_run(clean["summary"], "e2e_faults clean")
+    base = _snapshot(np, clean["out"])
+    report(clean)
+
+    # a transient dispatch error: one retry, no fallback, equal tables
+    r = run("dispatch_transient", [dict(
+        site="dispatch", kind="error", chunks=(hit_chunks[0],))])
+    check(r["plan"].fired() == 1
+          and r["counters"].get("putpu_dispatch_retries_total") == 1,
+          f"dispatch_transient: {r['counters']}")
+    check(r["summary"]["fallback"] is None, "dispatch_transient fell back")
+    check(_tables_equal(np, r["hits"], clean["hits"])
+          and _snapshot(np, r["out"]) == base,
+          "dispatch_transient: tables or files differ from the clean run")
+    report(r)
+
+    # NaNs below the threshold in one chunk: sanitized, equal hits
+    r = run("nan_sanitized", [dict(
+        site="corrupt", kind="nan", chunks=(noise_chunk,), frac=0.02)])
+    check(r["counters"].get("putpu_chunks_sanitized_total") == 1
+          and not r["store"].quarantined_chunks,
+          f"nan_sanitized: {r['counters']}")
+    check(_tables_equal(np, r["hits"], clean["hits"])
+          and _snapshot(np, r["out"]) == base,
+          "nan_sanitized: hits or files differ from the clean run")
+    report(r)
+
+    # a hard corruption: quarantined, recorded; a resumed run searches
+    # nothing
+    r = run("hard_corrupt", [dict(
+        site="corrupt", kind="nan", chunks=(noise_chunk,), frac=0.9)])
+    recs = manifest(r)
+    check(r["store"].quarantined_chunks
+          == {str(noise_chunk): "integrity:nan_frac"}
+          and [(x["chunk"], x["reason"]) for x in recs]
+          == [(noise_chunk, "integrity:nan_frac")],
+          f"hard_corrupt: {r['store'].quarantined_chunks}, {recs}")
+    check(_tables_equal(np, r["hits"], clean["hits"]),
+          "hard_corrupt: hits differ from the clean run")
+    again = run("hard_corrupt_resumed", [dict(
+        site="corrupt", kind="nan", chunks=(noise_chunk,), frac=0.9)],
+        out=r["out"])
+    check(again["summary"]["searched"] == 0 and again["plan"].fired() == 0,
+          f"hard_corrupt resume searched {again['summary']['searched']}")
+    report(r, manifest=recs)
+    report(again)
+
+    # a persist error: transient, retried; persistent, dead-lettered
+    r = run("persist_transient", [dict(site="persist", kind="error")],
+            persist_backoff=0.01)
+    check(r["counters"].get("putpu_persist_retries_total") == 1
+          and _snapshot(np, r["out"]) == base,
+          f"persist_transient: {r['counters']}")
+    report(r)
+    r = run("persist_persistent", [dict(
+        site="persist", kind="error", times=None)], persist_backoff=0.01)
+    recs = manifest(r)
+    dead = {str(c): "persist_dead_letter" for c in hit_chunks}
+    check(r["store"].quarantined_chunks == dead
+          and sorted(x["chunk"] for x in recs) == hit_chunks
+          and all(x["reason"] == "persist_dead_letter" for x in recs),
+          f"persist_persistent: {r['store'].quarantined_chunks}, {recs}")
+    report(r, manifest=recs)
+
+    # a persistent read error on one chunk: read_error, the rest searched
+    last = starts[-1]
+    r = run("read_error", [dict(site="read", kind="error",
+                                      chunks=(last,), times=None)])
+    check(r["store"].quarantined_chunks == {str(last): "read_error"}
+          and r["store"].done_chunks == starts
+          and r["counters"].get("putpu_read_retries_total") == 2,
+          f"read_error: {r['store'].quarantined_chunks} {r['counters']}")
+    check(_tables_equal(np, r["hits"],
+                        [h for h in clean["hits"] if h[0] != last]),
+          "read_error: the other chunks' hits differ")
+    report(r)
+
+    # torch.OutOfMemoryError at the dispatch seam: the ladder descends and
+    # the tables are the undisturbed run's bit for bit
+    r = run("oom_dispatch", [dict(site="dispatch", kind="oom",
+                                        chunks=(hit_chunks[0],))])
+    check(r["summary"]["oom_descents"] >= 1
+          and r["summary"]["fallback"] is None,
+          f"oom_dispatch: {r['summary']}")
+    check(_tables_equal(np, r["hits"], clean["hits"])
+          and _snapshot(np, r["out"]) == base,
+          "oom_dispatch: tables or files differ from the clean run")
+    check(r["launches"]["B1"] > 2 * nchunks,
+          f"oom_dispatch: {r['launches']} (smaller superblocks)")
+    report(r)
+
+    # a 5 s hang under a 1 s deadline: the chunk moves on within the bound
+    r = run("dispatch_hang", [dict(
+        site="dispatch", kind="hang", seconds=5.0, chunks=(noise_chunk,))],
+        dispatch_timeout=1.0)
+    alive = join_abandoned(60.0)
+    check(alive == 0, f"dispatch_hang: {alive} watchdog threads alive")
+    check(r["summary"]["fallback"] is None
+          and r["counters"].get("putpu_dispatch_retries_total") == 1
+          and _tables_equal(np, r["hits"], clean["hits"]),
+          f"dispatch_hang: {r['summary']} {r['counters']}")
+    check(r["seconds"] < clean["seconds"] + 4.0,
+          f"dispatch_hang: {r['seconds']} s against the clean "
+          f"{clean['seconds']} s")
+    report(r)
+
+    # a persistent OOM at the dispatch seam: the ladder descends until
+    # the sweep is one trial block a launch, then the chunk is quarantined
+    # as oom_floor; the other chunks are searched in the floor's
+    # superblocks, with the clean run's tables
+    floor_descents = (ladder_blocks(clean["hits"][0][3].nrows)
+                      - 1).bit_length()
+    r = run("oom_floor", [dict(site="dispatch", kind="oom",
+                               chunks=(noise_chunk,), times=None)])
+    check(r["store"].quarantined_chunks == {str(noise_chunk): "oom_floor"}
+          and r["counters"].get("putpu_oom_floor_total") == 1
+          and r["summary"]["oom_descents"] == floor_descents
+          and r["summary"]["fallback"] is None
+          and r["plan"].fired() == floor_descents + 1,
+          f"oom_floor: {r['store'].quarantined_chunks} {r['summary']} "
+          f"{r['counters']}")
+    check(_tables_equal(np, r["hits"], clean["hits"]),
+          "oom_floor: the other chunks' hits differ from the clean run")
+    report(r, manifest=manifest(r))
+
+    # a persistent dispatch fault: on the card the error propagates after
+    # its one retry; nothing falls back to the host, nothing is marked
+    r = run("dispatch_persistent", [dict(site="dispatch", kind="error",
+                                         times=None)], expect_error=True)
+    check(isinstance(r["error"], RuntimeError)
+          and "injected dispatch error" in str(r["error"])
+          and r["plan"].fired() == 2
+          and not r["counters"].get("putpu_fallbacks_total{stage=search}")
+          and not any(p.name.startswith("progress_")
+                      for p in r["out"].iterdir()),
+          f"dispatch_persistent: {r['error']!r}, fired "
+          f"{r['plan'].fired()}, {r['counters']}")
+    report(r)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1954,6 +2352,8 @@ def main(argv=None):
     parser.add_argument("--breakdown", action="store_true",
                         help="time the direct sweep, B6 and B3 phase by "
                              "phase only")
+    parser.add_argument("--overlap", action="store_true",
+                        help="build and run e2e_overlap only")
     opts = parser.parse_args(argv)
 
     import numpy as np
@@ -1987,6 +2387,11 @@ def main(argv=None):
             phase_sweep_breakdown(torch, np, opts.seed)
             phase_kernel_breakdown(torch, np, opts.seed)
             return 0
+        if opts.overlap:
+            shutil.rmtree(workdir, ignore_errors=True)
+            workdir.mkdir(parents=True)
+            phase_e2e_overlap(torch, np, workdir, opts.seed)
+            return 0
         head, records, head_data = phase_kernels(torch, np, opts.seed,
                                                  opts.quick)
         fdmt_head, fdmt_records, coarse = phase_fdmt(
@@ -2014,8 +2419,11 @@ def main(argv=None):
                                     nchunks)
         precision = phase_e2e_precision(torch, np, workdir, path,
                                         chunk_length, nchunks, hits)
+        phase_e2e_faults(torch, np, workdir, path, chunk_length, nchunks,
+                         opts.seed)
         path.unlink()
         period = phase_e2e_period(torch, np, workdir, opts.seed)
+        overlap = phase_e2e_overlap(torch, np, workdir, opts.seed)
     except CheckFailed as exc:
         print(f"chip_smoke: check failed: {exc}", file=sys.stderr)
         return 1
@@ -2032,6 +2440,10 @@ def main(argv=None):
                     period["period_search"],
                 "periodicity job (e2e_puperiod)":
                     period["periodicity_search"],
+                "direct sweep, serial loop (e2e_overlap)":
+                    overlap[0]["launches"],
+                "direct sweep, overlapped loop (e2e_overlap)":
+                    overlap[1]["launches"],
                 **precision["runs"]}
     shape = {"nchan": NCHAN, "nsamples": NSAMPLES}
 

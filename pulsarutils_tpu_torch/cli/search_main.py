@@ -74,6 +74,25 @@ def build_parser():
     parser.add_argument("--output-dir", default=None)
     parser.add_argument("--no-resume", action="store_true",
                         help="reprocess chunks already in the ledger")
+    parser.add_argument("--dispatch-timeout", type=float, default=None,
+                        metavar="SECONDS",
+                        help="deadline per device search attempt (a "
+                             "watchdog thread): a wedged dispatch moves on "
+                             "to the retry and the host fallback within "
+                             "timeout x (retries + 1); default off.  An "
+                             "abandoned attempt keeps running on the card "
+                             "until it ends")
+    parser.add_argument("--dispatch-retries", type=int, default=1,
+                        help="device retries before the fallback to the "
+                             "host path (default 1)")
+    parser.add_argument("--quarantine-policy", default="sanitize",
+                        choices=("sanitize", "strict", "off"),
+                        help="the pre-search integrity gate: 'sanitize' "
+                             "(default) imputes sub-threshold NaN/Inf and "
+                             "quarantines unrecoverable chunks into "
+                             "quarantine_<fingerprint>.jsonl; 'strict' "
+                             "quarantines any non-finite chunk; 'off' "
+                             "disables the gate")
     parser.add_argument("--max-chunks", type=int, default=None)
     parser.add_argument("--no-sift", action="store_true",
                         help="skip duplicate-candidate sifting")
@@ -98,7 +117,9 @@ def main(args=None):
             zero_dm=opts.zero_dm, max_chunks=opts.max_chunks,
             period_search=opts.period_search,
             period_sigma_threshold=opts.period_sigma,
-            device=opts.device)
+            dispatch_timeout=opts.dispatch_timeout,
+            dispatch_retries=opts.dispatch_retries,
+            quarantine_policy=opts.quarantine_policy, device=opts.device)
         total_raw += len(hits)
         if opts.no_sift:
             total_cands += len(hits)

@@ -18,6 +18,7 @@ import os
 import numpy as np
 import torch
 
+from ..faults import inject as fault_inject
 from ..ops.plan import delta_delay
 from ..ops.rebin import quick_resample
 from ..pipeline.pulse_info import PulseInfo
@@ -56,9 +57,11 @@ class CandidateStore:
             self._ledger = self._load_ledger()
 
     def _load_ledger(self):
-        """Load the ledger; a torn or corrupt file is backed up to
-        ``<ledger>.corrupt`` and a fresh ledger starts (done chunks are
-        then searched again)."""
+        """Load the ledger; a torn or corrupt file (a parse or shape
+        failure) is backed up to ``<ledger>.corrupt`` — or logged as
+        ``<unremovable>`` when it cannot be moved — and a fresh ledger
+        starts (done chunks are then searched again).  An ``OSError``
+        reading an intact file propagates."""
         if os.path.exists(self._ledger_path):
             try:
                 with open(self._ledger_path) as f:
@@ -70,9 +73,12 @@ class CandidateStore:
                 return ledger
             except ValueError as exc:
                 backup = self._ledger_path + ".corrupt"
-                os.replace(self._ledger_path, backup)
-                logger.warning("corrupt resume ledger %s (%r): backed up to "
-                               "%s, starting a fresh ledger",
+                try:
+                    os.replace(self._ledger_path, backup)
+                except OSError:
+                    backup = "<unremovable>"
+                logger.warning("torn/corrupt resume ledger %s (%r): backed "
+                               "up to %s, starting a fresh ledger",
                                self._ledger_path, exc, backup)
         return {"fingerprint": self.fingerprint, "done": []}
 
@@ -81,22 +87,50 @@ class CandidateStore:
             return False
         return istart in self._ledger["done"]
 
-    def mark_done(self, istart):
-        """Record a chunk as processed (the ``done`` list is kept sorted)."""
-        if self.fingerprint is None or istart in self._ledger["done"]:
+    def mark_done(self, istart, reason=None):
+        """Record a chunk as processed.  ``reason`` marks it done **with a
+        reason** (quarantined or persist-dead-lettered): never searched
+        again on resume, the reason kept for the audit.  The ``done`` list
+        stays sorted; the ``quarantined`` map (keys sorted numerically)
+        appears only once a reason is recorded, so a clean run's ledger
+        has no such key."""
+        if self.fingerprint is None:
             return
-        self._ledger["done"].append(int(istart))
+        quarantined = self._ledger.get("quarantined", {})
+        if istart in self._ledger["done"] and (
+                reason is None or quarantined.get(str(istart)) == reason):
+            return
+        if istart not in self._ledger["done"]:
+            self._ledger["done"].append(int(istart))
+        if reason is not None:
+            self._ledger.setdefault("quarantined", {})[str(istart)] = \
+                str(reason)
         self._ledger["done"].sort()
+        if "quarantined" in self._ledger:
+            q = self._ledger["quarantined"]
+            # a non-numeric key (a hand-edited ledger) sorts after the
+            # numeric ones instead of failing every write
+            self._ledger["quarantined"] = {
+                k: q[k] for k in sorted(
+                    q, key=lambda k: (0, int(k), "") if
+                    str(k).lstrip("-").isdigit() else (1, 0, str(k)))}
         atomic_write_json(self._ledger_path, self._ledger)
 
     @property
     def done_chunks(self):
         return sorted(self._ledger["done"])
 
+    @property
+    def quarantined_chunks(self):
+        """``{str(istart): reason}`` for chunks marked done with a
+        reason."""
+        return dict(self._ledger.get("quarantined", {}))
+
     def _base(self, root, istart, iend):
         return os.path.join(self.directory, f"{root}_{istart}-{iend}")
 
     def save_candidate(self, root, istart, iend, info, table):
+        fault_inject.fire("persist", chunk=istart)
         base = self._base(root, istart, iend)
         self.trim_waterfall(info, table).save(base + ".info.npz")
         table.to_npz(base + ".table.npz")

@@ -6,9 +6,15 @@ A binary header of length-prefixed keyword/value records between
 1, 2 and 4-bit files are not read or written by this package yet
 (ROADMAP.md, the low-bit path).
 
-:meth:`FilterbankReader.read_block_tensor` is the search's read: the raw
-frames go to the device as they are stored (one byte per sample for
-8-bit data) and become the float32 ``(nchan, n)`` block there.
+The search's read comes in two parts: :meth:`FilterbankReader.
+read_frames_into` copies the raw frames, as they are stored (one byte per
+sample for 8-bit data), into a caller's host buffer (the chunk loop's
+page-locked staging buffer, :mod:`..utils.staging`), and
+:meth:`FilterbankReader.block_from_frames` turns the frames, once on the
+device, into the float32 ``(nchan, n)`` ascending block there.
+:meth:`FilterbankReader.read_block_tensor` is the two in one call.  The
+chunk loop's reads fire the ``read`` fault seam (:mod:`..faults.inject`),
+as the JAX package's ``read_block`` does.
 """
 
 from __future__ import annotations
@@ -18,6 +24,8 @@ import struct
 
 import numpy as np
 import torch
+
+from ..faults import inject as fault_inject
 
 _INT_KEYS = {
     "machine_id", "telescope_id", "data_type", "barycentric",
@@ -174,11 +182,46 @@ class FilterbankReader:
         b = self.header.get("ibeam")
         return int(b) if b is not None else None
 
+    @property
+    def frame_dtype(self):
+        """The host dtype of :meth:`read_frames_into`'s buffer: the file's,
+        with uint16 viewed as int16 (few tensor operations take uint16;
+        :meth:`block_from_frames` widens it back)."""
+        dtype = self._mmap.dtype
+        return np.dtype(np.int16) if dtype == np.uint16 else dtype
+
     def read_frames(self, istart, nsamps):
-        """A copy of the raw frames ``(n, nifs * nchans)`` in file dtype."""
+        """A copy of the raw frames ``(n, nifs * nchans)`` in file dtype
+        (no fault seam)."""
         istart = int(istart)
         nsamps = int(min(nsamps, self.nsamples - istart))
         return np.array(self._mmap[istart:istart + nsamps])
+
+    def read_frames_into(self, istart, nsamps, out):
+        """Copy the raw frames of ``nsamps`` samples from ``istart`` into
+        the leading rows of ``out`` (a host array of
+        :attr:`frame_dtype`, ``(>= n, nifs * nchans)``); returns the
+        number of samples copied.  Fires the ``read`` seam (an error, or a
+        truncated length) as :meth:`read_block` does.  A plain copy: no
+        device call, so it runs on a reader thread."""
+        istart = int(istart)
+        fault_inject.fire("read", chunk=istart)
+        nsamps = int(min(nsamps, self.nsamples - istart))
+        nsamps = fault_inject.truncated_length("read", istart, nsamps)
+        src = self._mmap[istart:istart + nsamps]
+        np.copyto(out[:nsamps], src.view(out.dtype))
+        return nsamps
+
+    def block_from_frames(self, frames):
+        """The float32 ``(nchans, n)`` contiguous ascending block of raw
+        ``frames`` ``(n, nifs * nchans)`` (a tensor in :attr:`frame_dtype`,
+        on any device), computed where the frames are."""
+        if frames.dtype == torch.int16 and self._mmap.dtype == np.uint16:
+            frames = frames.to(torch.int32) & 0xFFFF
+        block = self._frames_to_block(frames.to(torch.float32))
+        if self.band_descending:
+            block = block.flip(0)
+        return block.contiguous()
 
     def _frames_to_block(self, frames):
         frames = frames.reshape(frames.shape[0], self.nifs, self.nchans)
@@ -186,7 +229,12 @@ class FilterbankReader:
 
     def read_block(self, istart, nsamps, band_ascending=False):
         """Float64 ``(nchans, n)`` host block, file channel order unless
-        ``band_ascending``."""
+        ``band_ascending``.  Fires the ``read`` seam, as the JAX
+        package's ``read_block`` does."""
+        istart = int(istart)
+        fault_inject.fire("read", chunk=istart)
+        nsamps = int(min(nsamps, self.nsamples - istart))
+        nsamps = fault_inject.truncated_length("read", istart, nsamps)
         block = self._frames_to_block(
             self.read_frames(istart, nsamps).astype(float))
         if band_ascending and self.band_descending:
@@ -198,19 +246,12 @@ class FilterbankReader:
         ascending frequency order.
 
         The frames cross to the device in their stored dtype and are
-        converted, transposed and (for a descending band) flipped there.
+        converted, transposed and (for a descending band) flipped there
+        (:meth:`block_from_frames`).  No fault seam.
         """
         raw = self.read_frames(istart, nsamps)
-        if raw.dtype == np.uint16:
-            # widened on the device: uint16 tensors support few operations
-            frames = torch.from_numpy(raw.view(np.int16)).to(device)
-            frames = frames.to(torch.int32) & 0xFFFF
-        else:
-            frames = torch.from_numpy(raw).to(device)
-        block = self._frames_to_block(frames.to(torch.float32))
-        if self.band_descending:
-            block = block.flip(0)
-        return block.contiguous()
+        frames = torch.from_numpy(raw.view(self.frame_dtype)).to(device)
+        return self.block_from_frames(frames)
 
     def iter_blocks(self, chunksize, band_ascending=False):
         """Yield ``(istart, block)`` float64 host blocks over the file."""

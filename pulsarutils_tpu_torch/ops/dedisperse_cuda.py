@@ -27,6 +27,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..utils import nvcc
 from ..utils.device import to_numpy
 from .dedisperse import dedisperse_plane_plain
 
@@ -51,8 +52,6 @@ _lib = None
 def _library():
     global _lib
     if _lib is None:
-        from ..utils import nvcc
-
         lib = nvcc.load("dedisperse")
         lib.dedisperse_launch.argtypes = (
             [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
@@ -65,7 +64,7 @@ def _library():
         lib.dedisperse_geometry(*[ctypes.byref(d) for d in dims])
         built = tuple(d.value for d in dims)
         if built != (TIME_TILE, CHAN_BLOCK, STAGES):
-            raise RuntimeError(
+            raise nvcc.KernelBuildError(
                 f"csrc/dedisperse.cu tiling {built} differs from the "
                 f"host's {(TIME_TILE, CHAN_BLOCK, STAGES)}")
         _lib = lib
@@ -201,8 +200,8 @@ def dedisperse_plane_cuda(data, meta, plan):
         ndm, int(plan.store_shift), int(plan.win), int(bool(plan.use_smem)),
         block, data.device.index or 0, stream)
     if err != 0:
-        raise RuntimeError("dedisperse kernel launch failed: "
-                           + lib.dedisperse_error_string(err).decode())
+        raise nvcc.launch_error("dedisperse kernel",
+                                lib.dedisperse_error_string(err).decode())
     launches += 1
     return out
 

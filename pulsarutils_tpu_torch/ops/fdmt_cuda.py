@@ -22,6 +22,7 @@ import functools
 import numpy as np
 import torch
 
+from ..utils import nvcc
 from .fdmt import (HEAD_CLUSTER, HEAD_GROUP, HEAD_LEVELS, head_plain,
                    merge4_plain, merge_plain)
 
@@ -45,8 +46,6 @@ _lib = None
 def _library():
     global _lib
     if _lib is None:
-        from ..utils import nvcc
-
         lib = nvcc.load("fdmt_merge")
         for fn in (lib.fdmt_merge_launch, lib.fdmt_merge4_launch):
             fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
@@ -74,7 +73,7 @@ def _library():
         host = [TIME_TILE, MAX_ROW_BLOCKS, HEAD_LEVELS, HEAD_GROUP,
                 HEAD_CLUSTER, HEAD_PARAMS_LEN]
         if built != host:
-            raise RuntimeError(
+            raise nvcc.KernelBuildError(
                 f"csrc/fdmt_merge.cu geometry {built} differs from the "
                 f"host's {host}")
         _lib = lib
@@ -184,8 +183,8 @@ def _launch(fn, state, table):
                            out.data_ptr(), rows_valid, rows_out, nsamples,
                            state.device.index or 0, stream)
     if err != 0:
-        raise RuntimeError(f"{fn} failed: "
-                           + lib.fdmt_merge_error_string(err).decode())
+        raise nvcc.launch_error(fn,
+                                lib.fdmt_merge_error_string(err).decode())
     return out
 
 
@@ -237,8 +236,8 @@ def head_cuda(state, table, params, rows_out):
         (ctypes.c_int * HEAD_PARAMS_LEN)(*params),
         state.device.index or 0, stream)
     if err != 0:
-        raise RuntimeError("fdmt_head_launch failed: "
-                           + lib.fdmt_merge_error_string(err).decode())
+        raise nvcc.launch_error("fdmt_head_launch",
+                                lib.fdmt_merge_error_string(err).decode())
     head_launches += 1
     return out
 

@@ -24,6 +24,8 @@ import ctypes
 
 import torch
 
+from ..utils import nvcc
+
 #: geometry compiled into csrc/fdd.cu (checked when the library loads)
 THREADS = 128
 TRIAL_BLOCK = 64
@@ -37,8 +39,6 @@ _lib = None
 def _library():
     global _lib
     if _lib is None:
-        from ..utils import nvcc
-
         lib = nvcc.load("fdd")
         lib.fdd_launch.argtypes = ([ctypes.c_void_p] * 4
                                    + [ctypes.c_int] * 4 + [ctypes.c_void_p])
@@ -51,8 +51,9 @@ def _library():
         lib.fdd_geometry(*[ctypes.byref(d) for d in dims])
         built = tuple(d.value for d in dims)
         if built != (THREADS, TRIAL_BLOCK):
-            raise RuntimeError(f"csrc/fdd.cu geometry {built} differs from "
-                               f"the host's {(THREADS, TRIAL_BLOCK)}")
+            raise nvcc.KernelBuildError(
+                f"csrc/fdd.cu geometry {built} differs from the host's "
+                f"{(THREADS, TRIAL_BLOCK)}")
         _lib = lib
     return _lib
 
@@ -138,8 +139,8 @@ def fdd_superblock_spectra_cuda(spec, anchor_limbs, step_limbs, superblock):
                          step_limbs.data_ptr(), out.data_ptr(), nchan, nbin,
                          int(superblock), spec.device.index or 0, stream)
     if err != 0:
-        raise RuntimeError("fdd kernel launch failed: "
-                           + lib.fdd_error_string(err).decode())
+        raise nvcc.launch_error("fdd kernel",
+                                lib.fdd_error_string(err).decode())
     launches += 1
     return out
 

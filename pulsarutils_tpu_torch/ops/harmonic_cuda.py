@@ -32,6 +32,7 @@ import functools
 import torch
 
 from ..precision import static_policy
+from ..utils import nvcc
 from .periodicity import (HARMONIC_SUMS, band_edges, best_depth,
                           harmonic_depths, harmonic_peaks_plain,
                           normalize_power)
@@ -132,8 +133,6 @@ _lib = None
 def _library():
     global _lib
     if _lib is None:
-        from ..utils import nvcc
-
         lib = nvcc.load("harmonic")
         lib.harmonic_launch.argtypes = ([ctypes.c_void_p] * 4
                                         + [ctypes.c_int] * 9
@@ -151,8 +150,9 @@ def _library():
         host = (THREADS, MAX_DEPTHS, CLUSTER_SIZES[-1], CLUSTER_FIXED_SMEM,
                 MAX_SLICE)
         if built != host:
-            raise RuntimeError(f"csrc/harmonic.cu geometry {built} differs "
-                               f"from the host's {host}")
+            raise nvcc.KernelBuildError(
+                f"csrc/harmonic.cu geometry {built} differs from the "
+                f"host's {host}")
         _lib = lib
     return _lib
 
@@ -243,8 +243,8 @@ def harmonic_peaks_cuda(power, depths, lo, hi, cluster=None, policy=None):
         int(lo), int(hi), int(cluster), clusters, POLICY_CODES[policy],
         power.device.index or 0, stream)
     if err != 0:
-        raise RuntimeError("harmonic kernel launch failed: "
-                           + lib.harmonic_error_string(err).decode())
+        raise nvcc.launch_error("harmonic kernel",
+                                lib.harmonic_error_string(err).decode())
     launches[policy] += 1
     return vals, bins
 

@@ -14,6 +14,8 @@ import ctypes
 
 import torch
 
+from ..utils import nvcc
+
 #: geometry compiled into csrc/score.cu (checked against the library when
 #: it is loaded)
 THREADS = 256
@@ -28,8 +30,6 @@ _lib = None
 def _library():
     global _lib
     if _lib is None:
-        from ..utils import nvcc
-
         lib = nvcc.load("score")
         lib.score_launch.argtypes = ([ctypes.c_void_p] * 2
                                      + [ctypes.c_int] * 4 + [ctypes.c_void_p])
@@ -42,7 +42,7 @@ def _library():
         lib.score_geometry(*[ctypes.byref(d) for d in dims])
         built = tuple(d.value for d in dims)
         if built != (THREADS, CENTRE_SAMPLES):
-            raise RuntimeError(
+            raise nvcc.KernelBuildError(
                 f"csrc/score.cu geometry {built} differs from the host's "
                 f"{(THREADS, CENTRE_SAMPLES)}")
         _lib = lib
@@ -76,8 +76,8 @@ def score_plane_cuda(plane, with_cert=False):
                            int(bool(with_cert)), plane.device.index or 0,
                            stream)
     if err != 0:
-        raise RuntimeError("score kernel launch failed: "
-                           + lib.score_error_string(err).decode())
+        raise nvcc.launch_error("score kernel",
+                                lib.score_error_string(err).decode())
     launches += 1
     return out
 

@@ -37,9 +37,11 @@ import logging
 import numpy as np
 import torch
 
+from ..resilience import ladder as _ladder
 from ..utils.device import resolve_device, to_numpy
+from ..utils.nvcc import KernelBuildError
 from ..utils.table import ResultTable
-from .dedisperse_cuda import dedisperse_plane, device_plan
+from .dedisperse_cuda import TRIAL_BLOCKS, dedisperse_plane, device_plan
 from .plan import dedispersion_plan, offsets_for
 from .rebin import block_sum_time
 
@@ -57,6 +59,9 @@ CERT_WINDOWS = (2, 3, 4)
 #: trials dedispersed per sweep call — bounds the live plane to
 #: superblock * nsamples floats (512 x 1M = 2 GB) regardless of ndm
 SUPERBLOCK = 512
+
+#: superblock rows at the OOM ladder's floor: B1's larger trial block
+LADDER_FLOOR_ROWS = TRIAL_BLOCKS[-1]
 
 #: the kernels :func:`dedispersion_search` takes
 KERNELS = ("auto", "pallas", "gather", "roll", "fdmt", "hybrid", "fourier")
@@ -210,6 +215,56 @@ def _direct_sweep(dms_bytes, nchan, start_freq, bandwidth, sample_time,
              else device_plan(b, nsamples, device)) for b in blocks]
 
 
+def ladder_blocks(ndm):
+    """The :data:`LADDER_FLOOR_ROWS`-trial blocks of the direct sweep's
+    first superblock for ``ndm`` trials: the most passes the OOM ladder
+    (:mod:`..resilience.ladder`) can split it into."""
+    return -(-min(max(int(ndm), 1), SUPERBLOCK) // LADDER_FLOOR_ROWS)
+
+
+def ladder_superblock(ndm):
+    """The direct sweep's superblock rows at the OOM ladder's current
+    level: :data:`SUPERBLOCK` undegraded; after ``n`` descents a
+    superblock's :func:`ladder_blocks` split into ``2**n`` passes, down
+    to one block a launch."""
+    nblocks = ladder_blocks(ndm)
+    passes = _ladder.direct_plan(nblocks)
+    if passes <= 1:
+        return SUPERBLOCK
+    return LADDER_FLOOR_ROWS * -(-nblocks // passes)
+
+
+def _search_direct_laddered(data, trial_dms, start_freq, bandwidth,
+                            sample_time, capture_plane):
+    """The direct sweep with the OOM ladder: an out-of-memory error
+    descends a level and the sweep runs again in smaller superblocks.  A
+    trial row is an independent sum over channels, scored on its own, so
+    every level gives the undivided sweep's table bit for bit.  At the
+    floor (one trial block a launch) the error propagates to the chunk
+    loop, which descends no further."""
+    nchan, nsamples = data.shape
+    nblocks = ladder_blocks(len(trial_dms))
+    while True:
+        superblocks = _direct_sweep(
+            trial_dms.tobytes(), nchan, float(start_freq), float(bandwidth),
+            float(sample_time), nsamples, ladder_superblock(len(trial_dms)),
+            data.device)
+        try:
+            return _search_direct(data, superblocks, capture_plane)
+        except (ValueError, TypeError, KernelBuildError):
+            raise  # deterministic: never an OOM
+        except Exception as exc:
+            if not _ladder.is_resource_exhausted(exc) \
+                    or _ladder.direct_maxed(nblocks):
+                raise
+            _ladder.oom_event("direct_sweep")
+            logger.warning("direct sweep out of memory (%r); ladder step "
+                           "split_dm", exc)
+            del superblocks
+            _ladder.descend("split_dm")
+            _ladder.count_split("ladder")
+
+
 def _search_direct(data, superblocks, capture_plane):
     """Dedisperse ``superblocks`` (:func:`_direct_sweep`'s) and score each
     (the one-pass scorer on the card); the scores come back to the host
@@ -273,7 +328,9 @@ def _search_formulation(data, offsets, capture_plane, formulation, policy,
     formulation, ``dm_block`` trials at a time (default up to 32), the
     gather in blocks of ``chan_block`` channels (default
     :func:`auto_chan_block`), and score each trial block through
-    :func:`~.score_cuda.score_plane`; one readback at the end."""
+    :func:`~.score_cuda.score_plane`; one readback at the end.  Each trial
+    block is its own launch already (the OOM ladder's floor), so an
+    out-of-memory error propagates to the chunk loop."""
     from .dedisperse import dedisperse_block_chunked
     from .score_cuda import score_plane
 
@@ -687,11 +744,10 @@ def dedispersion_search(data, dmmin, dmmax, start_freq, bandwidth, sample_time,
          plane) = _search_formulation(data, offsets, capture_plane, kernel,
                                       policy, dm_block, chan_block)
     else:
-        superblocks = _direct_sweep(
-            trial_dms.tobytes(), nchan, float(start_freq), float(bandwidth),
-            float(sample_time), nsamples, SUPERBLOCK, data.device)
         (maxvalues, stds, best_snrs, best_windows, best_peaks,
-         plane) = _search_direct(data, superblocks, capture_plane)
+         plane) = _search_direct_laddered(data, trial_dms, start_freq,
+                                          bandwidth, sample_time,
+                                          capture_plane)
     table = ResultTable({
         "DM": trial_dms,
         "max": maxvalues,

@@ -204,7 +204,10 @@ def periodicity_search(fname, dmmin=200, dmmax=800, *, accel_max=0.0,
         acc.save(snap_path)
         state["since_snap"] = 0
 
-    missing = set(acc.chunk_starts) - acc.seen
+    # quarantined chunks never reach the accumulator: the plane carries
+    # them as zeros instead of re-searching them forever
+    quarantined = {int(c) for c in store.quarantined_chunks}
+    missing = set(acc.chunk_starts) - acc.seen - quarantined
     if missing:
         # ledger-done chunks whose planes never reached the snapshot:
         # re-search exactly those, ledger-less
@@ -214,7 +217,7 @@ def periodicity_search(fname, dmmin=200, dmmax=800, *, accel_max=0.0,
         search_by_chunks(fname, resume=False, chunks=sorted(missing),
                          **common)
         acc.save(snap_path)
-        missing = set(acc.chunk_starts) - acc.seen
+        missing = set(acc.chunk_starts) - acc.seen - quarantined
     if missing:
         logger.info("periodicity job incomplete: %d chunk(s) not yet "
                     "accumulated — resume to continue", len(missing))
@@ -223,6 +226,11 @@ def periodicity_search(fname, dmmin=200, dmmax=800, *, accel_max=0.0,
                 "fingerprint": sp["fingerprint"], "candidates_path": None,
                 "snapshot_path": snap_path, "canary": None, "hits": hits,
                 "store": store}
+    if quarantined:
+        logger.warning(
+            "periodicity plane carries %d quarantined chunk(s) as zeros — "
+            "bounded sensitivity loss, see the quarantine manifest",
+            len(quarantined))
 
     # -- the (DM, accel) trial sweep -----------------------------------------
     tsamp_out = acc.tsamp
@@ -287,7 +295,8 @@ def periodicity_search(fname, dmmin=200, dmmax=800, *, accel_max=0.0,
             "rebin": acc.rebin, "tsamp": acc.tsamp, "nout": acc.nout,
             "sigma_threshold": float(sigma_threshold),
             "max_harmonics": int(max_harmonics),
-            "sift": sift_stats, "quarantined_chunks": [],
+            "sift": sift_stats,
+            "quarantined_chunks": sorted(quarantined),
             "canary": canary_info}
     cands_path = os.path.join(
         output_dir, f"period_cands_{sp['root']}_{sp['fingerprint']}.npz")

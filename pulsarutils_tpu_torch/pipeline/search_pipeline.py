@@ -1,18 +1,28 @@
 """The streaming search driver: file -> clean -> sweep -> candidates.
 
 The port of the JAX package's ``search_by_chunks`` with the exact direct
-sweep (the default) or the FDMT/hybrid kernels, itself the counterpart of
-the reference's ``pulsarutils/clean.py:276-351``:
+sweep (the default) or the FDMT/hybrid/Fourier kernels, itself the
+counterpart of the reference's ``pulsarutils/clean.py:276-351``:
 
 * bad channels are flagged once from the file's bandpass statistics;
 * the file is cut into 50%-overlap chunks sized by the search physics
-  (:func:`..parallel.stream.plan_chunks`); every chunk is read, moved to
-  the device in its stored dtype, cleaned there, searched there, and
-  scored; only the scores and hit products come back;
+  (:func:`..parallel.stream.plan_chunks`); a reader thread reads chunk
+  ``k + 1`` into a page-locked buffer while the card searches chunk ``k``
+  (:mod:`..utils.staging`), its upload starts on a side stream before
+  chunk ``k``'s search, and each chunk is gated (:mod:`..faults.policy`),
+  cleaned, searched and scored on the card; only the scores and hit
+  products come back;
 * a chunk whose best S/N exceeds ``snr_threshold`` is persisted through
-  :class:`..io.candidates.CandidateStore`, and every searched chunk is
-  marked in the resume ledger, so a restarted run searches only what is
-  missing;
+  :class:`..io.candidates.CandidateStore` and every searched chunk is
+  marked in the resume ledger, by a FIFO persist worker that overlaps the
+  next chunk's search (save before mark inside one task, so the ledger
+  and candidates are those of the serial loop);
+* failures are contained as in the JAX package: read retries, the
+  integrity gate and quarantine, persist retries and the dead letter, a
+  dispatch deadline and retries, and the OOM ladder
+  (:mod:`..resilience.ladder`); a run on the card never falls back to
+  the host (only a ``device="cpu"`` run takes the JAX package's loud
+  fallback to its plain path);
 * with ``period_search`` each chunk's dedispersed plane also gets the
   folded period search (:func:`..ops.periodicity.period_search_plane`),
   and ``plane_consumer`` hands each plane downstream (the periodicity
@@ -25,11 +35,21 @@ from __future__ import annotations
 
 import logging
 import os
+import threading
 import time
+import zipfile
+import zlib
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
+from ..faults import inject as fault_inject
+from ..faults import reasons as fault_reasons
+from ..faults.audit import audit_run
+from ..faults.policy import (DispatchPolicy, QuarantineManifest,
+                             call_with_deadline, gate_chunk, gate_frames,
+                             gate_tensor, resolve_integrity_policy)
 from ..io.candidates import CandidateStore, config_fingerprint
 from ..io.sigproc import FilterbankReader
 from ..ops.certify import (certifiable_snr_floor, matched_snr_floor,
@@ -38,9 +58,13 @@ from ..ops.clean_ops import fft_zap_time, renormalize_data, zero_dm_filter
 from ..ops.periodicity import period_search_plane
 from ..ops.plan import dedispersion_plan
 from ..ops.rebin import quick_resample
-from ..ops.search import dedispersion_search
+from ..ops.search import dedispersion_search, ladder_blocks
+from ..obs import metrics as obs_metrics
 from ..parallel.stream import iter_chunk_starts, plan_chunks
+from ..resilience import ladder as _ladder
 from ..utils.device import resolve_device, to_numpy
+from ..utils.nvcc import KernelBuildError
+from ..utils.staging import FrameStaging
 from .pulse_info import PulseInfo
 from .spectral_stats import get_bad_chans
 
@@ -51,7 +75,8 @@ def plan_survey(fname, chunk_length=None, new_sample_time=None, tmin=0,
                 dmmin=200, dmmax=800, surelybad=(), *, kernel="auto",
                 snr_threshold=6.0, fft_zap=False, cut_outliers=False,
                 zero_dm=False, exact_floor="auto", period_search=False,
-                period_sigma_threshold=8.0, fingerprint_extra=None):
+                period_sigma_threshold=8.0, fingerprint_extra=None,
+                quarantine_policy="sanitize"):
     """Resolve a survey's geometry, threshold and resume fingerprint
     without searching anything.
 
@@ -70,10 +95,12 @@ def plan_survey(fname, chunk_length=None, new_sample_time=None, tmin=0,
     floor or None), ``fingerprint``, ``root`` (the candidate filename
     stem), ``nsamples`` and ``sample_time``.  The fingerprint hashes the
     fields the JAX package hashes, with ``backend="torch"``: the two
-    packages never share a ledger.  ``fingerprint_extra`` (a flat
-    JSON-safe dict) is merged into it last, so another workload over the
-    same file (the periodicity driver) keeps a ledger of its own; None
-    leaves the fingerprint as it was.
+    packages never share a ledger.  A ``quarantine_policy`` other than
+    the default ``"sanitize"`` enters it (its ledger is not
+    interchangeable with the default's on data the gate flags).
+    ``fingerprint_extra`` (a flat JSON-safe dict) is merged into it last,
+    so another workload over the same file (the periodicity driver) keeps
+    a ledger of its own; None leaves the fingerprint as it was.
     """
     if exact_floor is not True and exact_floor is not False \
             and exact_floor != "auto":
@@ -138,6 +165,8 @@ def plan_survey(fname, chunk_length=None, new_sample_time=None, tmin=0,
         kernel=kernel, snr_threshold=snr_threshold, fft_zap=fft_zap,
         cut_outliers=cut_outliers,
         **({"zero_dm": True} if zero_dm else {}),
+        **({"quarantine_policy": str(quarantine_policy)}
+           if quarantine_policy != "sanitize" else {}),
         surelybad=sorted(int(c) for c in surelybad),
         period_search=bool(period_search),
         period_sigma_threshold=float(period_sigma_threshold),
@@ -167,13 +196,21 @@ def clean_chunk(block, mask, *, cut_outliers=False, zero_dm=False,
 
 
 class _Stages:
-    """Wall seconds per stage, synchronising the device at each stage's
-    end so that queued device work is charged to the stage that queued
-    it."""
+    """Wall seconds per stage.  :meth:`run` synchronises the current
+    stream at each stage's end, so that device work queued on the main
+    stream is charged to the stage that queued it (side-stream uploads
+    are not: they overlap by design); :meth:`add` records seconds spent
+    off the critical path (the reader thread, the persist worker)."""
 
     def __init__(self, device, into):
         self.device = device
         self.seconds = into
+        self._lock = threading.Lock()
+
+    def add(self, name, seconds):
+        if self.seconds is not None:
+            with self._lock:
+                self.seconds[name] = self.seconds.get(name, 0.0) + seconds
 
     def run(self, name, fn, *args, **kwargs):
         if self.seconds is None:
@@ -181,18 +218,148 @@ class _Stages:
         t0 = time.perf_counter()
         out = fn(*args, **kwargs)
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.seconds[name] = (self.seconds.get(name, 0.0)
-                              + time.perf_counter() - t0)
+            torch.cuda.current_stream(self.device).synchronize()
+        self.add(name, time.perf_counter() - t0)
         return out
 
 
-def _persist(store, root, istart, iend, info, table):
-    """Save a hit (``info`` not None), then mark the chunk done: a crash
-    between the two re-searches the chunk, never loses its candidate."""
-    if info is not None:
-        store.save_candidate(root, istart, iend, info, table)
-    store.mark_done(istart)
+def _search_with_fallback(array, dmmin, dmmax, start_freq, bandwidth,
+                          eff_tsamp, *, device, kernel, capture_plane, state,
+                          ndm, snr_floor=None, chunk=None, policy=None):
+    """One chunk's search with failure containment (the JAX package's
+    policy, without its fallback from the card):
+
+    - configuration errors (``ValueError``/``TypeError``) and kernel
+      build, load or launch errors
+      (:class:`~..utils.nvcc.KernelBuildError`) propagate at once: they
+      would fail identically on every chunk;
+    - another failure is retried (``policy.retries`` times, exponential
+      ``policy.backoff_s`` between attempts).  With ``policy.timeout_s``
+      every attempt runs on a watchdog thread
+      (:func:`~..faults.policy.call_with_deadline`), so a wedged dispatch
+      is bounded by ``timeout_s * (retries + 1)``.  On the card the last
+      failure then propagates: nothing is searched elsewhere in its
+      place.  On ``device="cpu"`` the chunk falls back to the host path
+      (``kernel="auto"``), as the JAX package falls back to NumPy: loud
+      (an error log, ``putpu_fallbacks_total``, ``state["fallback"]``,
+      which the driver reports in its summary) and sticky
+      (``state["host"]``: every later chunk runs there, one trial grid);
+    - an out-of-memory error is not retried as a transient fault: while
+      the direct sweep (``kernel="auto"``/``"pallas"``, ``ndm`` trials)
+      has a smaller dispatch left, the OOM ladder (:mod:`..resilience.
+      ladder`, counted under ``putpu_oom_*``) descends and the chunk is
+      re-dispatched; the sweep descends itself on an OOM inside it, so
+      this re-dispatch only follows one raised before the sweep.  With
+      nothing smaller left, the next rung is the host path on the CPU;
+      an out-of-memory error there, or at the card's floor, raises
+      :class:`~..resilience.ladder.OOMFloorError`, which the driver
+      quarantines as ``oom_floor``.
+    """
+    policy = policy if policy is not None else DispatchPolicy()
+    where0 = "host" if state.get("host") else "device"
+    kern0 = "auto" if where0 == "host" else kernel
+    attempts = [(where0, kern0, False)] * (1 + max(int(policy.retries), 0))
+    if where0 != "host" and device.type == "cpu":
+        attempts.append(("host", "auto", False))
+    nblocks = ladder_blocks(ndm)
+    last = None
+
+    def run_one(where, k):
+        # the host path is the floor this ladder exists to reach: only
+        # kind="oom" specs target its seam
+        if where == "device":
+            fault_inject.fire("dispatch", chunk=chunk, device=str(device))
+        else:
+            fault_inject.fire("host", chunk=chunk)
+        return dedispersion_search(
+            array, dmmin, dmmax, start_freq, bandwidth, eff_tsamp, kernel=k,
+            capture_plane=capture_plane,
+            snr_floor=snr_floor if k == "hybrid" else None, device=device)
+
+    i = 0
+    while i < len(attempts):
+        where, k, oom_retry = attempts[i]
+        try:
+            # no watchdog on the host floor: a deadline there would be one
+            # more way for the last resort to fail
+            timeout = policy.timeout_s if where == "device" else None
+            if i and (where, k) == (where0, kern0) and not oom_retry:
+                obs_metrics.counter("putpu_dispatch_retries_total").inc()
+                if policy.backoff_s:
+                    time.sleep(policy.backoff_s * (2 ** (i - 1)))
+            result = call_with_deadline(lambda: run_one(where, k), timeout)
+            if (where, k) != (where0, kern0):
+                logger.error(
+                    "chunk %s: the search failed on kernel=%s (%r); this "
+                    "chunk and the rest of the run are searched on the "
+                    "host path (kernel=auto)", chunk, kernel, last)
+                obs_metrics.counter("putpu_fallbacks_total",
+                                    stage="search").inc()
+                state["host"] = True
+                state["fallback"] = {"stage": "search", "device": "cpu",
+                                     "kernel": "auto", "chunk": chunk,
+                                     "from_device": str(device),
+                                     "from_kernel": kernel}
+            return result
+        except (ValueError, TypeError, KernelBuildError):
+            raise
+        except _ladder.OOMFloorError:
+            raise
+        except Exception as exc:  # device errors share no base class
+            last = exc
+            if _ladder.is_resource_exhausted(exc):
+                _ladder.oom_event("chunk_search")
+                if where == "device" and k in ("auto", "pallas") \
+                        and not _ladder.direct_maxed(nblocks):
+                    _ladder.descend("split_dm")
+                    attempts.insert(i + 1, (where, k, True))
+                    logger.warning(
+                        "chunk %s search ran out of memory on %s "
+                        "kernel=%s (%r); ladder step split_dm, "
+                        "re-dispatching smaller", chunk, device, k, exc)
+                    i += 1
+                    continue
+                if attempts[-1][0] == where:
+                    raise _ladder.OOMFloorError(
+                        f"chunk {chunk}: out of memory with no smaller "
+                        f"dispatch left on {device} kernel={k} ({exc!r}); "
+                        "quarantining the chunk as oom_floor") from exc
+                # nothing smaller on this rung: straight to the host path
+                i = len(attempts) - 1
+                continue
+            if i + 1 < len(attempts):
+                nxt = attempts[i + 1]
+                logger.warning("chunk %s search failed on the %s (%r); "
+                               "retrying on the %s with kernel=%s", chunk,
+                               where, exc, nxt[0], nxt[1])
+            i += 1
+    raise last
+
+
+class _ReadFailure:
+    """The reader thread's sentinel: the chunk's read failed after its
+    retries.  The loop quarantines that chunk (``read_error``) instead of
+    the run dying on one bad disk region."""
+
+    __slots__ = ("exc",)
+
+    def __init__(self, exc):
+        self.exc = exc
+
+
+class _HostChunk:
+    """A chunk read by the reader thread: its raw frames in staging
+    ``slot`` (``nread`` samples), or, for a chunk a ``corrupt`` fault
+    matched, the corrupted host float ``block`` (ascending) and its
+    ``gate`` verdict."""
+
+    __slots__ = ("slot", "nread", "block", "gate")
+
+    def __init__(self, slot=None, nread=0, block=None, gate=None):
+        self.slot = slot
+        self.nread = nread
+        self.block = block
+        self.gate = gate
 
 
 def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
@@ -202,8 +369,11 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
                      max_chunks=None, exact_floor="auto",
                      period_search=False, period_sigma_threshold=8.0,
                      plane_consumer=None, fingerprint_extra=None,
-                     chunks=None, device="cuda", stage_seconds=None,
-                     summary=None):
+                     chunks=None, overlap_persist=True,
+                     dispatch_timeout=None, dispatch_retries=1,
+                     dispatch_backoff=0.0, quarantine_policy="sanitize",
+                     persist_retries=2, persist_backoff=0.05,
+                     device="cuda", stage_seconds=None, summary=None):
     """Search a filterbank file for dispersed single pulses.
 
     Parameters follow the JAX package's driver (``snr_threshold`` and
@@ -224,22 +394,66 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
     chunk on resume; consumers de-duplicate by ``istart``).
     ``fingerprint_extra`` goes to :func:`plan_survey`.
 
+    The loop's knobs, with the JAX package's names and defaults; on
+    clean input the defaults give the serial loop's hits, candidates and
+    ledger bytes:
+
+    * ``overlap_persist`` moves each chunk's candidate persist and ledger
+      write onto a FIFO worker that overlaps the next chunk's search (at
+      most two tasks in flight); ``False`` persists inline;
+    * ``dispatch_timeout`` (seconds, default off) bounds each search
+      attempt on a watchdog thread; ``dispatch_retries`` and
+      ``dispatch_backoff`` shape the retries, after which the error
+      propagates on the card, and a ``device="cpu"`` run falls back,
+      loudly, to the host path (:func:`_search_with_fallback`; a kernel
+      build, load or launch error is never retried).  An abandoned
+      attempt keeps running on the card until it ends
+      (:func:`~..faults.policy.join_abandoned`);
+    * ``quarantine_policy`` (``"sanitize"``, ``"strict"`` or ``"off"``)
+      arms the integrity gate (:mod:`..faults.policy`), on the card
+      after the upload (on the reader thread for a chunk a ``corrupt``
+      fault matched): chunks whose non-finite, dead-channel, zero or
+      saturation fractions breach the policy are quarantined —
+      recorded in ``quarantine_<fingerprint>.jsonl`` and marked done
+      with the reason — and sub-threshold non-finite values are
+      imputed under ``"sanitize"``.  Unreadable (after three reads with
+      backoff) and short chunks are quarantined the same way;
+    * ``persist_retries`` / ``persist_backoff``: a failed candidate write
+      (``OSError``) is retried with exponential backoff, then
+      dead-lettered (manifest and ledger) and the run continues.
+
+    Every resumable run ends with :func:`~..faults.audit.audit_run`
+    (logged, never fatal).
+
     ``stage_seconds``, a dict, receives the wall seconds of each stage
-    (``badchans``, ``read``, ``clean``, ``search``, ``plane_consume``,
-    ``period``, ``persist``); ``summary``, a dict, receives
-    ``snr_threshold`` (resolved), ``snr_floor`` (the hybrid's, or None),
-    ``searched`` and ``certified`` (the chunks the hybrid's noise
-    certificate cleared).
+    on the main thread (``badchans``; ``read``, the wait for the reader;
+    ``upload_wait``; ``gate``; ``clean``; ``search``; ``plane_consume``;
+    ``period``; ``persist`` when inline; ``persist_backpressure``;
+    ``persist_drain``) and off it (``read_decode`` on the reader thread;
+    ``persist`` on the worker when overlapped).  ``summary``, a dict,
+    receives ``snr_threshold`` (resolved), ``snr_floor`` (the hybrid's,
+    or None), ``searched``, ``certified`` (the chunks the hybrid's noise
+    certificate cleared), ``quarantined`` (chunks this session marked
+    done with a reason), ``fallback`` (None, or, on ``device="cpu"``,
+    where the run fell back to and at which chunk) and ``oom_descents``.
 
     Returns ``(hits, store)``: ``hits`` is a list of ``(istart, iend,
     PulseInfo, ResultTable)`` — with ``resume``, including hits persisted
     by earlier sessions of the same configuration.
     """
+    integrity = resolve_integrity_policy(quarantine_policy)
+    dispatch_policy = DispatchPolicy(timeout_s=dispatch_timeout,
+                                     retries=dispatch_retries,
+                                     backoff_s=dispatch_backoff)
     dev = resolve_device(device)
     stages = _Stages(dev, stage_seconds)
+    _ladder.reset()
     output_dir = output_dir or os.path.dirname(os.path.abspath(str(fname)))
-    mask_fileorder = stages.run("badchans", get_bad_chans, fname,
-                                surelybad=surelybad)
+    # the pre-scan reads the file through the loop's read seam before the
+    # loop exists: an armed read fault is for the search chunks
+    with fault_inject.suppressed():
+        mask_fileorder = stages.run("badchans", get_bad_chans, fname,
+                                    surelybad=surelybad)
     sp = plan_survey(fname, chunk_length=chunk_length,
                      new_sample_time=new_sample_time, tmin=tmin,
                      dmmin=dmmin, dmmax=dmmax, surelybad=surelybad,
@@ -248,7 +462,8 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
                      zero_dm=zero_dm, exact_floor=exact_floor,
                      period_search=period_search,
                      period_sigma_threshold=period_sigma_threshold,
-                     fingerprint_extra=fingerprint_extra)
+                     fingerprint_extra=fingerprint_extra,
+                     quarantine_policy=quarantine_policy)
     reader = sp["reader"]
     snr_threshold = sp["snr_threshold"]
     root = sp["root"]
@@ -260,9 +475,15 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
     plan = sp["plan"]
     eff_tsamp = plan.sample_time
     mask = mask_fileorder[::-1] if reader.band_descending else mask_fileorder
-    mask_dev = torch.as_tensor(mask.copy(), device=dev)
-    store = CandidateStore(output_dir, sp["fingerprint"] if resume else None)
+    mask = torch.as_tensor(mask.copy()).to(dev)
+    ndm = len(dedispersion_plan(header["nchans"], dmmin, dmmax, start_freq,
+                                bandwidth, eff_tsamp))
+    fingerprint = sp["fingerprint"] if resume else None
+    store = CandidateStore(output_dir, fingerprint)
+    manifest = QuarantineManifest(output_dir, fingerprint)
     capture = bool(period_search) or plane_consumer is not None
+    clean_kw = dict(cut_outliers=cut_outliers, zero_dm=zero_dm,
+                    fft_zap=fft_zap, resample=plan.resample)
 
     todo = [s for s in sp["chunk_starts"]
             if not (resume and store.is_done(s))]
@@ -274,84 +495,341 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
 
     hits = []
     ncertified = 0
-    for istart in todo:
-        iend = istart + min(plan.step, nsamples - istart)
-        block = stages.run("read", reader.read_block_tensor, istart,
-                           iend - istart, dev)
-        array = stages.run("clean", clean_chunk, block, mask_dev,
-                           cut_outliers=cut_outliers, zero_dm=zero_dm,
-                           fft_zap=fft_zap, resample=plan.resample)
-        del block
-        result = stages.run("search", dedispersion_search, array, dmmin,
-                            dmmax, start_freq, bandwidth, eff_tsamp,
-                            kernel=kernel, snr_floor=sp["search_snr_floor"],
-                            capture_plane=capture, device=dev)
-        table, plane = result if capture else (result, None)
-        if plane_consumer is not None:
-            stages.run("plane_consume", plane_consumer, istart, plane,
-                       table)
-        if table.meta.get("certified"):
-            # the noise certificate: no detection above the floor, no
-            # exact rescore paid (is_hit is False by construction)
-            ncertified += 1
-        best = table.best_row()
-        is_hit = bool(best["snr"] > snr_threshold)
-        info = PulseInfo(
-            allprofs=array, start_freq=start_freq, bandwidth=bandwidth,
-            nbin=array.shape[1], nchan=array.shape[0],
-            date=header.get("tstart"), t0=istart * sample_time,
-            istart=istart, pulse_freq=1.0 / (array.shape[1] * eff_tsamp),
-            ibeam=reader.ibeam, nbeams=reader.nbeams)
-        if period_search:
-            pres = stages.run("period", period_search_plane, plane,
-                              eff_tsamp,
-                              fmin=4.0 / (plane.shape[1] * eff_tsamp),
-                              refine_top=1)
-            if pres["best_sigma"] > period_sigma_threshold:
-                info.period_freq = float(pres["best_freq"])
-                info.period_dm = float(table["DM"][pres["best_dm_index"]])
-                info.period_sigma = float(pres["best_sigma"])
-                info.period_H = float(pres["best_h"])
-                info.period_M = int(pres["best_m"])
-                if pres["best_profile"] is not None:
-                    info.fold_profile = np.asarray(pres["best_profile"])
-                is_hit = True
-                logger.info("PERIODIC chunk %d-%d: f=%.4f Hz DM=%.2f "
-                            "sigma=%.1f", istart, iend, info.period_freq,
-                            info.period_dm, info.period_sigma)
-        if is_hit:
-            info.dm = float(best["DM"])
-            info.snr = float(best["snr"])
-            info.width = float(best["rebin"]) * eff_tsamp
-            info.disp_profile = to_numpy(array.mean(0))
-            if plane is not None:
-                info.dedisp_profile = to_numpy(plane[table.argbest()])
-            # the cutout is sliced on the device: the chunk stays there
-            info = store.trim_waterfall(info, table)
-            info.allprofs = to_numpy(info.allprofs)
-            info.compute_stats()
-            hits.append((istart, iend, info, table))
-            logger.info("HIT chunk %d-%d: DM=%.2f snr=%.2f width=%gs",
-                        istart, iend, info.dm, info.snr, info.width)
+    quarantined = []
+    state = {}  # the sticky fallback of a CPU run: "host", "fallback"
+    staging = (FrameStaging((plan.step, reader.nifs * reader.nchans),
+                            reader.frame_dtype, dev) if todo else None)
+
+    def chunk_size(s):
+        return min(plan.step, nsamples - s)
+
+    # one IF of 8-bit samples: the gate reads the frames as stored (a
+    # quarter of the float block's bytes) before they are converted
+    gate_bytes = (integrity is not None and reader.nifs == 1
+                  and reader.frame_dtype.itemsize == 1)
+
+    def read_at(s, view, slot):
+        """Read one chunk on the reader thread: its frames into ``view``,
+        or, when a ``corrupt`` fault matches it, the host float block the
+        JAX package's reader reads, corrupted and gated here.  An
+        ``OSError`` is retried twice with backoff (counted); a third
+        returns a :class:`_ReadFailure`.  A bad sector under the
+        memory map raises SIGBUS, which nothing here can catch."""
+        t0 = time.perf_counter()
+        try:
+            for attempt in range(3):
+                try:
+                    if fault_inject.wants_corrupt("corrupt", s):
+                        block = reader.read_block(s, chunk_size(s),
+                                                  band_ascending=True)
+                        break
+                    return _HostChunk(slot=slot, nread=reader.
+                                      read_frames_into(s, chunk_size(s),
+                                                       view))
+                except OSError as exc:
+                    if attempt == 2:
+                        logger.error("chunk %d read failed after %d "
+                                     "attempts (%r)", s, attempt + 1, exc)
+                        return _ReadFailure(exc)
+                    obs_metrics.counter("putpu_read_retries_total").inc()
+                    logger.warning("chunk %d read error (%r); retrying", s,
+                                   exc)
+                    time.sleep(0.1 * (2 ** attempt))
+            block = fault_inject.corrupt("corrupt", block, chunk=s)
+            gate = None
+            if integrity is not None:
+                block, gate = gate_chunk(np.asarray(block), integrity)
+            return _HostChunk(nread=block.shape[1], block=block, gate=gate)
+        finally:
+            stages.add("read_decode", time.perf_counter() - t0)
+
+    def submit_read(index):
+        if index >= len(todo):
+            return None
+        slot = index % 2
+        view = staging.acquire(slot)
+        return reader_pool.submit(read_at, todo[index], view, slot)
+
+    def prefetch_upload(index, future):
+        """Start chunk ``todo[index]``'s upload on the side stream (main
+        thread) if its read is done and the run is on the card; otherwise
+        the main path uploads it when its turn comes."""
+        if future is None or not future.done() or dev.type != "cuda":
+            return None
+        got = future.result()
+        if not isinstance(got, _HostChunk) or got.block is not None \
+                or got.nread < chunk_size(todo[index]):
+            return None
+        return todo[index], staging.upload(got.slot, got.nread)
+
+    def condition(got, prefetched, istart):
+        """``(array, gate_info)``: the chunk gated and cleaned on its
+        device, in ascending band order; ``array`` is None when the gate
+        quarantines it.  The frames' upload (prefetched or started now)
+        is waited for under ``upload_wait``, their conversion to float is
+        charged to ``clean``.  A chunk a corrupt fault matched arrives as
+        a host float block gated on the reader thread."""
+        gate_info = got.gate
+        if got.block is not None:
+            block = stages.run("upload_wait", lambda: torch.from_numpy(
+                np.ascontiguousarray(got.block, dtype=np.float32)).to(dev))
         else:
-            info = None
-        del array, plane
-        stages.run("persist", _persist, store, root, istart, iend, info,
-                   table)
+            upload = (prefetched[1] if prefetched is not None
+                      and prefetched[0] == istart
+                      else staging.upload(got.slot, got.nread))
+            frames = stages.run("upload_wait", staging.wait, upload)
+            if gate_bytes:
+                gate_info = stages.run("gate", gate_frames, frames,
+                                       integrity)
+                if gate_info["verdict"] == "quarantine":
+                    return None, gate_info
+            block = stages.run("clean", reader.block_from_frames, frames)
+            del frames
+            if integrity is not None and not gate_bytes:
+                block, gate_info = stages.run("gate", gate_tensor, block,
+                                              integrity)
+        if gate_info is not None and gate_info["verdict"] == "quarantine":
+            return None, gate_info
+        return (stages.run("clean", clean_chunk, block, mask, **clean_kw),
+                gate_info)
+
+    def _persist_and_mark(payload, istart_, iend_, reason=None):
+        """Save a hit (``payload`` not None), then mark the chunk done; a
+        crash between the two re-searches the chunk.  A failed save
+        (``OSError``) is retried ``persist_retries`` times with backoff,
+        then dead-lettered (manifest and ledger) and the run continues;
+        anything else propagates."""
+        if payload is not None:
+            for attempt in range(max(int(persist_retries), 0) + 1):
+                try:
+                    store.save_candidate(root, istart_, iend_, *payload)
+                    break
+                except OSError as exc:
+                    if attempt < persist_retries:
+                        obs_metrics.counter(
+                            "putpu_persist_retries_total").inc()
+                        logger.warning(
+                            "persist of chunk %d-%d failed (%r); retry "
+                            "%d/%d", istart_, iend_, exc, attempt + 1,
+                            persist_retries)
+                        time.sleep(persist_backoff * (2 ** attempt))
+                    else:
+                        obs_metrics.counter(
+                            "putpu_persist_dead_letter_total").inc()
+                        logger.error(
+                            "persist of chunk %d-%d failed %d times (%r): "
+                            "dead-letter recorded, run continues", istart_,
+                            iend_, attempt + 1, exc)
+                        manifest.record(istart_, iend_,
+                                        fault_reasons.PERSIST_DEAD_LETTER,
+                                        {"error": repr(exc)})
+                        reason = fault_reasons.PERSIST_DEAD_LETTER
+        store.mark_done(istart_, reason=reason)
+        if reason is not None:
+            quarantined.append(istart_)
+        return reason
+
+    def _persist_async(payload, istart_, iend_, reason=None):
+        t0 = time.perf_counter()
+        try:
+            _persist_and_mark(payload, istart_, iend_, reason=reason)
+        finally:
+            stages.add("persist", time.perf_counter() - t0)
+
+    persist_pool = (ThreadPoolExecutor(max_workers=1) if overlap_persist
+                    else None)
+    persist_futures = []
+
+    def persist(payload, istart_, iend_, reason=None):
+        if persist_pool is None:
+            stages.run("persist", _persist_and_mark, payload, istart_,
+                       iend_, reason=reason)
+            return
+        persist_futures.append(persist_pool.submit(
+            _persist_async, payload, istart_, iend_, reason=reason))
+        # backpressure: each queued payload holds its cutout and table on
+        # the host; two in flight keep the overlap and bound the memory
+        while len(persist_futures) > 2:
+            stages.run("persist_backpressure", persist_futures.pop(0).result)
+
+    def drain_persist(block=False):
+        # a persist failure the retry policy does not absorb (a bug, not a
+        # disk hiccup) fails the run at the next drain
+        while persist_futures and (block or persist_futures[0].done()):
+            persist_futures.pop(0).result()
+
+    def quarantine(istart_, iend_, reason, stats):
+        obs_metrics.counter("putpu_chunks_quarantined_total").inc()
+        logger.error("chunk %d-%d QUARANTINED (%s): %s -> %s", istart_,
+                     iend_, reason, stats, manifest.path)
+        manifest.record(istart_, iend_, reason, stats)
+        persist(None, istart_, iend_, reason=reason)
+
+    reader_pool = ThreadPoolExecutor(max_workers=1)
+    next_read = submit_read(0)
+    prefetched = None  # (istart, Upload) of a chunk uploaded ahead
+    try:
+        for ichunk, istart in enumerate(todo):
+            iend = istart + chunk_size(istart)
+            got = stages.run("read", next_read.result)
+            next_read = submit_read(ichunk + 1)
+
+            reason = stats = None
+            if isinstance(got, _ReadFailure):
+                reason = fault_reasons.READ_ERROR
+                stats = {"error": repr(got.exc)}
+            elif got.nread < chunk_size(istart):
+                reason = fault_reasons.SHORT_READ
+                stats = {"expected": int(chunk_size(istart)),
+                         "got": int(got.nread)}
+            if reason is not None:
+                quarantine(istart, iend, reason, stats)
+                prefetched = None
+                drain_persist()
+                continue
+
+            array, gate_info = condition(got, prefetched, istart)
+            prefetched = None
+            if gate_info is not None:
+                if gate_info["verdict"] == "quarantine":
+                    quarantine(istart, iend, fault_reasons.INTEGRITY_PREFIX
+                               + ",".join(gate_info["reasons"]),
+                               gate_info["stats"])
+                    drain_persist()
+                    continue
+                if gate_info["verdict"] == "sanitized":
+                    obs_metrics.counter("putpu_chunks_sanitized_total").inc()
+                    logger.warning("chunk %d-%d sanitized (non-finite "
+                                   "values imputed): %s", istart, iend,
+                                   gate_info["stats"])
+            # start chunk k+1's upload before chunk k's search
+            prefetched = prefetch_upload(ichunk + 1, next_read)
+            try:
+                result = stages.run(
+                    "search", _search_with_fallback, array, dmmin, dmmax,
+                    start_freq, bandwidth, eff_tsamp, device=dev,
+                    kernel=kernel, capture_plane=capture, state=state,
+                    ndm=ndm, snr_floor=sp["search_snr_floor"], chunk=istart,
+                    policy=dispatch_policy)
+            except _ladder.OOMFloorError as exc:
+                obs_metrics.counter("putpu_oom_floor_total").inc()
+                quarantine(istart, iend, fault_reasons.OOM_FLOOR,
+                           {"error": repr(exc)})
+                drain_persist()
+                continue
+            table, plane = result if capture else (result, None)
+            if plane_consumer is not None:
+                stages.run("plane_consume", plane_consumer, istart, plane,
+                           table)
+            if table.meta.get("certified"):
+                # the noise certificate: no detection above the floor, no
+                # exact rescore paid (is_hit is False by construction)
+                ncertified += 1
+            best = table.best_row()
+            is_hit = bool(best["snr"] > snr_threshold)
+            info = PulseInfo(
+                allprofs=array, start_freq=start_freq, bandwidth=bandwidth,
+                nbin=array.shape[1], nchan=array.shape[0],
+                date=header.get("tstart"), t0=istart * sample_time,
+                istart=istart, pulse_freq=1.0 / (array.shape[1] * eff_tsamp),
+                ibeam=reader.ibeam, nbeams=reader.nbeams)
+            if period_search:
+                pres = stages.run("period", period_search_plane, plane,
+                                  eff_tsamp,
+                                  fmin=4.0 / (plane.shape[1] * eff_tsamp),
+                                  refine_top=1)
+                if pres["best_sigma"] > period_sigma_threshold:
+                    info.period_freq = float(pres["best_freq"])
+                    info.period_dm = float(table["DM"][pres["best_dm_index"]])
+                    info.period_sigma = float(pres["best_sigma"])
+                    info.period_H = float(pres["best_h"])
+                    info.period_M = int(pres["best_m"])
+                    if pres["best_profile"] is not None:
+                        info.fold_profile = np.asarray(pres["best_profile"])
+                    is_hit = True
+                    logger.info("PERIODIC chunk %d-%d: f=%.4f Hz DM=%.2f "
+                                "sigma=%.1f", istart, iend, info.period_freq,
+                                info.period_dm, info.period_sigma)
+            payload = None
+            if is_hit:
+                info.dm = float(best["DM"])
+                info.snr = float(best["snr"])
+                info.width = float(best["rebin"]) * eff_tsamp
+                info.disp_profile = to_numpy(array.mean(0))
+                if plane is not None:
+                    info.dedisp_profile = to_numpy(plane[table.argbest()])
+                # the cutout is sliced on the device: the chunk stays
+                # there, and the persist payload holds host arrays only
+                info = store.trim_waterfall(info, table)
+                info.allprofs = to_numpy(info.allprofs)
+                info.compute_stats()
+                hits.append((istart, iend, info, table))
+                payload = (info, table)
+                logger.info("HIT chunk %d-%d: DM=%.2f snr=%.2f width=%gs",
+                            istart, iend, info.dm, info.snr, info.width)
+            # a non-hit's info still holds the cleaned chunk on the card
+            del array, plane, info
+            persist(payload, istart, iend)
+            # second prefetch window: the read has had the whole search to
+            # finish
+            if prefetched is None:
+                prefetched = prefetch_upload(ichunk + 1, next_read)
+            drain_persist()
+    except BaseException:
+        reader_pool.shutdown(wait=False, cancel_futures=True)
+        if persist_pool is not None:
+            persist_pool.shutdown(wait=False, cancel_futures=True)
+        raise
+    reader_pool.shutdown(wait=True)
+    if persist_pool is not None:
+        # the persist queue's tail: the only persist time left on the
+        # critical path
+        def finish():
+            persist_pool.shutdown(wait=True)
+            drain_persist(block=True)
+
+        stages.run("persist_drain", finish)
 
     if resume:
         # the complete result of the configuration: hits persisted by
-        # earlier (interrupted) sessions are restored from the store
+        # earlier (interrupted) sessions are restored from the store; a
+        # pair that does not load (a torn or bit-rotted file) is skipped
+        # and counted
         seen = {(h[0], h[1]) for h in hits}
         for cand_root, lo, hi in store.candidates():
-            if cand_root == root and (lo, hi) not in seen \
-                    and store.is_done(lo):
-                hits.append((lo, hi, *store.load_candidate(root, lo, hi)))
+            if cand_root != root or (lo, hi) in seen \
+                    or not store.is_done(lo):
+                continue
+            try:
+                info, table = store.load_candidate(root, lo, hi)
+            except (OSError, ValueError, KeyError, EOFError,
+                    zipfile.BadZipFile, zlib.error) as exc:
+                obs_metrics.counter(
+                    "putpu_resume_pairs_skipped_total").inc()
+                logger.warning("could not restore candidate %s_%d-%d: %r",
+                               root, lo, hi, exc)
+                continue
+            hits.append((lo, hi, info, table))
         hits.sort(key=lambda h: h[0])
-    logger.info("done: %d chunks searched, %d hits, %d noise-certified",
-                len(todo), len(hits), ncertified)
+        # ledger vs candidate files vs manifest: logged, never fatal
+        try:
+            report = audit_run(output_dir, fingerprint, root=root)
+        except Exception as exc:  # noqa: BLE001 — never fatal
+            logger.warning("integrity audit failed (%r); the run's result "
+                           "is unaffected", exc)
+        else:
+            if report["issues"]:
+                logger.warning("integrity audit: %d inconsistencies: %s",
+                               len(report["issues"]), report["issues"])
+            else:
+                logger.info("integrity audit: ok %s", report["checked"])
+    logger.info("done: %d chunks searched, %d hits, %d noise-certified, "
+                "%d quarantined", len(todo), len(hits), ncertified,
+                len(quarantined))
     if summary is not None:
         summary.update(snr_threshold=snr_threshold,
                        snr_floor=sp["search_snr_floor"], searched=len(todo),
-                       certified=ncertified)
+                       certified=ncertified, quarantined=len(quarantined),
+                       fallback=state.get("fallback"),
+                       oom_descents=_ladder.level())
     return hits, store

@@ -5,6 +5,11 @@ compiled for Hopper (``sm_90a``) at first use into ``_build/`` beside
 this package, under a name keyed by a hash of the sources and flags: a
 changed source builds anew, an unchanged one loads from the cache.
 Nothing is built when a module is imported.
+
+A source that does not build, a library that does not load, a library
+whose compiled geometry differs from its wrapper's, and a launch the card
+refuses all raise :class:`KernelBuildError`: the chunk loop re-raises it
+as a configuration error, without a retry.
 """
 
 from __future__ import annotations
@@ -26,6 +31,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _loaded = {}
 
+class KernelBuildError(RuntimeError):
+    """A kernel could not be built, loaded or launched (no code for the
+    card's architecture, too many resources, an invalid configuration, a
+    cluster that does not fit): deterministic, so never retried."""
+
+
+def launch_error(what, message):
+    """The :class:`KernelBuildError` for a failed launch of ``what`` with
+    the CUDA error string ``message``."""
+    return KernelBuildError(f"{what} launch failed: {message}")
+
 
 def nvcc_path():
     """The ``nvcc`` of ``$CUDA_HOME``, else of ``PATH``, else of the
@@ -39,7 +55,8 @@ def nvcc_path():
     for path in candidates:
         if path.is_file():
             return str(path)
-    raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+    raise KernelBuildError(
+        "nvcc not found: set CUDA_HOME to the CUDA toolkit")
 
 
 def library_path(name):
@@ -55,7 +72,8 @@ def build(names):
     """Compile every ``csrc/<name>.cu`` not yet cached, all at once.
 
     Returns ``{name: (library path, build seconds, compiler output)}``;
-    a cached library reports 0 seconds.  Raises if any compile fails.
+    a cached library reports 0 seconds.  Raises :class:`KernelBuildError`
+    if any compile fails.
     """
     results = {}
     running = {}
@@ -81,7 +99,7 @@ def build(names):
         os.replace(tmp, out)
         results[name] = (out, time.perf_counter() - t0, log)
     if failed:
-        raise RuntimeError("\n".join(failed))
+        raise KernelBuildError("\n".join(failed))
     return results
 
 
@@ -89,5 +107,8 @@ def load(name):
     """The ctypes handle of ``csrc/<name>.cu``'s library, built if needed."""
     if name not in _loaded:
         path, _, _ = build([name])[name]
-        _loaded[name] = ctypes.CDLL(str(path))
+        try:
+            _loaded[name] = ctypes.CDLL(str(path))
+        except OSError as exc:
+            raise KernelBuildError(f"cannot load {path}: {exc}") from exc
     return _loaded[name]

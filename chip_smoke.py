@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``pulsarutils_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N] [--quick | --breakdown]
+    python3 chip_smoke.py [--seed N] [--quick | --breakdown | --overlap |
+                           --observe]
 
 Phases, one JSON line each:
 
@@ -110,7 +111,24 @@ Phases, one JSON line each:
    overlapped in the order S, O, O, S: equal hits, byte-equal ledgers
    and candidate files, B1 and B4 twice a chunk, stage seconds, chunks/s
    and peak device bytes per run;
-8. the kernels line (B6 once per policy), then ``{"ok": true,
+8. accounting and reporting (``e2e_observe``, run after the drill on the
+   end-to-end file): the direct sweep at S/N 8 once plain, once under
+   the span tracer and the device profiler alone (its hits and ledger
+   bytes equal the plain run's; the loop's own busy share) and once with
+   every observer on (diagnostic plots of the hits, the survey report,
+   the span trace and the ``torch.profiler`` device trace with roofline
+   accounting, a ``.prom`` metrics file, the HTTP surface on an
+   ephemeral port scraped from a thread during the loop, the canary in
+   every chunk, lineage, push to a webhook served by this script): the
+   hits equal the plain run's (snr within 1e-2: the canary's bump moves
+   the chunk's statistics), the ledger bytes equal, B1 and B4 as many
+   launches, canary recall 1.0, ``/healthz`` answered, the Prometheus
+   text parsed, one JPEG a hit (or ``plots: skipped (no matplotlib)``),
+   ``BUDGET_JSON`` logged, both device traces written and holding CUDA
+   events in the loop; it prints the three loops' seconds, seconds a
+   plot, the budget's unattributed share and the card's busy share over
+   each traced loop from its device trace;
+9. the kernels line (B6 once per policy), then ``{"ok": true,
    "device": {...}}`` last.
 
 Any failed check exits non-zero before the last line.  Without a CUDA
@@ -120,7 +138,8 @@ shapes (a first run of a new kernel).  ``--breakdown`` runs only the
 build and the breakdowns of the direct sweep, B6 and B3, which call
 only the wrappers' entry points: a copy of this script beside another
 checkout times that checkout the same way.  ``--overlap`` runs only the
-build and ``e2e_overlap``.  None of the three prints the last line.
+build and ``e2e_overlap``, ``--observe`` the build, the end-to-end file
+and ``e2e_observe``.  None of the four prints the last line.
 """
 
 from __future__ import annotations
@@ -135,13 +154,6 @@ import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
-
-#: NVIDIA H100 SXM data-sheet peaks (700 W).  The sheet's 67 TFLOP/s
-#: float32 on the CUDA cores counts each fused multiply-add as two
-#: operations; a plain float32 add is one operation per lane per clock,
-#: so adds issue at half that: 33.5e12 adds/s.  HBM3 bandwidth 3.35 TB/s.
-PEAK_FP32_ADDS = 33.5e12
-PEAK_HBM_BYTES_S = 3.35e12
 
 #: dynamic shared memory one block may take on an H100 (227 KB)
 SMEM_PER_BLOCK = 232448
@@ -197,20 +209,26 @@ def time_ms(torch, fn, runs=5, warm_up=True):
     return statistics.median(times), times
 
 
+def _roofline():
+    """The port's work models and the card's peaks
+    (``pulsarutils_tpu_torch/obs/roofline.py``): the bounds printed here
+    and the driver's roofline table count the same work."""
+    from pulsarutils_tpu_torch.obs import roofline
+
+    return roofline
+
+
 def bound_ms(adds, nbytes):
     """Least time on the card: the larger of ``adds`` float32 adds over
     the add rate and ``nbytes`` over the memory rate, in ms, with what
     sets it."""
-    t_ops, t_bytes = adds / PEAK_FP32_ADDS, nbytes / PEAK_HBM_BYTES_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+    return _roofline().bound_ms(adds, nbytes)
 
 
 def sweep_bound_ms(ndm, nchan, nsamples):
     """Least time for the sweep: its adds, and its bytes (input, offsets
     and plane, each once)."""
-    return bound_ms(ndm * nchan * nsamples,
-                    4 * (nchan * nsamples + ndm * nsamples + ndm * nchan))
+    return _roofline().sweep_bound_ms(ndm, nchan, nsamples)
 
 
 def phase_environment(torch):
@@ -496,9 +514,8 @@ def _fdmt_case(torch, name, data, max_delay, min_delay, *, f0=START_FREQ,
             check(torch.equal(got, chain), f"{name}: the head differs from "
                   "the per-level kernel over its levels")
             del chain
-        # each input state read once, each output written once, tables
-        nbytes = 4 * nsamples * (rows_in + rows_out) + 4 * table.numel()
-        bound, bound_by = bound_ms(adds, nbytes)
+        bound, bound_by = bound_ms(*_roofline().fdmt_pass_work(
+            adds // nsamples, nsamples, rows_in, rows_out, table.numel()))
         record = {"case": name, "level": level, "kernel": label,
                   "nchan": nchan, "nsamples": nsamples,
                   "rows_in": rows_in, "rows_out": rows_out,
@@ -632,9 +649,8 @@ def _score_case(torch, np, name, plane, *, with_cert=True, timed=True):
     rel = max(used.values())
     check(rel <= 1.0, f"{name}: scores outside rtol {SCORE_RTOL} / atol "
           f"{SCORE_ATOL} (share of the tolerance used: {used})")
-    # the plane read once, the scores written once; ~16 adds per sample
-    bound, bound_by = bound_ms(16 * rows * nsamples,
-                               4 * rows * nsamples + 8 * got.size)
+    bound, bound_by = bound_ms(*_roofline().score_work(rows, nsamples,
+                                                       got.size))
     record = {"case": name, "rows": rows, "nsamples": nsamples,
               "with_cert": with_cert, "max_abs_diff": err,
               "tolerance_used": used, "windows_equal": True,
@@ -736,14 +752,11 @@ def _fdd_kernel_case(torch, name, spec, anchor, step, superblock,
     check(rel <= FDD_REL_TOL, f"{name}: kernel differs from plain by "
           f"{diff} ({rel:.3g} of the largest output, tolerance "
           f"{FDD_REL_TOL})")
-    # the recurrence: one complex multiply (2 FMUL + 2 FFMA) and one
-    # complex add (2 FADD) per (trial, channel, bin); the spectrum and
-    # the limbs read once, the output written once
-    nbytes = 8 * nchan * nbin + 4 * 7 * nchan + 8 * superblock * nbin
-    bound, bound_by = bound_ms(6 * superblock * nchan * nbin, nbytes)
-    # with the phasor build's instructions beside the recurrence's
-    bound_ph, bound_ph_by = bound_ms(
-        (6 * superblock + FDD_PHASOR_OPS) * nchan * nbin, nbytes)
+    # the recurrence alone, and with the phasor build's instructions
+    bound, bound_by = bound_ms(*_roofline().fdd_work(nchan, nbin,
+                                                     superblock))
+    bound_ph, bound_ph_by = bound_ms(*_roofline().fdd_work(
+        nchan, nbin, superblock, FDD_PHASOR_OPS))
     record = {"case": name, "nchan": nchan, "nbin": nbin,
               "superblock": superblock, "chan_block_plain": chan_block,
               "launches_per_call": launched, "max_abs_diff": diff,
@@ -918,25 +931,12 @@ def phase_fdd(torch, np, seed, quick):
 B6_POLICIES = ("f32", "f32_compensated", "split_f32",
                "bf16_operand_f32_accum")
 
-#: float32 operations of one harmonic add of B6's stack under each policy:
-#: a TwoSum step is 7 (compensated, split); a bf16 rounding costs 2 a bin
-#: (the conversion there and back), counted apart
-B6_OPS_PER_ADD = {"f32": 1, "f32_compensated": 7, "split_f32": 7,
-                  "bf16_operand_f32_accum": 1}
-
-
 def b6_bound_ms(rows, nbins, depths, policy):
     """B6's bound under ``policy``: one read of the power rows and the
     peaks written, against the stack's operations (its harmonic adds, the
     TwoSum's and the depths' ``acc + comp`` under compensation, the bf16
     roundings)."""
-    adds = rows * sum(-(-nbins // j) for j in range(1, depths[-1] + 1))
-    ops = B6_OPS_PER_ADD[policy] * adds
-    if B6_OPS_PER_ADD[policy] > 1:
-        ops += rows * nbins * len(depths)
-    if policy == "bf16_operand_f32_accum":
-        ops += 2 * rows * nbins
-    return bound_ms(ops, 4 * rows * nbins + 8 * rows * len(depths))
+    return _roofline().b6_bound_ms(rows, nbins, depths, policy)
 
 
 def _harmonic_case(torch, np, name, power, nsamples, *, max_harmonics=16,
@@ -1188,9 +1188,9 @@ def fdmt_launches(nchan, dmmin, dmmax, f0=START_FREQ, bw=BANDWIDTH,
             "B2b": kinds.count("merge4")}
 
 
-def _hit_mismatch(ours, ref):
+def _hit_mismatch(ours, ref, snr_rtol=1e-5):
     """The first difference between two hit lists (chunks, best DM, rebin,
-    peak, snr within rel 1e-5), or None."""
+    peak, snr within ``snr_rtol``), or None."""
     if [(h[0], h[1]) for h in ours] != [(h[0], h[1]) for h in ref]:
         return (f"chunks {[(h[0], h[1]) for h in ours]} vs "
                 f"{[(h[0], h[1]) for h in ref]}")
@@ -1199,7 +1199,7 @@ def _hit_mismatch(ours, ref):
         for col in ("DM", "rebin", "peak"):
             if best[col] != rbest[col]:
                 return f"chunk {lo}: {col} {best[col]} vs {rbest[col]}"
-        if abs(best["snr"] - rbest["snr"]) > 1e-5 * abs(rbest["snr"]):
+        if abs(best["snr"] - rbest["snr"]) > snr_rtol * abs(rbest["snr"]):
             return f"chunk {lo}: snr {best['snr']} vs {rbest['snr']}"
         if info.dm != rinfo.dm or info.width != rinfo.width:
             return f"chunk {lo}: candidate {info.dm}/{info.width}"
@@ -1423,10 +1423,7 @@ def phase_kernel_breakdown(torch, np, seed):
     for label, (rows, t) in shapes.items():
         power = _device_power(torch, gen, rows, t)
         nbins = power.shape[1]
-        # one read of the power rows; the harmonic adds the stack needs
-        bound, bound_by = bound_ms(
-            rows * sum(-(-nbins // j) for j in range(1, depths[-1] + 1)),
-            4 * rows * nbins + 8 * rows * len(depths))
+        bound, bound_by = b6_bound_ms(rows, nbins, depths, "f32")
 
         def run(d, power=power, nbins=nbins):
             return hc.harmonic_peaks_cuda(power, d, 1, nbins)
@@ -1471,9 +1468,8 @@ def phase_kernel_breakdown(torch, np, seed):
         # the first four levels alone, and the other three alone
         first_ms, _ = time_ms(torch, launch(counts_zeroed(range(4, nlev))))
         last_ms, _ = time_ms(torch, launch(counts_zeroed(range(4))))
-        bound, bound_by = bound_ms(
-            t * int(hp.counts.sum()),
-            4 * t * (NCHAN + hp.rows_out) + 4 * table.numel())
+        bound, bound_by = bound_ms(*_roofline().fdmt_pass_work(
+            int(hp.counts.sum()), t, NCHAN, hp.rows_out, table.numel()))
         record["b3"][label] = {
             "nsamples": t, "rows": [int(n_lo), int(n_hi)],
             "rows_out": hp.rows_out, "ms": full_ms, "runs_ms": full_runs,
@@ -1497,7 +1493,7 @@ def phase_e2e_hybrid(torch, np, workdir, path, chunk_length, nchunks,
         search_by_chunks
 
     common = dict(chunk_length=chunk_length, dmmin=DMMIN, dmmax=DMMAX,
-                  device="cuda")
+                  device="cuda", make_plots=False)
     dms = dedispersion_plan(NCHAN, DMMIN, DMMAX, START_FREQ, BANDWIDTH,
                             TSAMP)
     per_chunk = fdmt_launches(NCHAN, float(dms.min()), float(dms.max()))
@@ -1565,7 +1561,8 @@ def phase_e2e_fourier(torch, np, workdir, path, chunk_length, nchunks):
     hits, store = search_by_chunks(
         str(path), kernel="fourier", chunk_length=chunk_length, dmmin=DMMIN,
         dmmax=DMMAX, snr_threshold=8.0, output_dir=str(workdir / "out_fdd"),
-        device="cuda", stage_seconds=stages, summary=summary)
+        device="cuda", make_plots=False, stage_seconds=stages,
+        summary=summary)
     wall = time.perf_counter() - t0
     counts = read_counts()
     check_clean_run(summary, "e2e_fourier")
@@ -1654,7 +1651,8 @@ def phase_e2e_precision(torch, np, workdir, path, chunk_length, nchunks,
                     str(path), kernel=kernel, chunk_length=chunk_length,
                     dmmin=DMMIN, dmmax=DMMAX, snr_threshold=8.0,
                     output_dir=str(workdir / f"out_{kernel}_{pol}"),
-                    device="cuda", stage_seconds=stages, summary=summary)
+                    device="cuda", make_plots=False, stage_seconds=stages,
+                    summary=summary)
                 wall = time.perf_counter() - t0
                 counts = read_counts()
                 check_clean_run(summary, f"e2e_precision {kernel} {pol}")
@@ -1832,7 +1830,8 @@ def phase_e2e_period(torch, np, workdir, seed):
     t0 = time.perf_counter()
     hits, store = search_by_chunks(
         str(path), dmmin=DMMIN, dmmax=DMMAX, period_search=True,
-        output_dir=str(workdir / "out_period"), stage_seconds=stages,
+        make_plots=False, output_dir=str(workdir / "out_period"),
+        stage_seconds=stages,
         summary=summary, **common)
     wall = time.perf_counter() - t0
     per_chunk = read_counts()
@@ -1928,7 +1927,7 @@ def phase_end_to_end(torch, np, seed, workdir):
     hits, store = search_by_chunks(
         str(path), chunk_length=chunk_length, dmmin=DMMIN, dmmax=DMMAX,
         snr_threshold=8.0, output_dir=str(workdir / "out"), device="cuda",
-        stage_seconds=stages, summary=summary)
+        make_plots=False, stage_seconds=stages, summary=summary)
     wall = time.perf_counter() - t0
     counts = read_counts()
     check_clean_run(summary, "e2e_search")
@@ -2085,7 +2084,8 @@ def phase_e2e_overlap(torch, np, workdir, seed):
         hits, store = search_by_chunks(
             str(path), chunk_length=chunk_length, dmmin=DMMIN, dmmax=DMMAX,
             snr_threshold=8.0, output_dir=str(out), device="cuda",
-            stage_seconds=stages, summary=summary, overlap_persist=overlap)
+            make_plots=False, stage_seconds=stages, summary=summary,
+            overlap_persist=overlap)
         wall = time.perf_counter() - t0
         counts = read_counts()
         check_clean_run(summary, f"e2e_overlap {label}")
@@ -2130,6 +2130,8 @@ def _counter_deltas(before):
 
     now = {}
     for m in REGISTRY.snapshot():
+        if m["type"] != "counter":
+            continue
         key = m["name"] + "".join(f"{{{k}={v}}}"
                                   for k, v in sorted(m["labels"].items()))
         now[key] = m["value"]
@@ -2150,7 +2152,7 @@ def phase_e2e_faults(torch, np, workdir, path, chunk_length, nchunks, seed):
         plan_survey, search_by_chunks)
 
     common = dict(chunk_length=chunk_length, dmmin=DMMIN, dmmax=DMMAX,
-                  snr_threshold=8.0, device="cuda")
+                  snr_threshold=8.0, device="cuda", make_plots=False)
     starts = plan_survey(str(path), **{k: common[k] for k in (
         "chunk_length", "dmmin", "dmmax")})["chunk_starts"]
     pulse_t = E2E_NSAMPLES // 2
@@ -2343,6 +2345,413 @@ def phase_e2e_faults(torch, np, workdir, path, chunk_length, nchunks, seed):
     report(r)
 
 
+#: e2e_observe: the hits' snr with the canary in every chunk against the
+#: plain run's (the bump moves the chunk's bandpass and row statistics)
+OBSERVE_SNR_RTOL = 1e-2
+
+#: device trace events that occupy the card (the profiler's categories)
+DEVICE_BUSY_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def device_busy_share(trace_path):
+    """The card's busy share over the chunk loop, from a ``torch.profiler``
+    Chrome trace: the union of its CUDA kernel, copy and set intervals,
+    clipped to the loop's window (the first ``chunk`` range's start to the
+    end of the last ``chunk`` or ``persist_drain`` range, the spans the
+    driver annotates), over the window.  Returns ``(share, window_s,
+    busy_s, device_events)``; the share is None without device events."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    marks = [e for e in events if e.get("ph") == "X"
+             and e.get("cat") == "user_annotation"
+             and e.get("name") in ("chunk", "persist_drain")]
+    check(marks, f"{trace_path}: no chunk ranges in the device trace")
+    lo = min(float(e["ts"]) for e in marks if e["name"] == "chunk")
+    hi = max(float(e["ts"]) + float(e["dur"]) for e in marks)
+    spans = sorted((max(float(e["ts"]), lo),
+                    min(float(e["ts"]) + float(e["dur"]), hi))
+                   for e in events if e.get("ph") == "X"
+                   and e.get("cat") in DEVICE_BUSY_CATS)
+    spans = [(a, b) for a, b in spans if b > a]
+    busy, end = 0.0, lo
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    window = hi - lo
+    return (busy / window if spans else None, window / 1e6, busy / 1e6,
+            len(spans))
+
+
+def _checked_busy_share(trace_path, label):
+    """:func:`device_busy_share` of a run's device trace, which must exist
+    and hold CUDA events inside the loop's window."""
+    check(trace_path.is_file(), f"{label}: no device trace at {trace_path}")
+    busy = device_busy_share(trace_path)
+    check(busy[3] > 0 and busy[0] is not None,
+          f"{label}: the device trace holds no CUDA kernel or copy event "
+          f"in the chunk loop")
+    return busy
+
+
+def parse_prometheus(text):
+    """``{(name, labels): value}`` of a Prometheus text exposition; raises
+    CheckFailed on a line that does not parse."""
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        head, _, value = line.rpartition(" ")
+        name, _, labels = head.partition("{")
+        check(name and name.replace("_", "").isalnum(),
+              f"prometheus line {line!r}")
+        try:
+            out[(name, labels.rstrip("}"))] = float(value)
+        except ValueError:
+            raise CheckFailed(f"prometheus value in {line!r}") from None
+    return out
+
+
+class _LogCapture:
+    """Records of the package's logger during a block (INFO and up)."""
+
+    def __init__(self):
+        import logging
+
+        self.records = []
+        self.logger = logging.getLogger("pulsarutils_tpu_torch")
+        self.handler = logging.Handler()
+        self.handler.emit = self.records.append
+
+    def __enter__(self):
+        import logging
+
+        self.level = self.logger.level
+        self.logger.setLevel(logging.INFO)
+        self.logger.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+        self.logger.setLevel(self.level)
+
+    def lines(self, prefix):
+        return [r.getMessage()[len(prefix):].strip() for r in self.records
+                if r.getMessage().startswith(prefix)]
+
+
+def _webhook_sink():
+    """A webhook on 127.0.0.1 that records the JSON bodies posted to it:
+    ``(server, thread, received)``."""
+    import threading
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    received = []
+
+    class Sink(BaseHTTPRequestHandler):
+        def do_POST(self):  # noqa: N802 — http.server API
+            n = int(self.headers.get("Content-Length") or 0)
+            received.append(json.loads(self.rfile.read(n).decode()))
+            self.send_response(200)
+            self.send_header("Content-Length", "2")
+            self.end_headers()
+            self.wfile.write(b"{}")
+
+        def log_message(self, *args):
+            pass
+
+    server = ThreadingHTTPServer(("127.0.0.1", 0), Sink)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    return server, thread, received
+
+
+def _figure_arrays_on_card(torch, np, path, hit):
+    """The diagnostic figure's arrays of a hit chunk, computed on the card
+    at its full size (what the plot path reads back), timed; and on a cut
+    of the chunk (128 channels, 2^15 samples), against the same function
+    on the CPU (the light curves and images within rtol 1e-5, the H curve
+    too with its argmax equal)."""
+    from pulsarutils_tpu_torch.io.sigproc import FilterbankReader
+    from pulsarutils_tpu_torch.ops.search import dedispersion_search
+    from pulsarutils_tpu_torch.pipeline.diagnostics import figure_arrays
+    from pulsarutils_tpu_torch.pipeline.pulse_info import PulseInfo
+    from pulsarutils_tpu_torch.pipeline.search_pipeline import clean_chunk
+
+    istart = hit[0]
+    reader = FilterbankReader(str(path))
+    mask = torch.zeros(NCHAN, dtype=torch.bool, device="cuda")
+    chunk = clean_chunk(reader.read_block_tensor(istart, E2E_CHUNK, "cuda"),
+                        mask)
+    out = {}
+    for label, data in (("chunk", chunk), ("cut", chunk[:128, :1 << 15])):
+        data = data.contiguous()
+        table, plane = dedispersion_search(
+            data, DMMIN, DMMAX, START_FREQ, BANDWIDTH, TSAMP,
+            capture_plane=True, device="cuda")
+        info = PulseInfo(allprofs=data, start_freq=START_FREQ,
+                         bandwidth=BANDWIDTH, nbin=data.shape[1],
+                         nchan=data.shape[0],
+                         pulse_freq=1.0 / (data.shape[1] * TSAMP))
+        figure_arrays(info, table, plane)           # warm
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            got = figure_arrays(info, table, plane)
+            walls.append(time.perf_counter() - t0)
+        out[label] = {"shape": list(data.shape), "plane_rows": table.nrows,
+                      "window": got["window"],
+                      "seconds": statistics.median(walls),
+                      "images": {k: list(got[k].shape)
+                                 for k in ("raw", "dedisp", "plane")}}
+        if label == "cut":
+            want = figure_arrays(
+                PulseInfo(allprofs=data.cpu(), start_freq=START_FREQ,
+                          bandwidth=BANDWIDTH, nbin=data.shape[1],
+                          nchan=data.shape[0],
+                          pulse_freq=1.0 / (data.shape[1] * TSAMP)),
+                table, plane.cpu())
+            for k in ("lc_raw", "lc_dedisp", "h", "raw", "dedisp",
+                      "plane"):
+                check(np.allclose(got[k], want[k], rtol=1e-5, atol=1e-5),
+                      f"figure arrays: {k} on the card differs from the CPU")
+            check(np.argmax(got["h"]) == np.argmax(want["h"]),
+                  "figure arrays: H curve argmax")
+        del table, plane
+    del chunk
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_e2e_observe(torch, np, workdir, path, chunk_length, nchunks):
+    """The e2e file with the direct sweep at S/N 8: one plain run, one
+    under the span tracer and the device profiler alone, then one with
+    every observer on — plots of the hits, the survey report,
+    the span trace and the ``torch.profiler`` device trace with roofline
+    accounting, a ``.prom`` metrics file, the HTTP surface on an
+    ephemeral port scraped from a thread during the loop, the canary on
+    every chunk, lineage, and push to a webhook served here.  The science
+    hits and the ledger bytes must equal the plain run's, B1 and B4 launch
+    as often, the canary be recovered in every chunk, ``/healthz``
+    answer, the Prometheus text parse and hold the loop's counters, a
+    JPEG exist per hit (or matplotlib be missing, said so), the
+    ``BUDGET_JSON`` line be logged, and both device traces hold CUDA
+    events inside the chunk loop."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from pulsarutils_tpu_torch.obs import metrics as obs_metrics
+    from pulsarutils_tpu_torch.obs import roofline, trace
+    from pulsarutils_tpu_torch.obs.canary import CanaryController
+    from pulsarutils_tpu_torch.pipeline.search_pipeline import \
+        search_by_chunks
+
+    common = dict(chunk_length=chunk_length, dmmin=DMMIN, dmmax=DMMAX,
+                  snr_threshold=8.0, device="cuda")
+    stages, summary = {}, {}
+    reset_counts()
+    t0 = time.perf_counter()
+    with _LogCapture() as plain_log:
+        plain, plain_store = search_by_chunks(
+            str(path), output_dir=str(workdir / "obs_plain"),
+            make_plots=False, stage_seconds=stages, summary=summary,
+            **common)
+    plain_call = time.perf_counter() - t0 - stages.get("badchans", 0.0)
+    plain_counts = read_counts()
+    check_clean_run(summary, "e2e_observe plain")
+    plain_budget = json.loads(plain_log.lines("BUDGET_JSON")[0])
+
+    # the plain run again under the span tracer and the device profiler
+    # alone: the loop's own busy share, without the canary's host work
+    traced_dir = workdir / "traced_trace.json_device"
+    stages_tr, summary_tr = {}, {}
+    with _LogCapture() as traced_log:
+        with trace.trace_session(str(workdir / "traced_trace.json"),
+                                 device_trace_dir=str(traced_dir)):
+            traced, traced_store = search_by_chunks(
+                str(path), output_dir=str(workdir / "obs_traced"),
+                make_plots=False, stage_seconds=stages_tr,
+                summary=summary_tr, **common)
+    check_clean_run(summary_tr, "e2e_observe traced")
+    bad = _hit_mismatch(traced, plain)
+    check(bad is None, f"e2e_observe traced: hits differ: {bad}")
+    check(Path(traced_store._ledger_path).read_bytes()
+          == Path(plain_store._ledger_path).read_bytes(),
+          "e2e_observe traced: ledger bytes differ from the plain run's")
+    traced_budget = json.loads(traced_log.lines("BUDGET_JSON")[0])
+    traced_busy = _checked_busy_share(traced_dir / trace.DEVICE_TRACE_FILE,
+                                      "e2e_observe traced")
+
+    try:
+        import matplotlib  # noqa: F401
+        plots = True
+    except ImportError:
+        plots = False
+        print("plots: skipped (no matplotlib)", flush=True)
+    out = workdir / "obs_on"
+    trace_path = workdir / "observe_trace.json"
+    device_dir = Path(str(trace_path) + "_device")
+    sink, sink_thread, received = _webhook_sink()
+    canary = CanaryController(rate=1.0, snr=12.0)
+    scrapes = {"/healthz": [], "/metrics": []}
+    stop = threading.Event()
+
+    def scrape(log):
+        """Scrape the surface until ``stop``; its port comes from the
+        driver's log line."""
+        port = None
+        while not stop.is_set():
+            if port is None:
+                found = log.lines("live search surface on http://")
+                port = int(found[0].split(":")[1].split()[0]) if found \
+                    else None
+            for endpoint in (scrapes if port is not None else ()):
+                try:
+                    with urllib.request.urlopen(
+                            f"http://127.0.0.1:{port}{endpoint}",
+                            timeout=5) as r:
+                        scrapes[endpoint].append((r.status,
+                                                  r.read().decode()))
+                except urllib.error.HTTPError as exc:
+                    scrapes[endpoint].append((exc.code, ""))
+                except OSError:
+                    pass
+            stop.wait(0.05)
+
+    stages_on, summary_on = {}, {}
+    roofline.reset()
+    roofline.enable()
+    try:
+        with _LogCapture() as log:
+            scraper = threading.Thread(target=scrape, args=(log,),
+                                       daemon=True)
+            scraper.start()
+            reset_counts()
+            t0 = time.perf_counter()
+            try:
+                with trace.trace_session(str(trace_path),
+                                         device_trace_dir=str(device_dir)):
+                    hits, store = search_by_chunks(
+                        str(path), output_dir=str(out), make_plots="hits",
+                        report_out=str(workdir / "observe_report"),
+                        http_port=0, canary=canary, lineage=True,
+                        push=[f"http://127.0.0.1:{sink.server_port}/alert"],
+                        stage_seconds=stages_on, summary=summary_on,
+                        **common)
+                on_wall = time.perf_counter() - t0
+            finally:
+                stop.set()
+                scraper.join()
+            counts = read_counts()
+        prom_path = workdir / "observe_metrics.prom"
+        obs_metrics.REGISTRY.write_prometheus(str(prom_path))
+    finally:
+        roofline.disable()
+        sink.shutdown()
+        sink.server_close()
+        sink_thread.join()
+    on_call = on_wall - stages_on.get("badchans", 0.0)
+    check_clean_run(summary_on, "e2e_observe")
+
+    # the canary's bump moves each chunk's bandpass and row statistics a
+    # little: the pulse's snr within OBSERVE_SNR_RTOL, the rest exact
+    bad = _hit_mismatch(hits, plain, snr_rtol=OBSERVE_SNR_RTOL)
+    check(bad is None, f"e2e_observe: hits differ from the plain run: {bad}")
+    check(Path(store._ledger_path).read_bytes()
+          == Path(plain_store._ledger_path).read_bytes(),
+          "e2e_observe: ledger bytes differ from the plain run's")
+    for k in ("B1", "B4"):
+        check(counts[k] == plain_counts[k], f"e2e_observe: {k} launched "
+              f"{counts[k]} times, the plain run {plain_counts[k]}")
+    jpegs = sorted(p.name for p in out.glob("*.jpg"))
+    if plots:
+        check(jpegs == sorted(f"{path.stem}_{h[0]}-{h[1]}.jpg"
+                              for h in hits),
+              f"e2e_observe: JPEGs {jpegs} for hits "
+              f"{[(h[0], h[1]) for h in hits]}")
+    recall = canary.summary()
+    check(recall["injected"] == nchunks and recall["recall"] == 1.0,
+          f"e2e_observe: canary {recall}")
+    health = [s for s, _ in scrapes["/healthz"]]
+    check(health and all(s in (200, 503) for s in health),
+          f"e2e_observe: /healthz answered {health[:5]}")
+    live = [t for s, t in scrapes["/metrics"] if s == 200]
+    check(live, "e2e_observe: /metrics never answered")
+    parse_prometheus(live[-1])
+    prom = parse_prometheus(prom_path.read_text())
+    for name in ("putpu_chunks_total", "putpu_hits_total",
+                 "putpu_dispatches_total", "putpu_bytes_uploaded_total",
+                 "putpu_chunk_wall_seconds_count",
+                 "putpu_canary_injected_total",
+                 "putpu_candidate_latency_seconds_count",
+                 "putpu_push_delivered_total"):
+        check(any(k[0] == name for k in prom),
+              f"e2e_observe: {name} missing from the .prom file")
+    check(prom[("putpu_canary_recovered_total", "")] >= nchunks,
+          "e2e_observe: canary recoveries missing from the .prom file")
+    budget = log.lines("BUDGET_JSON")
+    check(len(budget) == 1, "e2e_observe: no BUDGET_JSON line")
+    budget = json.loads(budget[0])
+    pushed = log.lines("PUSH_JSON")
+    check(len(received) == len(hits) and pushed
+          and json.loads(pushed[0])["delivered"] == len(hits),
+          f"e2e_observe: {len(received)} alerts for {len(hits)} hits")
+    lineage = sorted(out.glob("*.lineage.json"))
+    check(len(lineage) == len(hits),
+          f"e2e_observe: {len(lineage)} lineage docs for {len(hits)} hits")
+    check((workdir / "observe_report.md").is_file()
+          and trace_path.is_file(), "e2e_observe: report or trace missing")
+    figure = _figure_arrays_on_card(torch, np, path, hits[0])
+    busy = _checked_busy_share(device_dir / trace.DEVICE_TRACE_FILE,
+                               "e2e_observe")
+    nplots = len(jpegs)
+    # the chunk loop: the chunks' walls and the persist queue's tail
+    plain_loop = plain_budget["wall_s"] + stages.get("persist_drain", 0.0)
+    traced_loop = (traced_budget["wall_s"]
+                   + stages_tr.get("persist_drain", 0.0))
+    on_loop = budget["wall_s"] + stages_on.get("persist_drain", 0.0)
+    emit("e2e_observe", chunks=nchunks, hits=len(hits),
+         plain_chunk_loop_s=plain_loop, traced_chunk_loop_s=traced_loop,
+         observed_chunk_loop_s=on_loop,
+         observe_cost_share=on_loop / plain_loop - 1.0,
+         traced_device_busy_share=traced_busy[0],
+         traced_device_window_s=traced_busy[1],
+         traced_device_busy_s=traced_busy[2],
+         traced_device_events=traced_busy[3],
+         traced_stage_seconds=stages_tr,
+         plain_call_s=plain_call, observed_call_s=on_call,
+         plain_budget_unattributed_share=(plain_budget["unattributed_s"]
+                                          / plain_budget["wall_s"]),
+         plots=nplots if plots else "skipped (no matplotlib)",
+         plot_s=stages_on.get("plot", 0.0),
+         seconds_per_plot=(stages_on.get("plot", 0.0) / nplots
+                           if nplots else None),
+         budget_wall_s=budget["wall_s"],
+         budget_unattributed_s=budget["unattributed_s"],
+         budget_unattributed_share=(budget["unattributed_s"]
+                                    / budget["wall_s"]),
+         budget_buckets_s=budget["buckets_s"],
+         unattributed_per_chunk_s=[c["unattributed_s"]
+                                   for c in budget["per_chunk"]],
+         plain_unattributed_per_chunk_s=[
+             c["unattributed_s"] for c in plain_budget["per_chunk"]],
+         budget_counters=budget["counters"], rtt_s=budget.get("rtt_s"),
+         device_busy_share=busy[0], device_window_s=busy[1],
+         device_busy_s=busy[2], device_events=busy[3],
+         figure_arrays=figure,
+         canary=recall, healthz_scrapes=len(health),
+         metrics_scrapes=len(live), alerts=len(received),
+         lineage_docs=len(lineage),
+         roofline=[{k: r[k] for k in ("kernel", "calls", "wall_s",
+                                      "frac_of_ideal")}
+                   for r in roofline.table()],
+         launches=counts, plain_launches=plain_counts,
+         stage_seconds=stages_on, plain_stage_seconds=stages)
+    return counts
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2354,6 +2763,9 @@ def main(argv=None):
                              "phase only")
     parser.add_argument("--overlap", action="store_true",
                         help="build and run e2e_overlap only")
+    parser.add_argument("--observe", action="store_true",
+                        help="build, write the end-to-end file and run "
+                             "e2e_observe only")
     opts = parser.parse_args(argv)
 
     import numpy as np
@@ -2392,6 +2804,14 @@ def main(argv=None):
             workdir.mkdir(parents=True)
             phase_e2e_overlap(torch, np, workdir, opts.seed)
             return 0
+        if opts.observe:
+            shutil.rmtree(workdir, ignore_errors=True)
+            workdir.mkdir(parents=True)
+            path = workdir / "e2e.fil"
+            _write_e2e_file(np, path, opts.seed)
+            phase_e2e_observe(torch, np, workdir, path,
+                              E2E_CHUNK // 2 * TSAMP, 4)
+            return 0
         head, records, head_data = phase_kernels(torch, np, opts.seed,
                                                  opts.quick)
         fdmt_head, fdmt_records, coarse = phase_fdmt(
@@ -2421,6 +2841,8 @@ def main(argv=None):
                                         chunk_length, nchunks, hits)
         phase_e2e_faults(torch, np, workdir, path, chunk_length, nchunks,
                          opts.seed)
+        observe = phase_e2e_observe(torch, np, workdir, path, chunk_length,
+                                    nchunks)
         path.unlink()
         period = phase_e2e_period(torch, np, workdir, opts.seed)
         overlap = phase_e2e_overlap(torch, np, workdir, opts.seed)
@@ -2444,6 +2866,7 @@ def main(argv=None):
                     overlap[0]["launches"],
                 "direct sweep, overlapped loop (e2e_overlap)":
                     overlap[1]["launches"],
+                "direct sweep, every observer on (e2e_observe)": observe,
                 **precision["runs"]}
     shape = {"nchan": NCHAN, "nsamples": NSAMPLES}
 

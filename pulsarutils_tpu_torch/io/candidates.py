@@ -136,6 +136,15 @@ class CandidateStore:
         table.to_npz(base + ".table.npz")
         return base
 
+    def save_lineage(self, root, istart, iend, doc):
+        """Write a candidate's lineage doc beside its npz pair,
+        ``{base}.lineage.json`` (atomic; indented and key-sorted as the
+        JAX package writes it).  Only called when lineage is armed."""
+        path = self._base(root, istart, iend) + ".lineage.json"
+        atomic_write_json(path, doc, indent=2, sort_keys=True,
+                          trailing_newline=True)
+        return path
+
     def trim_waterfall(self, info, table):
         """Bound the persisted record: full chunk in, pulse cutout out.
 

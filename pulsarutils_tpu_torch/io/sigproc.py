@@ -227,6 +227,20 @@ class FilterbankReader:
         frames = frames.reshape(frames.shape[0], self.nifs, self.nchans)
         return (frames[:, 0] if self.nifs == 1 else frames.sum(1)).T
 
+    def host_samples(self, frames):
+        """The ``(n, nchans)`` host samples of raw ``frames`` ``(n, nifs *
+        nchans)`` (a numpy array in :attr:`frame_dtype`), channels in
+        ascending order: the transpose of :meth:`read_block`'s
+        ``band_ascending`` block.  One IF: a view in the file's dtype;
+        several: their float64 sum."""
+        frames = np.asarray(frames).view(self._mmap.dtype)
+        if self.nifs == 1:
+            samples = frames
+        else:
+            samples = frames.reshape(frames.shape[0], self.nifs,
+                                     self.nchans).astype(float).sum(1)
+        return samples[:, ::-1] if self.band_descending else samples
+
     def read_block(self, istart, nsamps, band_ascending=False):
         """Float64 ``(nchans, n)`` host block, file channel order unless
         ``band_ascending``.  Fires the ``read`` seam, as the JAX

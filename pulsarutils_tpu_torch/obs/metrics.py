@@ -1,32 +1,83 @@
-"""Process-wide counters, named as the JAX package names them.
+"""Process-wide metrics registry: counters, gauges, histograms.
 
-The counter part of the JAX package's metrics registry: the faults, the
-resilience ladder and the chunk loop count what they contain
-(quarantined chunks, retries, dead letters, OOM events) under the same
-``putpu_*`` names and labels, so a test can compare the two packages'
-counter deltas.  Gauges, histograms and the exporters are not ported.
+The port's copy of the JAX package's registry, with the same ``putpu_*``
+names and labels (:mod:`.names`) and the same two exporters:
 
-Thread-safe: the reader thread, the persist worker and the main loop
-update counters concurrently.  Instruments are get-or-create by
-``(name, labels)``.
+* JSONL (one metric per line) — artifact parsers;
+* Prometheus textfile format — for a node-exporter textfile collector,
+  and the live ``/metrics`` scrape (:mod:`.server`).
+
+The faults, the resilience ladder, the budget accountant, the canary,
+the health engine, lineage and push all write here, so a test can
+compare the two packages' counter deltas and exposition text.
+
+Thread-safe throughout (the reader thread, the persist worker, the
+broker and the scrape thread update or read it concurrently with the
+main loop): an update is a lock and an add.  Instruments are
+get-or-create by ``(name, labels)``; one created without ``help=``
+inherits the manifest's one-line meaning as its HELP text, and the
+module-level facades warn once per unknown ``putpu_*`` name.
 """
 
 from __future__ import annotations
 
+import json
 import threading
 
-__all__ = ["Counter", "MetricsRegistry", "REGISTRY", "counter"]
+from . import names as _names
+
+__all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry", "REGISTRY",
+           "counter", "gauge", "histogram"]
+
+#: default histogram edges (seconds-ish magnitudes); instruments that
+#: know their domain pass explicit edges (S/N, DM)
+DEFAULT_EDGES = (0.001, 0.01, 0.1, 1.0, 10.0, 100.0)
 
 
-class Counter:
-    """Monotonic count: ``inc(n)`` with ``n >= 0``; ``value`` reads it."""
+def _escape_label_value(v):
+    """Prometheus exposition-format label-value escaping: backslash,
+    double-quote and newline (in that order — escaping the backslash
+    first keeps the other two escapes unambiguous)."""
+    return (str(v).replace("\\", "\\\\").replace('"', '\\"')
+            .replace("\n", "\\n"))
 
-    kind = "counter"
 
-    def __init__(self, name, labels=()):
+def _escape_help(text):
+    """HELP text escaping per the exposition format: backslash and
+    newline only (quotes are legal in HELP)."""
+    return str(text).replace("\\", "\\\\").replace("\n", "\\n")
+
+
+def _fmt_labels(items):
+    """``{...}`` label block from sorted ``(key, value)`` pairs, with
+    conformant value escaping; empty string for no labels."""
+    if not items:
+        return ""
+    inner = ",".join(f'{k}="{_escape_label_value(v)}"' for k, v in items)
+    return "{" + inner + "}"
+
+
+class _Instrument:
+    __slots__ = ("name", "help", "labels", "_lock")
+
+    def __init__(self, name, help="", labels=()):
         self.name = name
+        self.help = help
         self.labels = labels  # sorted tuple of (key, value)
         self._lock = threading.Lock()
+
+    def _label_str(self):
+        return _fmt_labels(self.labels)
+
+
+class Counter(_Instrument):
+    """Monotonic count.  ``inc(n)`` with n >= 0."""
+
+    __slots__ = ("_value",)
+    kind = "counter"
+
+    def __init__(self, name, help="", labels=()):
+        super().__init__(name, help, labels)
         self._value = 0
 
     def inc(self, n=1):
@@ -40,35 +91,216 @@ class Counter:
         with self._lock:
             return self._value
 
+    def _sample(self):
+        return {"value": self.value}
+
+    def _prom_lines(self):
+        return [f"{self.name}{self._label_str()} {self.value}"]
+
+
+class Gauge(_Instrument):
+    """Last-written value, with a max-tracking helper for watermarks."""
+
+    __slots__ = ("_value",)
+    kind = "gauge"
+
+    def __init__(self, name, help="", labels=()):
+        super().__init__(name, help, labels)
+        self._value = 0.0
+
+    def set(self, v):
+        with self._lock:
+            self._value = v
+
+    def add(self, v):
+        with self._lock:
+            self._value += v
+
+    def set_max(self, v):
+        """Watermark semantics: keep the maximum ever set."""
+        with self._lock:
+            if v > self._value:
+                self._value = v
+
+    @property
+    def value(self):
+        with self._lock:
+            return self._value
+
+    def _sample(self):
+        return {"value": self.value}
+
+    def _prom_lines(self):
+        return [f"{self.name}{self._label_str()} {self.value}"]
+
+
+class Histogram(_Instrument):
+    """Fixed-edge histogram (cumulative buckets on export, Prometheus
+    style: one ``le`` bucket per edge plus ``+Inf``, a sum and a count)."""
+
+    __slots__ = ("edges", "_counts", "_sum", "_n")
+    kind = "histogram"
+
+    def __init__(self, name, help="", labels=(), edges=DEFAULT_EDGES):
+        super().__init__(name, help, labels)
+        self.edges = tuple(float(e) for e in edges)
+        if list(self.edges) != sorted(self.edges):
+            raise ValueError(f"histogram {name}: edges must be sorted")
+        self._counts = [0] * (len(self.edges) + 1)
+        self._sum = 0.0
+        self._n = 0
+
+    def observe(self, v):
+        v = float(v)
+        i = 0
+        for i, e in enumerate(self.edges):  # few edges: linear scan is fine
+            if v <= e:
+                break
+        else:
+            i = len(self.edges)
+        with self._lock:
+            self._counts[i] += 1
+            self._sum += v
+            self._n += 1
+
+    def _sample(self):
+        with self._lock:
+            counts = list(self._counts)
+            total, n = self._sum, self._n
+        return {"edges": list(self.edges), "counts": counts,
+                "sum": round(total, 6), "count": n}
+
+    def _prom_lines(self):
+        # conformance contract:
+        # cumulative ``_bucket`` samples, one per edge plus a final
+        # ``le="+Inf"`` equal to ``_count``, then ``_sum``/``_count`` —
+        # label values escaped like every other sample line
+        s = self._sample()
+        lab = dict(self.labels)
+        out = []
+        cum = 0
+        for e, c in zip(s["edges"], s["counts"]):
+            cum += c
+            inner = _fmt_labels(sorted({**lab, "le": repr(e)}.items()))
+            out.append(f"{self.name}_bucket{inner} {cum}")
+        cum += s["counts"][-1]
+        inner = _fmt_labels(sorted({**lab, "le": "+Inf"}.items()))
+        out.append(f"{self.name}_bucket{inner} {cum}")
+        base = self._label_str()
+        out.append(f"{self.name}_sum{base} {s['sum']}")
+        out.append(f"{self.name}_count{base} {s['count']}")
+        return out
+
 
 class MetricsRegistry:
-    """Get-or-create counter store (one per process, :data:`REGISTRY`)."""
+    """Get-or-create instrument store.  One per process (:data:`REGISTRY`);
+    construct private ones in tests."""
 
     def __init__(self):
         self._lock = threading.Lock()
-        self._metrics = {}  # (name, labels) -> Counter
+        self._metrics = {}  # (name, labels) -> instrument
 
-    def counter(self, name, **labels):
+    def _get(self, cls, name, help, labels, **kw):
         key = (name, tuple(sorted(labels.items())))
         with self._lock:
             m = self._metrics.get(key)
             if m is None:
-                m = self._metrics[key] = Counter(name, labels=key[1])
+                if not help:
+                    # single-source meaning: the manifest's one-line
+                    # description becomes the Prometheus HELP text
+                    help = _names.meaning(name)
+                m = cls(name, help=help, labels=key[1], **kw)
+                self._metrics[key] = m
+            elif not isinstance(m, cls):
+                raise TypeError(f"metric {name!r} already registered as "
+                                f"{m.kind}, requested {cls.kind}")
             return m
 
-    def snapshot(self):
-        """``[{"name", "type", "labels", "value"}, ...]`` sorted by name
-        and labels, as the JAX registry's snapshot lists counters."""
+    def counter(self, name, help="", **labels):
+        return self._get(Counter, name, help, labels)
+
+    def gauge(self, name, help="", **labels):
+        return self._get(Gauge, name, help, labels)
+
+    def histogram(self, name, help="", edges=DEFAULT_EDGES, **labels):
+        return self._get(Histogram, name, help, labels, edges=edges)
+
+    def reset(self):
+        """Drop every instrument (tests; a fresh run's CLI entry)."""
         with self._lock:
-            items = sorted(self._metrics.items())
-        return [{"name": name, "type": m.kind, "labels": dict(labels),
-                 "value": m.value} for (name, labels), m in items]
+            self._metrics.clear()
+
+    def _items(self):
+        with self._lock:
+            return sorted(self._metrics.items())
+
+    def snapshot(self):
+        """List of ``{"name", "type", "labels", ...sample}`` dicts."""
+        out = []
+        for (name, labels), m in self._items():
+            out.append({"name": name, "type": m.kind,
+                        "labels": dict(labels), **m._sample()})
+        return out
+
+    def write_jsonl(self, path, schema_version=None):
+        """JSONL export; ``schema_version`` (when given) is written as a
+        ``{"schema_version": N}`` header line so downstream consumers
+        (:mod:`.gate`) can refuse to parse drifted snapshots."""
+        snap = self.snapshot()
+        with open(path, "w") as f:
+            if schema_version is not None:
+                f.write(json.dumps({"schema_version": schema_version})
+                        + "\n")
+            for rec in snap:
+                f.write(json.dumps(rec) + "\n")
+        return len(snap)
+
+    def prometheus_text(self, manifest_help=False):
+        """Prometheus text exposition.  ``manifest_help=True`` (the live
+        ``/metrics`` scrape) additionally serves the
+        :data:`~.names.METRIC_NAMES` one-liner as HELP for any
+        instrument created without one, and routes every emitted
+        ``putpu_*`` name through :func:`~.names.warn_unknown` so an
+        undeclared series surfaces in the log exactly once instead of
+        scrolling past in a dashboard."""
+        seen_header = set()
+        lines = []
+        for (name, _labels), m in self._items():
+            if name not in seen_header:
+                seen_header.add(name)
+                help_text = m.help
+                if manifest_help:
+                    _names.warn_unknown(name)
+                    if not help_text:
+                        help_text = _names.meaning(name)
+                if help_text:
+                    lines.append(
+                        f"# HELP {name} {_escape_help(help_text)}")
+                lines.append(f"# TYPE {name} {m.kind}")
+            lines.extend(m._prom_lines())
+        return "\n".join(lines) + "\n"
+
+    def write_prometheus(self, path):
+        text = self.prometheus_text()
+        with open(path, "w") as f:
+            f.write(text)
+        return text.count("\n")
 
 
-#: the process-wide registry
+#: the process-wide registry every facade writes to
 REGISTRY = MetricsRegistry()
 
 
-def counter(name, **labels):
-    """The process-wide counter ``name`` with ``labels``."""
-    return REGISTRY.counter(name, **labels)
+def counter(name, help="", **labels):
+    _names.warn_unknown(name)
+    return REGISTRY.counter(name, help=help, **labels)
+
+
+def gauge(name, help="", **labels):
+    _names.warn_unknown(name)
+    return REGISTRY.gauge(name, help=help, **labels)
+
+
+def histogram(name, help="", edges=DEFAULT_EDGES, **labels):
+    _names.warn_unknown(name)
+    return REGISTRY.histogram(name, help=help, edges=edges, **labels)

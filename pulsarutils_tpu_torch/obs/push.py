@@ -1,0 +1,352 @@
+"""Alert fan-out: bounded-queue webhook push with delivery telemetry.
+
+The port's copy of the JAX package's broker.  :class:`AlertBroker` fans
+each candidate out to registered webhook subscribers without letting
+delivery touch the search loop's latency:
+
+* :meth:`publish` only enqueues (one lock, one deque append).  A slow or
+  dead subscriber can only fill the bounded queue; overflow evicts the
+  oldest alert (counted ``putpu_push_dropped_total``);
+* deliveries run on one daemon worker thread, per subscriber, with
+  bounded retries, exponential backoff and jitter; an HTTP status error
+  is never retried (:func:`post_json_retry`);
+* a delivery that exhausts its retries is **dead-lettered** — one JSONL
+  record (:func:`~..io.atomic.append_jsonl`) — and counted
+  ``putpu_push_dead_letter_total``;
+* subscribers carry min-S/N and DM-window filters; a filtered-out pair
+  counts ``putpu_push_filtered_total`` and is never delivered;
+* drops and dead letters raise a ``push`` DEGRADED condition on the run's
+  :class:`~.health.HealthEngine`; :meth:`close` drains the queue within a
+  bound, journals anything undeliverable and resolves the condition.
+
+Canary-tagged rows never reach :meth:`publish`: the driver publishes at
+its hit-append site, which already excludes canary best rows.
+"""
+
+from __future__ import annotations
+
+import collections
+import http.client
+import json
+import random
+import socket
+import threading
+import time
+import urllib.error
+import urllib.request
+
+from . import metrics as _metrics
+from .health import DEGRADED
+
+__all__ = ["PUSH_SCHEMA_VERSION", "Subscriber", "AlertBroker",
+           "post_json_retry"]
+
+PUSH_SCHEMA_VERSION = 1
+
+#: transport failures worth another attempt (an HTTP status is an answer)
+_TRANSIENT = (urllib.error.URLError, ConnectionError, TimeoutError,
+              socket.timeout, http.client.HTTPException)
+
+
+def post_json(url, doc, timeout=10.0):
+    """POST ``doc`` as JSON to ``url``; returns the decoded JSON reply
+    (``None`` for an empty body).  An HTTP error status raises
+    ``ValueError`` with the server's message."""
+    req = urllib.request.Request(
+        url, data=json.dumps(doc).encode(), method="POST",
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            body = resp.read().decode()
+    except urllib.error.HTTPError as exc:
+        raise ValueError(f"{url}: HTTP {exc.code}: "
+                         f"{exc.read().decode(errors='replace')}") from exc
+    return json.loads(body) if body.strip() else None
+
+
+def post_json_retry(url, doc, timeout=10.0, retries=3, backoff_s=0.2,
+                    jitter_s=0.1):
+    """:func:`post_json` with bounded retries on transport failures,
+    exponential backoff and uniform jitter (the JAX package's delivery
+    discipline); an HTTP status error is not retried, and the last
+    transport failure propagates."""
+    for attempt in range(max(int(retries), 0) + 1):
+        try:
+            return post_json(url, doc, timeout=timeout)
+        except ValueError:
+            raise
+        except _TRANSIENT:
+            if attempt >= retries:
+                raise
+            time.sleep(backoff_s * (2 ** attempt)
+                       + random.uniform(0.0, jitter_s))
+
+
+class Subscriber:
+    """One webhook endpoint + its candidate filters.
+
+    ``min_snr`` / ``min_dm`` / ``max_dm`` gate which alerts this
+    subscriber receives (``None`` = no constraint); ``name`` labels its
+    delivery metrics (defaults to the URL's host:port+path tail).
+    """
+
+    __slots__ = ("name", "url", "min_snr", "min_dm", "max_dm")
+
+    def __init__(self, url, *, name=None, min_snr=None, min_dm=None,
+                 max_dm=None):
+        url = str(url)
+        if not url.startswith(("http://", "https://")):
+            raise ValueError(f"subscriber url must be http(s): {url!r}")
+        self.url = url
+        self.name = str(name) if name else url.split("://", 1)[1]
+        self.min_snr = None if min_snr is None else float(min_snr)
+        self.min_dm = None if min_dm is None else float(min_dm)
+        self.max_dm = None if max_dm is None else float(max_dm)
+
+    @classmethod
+    def coerce(cls, spec):
+        """``Subscriber`` | url string | dict -> :class:`Subscriber`."""
+        if isinstance(spec, cls):
+            return spec
+        if isinstance(spec, str):
+            return cls(spec)
+        if isinstance(spec, dict):
+            known = {"url", "name", "min_snr", "min_dm", "max_dm"}
+            bad = sorted(set(spec) - known)
+            if bad:
+                raise ValueError(f"unknown subscriber fields: {bad}")
+            if "url" not in spec:
+                raise ValueError("subscriber needs a url")
+            return cls(spec["url"], name=spec.get("name"),
+                       min_snr=spec.get("min_snr"),
+                       min_dm=spec.get("min_dm"),
+                       max_dm=spec.get("max_dm"))
+        raise ValueError(f"cannot coerce subscriber from {spec!r}")
+
+    def wants(self, alert):
+        """Filter verdict for one alert doc (missing fields pass —
+        filters constrain values, not schemas)."""
+        snr = alert.get("snr")
+        dm = alert.get("dm")
+        if self.min_snr is not None and snr is not None \
+                and float(snr) < self.min_snr:
+            return False
+        if self.min_dm is not None and dm is not None \
+                and float(dm) < self.min_dm:
+            return False
+        if self.max_dm is not None and dm is not None \
+                and float(dm) > self.max_dm:
+            return False
+        return True
+
+    def doc(self):
+        out = {"name": self.name, "url": self.url}
+        for k in ("min_snr", "min_dm", "max_dm"):
+            v = getattr(self, k)
+            if v is not None:
+                out[k] = v
+        return out
+
+
+class AlertBroker:
+    """Bounded-queue candidate-alert fan-out (see module docstring).
+
+    ``subscribers`` seeds the registry (urls / dicts /
+    :class:`Subscriber`); ``queue_max`` bounds the in-flight queue;
+    ``timeout_s`` / ``retries`` / ``backoff_s`` shape each delivery
+    attempt; ``dead_letter_path`` is the failure journal (``None``
+    skips journaling but still counts); ``health`` receives the
+    ``push`` condition.
+    """
+
+    def __init__(self, subscribers=(), *, queue_max=256, timeout_s=5.0,
+                 retries=2, backoff_s=0.2, jitter_s=0.05,
+                 dead_letter_path=None, health=None):
+        self._subs = [Subscriber.coerce(s) for s in subscribers]
+        self.queue_max = max(int(queue_max), 1)
+        self.timeout_s = float(timeout_s)
+        self.retries = int(retries)
+        self.backoff_s = float(backoff_s)
+        self.jitter_s = float(jitter_s)
+        self.dead_letter_path = (str(dead_letter_path)
+                                 if dead_letter_path else None)
+        self.health = health
+        self._cv = threading.Condition()
+        self._queue = collections.deque()
+        self._closed = False
+        self._thread = None
+        self._published = 0
+        self._delivered = 0
+        self._dropped = 0
+        self._dead = 0
+        self._filtered = 0
+        _metrics.gauge("putpu_push_subscribers").set(len(self._subs))
+
+    # -- registry ------------------------------------------------------------
+
+    def subscribe(self, spec):
+        """Register a subscriber (the ``POST /subscribe`` handler);
+        returns its doc.  Invalid specs raise ``ValueError`` — the
+        server answers 400 with the message."""
+        sub = Subscriber.coerce(spec)
+        with self._cv:
+            self._subs.append(sub)
+            n = len(self._subs)
+        _metrics.gauge("putpu_push_subscribers").set(n)
+        return sub.doc()
+
+    def subscribers_doc(self):
+        with self._cv:
+            return [s.doc() for s in self._subs]
+
+    # -- hot path ------------------------------------------------------------
+
+    def publish(self, alert, on_delivered=None):
+        """Enqueue one alert doc for fan-out; never blocks.  Returns
+        ``False`` when the broker is closed (the alert is not taken).
+        ``on_delivered(subscriber_name, latency_s)`` fires after each
+        successful delivery (contained — the lineage stamp hook)."""
+        with self._cv:
+            if self._closed:
+                return False
+            dropped = None
+            if len(self._queue) >= self.queue_max:
+                dropped = self._queue.popleft()
+                self._dropped += 1
+            self._queue.append((dict(alert), on_delivered))
+            self._published += 1
+            if self._thread is None or not self._thread.is_alive():
+                # lifecycle is publisher-side only; the worker never
+                # writes _thread
+                self._thread = threading.Thread(
+                    target=self._loop, name="alert-push", daemon=True)
+                self._thread.start()
+            self._cv.notify()
+        if dropped is not None:
+            _metrics.counter("putpu_push_dropped_total").inc()
+            self._dead_letter(dropped[0], subscriber=None,
+                              reason="dropped_oldest")
+            if self.health is not None:
+                self.health.note_alert(
+                    "push", DEGRADED,
+                    f"push queue overflowed ({self.queue_max}): oldest "
+                    "alert evicted — a subscriber is slow or dead",
+                    chunk="push")
+        return True
+
+    # -- delivery worker -----------------------------------------------------
+
+    def _loop(self):
+        while True:
+            with self._cv:
+                while not self._queue and not self._closed:
+                    self._cv.wait(0.5)
+                if not self._queue:
+                    return              # closed and drained
+                alert, on_delivered = self._queue.popleft()
+                subs = list(self._subs)
+            for sub in subs:
+                self._deliver_one(sub, alert, on_delivered)
+
+    def _deliver_one(self, sub, alert, on_delivered):
+        if not sub.wants(alert):
+            self._filtered += 1
+            _metrics.counter("putpu_push_filtered_total").inc()
+            return
+        t0 = time.perf_counter()
+        try:
+            post_json_retry(sub.url, alert, timeout=self.timeout_s,
+                            retries=self.retries,
+                            backoff_s=self.backoff_s,
+                            jitter_s=self.jitter_s)
+        except Exception as exc:
+            # containment: an unreachable/refusing subscriber is ITS
+            # problem — journal + count + degrade, never raise into the
+            # worker loop (a dead webhook must not kill the fan-out for
+            # the healthy subscribers)
+            self._dead += 1
+            _metrics.counter("putpu_push_dead_letter_total",
+                             subscriber=sub.name).inc()
+            self._dead_letter(alert, subscriber=sub.name,
+                              reason=repr(exc))
+            if self.health is not None:
+                self.health.note_alert(
+                    "push", DEGRADED,
+                    f"alert delivery to {sub.name} failed after "
+                    f"{self.retries + 1} attempts ({exc!r}); "
+                    "dead-lettered", chunk="push")
+            return
+        latency = time.perf_counter() - t0
+        self._delivered += 1
+        _metrics.counter("putpu_push_delivered_total",
+                         subscriber=sub.name).inc()
+        _metrics.histogram("putpu_push_delivery_seconds").observe(
+            latency)
+        if on_delivered is not None:
+            try:
+                on_delivered(sub.name, latency)
+            except Exception:
+                # the hook is observability (lineage stamping): contained
+                pass
+
+    def _dead_letter(self, alert, *, subscriber, reason):
+        if self.dead_letter_path is None:
+            return
+        from ..io.atomic import append_jsonl
+
+        try:
+            append_jsonl(self.dead_letter_path, {
+                "schema_version": PUSH_SCHEMA_VERSION,
+                "t": round(time.time(), 3),
+                "subscriber": subscriber,
+                "reason": reason,
+                "alert": alert,
+            })
+        except OSError:
+            # the journal is best-effort forensics; a full disk must
+            # not take the broker (or the search loop above it) down
+            pass
+
+    # -- lifecycle / read side -----------------------------------------------
+
+    def stats(self):
+        with self._cv:
+            return {"subscribers": len(self._subs),
+                    "published": self._published,
+                    "delivered": self._delivered,
+                    "dropped": self._dropped,
+                    "dead_lettered": self._dead,
+                    "filtered": self._filtered,
+                    "queued": len(self._queue)}
+
+    def close(self, timeout_s=5.0):
+        """Bounded shutdown: give the worker ``timeout_s`` to drain,
+        then journal whatever is still queued (a wedged subscriber must
+        not stall the driver's exit) and resolve the ``push`` health
+        condition — failures are durable in the dead-letter file, so
+        the run's final verdict reflects *current* state."""
+        deadline = time.monotonic() + float(timeout_s)
+        with self._cv:
+            self._closed = True
+            self._cv.notify_all()
+            thread = self._thread
+        if thread is not None and thread.is_alive():
+            thread.join(timeout=max(deadline - time.monotonic(), 0.0))
+        with self._cv:
+            remaining = list(self._queue)
+            self._queue.clear()
+        for alert, _hook in remaining:
+            self._dead += 1
+            _metrics.counter("putpu_push_dead_letter_total",
+                             subscriber="__close__").inc()
+            self._dead_letter(alert, subscriber=None,
+                              reason="undelivered_at_close")
+        if self.health is not None:
+            self.health.resolve_alert("push", chunk="push")
+        return self.stats()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()

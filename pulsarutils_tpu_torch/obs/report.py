@@ -1,0 +1,742 @@
+"""End-of-run survey report: one self-contained artifact per run.
+
+A multi-hour survey leaves its evidence scattered across the log (the
+``BUDGET_JSON`` footer, sift lines), the metrics snapshot, the
+quarantine manifest, the canary ledger and the health incident
+log.  :func:`write_report` stitches them into **one markdown
+file and one dependency-free single-file HTML page** (inline CSS, an
+inline SVG recall sparkline, zero external assets — it survives being
+scp'd out of a dying preemptible VM on its own), plus the
+machine-readable ``.json`` record that :func:`amend_report` re-renders
+from (the CLI folds post-run sift telemetry in this way):
+
+* run header: file, fingerprint, chunks/hits/certified, wall;
+* health: final verdict, verdict transitions, incident log;
+* canary: injected/recovered/recall, S/N recovery ratio, DM error,
+  and the recall-vs-chunk curve;
+* budget: per-bucket seconds + share, attributed %, trips x RTT;
+* kernel autotuning: the per-geometry-key decision table (winner,
+  source, measured speedup vs the static heuristic) when
+  ``kernel="auto"`` resolved anything this run;
+* roofline: the per-kernel table when accounting ran;
+* sift + quarantine: telemetry counters and the manifest records.
+
+Every section is optional — pass what the run produced; the report says
+explicitly when a section has no data (absence of evidence, stated).
+
+A copy of the JAX package's module: the same sections dict renders the
+same markdown (held equal by the tests).  The port fills the sections
+its driver has (meta, budget, roofline, health, canary, quarantine,
+metrics, lineage, push; sift through :func:`amend_report`).
+"""
+
+from __future__ import annotations
+
+import html as _html
+import json
+import time
+
+__all__ = ["amend_report", "build_report", "write_report",
+           "render_markdown", "render_html"]
+
+
+def _fmt(v, nd=3):
+    if v is None:
+        return "-"
+    if isinstance(v, float):
+        return f"{v:.{nd}f}"
+    return str(v)
+
+
+def build_report(*, meta=None, budget=None, roofline=None, health=None,
+                 canary=None, quarantine=None, sift=None, metrics=None,
+                 coincidence=None, fleet=None, periodicity=None,
+                 slo=None, lineage=None, push=None, ingest=None,
+                 capacity=None):
+    """Assemble the structured report record (JSON-ready).
+
+    ``meta``: run header dict; ``budget``: ``BudgetAccountant.to_json()``;
+    ``roofline``: ``obs.roofline.table()`` rows; ``health``:
+    ``HealthEngine.snapshot()``; ``canary``:
+    ``CanaryController.to_json()``; ``quarantine``:
+    ``QuarantineManifest.records()``; ``sift``: the ``SIFT_JSON`` stats
+    dict; ``metrics``: a registry snapshot list (key totals are pulled
+    out for the header); ``coincidence``: ``{"stats": COINCIDENCE_JSON
+    dict, "groups": beams.coincidence.group_summary(...) rows}`` from
+    the multi-beam driver; ``fleet``:
+    ``FleetCoordinator.summary()`` from a coordinator run (with
+    per-worker metric ``history`` trends when the sweep scraped any);
+    ``periodicity``: the periodicity driver's ``PERIOD_JSON`` summary
+    plus its folded candidate rows; ``slo``: ``SLOEngine.to_json()`` —
+    the "SLOs & alerts" section; ``lineage``:
+    ``LineageRecorder.summary()`` — the "Candidate latency" per-stage
+    waterfall; ``push``: ``AlertBroker.stats()`` — the "Alert push"
+    delivery table; ``ingest``: ``ChunkAssembler.summary()`` — the
+    "Ingest" feed/loss/shed accounting section; ``capacity``:
+    ``FleetCoordinator.capacity_doc()`` — the "Capacity & scaling"
+    saturation/advice section.  The port's driver has no multi-beam,
+    fleet, periodicity, SLO, ingest or capacity section yet: those
+    render their "no data" text.
+    """
+    rec = {
+        "generated": time.strftime("%Y-%m-%d %H:%M:%S"),
+        "meta": dict(meta or {}),
+        "budget": budget,
+        "roofline": roofline or [],
+        "health": health,
+        "canary": canary,
+        "quarantine": quarantine or [],
+        "sift": sift,
+        "coincidence": coincidence,
+        "fleet": fleet,
+        "periodicity": periodicity,
+        "slo": slo,
+        "lineage": lineage,
+        "push": push,
+        "ingest": ingest,
+        "capacity": capacity,
+    }
+    if metrics:
+        totals = {}
+        for m in metrics:
+            if m.get("type") == "counter" and not m.get("labels"):
+                totals[m["name"]] = m.get("value")
+        rec["counters"] = {k: totals[k] for k in sorted(totals)}
+        # memory-pressure rollup: the putpu_oom_* family is
+        # labelled (surface/step/stage), so the unlabelled-counter
+        # totals above miss it — aggregate it here for the "Memory
+        # pressure" section
+        oom = {}
+        for m in metrics:
+            name = m.get("name", "")
+            if not name.startswith("putpu_oom_") or "value" not in m:
+                continue
+            labels = m.get("labels") or {}
+            tag = name[len("putpu_"):]
+            if labels:
+                tag += "{" + ",".join(
+                    f"{k}={v}" for k, v in sorted(labels.items())) + "}"
+            oom[tag] = oom.get(tag, 0) + m["value"]
+        if oom:
+            rec["memory_pressure"] = {k: oom[k] for k in sorted(oom)}
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# markdown
+# ---------------------------------------------------------------------------
+
+def _md_table(headers, rows):
+    out = ["| " + " | ".join(headers) + " |",
+           "| " + " | ".join("---" for _ in headers) + " |"]
+    for r in rows:
+        out.append("| " + " | ".join(str(c) for c in r) + " |")
+    return "\n".join(out)
+
+
+def render_markdown(rec):
+    meta = rec["meta"]
+    lines = [f"# Survey report — {meta.get('root', meta.get('fname', 'run'))}",
+             "",
+             f"Generated {rec['generated']}.", ""]
+    header_rows = [(k, _fmt(v)) for k, v in meta.items()]
+    if header_rows:
+        lines += [_md_table(("key", "value"), header_rows), ""]
+
+    lines.append("## Health")
+    lines.append("")
+    health = rec.get("health")
+    if health:
+        lines.append(f"Final verdict: **{health['status']}**"
+                     + (f" ({', '.join(r['kind'] for r in health['reasons'])})"
+                        if health.get("reasons") else "") + ".")
+        lines.append("")
+        if health.get("transitions"):
+            lines.append(_md_table(
+                ("chunk", "from", "to", "reasons"),
+                [(t["chunk"], t["from"], t["to"], ", ".join(t["reasons"]))
+                 for t in health["transitions"]]))
+        else:
+            lines.append("No verdict transitions: the run stayed "
+                         f"{health['status']} throughout.")
+        lines.append("")
+        if health.get("incidents"):
+            lines.append(_md_table(
+                ("chunk", "kind", "severity", "event", "detail"),
+                [(i["chunk"], i["kind"], i["severity"], i["event"],
+                  i["detail"]) for i in health["incidents"]]))
+            lines.append("")
+    else:
+        lines += ["No health engine was wired into this run.", ""]
+
+    lines.append("## SLOs & alerts")
+    lines.append("")
+    slo = rec.get("slo")
+    if slo:
+        active = slo.get("active_alerts") or []
+        lines.append(
+            f"{slo.get('evaluations', 0)} burn-rate evaluation(s), "
+            f"{slo.get('alerts_fired_total', 0)} alert(s) fired, "
+            f"**{len(active)} active at end of run**.")
+        lines.append("")
+        if active:
+            lines.append(_md_table(
+                ("slo", "severity", "burn fast/slow", "windows (s)",
+                 "budget remaining"),
+                [(a["slo"], a["severity"],
+                  f"{_fmt(a['burn_fast'], 1)}x / {_fmt(a['burn_slow'], 1)}x",
+                  "/".join(str(int(w)) for w in a["window_s"]),
+                  "-" if a.get("budget_remaining") is None
+                  else f"{100 * a['budget_remaining']:.0f}%")
+                 for a in active]))
+            lines.append("")
+        rows = [(r.get("slo"), _fmt(r.get("objective")),
+                 "-" if r.get("budget_remaining") is None
+                 else f"{100 * r['budget_remaining']:.0f}%")
+                for r in (slo.get("slos") or [])]
+        if rows:
+            lines.append(_md_table(
+                ("slo", "objective", "budget remaining"), rows))
+            lines.append("")
+    else:
+        lines += ["No SLO engine was armed for this run (burn-rate "
+                  "alerting off).", ""]
+
+    lines.append("## Canary injection-recovery")
+    lines.append("")
+    canary = rec.get("canary")
+    if canary and canary.get("injected"):
+        lines.append(
+            f"Injected **{canary['injected']}** synthetic pulses "
+            f"(DM {_fmt(canary['dm'], 2)}, target S/N "
+            f"{_fmt(canary['target_snr'], 1)}, width "
+            f"{canary['width_samples']} samples, rate "
+            f"{canary['rate']:g}); recovered {canary['recovered']} — "
+            f"**recall {_fmt(canary['recall'], 4)}** (last-"
+            f"{canary['window']} window: "
+            f"{_fmt(canary['window_recall'], 4)}).")
+        lines.append("")
+        lines.append(_md_table(
+            ("S/N recovery ratio (mean)", "DM error mean", "DM error rms",
+             "discarded (never searched)"),
+            [(_fmt(canary.get("snr_ratio_mean"), 4),
+              _fmt(canary.get("dm_error_mean"), 4),
+              _fmt(canary.get("dm_error_rms"), 4),
+              canary.get("discarded", 0))]))
+        lines.append("")
+        if canary.get("curve"):
+            pts = canary["curve"]
+            step = max(1, len(pts) // 20)
+            lines.append("Cumulative recall curve (chunk, injected, "
+                         "recall):")
+            lines.append("")
+            lines.append(_md_table(("chunk", "injected", "recall"),
+                                   pts[::step]))
+            lines.append("")
+    else:
+        lines += ["Canary injection was off (or no canary reached the "
+                  "search): recall was NOT measured for this run.", ""]
+
+    lines.append("## Wall-clock budget")
+    lines.append("")
+    budget = rec.get("budget")
+    if budget:
+        wall = budget.get("wall_s") or 0.0
+        lines.append(
+            f"{budget.get('chunks', 0)} chunks, {_fmt(wall, 2)}s summed "
+            f"chunk wall, {_fmt(budget.get('attributed_pct'), 1)}% "
+            "attributed.")
+        lines.append("")
+        cw = budget.get("chunk_wall_s")
+        if cw:
+            lines.append(
+                f"Chunk wall p50/p95/p99: **{_fmt(cw.get('p50'))}s / "
+                f"{_fmt(cw.get('p95'))}s / {_fmt(cw.get('p99'))}s** "
+                "(the tail, not just the mean — the chunk-wall SLO's "
+                "indicator).")
+            lines.append("")
+        rows = [(k, _fmt(v), f"{100.0 * v / wall:.1f}%" if wall else "-")
+                for k, v in (budget.get("buckets_s") or {}).items()]
+        rows.append(("unattributed", _fmt(budget.get("unattributed_s")),
+                     f"{100.0 * budget.get('unattributed_s', 0) / wall:.1f}%"
+                     if wall else "-"))
+        lines.append(_md_table(("bucket", "seconds", "share"), rows))
+        lines.append("")
+        if budget.get("rtt_s") is not None:
+            lines.append(f"Device RTT {_fmt(budget['rtt_s'], 6)}s x "
+                         f"{budget.get('trips')} trips = "
+                         f"{_fmt(budget.get('trips_x_rtt_s'))}s floor.")
+            lines.append("")
+        if budget.get("counters"):
+            lines.append("Counters: `"
+                         + json.dumps(budget["counters"]) + "`")
+            lines.append("")
+    else:
+        lines += ["No budget ledger for this run.", ""]
+
+    lines.append("## Roofline")
+    lines.append("")
+    if rec.get("roofline"):
+        lines.append(_md_table(
+            ("kernel", "calls", "wall s", "GF/s", "GB/s", "ideal"),
+            [(r["kernel"], r["calls"], _fmt(r["wall_s"]),
+              _fmt(r["achieved_gflops"], 2),
+              _fmt(r["achieved_gbytes_per_s"], 2),
+              "-" if r["frac_of_ideal"] is None
+              else f"{100 * r['frac_of_ideal']:.1f}%")
+             for r in rec["roofline"]]))
+        lines.append("")
+    else:
+        lines += ["Roofline accounting did not run (enable with "
+                  "`--trace` or `PUTPU_ROOFLINE=1`).", ""]
+
+    lines.append("## Kernel autotuning")
+    lines.append("")
+    decisions = (budget or {}).get("autotune")
+    if decisions:
+        lines.append(
+            f"{len(decisions)} `kernel=\"auto\"` geometry key(s) resolved "
+            "this run (winners persist in the tune cache; "
+            "`PUTPU_AUTOTUNE=off` restores the static heuristic):")
+        lines.append("")
+        lines.append(_md_table(
+            ("geometry key", "kernel", "source", "vs static", "detail"),
+            # the raw key's "|" separators would read as extra markdown
+            # table columns — display with a middle dot
+            [(d["key"].replace("|", "·"), d["kernel"], d["source"],
+              f"{d['speedup_vs_static']}x"
+              if d.get("speedup_vs_static") is not None else "-",
+              d.get("reason")
+              or (json.dumps(d["measured_s"])
+                  if d.get("measured_s") else "-"))
+             for d in decisions]))
+    else:
+        lines.append("No `kernel=\"auto\"` tuner resolutions this run "
+                     "(explicit kernel, `PUTPU_AUTOTUNE=off`, or no "
+                     "budget ledger).")
+    lines.append("")
+
+    lines.append("## Sift")
+    lines.append("")
+    sift = rec.get("sift")
+    if sift:
+        lines.append(f"{sift.get('in')} candidates in, "
+                     f"{sift.get('kept')} kept; rejected: `"
+                     + json.dumps(sift.get("rejected", {})) + "`")
+    else:
+        lines.append("No sift telemetry (single-candidate run or sift "
+                     "skipped).")
+    lines.append("")
+
+    lines.append("## Candidate latency")
+    lines.append("")
+    lineage = rec.get("lineage")
+    if lineage and lineage.get("candidates"):
+        lat = lineage.get("latency") or {}
+        lines.append(
+            f"{lineage['candidates']} candidate(s) carried lineage "
+            "records; end-to-end detection-to-persist latency p50/p95/"
+            f"max: **{_fmt(lat.get('p50'))}s / {_fmt(lat.get('p95'))}s "
+            f"/ {_fmt(lat.get('max'))}s** (the candidate-latency SLO's "
+            "indicator).")
+        lines.append("")
+        stages = lineage.get("stages") or {}
+        if stages:
+            lines.append("Per-stage waterfall (seconds each candidate "
+                         "spent between lifecycle seams):")
+            lines.append("")
+            lines.append(_md_table(
+                ("stage", "n", "p50", "p95", "max"),
+                [(s, st["n"], _fmt(st["p50"]), _fmt(st["p95"]),
+                  _fmt(st["max"]))
+                 for s, st in stages.items()]))
+        lines.append("")
+    else:
+        lines += ["Lineage recording was off (or no candidate crossed "
+                  "the threshold): per-candidate latency was NOT "
+                  "measured for this run.", ""]
+
+    lines.append("## Alert push")
+    lines.append("")
+    push = rec.get("push")
+    if push:
+        lines.append(
+            f"{push.get('subscribers', 0)} subscriber(s); "
+            f"{push.get('published', 0)} alert(s) published, "
+            f"**{push.get('delivered', 0)} delivered**, "
+            f"{push.get('filtered', 0)} filtered by subscriber "
+            f"predicates, {push.get('dropped', 0)} dropped "
+            f"(queue overflow), {push.get('dead_lettered', 0)} "
+            "dead-lettered (journaled for replay).")
+        lines.append("")
+    else:
+        lines += ["Alert push was off: no webhook fan-out this run.",
+                  ""]
+
+    lines.append("## Ingest")
+    lines.append("")
+    ingest = rec.get("ingest")
+    if ingest:
+        led = ingest.get("ledger", {})
+        lines.append(
+            f"{ingest.get('packets', 0)} packet(s) received "
+            f"({ingest.get('invalid_packets', 0)} invalid, "
+            f"{ingest.get('duplicate_packets', 0)} duplicate, "
+            f"{ingest.get('reordered_packets', 0)} reordered); "
+            f"{ingest.get('reconnects', 0)} reconnect(s).")
+        lines.append("")
+        lines.append(_md_table(
+            ("samples", "count"),
+            [(k, led.get(k, 0))
+             for k in ("observed", "arrived", "gap_filled", "delivered",
+                       "shed", "quarantined", "unaccounted")]))
+        lines.append("")
+        if led.get("unaccounted", 0):
+            lines.append("**WARNING:** unaccounted samples — the feed "
+                         "session did not drain cleanly.")
+            lines.append("")
+    else:
+        lines += ["No live-feed frontend: this run searched from "
+                  "disk.", ""]
+
+    lines.append("## Cross-beam coincidence")
+    lines.append("")
+    coinc = rec.get("coincidence")
+    if coinc:
+        stats = coinc.get("stats", {})
+        lines.append(
+            f"{stats.get('in', 0)} per-beam candidates over "
+            f"{stats.get('nbeams', '?')} beams formed "
+            f"{stats.get('groups', 0)} coincidence group(s); verdicts: `"
+            + json.dumps(stats.get("verdicts", {})) + "` "
+            f"({stats.get('vetoed_members', 0)} candidate(s) absorbed "
+            "by anti-coincidence RFI vetoes).")
+        lines.append("")
+        if coinc.get("groups"):
+            lines.append(_md_table(
+                ("verdict", "time (s)", "DM", "S/N", "beams", "members"),
+                [(g["verdict"], g.get("time_s", _fmt(g.get("time"))),
+                  g.get("dm"), g.get("snr"),
+                  ",".join(str(b) for b in g["beams"]),
+                  g["n_members"]) for g in coinc["groups"]]))
+    else:
+        lines.append("No coincidence telemetry (single-beam run or the "
+                     "cross-beam sift was skipped).")
+    lines.append("")
+
+    lines.append("## Fleet")
+    lines.append("")
+    fleet = rec.get("fleet")
+    if fleet:
+        lines.append(
+            f"{fleet.get('chunks_done', 0)}/{fleet.get('chunks_total', 0)} "
+            "chunks completed across the fleet "
+            f"(survey_done: {fleet.get('survey_done')}); units: `"
+            + json.dumps(fleet.get("units", {})) + "`; lease stats: `"
+            + json.dumps(fleet.get("stats", {})) + "`")
+        lines.append("")
+        if fleet.get("workers"):
+            lines.append(_md_table(
+                ("worker", "verdict", "alive", "units completed"),
+                [(w["worker"], w["verdict"], w["alive"],
+                  w["units_completed"]) for w in fleet["workers"]]))
+        history = fleet.get("history")
+        if history:
+            lines.append("")
+            lines.append("Per-worker metric trends (scraped from each "
+                         "worker's `/metrics/history` on the sweep — "
+                         "first → last over the scraped window):")
+            lines.append("")
+            rows = []
+            for worker, series in sorted(history.items()):
+                for name, pts in sorted(series.items()):
+                    vals = [p[1] for p in pts]
+                    rows.append((worker, name, len(pts),
+                                 _fmt(vals[0]), _fmt(vals[-1]),
+                                 _fmt(min(vals)), _fmt(max(vals))))
+            lines.append(_md_table(
+                ("worker", "series", "points", "first", "last", "min",
+                 "max"), rows))
+    else:
+        lines.append("Single-process run: no fleet coordinator was "
+                     "involved.")
+    lines.append("")
+
+    lines.append("## Capacity & scaling")
+    lines.append("")
+    capacity = rec.get("capacity")
+    if capacity and capacity.get("enabled"):
+        util = capacity.get("utilization")
+        eta = capacity.get("eta_s")
+        lines.append(
+            f"Saturation state **{capacity.get('state')}**; queue depth "
+            f"{capacity.get('queue_depth', 0)}, backlog "
+            f"{capacity.get('backlog_chunks', 0)} chunk(s) over "
+            f"{capacity.get('workers_alive', 0)} alive worker(s); mean "
+            f"utilization {_fmt(util, 2)}; backlog-drain ETA "
+            f"{_fmt(eta, 1)}s at the EWMA fleet rate.")
+        lines.append("")
+        advice = capacity.get("advice")
+        if advice:
+            lines.append(_md_table(
+                ("desired workers", "direction", "confidence", "reason"),
+                [(advice.get("desired_workers"),
+                  advice.get("direction"),
+                  _fmt(advice.get("confidence"), 2),
+                  advice.get("reason"))]))
+            lines.append("")
+        else:
+            lines.append("No scaling advice yet (no capacity-armed "
+                         "sweep ran).")
+            lines.append("")
+        rates = (capacity.get("throughput") or {}).get("per_worker_rate")
+        if rates:
+            lines.append("Per-worker EWMA throughput (chunks/s, the "
+                         "ETA and advice substrate):")
+            lines.append("")
+            lines.append(_md_table(
+                ("worker", "chunks/s", "observations"),
+                [(w, _fmt(r.get("rate"), 4), r.get("n"))
+                 for w, r in sorted(rates.items())]))
+            lines.append("")
+        trans = (capacity.get("saturation") or {}).get("transitions")
+        if trans:
+            lines.append(_md_table(
+                ("t", "from", "to"),
+                [(t["t"], t["from"], t["to"]) for t in trans]))
+            lines.append("")
+    else:
+        lines += ["Capacity observability was off (arm with "
+                  "`FleetCoordinator(capacity=True)` / `--capacity`): "
+                  "saturation and scaling advice were NOT measured for "
+                  "this run.", ""]
+
+    lines.append("## Periodicity search")
+    lines.append("")
+    period = rec.get("periodicity")
+    if period:
+        njerk = int(period.get("n_jerk") or 1)
+        jerk_txt = f" x {njerk} jerk trials" if njerk > 1 else ""
+        backend_txt = (f" ({period['accel_backend']} backend)"
+                       if period.get("accel_backend") else "")
+        lines.append(
+            f"{period.get('n_dm', '?')} DM x {period.get('n_accel', '?')} "
+            f"acceleration trials{jerk_txt}{backend_txt} over a "
+            f"{_fmt(period.get('t_obs_s'), 1)} s accumulated "
+            f"observation (rebin {period.get('rebin', '?')}, "
+            f"{period.get('nout', '?')} samples); "
+            f"{period.get('raw_candidates', 0)} raw candidates, "
+            f"**{period.get('kept', 0)} kept** after the sift "
+            "(rejected: `" + json.dumps(period.get("rejected", {}))
+            + "`).")
+        lines.append("")
+        pc = period.get("canary")
+        if pc:
+            lines.append(
+                ("Periodic canary **recovered**"
+                 if pc.get("recovered") else
+                 "Periodic canary **MISSED**")
+                + f" (injected at DM row {pc.get('dm_index')}, "
+                  f"f={_fmt(pc.get('freq'), 4)} Hz).")
+            lines.append("")
+        cands = period.get("candidates") or period.get("top") or []
+        if cands and njerk > 1:
+            lines.append(_md_table(
+                ("f (Hz)", "P (s)", "DM", "accel (m/s^2)",
+                 "jerk (m/s^3)", "sigma", "nharm", "H"),
+                [(_fmt(c.get("freq"), 6),
+                  _fmt(1.0 / c["freq"], 6) if c.get("freq") else "-",
+                  _fmt(c.get("dm"), 2), _fmt(c.get("accel"), 1),
+                  _fmt(c.get("jerk"), 1),
+                  _fmt(c.get("sigma"), 1), c.get("nharm", "-"),
+                  _fmt(c.get("h"), 1)) for c in cands]))
+        elif cands:
+            lines.append(_md_table(
+                ("f (Hz)", "P (s)", "DM", "accel (m/s^2)", "sigma",
+                 "nharm", "H"),
+                [(_fmt(c.get("freq"), 6),
+                  _fmt(1.0 / c["freq"], 6) if c.get("freq") else "-",
+                  _fmt(c.get("dm"), 2), _fmt(c.get("accel"), 1),
+                  _fmt(c.get("sigma"), 1), c.get("nharm", "-"),
+                  _fmt(c.get("h"), 1)) for c in cands]))
+        else:
+            lines.append("No candidates above the significance floor.")
+    else:
+        lines.append("No periodicity search ran (single-pulse "
+                     "workload).")
+    lines.append("")
+
+    lines.append("## Memory pressure")
+    lines.append("")
+    oom = rec.get("memory_pressure")
+    if oom:
+        lines.append(
+            "RESOURCE_EXHAUSTED was caught this run — the degradation "
+            "ladder re-dispatched smaller (byte-identical results, "
+            "slower; see docs/robustness.md \"Resource exhaustion\"):")
+        lines.append("")
+        lines.append(_md_table(("metric", "value"),
+                               [(k, _fmt(v)) for k, v in oom.items()]))
+    else:
+        lines.append("No memory pressure: no OOM events, ladder "
+                     "descents or admission caps this run.")
+    lines.append("")
+
+    lines.append("## Quarantine manifest")
+    lines.append("")
+    if rec.get("quarantine"):
+        lines.append(_md_table(
+            ("chunk", "end", "reason"),
+            [(q["chunk"], q["end"], q["reason"])
+             for q in rec["quarantine"]]))
+    else:
+        lines.append("No chunks were quarantined.")
+    lines.append("")
+    return "\n".join(lines)
+
+
+# ---------------------------------------------------------------------------
+# single-file HTML
+# ---------------------------------------------------------------------------
+
+_CSS = """
+body{font:14px/1.5 system-ui,sans-serif;max-width:60rem;margin:2rem auto;
+padding:0 1rem;color:#1a1a2e}
+h1{border-bottom:2px solid #ddd;padding-bottom:.3rem}
+h2{margin-top:2rem;color:#16324f}
+table{border-collapse:collapse;margin:.6rem 0}
+th,td{border:1px solid #ccc;padding:.25rem .6rem;text-align:left}
+th{background:#f0f3f7}
+code{background:#f4f4f4;padding:.1rem .3rem;border-radius:3px}
+.verdict-OK{color:#1b7f3b;font-weight:700}
+.verdict-DEGRADED{color:#b07d00;font-weight:700}
+.verdict-CRITICAL{color:#b00020;font-weight:700}
+"""
+
+
+def _html_table(headers, rows):
+    head = "".join(f"<th>{_html.escape(str(h))}</th>" for h in headers)
+    body = "".join(
+        "<tr>" + "".join(f"<td>{_html.escape(str(c))}</td>" for c in r)
+        + "</tr>" for r in rows)
+    return f"<table><tr>{head}</tr>{body}</table>"
+
+
+def _recall_svg(curve, width=480, height=80):
+    """Inline SVG sparkline of cumulative recall vs injection index."""
+    if len(curve) < 2:
+        return ""
+    n = len(curve)
+    xs = [i * (width - 10) / (n - 1) + 5 for i in range(n)]
+    ys = [height - 8 - p[2] * (height - 16) for p in curve]
+    pts = " ".join(f"{x:.1f},{y:.1f}" for x, y in zip(xs, ys))
+    return (f'<svg width="{width}" height="{height}" '
+            'role="img" aria-label="cumulative canary recall">'
+            f'<line x1="5" y1="{height - 8}" x2="{width - 5}" '
+            f'y2="{height - 8}" stroke="#ccc"/>'
+            f'<polyline points="{pts}" fill="none" stroke="#16324f" '
+            'stroke-width="1.5"/></svg>')
+
+
+def render_html(rec):
+    md = render_markdown(rec)  # single source of section content
+    # translate the markdown we just generated ourselves (headings,
+    # tables, paragraphs, bold, code) — a bounded dialect, not a
+    # general converter
+    out = []
+    lines = md.split("\n")
+    i = 0
+    while i < len(lines):
+        line = lines[i]
+        if line.startswith("| ") and i + 1 < len(lines) \
+                and set(lines[i + 1].replace(" ", "")) <= {"|", "-"}:
+            headers = [c.strip() for c in line.strip("|").split("|")]
+            rows = []
+            i += 2
+            while i < len(lines) and lines[i].startswith("|"):
+                rows.append([c.strip() for c in
+                             lines[i].strip("|").split("|")])
+                i += 1
+            out.append(_html_table(headers, rows))
+            continue
+        if line.startswith("# "):
+            out.append(f"<h1>{_html.escape(line[2:])}</h1>")
+        elif line.startswith("## "):
+            out.append(f"<h2>{_html.escape(line[3:])}</h2>")
+        elif line.strip():
+            text = _html.escape(line)
+            while "**" in text:
+                text = text.replace("**", "<strong>", 1)
+                text = text.replace("**", "</strong>", 1)
+            while "`" in text:
+                text = text.replace("`", "<code>", 1)
+                text = text.replace("`", "</code>", 1)
+            health = rec.get("health")
+            if health and text.startswith("Final verdict:"):
+                v = health["status"]
+                text = text.replace(
+                    f"<strong>{v}</strong>",
+                    f'<span class="verdict-{v}">{v}</span>')
+            out.append(f"<p>{text}</p>")
+        i += 1
+        # the recall sparkline rides directly under the canary heading
+        if line == "## Canary injection-recovery" \
+                and rec.get("canary", {}) \
+                and (rec["canary"] or {}).get("curve"):
+            out.append(_recall_svg(rec["canary"]["curve"]))
+    title = _html.escape(str(rec["meta"].get(
+        "root", rec["meta"].get("fname", "survey report"))))
+    return ("<!doctype html><html><head><meta charset='utf-8'>"
+            f"<title>Survey report — {title}</title>"
+            f"<style>{_CSS}</style></head><body>"
+            + "\n".join(out) + "</body></html>\n")
+
+
+def _strip_ext(out_base):
+    for ext in (".md", ".html", ".htm", ".json"):
+        if out_base.endswith(ext):
+            return out_base[: -len(ext)]
+    return out_base
+
+
+def _render_all(out_base, rec):
+    md_path, html_path = out_base + ".md", out_base + ".html"
+    with open(md_path, "w") as f:
+        f.write(render_markdown(rec))
+    with open(html_path, "w") as f:
+        f.write(render_html(rec))
+    # the machine-readable record rides along: artifact parsers get
+    # the sections as data, and :func:`amend_report` re-renders from it
+    # (atomically: amend_report re-reads this file, so a crash mid-write
+    # must leave the previous record intact)
+    from ..io.atomic import atomic_write_json
+
+    atomic_write_json(out_base + ".json", rec, indent=1)
+    return md_path, html_path
+
+
+def write_report(out_base, **sections):
+    """Write ``<out_base>.md``, a self-contained ``<out_base>.html``
+    and the machine-readable ``<out_base>.json`` record (a trailing
+    ``.md``/``.html``/``.htm``/``.json`` on ``out_base`` is stripped
+    first).  Accepts :func:`build_report`'s keyword sections; returns
+    the markdown and HTML paths."""
+    out_base = _strip_ext(out_base)
+    return _render_all(out_base, build_report(**sections))
+
+
+def amend_report(out_base, **sections):
+    """Merge ``sections`` into an already-written report and re-render
+    all three files.  The driver writes the report before the CLI runs
+    sift, so the CLI folds the sift telemetry in afterwards with
+    ``amend_report(path, sift=stats)``; any :func:`build_report`
+    section can be amended the same way."""
+    out_base = _strip_ext(out_base)
+    with open(out_base + ".json") as f:
+        rec = json.load(f)
+    for key, value in sections.items():
+        if key == "meta":
+            rec.setdefault("meta", {}).update(value or {})
+        else:
+            rec[key] = value
+    return _render_all(out_base, rec)

@@ -1,0 +1,178 @@
+"""Live HTTP surface of a running search: ``/metrics``, ``/healthz``,
+``/progress`` (also served as ``/status``), ``/subscribers``.
+
+The port of the JAX package's server, on the standard library's
+``ThreadingHTTPServer`` in a daemon thread; a scrape takes the registry's
+locks and nothing else from the chunk loop:
+
+* ``/metrics`` — the live Prometheus text of the process registry, with
+  the names manifest's HELP text;
+* ``/healthz`` — the :class:`~.health.HealthEngine` verdict and active
+  reasons as JSON; HTTP **503 on CRITICAL**, so ``curl -f`` can act on it;
+* ``/progress`` and ``/status`` — chunks done and total, ETA, hits,
+  certified and quarantined chunks and the live canary summary;
+* ``GET /subscribers`` and ``POST /subscribe`` — the alert broker's
+  webhook list, and a webhook registered while the run goes on.
+
+:func:`start_obs_server` starts it (``port=0`` binds an ephemeral port),
+the handle's ``close()`` stops it.  A bind failure propagates (an
+operator who asked for the surface must not fly blind); a request never
+raises into the search.  The JAX package's job and fleet endpoints come
+with the port's service layers.
+"""
+
+from __future__ import annotations
+
+import json
+import threading
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+from ..utils.logging_utils import logger
+from . import metrics as _metrics
+
+__all__ = ["ObsServer", "start_obs_server"]
+
+
+class _Handler(BaseHTTPRequestHandler):
+    def log_message(self, fmt, *args):
+        logger.debug("obs.server: " + fmt, *args)
+
+    def _send(self, status, body, content_type):
+        data = body.encode() if isinstance(body, str) else body
+        self.send_response(status)
+        self.send_header("Content-Type", content_type)
+        self.send_header("Content-Length", str(len(data)))
+        self.end_headers()
+        if self.command != "HEAD":
+            self.wfile.write(data)
+
+    def do_HEAD(self):  # noqa: N802 — http.server API
+        self.do_GET()
+
+    def do_GET(self):  # noqa: N802 — http.server API
+        srv = self.server.obs  # type: ignore[attr-defined]
+        try:
+            path = self.path.partition("?")[0].rstrip("/") or "/"
+            if path == "/metrics":
+                self._send(200, _metrics.REGISTRY.prometheus_text(
+                    manifest_help=True),
+                           "text/plain; version=0.0.4; charset=utf-8")
+            elif path == "/healthz":
+                doc = srv.health_snapshot()
+                status = 503 if doc["status"] == "CRITICAL" else 200
+                self._send(status, json.dumps(doc, indent=1),
+                           "application/json")
+            elif path in ("/progress", "/status"):
+                self._send(200, json.dumps(srv.progress_snapshot(),
+                                           indent=1), "application/json")
+            elif path == "/subscribers":
+                if srv.push is None:
+                    self._send(404, "no alert broker wired\n", "text/plain")
+                else:
+                    self._send(200, json.dumps(
+                        {"subscribers": srv.push.subscribers_doc(),
+                         "stats": srv.push.stats()}, indent=1),
+                        "application/json")
+            elif path == "/":
+                self._send(200, "pulsarutils_tpu_torch live search "
+                           "surface: /metrics /healthz /progress /status "
+                           "/subscribers\n", "text/plain")
+            else:
+                self._send(404, "not found\n", "text/plain")
+        except Exception as exc:  # noqa: BLE001 — never kills the search
+            try:
+                self._send(500, f"internal error: {exc!r}\n", "text/plain")
+            except Exception:  # noqa: BLE001
+                pass
+
+    def do_POST(self):  # noqa: N802 — http.server API
+        """``POST /subscribe`` with ``{"url", "name", "min_snr",
+        "min_dm", "max_dm"}``: 201 and the subscriber's doc, 400 on a bad
+        spec."""
+        srv = self.server.obs  # type: ignore[attr-defined]
+        try:
+            path = self.path.split("?", 1)[0].rstrip("/") or "/"
+            if path != "/subscribe" or srv.push is None:
+                self._send(404, "not found\n", "text/plain")
+                return
+            n = int(self.headers.get("Content-Length") or 0)
+            try:
+                doc = srv.push.subscribe(
+                    json.loads(self.rfile.read(n).decode() or "{}"))
+            except ValueError as exc:
+                self._send(400, json.dumps({"error": str(exc)}),
+                           "application/json")
+                return
+            self._send(201, json.dumps(doc), "application/json")
+        except Exception as exc:  # noqa: BLE001 — never kills the search
+            try:
+                self._send(500, f"internal error: {exc!r}\n", "text/plain")
+            except Exception:  # noqa: BLE001
+                pass
+
+
+class ObsServer:
+    """The live surface around a running search.
+
+    ``health`` is a :class:`~.health.HealthEngine` (or ``None``: then
+    ``/healthz`` answers ``OK`` with a note); ``progress_fn`` a zero-arg
+    callable returning the ``/progress`` dict; ``push`` an
+    :class:`~.push.AlertBroker` (or ``None``).
+    """
+
+    def __init__(self, port=0, health=None, progress_fn=None,
+                 host="127.0.0.1", push=None):
+        self.health = health
+        self.push = push
+        self.progress_fn = progress_fn
+        self._httpd = ThreadingHTTPServer((host, int(port)), _Handler)
+        self._httpd.daemon_threads = True
+        self._httpd.obs = self  # type: ignore[attr-defined]
+        self.port = self._httpd.server_address[1]
+        self._thread = threading.Thread(
+            target=self._httpd.serve_forever, name="obs-http",
+            daemon=True)
+        self._thread.start()
+        logger.info("live search surface on http://%s:%d "
+                    "(/metrics /healthz /progress)", host, self.port)
+
+    def health_snapshot(self):
+        if self.health is None:
+            return {"status": "OK", "reasons": [],
+                    "note": "no health engine wired"}
+        return self.health.snapshot()
+
+    def progress_snapshot(self):
+        doc = {}
+        if self.progress_fn is not None:
+            try:
+                doc = dict(self.progress_fn())
+            except Exception as exc:  # noqa: BLE001
+                doc = {"error": repr(exc)}
+        doc.setdefault("status", self.health.verdict
+                       if self.health is not None else "OK")
+        return doc
+
+    def close(self):
+        try:
+            self._httpd.shutdown()
+            self._httpd.server_close()
+        except OSError:
+            pass
+        self._thread.join(timeout=5.0)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+def start_obs_server(port, health=None, progress_fn=None,
+                     host="127.0.0.1", push=None):
+    """Start the live surface; returns the :class:`ObsServer` (its
+    ``port`` is the bound port: pass ``port=0`` for an ephemeral one).
+    ``host`` is the bind address: the loopback default keeps the surface
+    on the machine; ``"0.0.0.0"`` opens it to a remote scrape."""
+    return ObsServer(port=port, health=health, progress_fn=progress_fn,
+                     host=host, push=push)

@@ -50,6 +50,25 @@ def dedisperse_plane_plain(data, offsets):
 # The gather and roll formulations, under a precision policy
 # ---------------------------------------------------------------------------
 
+def apply_dm_shifts_to_data(data, shifts, chan_block=64):
+    """Roll each channel of ``data`` ``(nchan, T)`` by ``-rint(shift)``
+    without summing: ``out[c, t] = data[c, (t + rint(shift[c])) % T]``, on
+    ``data``'s device (the diagnostic figure's dedispersed waterfall; the
+    JAX package's function of the same name).  The gather runs in blocks
+    of ``chan_block`` channels, so its index stays small."""
+    data = torch.as_tensor(data)
+    t = data.shape[1]
+    sh = torch.from_numpy(np.rint(np.asarray(shifts)).astype(np.int64))
+    sh = sh.to(data.device)
+    ramp = torch.arange(t, device=data.device)
+    out = torch.empty_like(data)
+    for c0 in range(0, data.shape[0], chan_block):
+        idx = (ramp[None, :] + sh[c0:c0 + chan_block, None]) % t
+        out[c0:c0 + chan_block] = torch.gather(data[c0:c0 + chan_block], 1,
+                                               idx)
+    return out
+
+
 def _strategy(data, policy):
     """The :mod:`..precision` strategy of a float ``data`` under
     ``policy`` (None for plain float32): integer inputs ignore the

@@ -27,6 +27,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..obs import roofline
 from ..utils import nvcc
 from ..utils.device import to_numpy
 from .dedisperse import dedisperse_plane_plain
@@ -215,10 +216,14 @@ def dedisperse_plane(data, offsets, planned=None):
     ``planned``, the :func:`device_plan` of these offsets on the data's
     device, saves planning them again.
     """
-    if data.device.type == "cpu":
-        return dedisperse_plane_plain(data, offsets)
-    if data.device.type != "cuda":
-        raise ValueError(f"no dedispersion sweep for device {data.device}")
-    plan, meta = planned or device_plan(to_numpy(offsets), data.shape[1],
-                                        data.device)
-    return dedisperse_plane_cuda(data, meta, plan)
+    with roofline.measure(data.device, "dedisperse_direct_sweep",
+                          lambda: roofline.sweep_work(len(offsets),
+                                                      *data.shape)):
+        if data.device.type == "cpu":
+            return dedisperse_plane_plain(data, offsets)
+        if data.device.type != "cuda":
+            raise ValueError(
+                f"no dedispersion sweep for device {data.device}")
+        plan, meta = planned or device_plan(to_numpy(offsets),
+                                            data.shape[1], data.device)
+        return dedisperse_plane_cuda(data, meta, plan)

@@ -22,6 +22,7 @@ import functools
 import numpy as np
 import torch
 
+from ..obs import roofline
 from ..utils import nvcc
 from .fdmt import (HEAD_CLUSTER, HEAD_GROUP, HEAD_LEVELS, head_plain,
                    merge4_plain, merge_plain)
@@ -245,36 +246,51 @@ def head_cuda(state, table, params, rows_out):
 def head(state, hp):
     """The fused head (:class:`~.fdmt.HeadPlan` ``hp``) on ``state``: the
     kernel for a CUDA tensor, the plain version for a CPU tensor."""
-    if state.device.type == "cpu":
-        return head_plain(state, hp)
-    if state.device.type != "cuda":
-        raise ValueError(f"no FDMT merge for device {state.device}")
-    table, offsets = head_table(hp)
-    params = head_params(hp, offsets, state.shape[1], state.shape[0])
-    return head_cuda(state, torch.from_numpy(table).to(state.device),
-                     params, hp.rows_out)
+    with roofline.measure(state.device, "fdmt_head_fused_levels",
+                          lambda: roofline.fdmt_pass_work(
+                              int(hp.counts.sum()), state.shape[1],
+                              state.shape[0], hp.rows_out,
+                              head_table(hp)[0].size)):
+        if state.device.type == "cpu":
+            return head_plain(state, hp)
+        if state.device.type != "cuda":
+            raise ValueError(f"no FDMT merge for device {state.device}")
+        table, offsets = head_table(hp)
+        params = head_params(hp, offsets, state.shape[1], state.shape[0])
+        return head_cuda(state, torch.from_numpy(table).to(state.device),
+                         params, hp.rows_out)
 
 
 def merge(state, it):
     """One FDMT level ``it`` (a :class:`~.fdmt.FdmtPlan` iteration) on
     ``state``: the kernel for a CUDA tensor, the plain version for a CPU
     tensor."""
-    if state.device.type == "cpu":
-        return merge_plain(state, it["idx_low"], it["idx_high"], it["shift"],
-                           it["shift_high"])
-    if state.device.type != "cuda":
-        raise ValueError(f"no FDMT merge for device {state.device}")
-    table = torch.from_numpy(merge_table(it, state.shape[1]))
-    return merge_cuda(state, table.to(state.device))
+    rows = len(it["idx_low"])
+    with roofline.measure(state.device, "fdmt_merge_level",
+                          lambda: roofline.fdmt_pass_work(
+                              rows, state.shape[1], state.shape[0], rows,
+                              4 * rows)):
+        if state.device.type == "cpu":
+            return merge_plain(state, it["idx_low"], it["idx_high"],
+                               it["shift"], it["shift_high"])
+        if state.device.type != "cuda":
+            raise ValueError(f"no FDMT merge for device {state.device}")
+        table = torch.from_numpy(merge_table(it, state.shape[1]))
+        return merge_cuda(state, table.to(state.device))
 
 
 def merge4(state, idx, shift):
     """The fused last two levels (:func:`~.fdmt.compose_iterations`'s
     ``idx``, ``shift``) on ``state``: the kernel for a CUDA tensor, the
     plain version for a CPU tensor."""
-    if state.device.type == "cpu":
-        return merge4_plain(state, idx, shift)
-    if state.device.type != "cuda":
-        raise ValueError(f"no FDMT merge for device {state.device}")
-    table = torch.from_numpy(merge4_table(idx, shift, state.shape[1]))
-    return merge4_cuda(state, table.to(state.device))
+    rows = len(idx[0])
+    with roofline.measure(state.device, "fdmt_merge4_last_two_levels",
+                          lambda: roofline.fdmt_pass_work(
+                              3 * rows, state.shape[1], state.shape[0],
+                              rows, 8 * rows)):
+        if state.device.type == "cpu":
+            return merge4_plain(state, idx, shift)
+        if state.device.type != "cuda":
+            raise ValueError(f"no FDMT merge for device {state.device}")
+        table = torch.from_numpy(merge4_table(idx, shift, state.shape[1]))
+        return merge4_cuda(state, table.to(state.device))

@@ -24,6 +24,7 @@ import ctypes
 
 import torch
 
+from ..obs import roofline
 from ..utils import nvcc
 
 #: geometry compiled into csrc/fdd.cu (checked when the library loads)
@@ -151,10 +152,13 @@ def fdd_superblock_spectra(spec, anchor_limbs, step_limbs, superblock,
     ``(superblock, nbin)`` complex64.  The kernel for a CUDA tensor (one
     launch over every channel), the plain version for a CPU tensor (in
     blocks of ``chan_block`` channels)."""
-    if spec.device.type == "cpu":
-        return fdd_fused_plain(spec, anchor_limbs, step_limbs, superblock,
-                               chan_block=chan_block)
-    if spec.device.type != "cuda":
-        raise ValueError(f"no FDD kernel for device {spec.device}")
-    return fdd_superblock_spectra_cuda(spec.contiguous(), anchor_limbs,
-                                       step_limbs, superblock)
+    with roofline.measure(spec.device, "fdd_rotate_accumulate",
+                          lambda: roofline.fdd_work(*spec.shape,
+                                                    superblock)):
+        if spec.device.type == "cpu":
+            return fdd_fused_plain(spec, anchor_limbs, step_limbs,
+                                   superblock, chan_block=chan_block)
+        if spec.device.type != "cuda":
+            raise ValueError(f"no FDD kernel for device {spec.device}")
+        return fdd_superblock_spectra_cuda(spec.contiguous(), anchor_limbs,
+                                           step_limbs, superblock)

@@ -32,6 +32,7 @@ import functools
 import torch
 
 from ..precision import static_policy
+from ..obs import roofline
 from ..utils import nvcc
 from .periodicity import (HARMONIC_SUMS, band_edges, best_depth,
                           harmonic_depths, harmonic_peaks_plain,
@@ -254,14 +255,19 @@ def harmonic_peaks(power, depths, lo, hi, policy=None):
     harmonic stack of raw spectra ``power`` (rows, nbins) under the
     precision ``policy``: the kernel for a CUDA tensor, the plain version
     for a CPU tensor."""
-    if power.device.type == "cpu":
-        return harmonic_peaks_plain(normalize_power(power),
-                                    _check_depths(depths), lo, hi,
-                                    policy=policy)
-    if power.device.type != "cuda":
-        raise ValueError(f"no harmonic scorer for device {power.device}")
-    return harmonic_peaks_cuda(power.contiguous(), depths, lo, hi,
-                               policy=policy)
+    with roofline.measure(power.device, "harmonic_scorer",
+                          lambda: roofline.b6_work(
+                              *power.shape, _check_depths(depths),
+                              static_policy(policy))):
+        if power.device.type == "cpu":
+            return harmonic_peaks_plain(normalize_power(power),
+                                        _check_depths(depths), lo, hi,
+                                        policy=policy)
+        if power.device.type != "cuda":
+            raise ValueError(
+                f"no harmonic scorer for device {power.device}")
+        return harmonic_peaks_cuda(power.contiguous(), depths, lo, hi,
+                                   policy=policy)
 
 
 def score_power(power, nsamples, tsamp, max_harmonics=16, fmin=None,

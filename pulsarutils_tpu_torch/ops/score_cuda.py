@@ -14,6 +14,7 @@ import ctypes
 
 import torch
 
+from ..obs import roofline
 from ..utils import nvcc
 
 #: geometry compiled into csrc/score.cu (checked against the library when
@@ -86,10 +87,13 @@ def score_plane(plane, with_cert=False):
     """Stacked scores of ``plane`` ``(rows, T)``: the kernel for a CUDA
     tensor, the plain :func:`~.search.score_profiles_chunked` for a CPU
     tensor."""
-    if plane.device.type == "cpu":
-        from .search import score_profiles_chunked
+    nout = (6 if with_cert else 5) * plane.shape[0]
+    with roofline.measure(plane.device, "one_pass_scorer",
+                          lambda: roofline.score_work(*plane.shape, nout)):
+        if plane.device.type == "cpu":
+            from .search import score_profiles_chunked
 
-        return score_profiles_chunked(plane, with_cert=with_cert)
-    if plane.device.type != "cuda":
-        raise ValueError(f"no scorer for device {plane.device}")
-    return score_plane_cuda(plane.contiguous(), with_cert=with_cert)
+            return score_profiles_chunked(plane, with_cert=with_cert)
+        if plane.device.type != "cuda":
+            raise ValueError(f"no scorer for device {plane.device}")
+        return score_plane_cuda(plane.contiguous(), with_cert=with_cert)

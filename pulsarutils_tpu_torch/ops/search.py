@@ -39,6 +39,7 @@ import torch
 
 from ..resilience import ladder as _ladder
 from ..utils.device import resolve_device, to_numpy
+from ..utils.logging_utils import budget_bucket, budget_count
 from ..utils.nvcc import KernelBuildError
 from ..utils.table import ResultTable
 from .dedisperse_cuda import TRIAL_BLOCKS, dedisperse_plane, device_plan
@@ -279,11 +280,15 @@ def _search_direct(data, superblocks, capture_plane):
                 np.zeros(0, np.int64), plane)
     scores, planes = [], []
     for rows, planned in superblocks:
-        plane = dedisperse_plane(data, rows, planned)
-        scores.append(score_plane(plane))
+        with budget_bucket("search/dispatch"):
+            plane = dedisperse_plane(data, rows, planned)
+            scores.append(score_plane(plane))
+            budget_count("dispatches", 2)
         if capture_plane:
             planes.append(plane)
-    fields = unstack_scores(torch.cat(scores, dim=1))
+    with budget_bucket("search/readback"):
+        fields = unstack_scores(torch.cat(scores, dim=1))
+        budget_count("readbacks")
     plane = None
     if capture_plane:
         plane = planes[0] if len(planes) == 1 else torch.cat(planes)
@@ -408,9 +413,14 @@ def _search_fdmt(data, dmmin, dmmax, start_freq, bandwidth, sample_time,
     nchan = data.shape[0]
     trial_dms, n_lo, n_hi = fdmt_trial_dms(nchan, dmmin, dmmax, start_freq,
                                            bandwidth, sample_time)
-    plane = fdmt_transform(data, n_hi, start_freq, bandwidth,
-                           min_delay=n_lo)
-    scores = unstack_scores(score_plane(plane, with_cert=with_cert))
+    with budget_bucket("search/coarse"):
+        plane = fdmt_transform(data, n_hi, start_freq, bandwidth,
+                               min_delay=n_lo)
+        stacked = score_plane(plane, with_cert=with_cert)
+        budget_count("dispatches")
+    with budget_bucket("search/coarse_readback"):
+        scores = unstack_scores(stacked)
+        budget_count("readbacks")
     return trial_dms, scores, (plane if capture_plane else None)
 
 
@@ -593,11 +603,16 @@ def _search_hybrid(data, trial_dms, start_freq, bandwidth, sample_time,
     def rescore(rows):
         """Exact scores for ``rows``: one direct-sweep launch and one
         scorer launch per bucket."""
+        budget_count("rescore_calls")
+        budget_count("rescore_rows", len(rows))
         for blk, padded in iter_rescore_buckets(rows):
             offsets = offsets_for(trial_dms[padded], nchan, start_freq,
                                   bandwidth, sample_time, nsamples)
-            m, s, b, w, p = unstack_scores(
-                score_plane(dedisperse_plane(data, offsets)))
+            with budget_bucket("search/rescore"):
+                m, s, b, w, p = unstack_scores(
+                    score_plane(dedisperse_plane(data, offsets)))
+                budget_count("dispatches")
+                budget_count("readbacks")
             k = len(blk)
             maxvalues[blk] = m[:k]
             stds[blk] = s[:k]
@@ -701,8 +716,9 @@ def dedispersion_search(data, dmmin, dmmax, start_freq, bandwidth, sample_time,
         return (table, plane) if capture_plane else table
 
     if trial_dms is None:
-        trial_dms = dedispersion_plan(nchan, dmmin, dmmax, start_freq,
-                                      bandwidth, sample_time)
+        with budget_bucket("search/plan"):
+            trial_dms = dedispersion_plan(nchan, dmmin, dmmax, start_freq,
+                                          bandwidth, sample_time)
     trial_dms = np.asarray(trial_dms, dtype=np.float64)
 
     if kernel == "fourier":

@@ -142,8 +142,8 @@ def periodicity_search(fname, dmmin=200, dmmax=800, *, accel_max=0.0,
             raise NotImplementedError(
                 f"{name} is not ported yet: ROADMAP.md "
                 f"{_NOT_PORTED[name]}")
-    for k in ("period_search", "period_sigma_threshold", "plane_consumer",
-              "fingerprint_extra"):
+    for k in ("period_search", "period_sigma_threshold", "make_plots",
+              "plane_consumer", "fingerprint_extra"):
         if k in search_kwargs:
             raise ValueError(
                 f"{k} is owned by the periodicity driver (use "
@@ -197,7 +197,8 @@ def periodicity_search(fname, dmmin=200, dmmax=800, *, accel_max=0.0,
 
     common = dict(dmmin=dmmin, dmmax=dmmax, kernel=kernel,
                   snr_threshold=snr_threshold, output_dir=output_dir,
-                  fingerprint_extra=extra, plane_consumer=consumer,
+                  make_plots=False, fingerprint_extra=extra,
+                  plane_consumer=consumer,
                   device=dev, **search_kwargs)
     hits, store = search_by_chunks(fname, resume=resume, **common)
     if state["since_snap"] or not os.path.exists(snap_path):

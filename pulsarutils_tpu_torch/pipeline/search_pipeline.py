@@ -26,16 +26,22 @@ counterpart of the reference's ``pulsarutils/clean.py:276-351``:
 * with ``period_search`` each chunk's dedispersed plane also gets the
   folded period search (:func:`..ops.periodicity.period_search_plane`),
   and ``plane_consumer`` hands each plane downstream (the periodicity
-  driver's accumulation seam).
+  driver's accumulation seam);
+* the loop accounts for itself as the JAX package's does: every chunk's
+  wall in named buckets (:class:`..utils.logging_utils.BudgetAccountant`,
+  the ``BUDGET_JSON`` line), spans for a trace, diagnostic figures
+  (:mod:`.diagnostics`), the canary, health and the live HTTP surface,
+  lineage and push, and the survey report (:mod:`..obs`).
 
 Everything downstream of the reader sees an *ascending* band.
 """
 
 from __future__ import annotations
 
+import contextlib
+import json
 import logging
 import os
-import threading
 import time
 import zipfile
 import zlib
@@ -52,6 +58,17 @@ from ..faults.policy import (DispatchPolicy, QuarantineManifest,
                              gate_tensor, resolve_integrity_policy)
 from ..io.candidates import CandidateStore, config_fingerprint
 from ..io.sigproc import FilterbankReader
+from ..obs import memory as obs_memory
+from ..obs import metrics as obs_metrics
+from ..obs import roofline
+from ..obs.canary import CanaryController, inject_tensor
+from ..obs.capacity import EwmaThroughput
+from ..obs.health import HealthEngine
+from ..obs.lineage import LineageRecorder
+from ..obs.push import AlertBroker
+from ..obs.server import start_obs_server
+from ..obs.trace import begin_span, is_tracing
+from ..obs.trace import span as trace_span
 from ..ops.certify import (certifiable_snr_floor, matched_snr_floor,
                            retention_bound)
 from ..ops.clean_ops import fft_zap_time, renormalize_data, zero_dm_filter
@@ -59,12 +76,13 @@ from ..ops.periodicity import period_search_plane
 from ..ops.plan import dedispersion_plan
 from ..ops.rebin import quick_resample
 from ..ops.search import dedispersion_search, ladder_blocks
-from ..obs import metrics as obs_metrics
 from ..parallel.stream import iter_chunk_starts, plan_chunks
 from ..resilience import ladder as _ladder
 from ..utils.device import resolve_device, to_numpy
+from ..utils.logging_utils import BudgetAccountant, measure_device_rtt
 from ..utils.nvcc import KernelBuildError
 from ..utils.staging import FrameStaging
+from ..utils.table import ResultTable
 from .pulse_info import PulseInfo
 from .spectral_stats import get_bad_chans
 
@@ -184,43 +202,48 @@ def plan_survey(fname, chunk_length=None, new_sample_time=None, tmin=0,
 def clean_chunk(block, mask, *, cut_outliers=False, zero_dm=False,
                 fft_zap=False, resample=1):
     """The conditioning of one ``(nchan, n)`` chunk, on its device."""
-    cleaned = renormalize_data(block, badchans_mask=mask,
-                               cut_outliers=cut_outliers)
-    if zero_dm:
-        cleaned = zero_dm_filter(cleaned, badchans_mask=mask)
-    if fft_zap:
-        cleaned, _ = fft_zap_time(cleaned)
-    if resample > 1:
-        cleaned = quick_resample(cleaned, resample)
+    with roofline.measure(block.device, "device_clean",
+                          lambda: roofline.clean_work(*block.shape)):
+        cleaned = renormalize_data(block, badchans_mask=mask,
+                                   cut_outliers=cut_outliers)
+        if zero_dm:
+            cleaned = zero_dm_filter(cleaned, badchans_mask=mask)
+        if fft_zap:
+            cleaned, _ = fft_zap_time(cleaned)
+        if resample > 1:
+            cleaned = quick_resample(cleaned, resample)
     return cleaned
 
 
 class _Stages:
-    """Wall seconds per stage.  :meth:`run` synchronises the current
-    stream at each stage's end, so that device work queued on the main
-    stream is charged to the stage that queued it (side-stream uploads
-    are not: they overlap by design); :meth:`add` records seconds spent
-    off the critical path (the reader thread, the persist worker)."""
+    """The loop's stage clock, kept by the budget accountant ``timer``:
+    :meth:`run` (and :meth:`bucket`) charge a call to a bucket and one
+    span.  With ``sync`` (a caller asked for the seconds: ``stage_seconds``,
+    ``budget`` or a trace) each stage also synchronises the current stream
+    at its end, so that device work queued on the main stream is charged
+    to the stage that queued it (side-stream uploads are not: they overlap
+    by design); without it the buckets are host-side, as the JAX package's
+    are.  :meth:`add` records seconds off the critical path (the reader
+    thread, the persist worker)."""
 
-    def __init__(self, device, into):
+    def __init__(self, device, timer, sync):
         self.device = device
-        self.seconds = into
-        self._lock = threading.Lock()
+        self.timer = timer
+        self.sync = sync and device.type == "cuda"
 
     def add(self, name, seconds):
-        if self.seconds is not None:
-            with self._lock:
-                self.seconds[name] = self.seconds.get(name, 0.0) + seconds
+        self.timer.add_async(name, seconds)
+
+    @contextlib.contextmanager
+    def bucket(self, name):
+        with self.timer.bucket(name):
+            yield
+            if self.sync:
+                torch.cuda.current_stream(self.device).synchronize()
 
     def run(self, name, fn, *args, **kwargs):
-        if self.seconds is None:
+        with self.bucket(name):
             return fn(*args, **kwargs)
-        t0 = time.perf_counter()
-        out = fn(*args, **kwargs)
-        if self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
-        self.add(name, time.perf_counter() - t0)
-        return out
 
 
 def _search_with_fallback(array, dmmin, dmmax, start_freq, bandwidth,
@@ -283,11 +306,19 @@ def _search_with_fallback(array, dmmin, dmmax, start_freq, bandwidth,
             # no watchdog on the host floor: a deadline there would be one
             # more way for the last resort to fail
             timeout = policy.timeout_s if where == "device" else None
-            if i and (where, k) == (where0, kern0) and not oom_retry:
+            retry = bool(i and (where, k) == (where0, kern0)
+                         and not oom_retry)
+            if retry:
                 obs_metrics.counter("putpu_dispatch_retries_total").inc()
                 if policy.backoff_s:
                     time.sleep(policy.backoff_s * (2 ** (i - 1)))
-            result = call_with_deadline(lambda: run_one(where, k), timeout)
+            # a same-device retry is counted and traced as one; the host
+            # fallback and an OOM ladder re-dispatch are neither
+            with (trace_span("dispatch_retry", chunk=chunk, attempt=i,
+                             device=where) if retry
+                  else contextlib.nullcontext()):
+                result = call_with_deadline(lambda: run_one(where, k),
+                                            timeout)
             if (where, k) != (where0, kern0):
                 logger.error(
                     "chunk %s: the search failed on kernel=%s (%r); this "
@@ -349,31 +380,37 @@ class _ReadFailure:
 
 class _HostChunk:
     """A chunk read by the reader thread: its raw frames in staging
-    ``slot`` (``nread`` samples), or, for a chunk a ``corrupt`` fault
-    matched, the corrupted host float ``block`` (ascending) and its
+    ``slot`` (``nread`` samples) and the ``canary`` bump to add once they
+    are on the device, or, for a chunk a ``corrupt`` fault matched, the
+    corrupted (and injected) host float ``block`` (ascending) and its
     ``gate`` verdict."""
 
-    __slots__ = ("slot", "nread", "block", "gate")
+    __slots__ = ("slot", "nread", "block", "gate", "canary")
 
-    def __init__(self, slot=None, nread=0, block=None, gate=None):
+    def __init__(self, slot=None, nread=0, block=None, gate=None,
+                 canary=None):
         self.slot = slot
         self.nread = nread
         self.block = block
         self.gate = gate
+        self.canary = canary
 
 
 def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
                      dmmin=200, dmmax=800, surelybad=(), *, kernel="auto",
-                     snr_threshold=6.0, output_dir=None, resume=True,
-                     fft_zap=False, cut_outliers=False, zero_dm=False,
-                     max_chunks=None, exact_floor="auto",
-                     period_search=False, period_sigma_threshold=8.0,
-                     plane_consumer=None, fingerprint_extra=None,
-                     chunks=None, overlap_persist=True,
+                     snr_threshold=6.0, output_dir=None, make_plots="hits",
+                     resume=True, fft_zap=False, cut_outliers=False,
+                     zero_dm=False, max_chunks=None, period_search=False,
+                     period_sigma_threshold=8.0, show_plots=False,
+                     exact_floor="auto", overlap_persist=True, budget=None,
                      dispatch_timeout=None, dispatch_retries=1,
                      dispatch_backoff=0.0, quarantine_policy="sanitize",
                      persist_retries=2, persist_backoff=0.05,
-                     device="cuda", stage_seconds=None, summary=None):
+                     http_port=None, http_host="127.0.0.1", canary=None,
+                     health=None, report_out=None, chunks=None,
+                     plane_consumer=None, fingerprint_extra=None,
+                     lineage=None, push=None, device="cuda",
+                     stage_seconds=None, summary=None):
     """Search a filterbank file for dispersed single pulses.
 
     Parameters follow the JAX package's driver (``snr_threshold`` and
@@ -383,6 +420,18 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
     after that many chunks (the rest stay un-marked for a resumed run);
     ``chunks``, a list of chunk starts, searches only those (starts not
     in the plan are ignored).
+
+    ``make_plots``: ``"hits"`` (the default) renders the diagnostic
+    figure (:mod:`.diagnostics`) of every hit to
+    ``<output_dir>/<root>_<istart>-<iend>.jpg``, ``"all"`` of every
+    searched chunk, ``False`` none; the figure is written before the
+    chunk's persist task is submitted, so the ledger never marks a chunk
+    whose figure is missing.  Without matplotlib (an optional extra) the
+    JAX package's warning is logged and plots are off.  ``show_plots``
+    also opens each figure in an interactive window.  Plots capture the
+    chunk's plane, as ``period_search`` and ``plane_consumer`` do; a
+    hit's retained and persisted waterfall is the pulse cutout either
+    way.
 
     ``period_search=True`` adds the folded period search of every
     chunk's plane (:func:`..ops.periodicity.period_search_plane`); a
@@ -422,13 +471,44 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
       (``OSError``) is retried with exponential backoff, then
       dead-lettered (manifest and ledger) and the run continues.
 
+    Accounting and observability, as in the JAX package: the accountant
+    always runs; the rest is off unless asked for, and off leaves the
+    output directory unchanged:
+
+    * ``budget``, a caller-owned
+      :class:`~..utils.logging_utils.BudgetAccountant` (one is made
+      otherwise): every chunk's wall in named buckets with the residual
+      ``unattributed``, the footer and one ``BUDGET_JSON`` log line; a
+      CUDA run prices its trips with :func:`~..utils.logging_utils.
+      measure_device_rtt`;
+    * ``http_port`` serves ``/metrics``, ``/healthz`` (HTTP 503 on
+      CRITICAL), ``/progress`` (also ``/status``) while the loop runs
+      (:mod:`..obs.server`; ``0`` binds an ephemeral port, ``http_host``
+      the address); ``health``, a caller-owned
+      :class:`~..obs.health.HealthEngine` (made when ``http_port`` is set
+      and none is given), gets one update a chunk;
+    * ``canary``, a :class:`~..obs.canary.CanaryController` or a rate:
+      a known dispersed pulse injected into that share of the chunks and
+      matched against the tables (recall, S/N ratio, DM error); canary
+      rows are masked out of the science table, a genuine weaker pulse
+      under a canary is promoted, and the candidates and ledger are
+      those of the canary-off run;
+    * ``lineage=True`` (or a :class:`~..obs.lineage.LineageRecorder`)
+      writes ``<candidate>.lineage.json`` beside each candidate pair;
+      ``push``, an :class:`~..obs.push.AlertBroker` or a list of
+      subscriber specs, posts each hit to webhooks from a bounded queue;
+    * ``report_out`` writes the survey report (``.md``, ``.html``,
+      ``.json``, :mod:`..obs.report`); a failed report is logged, never
+      fatal.
+
     Every resumable run ends with :func:`~..faults.audit.audit_run`
     (logged, never fatal).
 
-    ``stage_seconds``, a dict, receives the wall seconds of each stage
-    on the main thread (``badchans``; ``read``, the wait for the reader;
-    ``upload_wait``; ``gate``; ``clean``; ``search``; ``plane_consume``;
-    ``period``; ``persist`` when inline; ``persist_backpressure``;
+    ``stage_seconds``, a dict, receives the accountant's seconds of each
+    stage on the main thread (``badchans``; ``read``, the wait for the
+    reader; ``upload_wait``; ``gate``; ``clean``; ``search``;
+    ``plane_consume``; ``period``; ``hit_products``; ``plot``;
+    ``persist`` when inline; ``persist_backpressure``;
     ``persist_drain``) and off it (``read_decode`` on the reader thread;
     ``persist`` on the worker when overlapped).  ``summary``, a dict,
     receives ``snr_threshold`` (resolved), ``snr_floor`` (the hybrid's,
@@ -445,10 +525,27 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
     dispatch_policy = DispatchPolicy(timeout_s=dispatch_timeout,
                                      retries=dispatch_retries,
                                      backoff_s=dispatch_backoff)
+    # a bare number is the canary's rate; rate 0 is "off"
+    if canary is not None and not isinstance(canary, CanaryController):
+        canary = CanaryController(rate=float(canary))
+    if canary is not None and canary.rate <= 0.0:
+        canary = None
     dev = resolve_device(device)
-    stages = _Stages(dev, stage_seconds)
-    _ladder.reset()
     output_dir = output_dir or os.path.dirname(os.path.abspath(str(fname)))
+    if make_plots:
+        try:
+            import matplotlib  # noqa: F401 — the optional plot extra
+        except ImportError:
+            logger.warning("matplotlib not installed: diagnostic plots "
+                           "disabled (install the [plot] extra)")
+            make_plots = False
+    timer = budget if budget is not None else BudgetAccountant()
+    timer.begin_stream()
+    stages = _Stages(dev, timer, sync=(stage_seconds is not None
+                                       or budget is not None
+                                       or is_tracing()))
+    base_seconds = timer.stage_seconds()
+    _ladder.reset()
     # the pre-scan reads the file through the loop's read seam before the
     # loop exists: an armed read fault is for the search chunks
     with fault_inject.suppressed():
@@ -481,9 +578,33 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
     fingerprint = sp["fingerprint"] if resume else None
     store = CandidateStore(output_dir, fingerprint)
     manifest = QuarantineManifest(output_dir, fingerprint)
-    capture = bool(period_search) or plane_consumer is not None
+    capture = (bool(make_plots) or bool(period_search)
+               or plane_consumer is not None)
     clean_kw = dict(cut_outliers=cut_outliers, zero_dm=zero_dm,
                     fft_zap=fft_zap, resample=plan.resample)
+
+    if lineage is True:
+        lineage = LineageRecorder(fingerprint=sp["fingerprint"],
+                                  source="search_by_chunks")
+    elif not lineage:
+        lineage = None          # False/0/"" are "off" (the CLI's flag)
+    push_owned = False
+    if not push:
+        push = None
+    elif not isinstance(push, AlertBroker):
+        push = AlertBroker(
+            push, health=health,
+            dead_letter_path=os.path.join(
+                output_dir, f"push_dead_letter_{sp['fingerprint']}.jsonl"))
+        push_owned = True
+    if canary is not None:
+        canary.bind(nchan=header["nchans"], start_freq=start_freq,
+                    bandwidth=bandwidth, tsamp=sample_time, dmmin=dmmin,
+                    dmmax=dmmax, resample=plan.resample)
+    if dev.type == "cuda" and timer.rtt_s is None:
+        timer.rtt_s = measure_device_rtt(device=dev)
+        logger.info("device round-trip floor: %.6fs per launch and "
+                    "synchronize", timer.rtt_s)
 
     todo = [s for s in sp["chunk_starts"]
             if not (resume and store.is_done(s))]
@@ -494,28 +615,97 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
         todo = todo[:max_chunks]
 
     hits = []
+    nproc = 0
     ncertified = 0
     quarantined = []
     state = {}  # the sticky fallback of a CPU run: "host", "fallback"
     staging = (FrameStaging((plan.step, reader.nifs * reader.nchans),
                             reader.frame_dtype, dev) if todo else None)
 
+    # -- the live surface: health engine, ETA, HTTP endpoints -------------
+    if http_port is not None and health is None:
+        health = HealthEngine()
+    t_run0 = time.time()
+    eta_model = EwmaThroughput()
+
+    def progress_snapshot():
+        """The ``/progress`` document (read from the scrape thread)."""
+        done, total = nproc, len(todo)
+        elapsed = time.time() - t_run0
+        eta = eta_model.eta_s(max(total - done, 0))
+        if eta is None and done and elapsed > 0:
+            eta = (total - done) * elapsed / done
+        doc = {"fname": os.path.basename(str(fname)),
+               "chunks_done": done, "chunks_total": total,
+               "elapsed_s": round(elapsed, 1),
+               "eta_s": None if eta is None else round(eta, 1),
+               "hits": len(hits), "certified": ncertified,
+               "quarantined": len(store.quarantined_chunks)}
+        if canary is not None:
+            doc["canary"] = canary.summary()
+        return doc
+
+    # health reads per-chunk deltas of the process-wide counters
+    health_counters = (("dead", "putpu_persist_dead_letter_total"),
+                       ("retry", "putpu_dispatch_retries_total"),
+                       ("retrace", "putpu_retraces_total"))
+
+    def oom_events_total():
+        return sum(m.get("value", 0)
+                   for m in obs_metrics.REGISTRY.snapshot()
+                   if m.get("name") == "putpu_oom_events_total")
+
+    health_base = {}
+    if health is not None:
+        for key, name in health_counters:
+            health_base[key] = obs_metrics.counter(name).value
+        health_base["oom"] = oom_events_total()
+
+    def health_update(istart_, wall_s, candidates=None,
+                      is_quarantined=False, headroom_frac=None,
+                      oom_floor=False):
+        # every completion lands here; the tail flush (wall_s None)
+        # completed nothing
+        if wall_s is not None:
+            eta_model.note(1, wall_s)
+        if health is None:
+            return
+        deltas = {}
+        for key, name in health_counters:
+            v = obs_metrics.counter(name).value
+            deltas[key] = v - health_base[key]
+            health_base[key] = v
+        oom_now = oom_events_total()
+        oom_delta, health_base["oom"] = oom_now - health_base["oom"], oom_now
+        health.update(
+            istart_, wall_s=wall_s, candidates=candidates,
+            quarantined=is_quarantined, dead_letter=deltas["dead"] > 0,
+            dispatch_retries=deltas["retry"], retraces=deltas["retrace"],
+            headroom_frac=headroom_frac, oom_events=oom_delta,
+            oom_floor=oom_floor, fallback=state.get("fallback") is not None,
+            canary=canary.summary() if canary is not None else None)
+
     def chunk_size(s):
         return min(plan.step, nsamples - s)
 
     # one IF of 8-bit samples: the gate reads the frames as stored (a
-    # quarter of the float block's bytes) before they are converted
+    # quarter of the float block's bytes) before they are converted; a
+    # chunk the canary lights is gated as a float block after the bump,
+    # as the JAX package gates its injected block
     gate_bytes = (integrity is not None and reader.nifs == 1
                   and reader.frame_dtype.itemsize == 1)
 
     def read_at(s, view, slot):
-        """Read one chunk on the reader thread: its frames into ``view``,
-        or, when a ``corrupt`` fault matches it, the host float block the
-        JAX package's reader reads, corrupted and gated here.  An
-        ``OSError`` is retried twice with backoff (counted); a third
-        returns a :class:`_ReadFailure`.  A bad sector under the
-        memory map raises SIGBUS, which nothing here can catch."""
+        """Read one chunk on the reader thread: its frames into ``view``
+        (and the canary's bump, built from them), or, when a ``corrupt``
+        fault matches it, the host float block the JAX package's reader
+        reads, corrupted, injected and gated here.  An ``OSError`` is
+        retried twice with backoff (counted); a third returns a
+        :class:`_ReadFailure`.  A bad sector under the memory map raises
+        SIGBUS, which nothing here can catch.  No CUDA call."""
         t0 = time.perf_counter()
+        if lineage is not None:
+            lineage.mark(s, "read")
         try:
             for attempt in range(3):
                 try:
@@ -523,9 +713,15 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
                         block = reader.read_block(s, chunk_size(s),
                                                   band_ascending=True)
                         break
-                    return _HostChunk(slot=slot, nread=reader.
-                                      read_frames_into(s, chunk_size(s),
-                                                       view))
+                    got = _HostChunk(slot=slot, nread=reader.
+                                     read_frames_into(s, chunk_size(s),
+                                                      view))
+                    if canary is not None and got.nread:
+                        stride = max(1, got.nread // 65536)
+                        got.canary = canary.injection(
+                            s, got.nread,
+                            reader.host_samples(view[:got.nread:stride]))
+                    return got
                 except OSError as exc:
                     if attempt == 2:
                         logger.error("chunk %d read failed after %d "
@@ -536,6 +732,10 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
                                    exc)
                     time.sleep(0.1 * (2 ** attempt))
             block = fault_inject.corrupt("corrupt", block, chunk=s)
+            if canary is not None:
+                # after the fault: the canary rides the values the search
+                # will see
+                block = canary.maybe_inject(block, s)
             gate = None
             if integrity is not None:
                 block, gate = gate_chunk(np.asarray(block), integrity)
@@ -550,6 +750,11 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
         view = staging.acquire(slot)
         return reader_pool.submit(read_at, todo[index], view, slot)
 
+    def upload(got):
+        obs_metrics.counter("putpu_bytes_uploaded_total").inc(
+            int(got.nread * staging.views[got.slot][0].nbytes))
+        return staging.upload(got.slot, got.nread)
+
     def prefetch_upload(index, future):
         """Start chunk ``todo[index]``'s upload on the side stream (main
         thread) if its read is done and the run is on the card; otherwise
@@ -560,36 +765,41 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
         if not isinstance(got, _HostChunk) or got.block is not None \
                 or got.nread < chunk_size(todo[index]):
             return None
-        return todo[index], staging.upload(got.slot, got.nread)
+        timer.count("prefetch_uploads")
+        return todo[index], upload(got)
 
     def condition(got, prefetched, istart):
         """``(array, gate_info)``: the chunk gated and cleaned on its
         device, in ascending band order; ``array`` is None when the gate
         quarantines it.  The frames' upload (prefetched or started now)
-        is waited for under ``upload_wait``, their conversion to float is
-        charged to ``clean``.  A chunk a corrupt fault matched arrives as
-        a host float block gated on the reader thread."""
+        is waited for under ``upload_wait``, their conversion to float
+        and the canary's bump are charged to ``clean``.  A chunk a
+        corrupt fault matched arrives as a host float block gated on the
+        reader thread."""
         gate_info = got.gate
         if got.block is not None:
             block = stages.run("upload_wait", lambda: torch.from_numpy(
                 np.ascontiguousarray(got.block, dtype=np.float32)).to(dev))
         else:
-            upload = (prefetched[1] if prefetched is not None
-                      and prefetched[0] == istart
-                      else staging.upload(got.slot, got.nread))
-            frames = stages.run("upload_wait", staging.wait, upload)
-            if gate_bytes:
+            pending = (prefetched[1] if prefetched is not None
+                       and prefetched[0] == istart else upload(got))
+            frames = stages.run("upload_wait", staging.wait, pending)
+            by_bytes = gate_bytes and got.canary is None
+            if by_bytes:
                 gate_info = stages.run("gate", gate_frames, frames,
                                        integrity)
                 if gate_info["verdict"] == "quarantine":
                     return None, gate_info
             block = stages.run("clean", reader.block_from_frames, frames)
             del frames
-            if integrity is not None and not gate_bytes:
+            if got.canary is not None:
+                block = stages.run("clean", inject_tensor, block, got.canary)
+            if integrity is not None and not by_bytes:
                 block, gate_info = stages.run("gate", gate_tensor, block,
                                               integrity)
         if gate_info is not None and gate_info["verdict"] == "quarantine":
             return None, gate_info
+        timer.count("dispatches")
         return (stages.run("clean", clean_chunk, block, mask, **clean_kw),
                 gate_info)
 
@@ -629,24 +839,52 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
             quarantined.append(istart_)
         return reason
 
-    def _persist_async(payload, istart_, iend_, reason=None):
+    def lineage_finish(cl, istart_, iend_, payload, reason_out):
+        """Stamp persist-complete on a hit's lineage and write its doc
+        beside the npz pair; a dead-lettered persist has no pair to sit
+        beside, but its candidate span still ends."""
+        if cl is None:
+            return
+        if payload is not None and reason_out is None:
+            try:
+                lineage.persisted(
+                    cl, writer=lambda doc, a=istart_, b=iend_:
+                    store.save_lineage(root, a, b, doc))
+            except OSError as exc:
+                logger.warning("lineage doc for chunk %d-%d failed (%r); "
+                               "candidate unaffected", istart_, iend_, exc)
+                cl.span.end()
+        else:
+            cl.span.end()
+
+    def _persist_async(payload, istart_, iend_, pspan=None, reason=None,
+                       cl=None):
         t0 = time.perf_counter()
         try:
-            _persist_and_mark(payload, istart_, iend_, reason=reason)
+            out = _persist_and_mark(payload, istart_, iend_, reason=reason)
+            lineage_finish(cl, istart_, iend_, payload, out)
         finally:
             stages.add("persist", time.perf_counter() - t0)
+            if pspan is not None:
+                pspan.end()
 
     persist_pool = (ThreadPoolExecutor(max_workers=1) if overlap_persist
                     else None)
     persist_futures = []
 
-    def persist(payload, istart_, iend_, reason=None):
+    def persist(payload, istart_, iend_, reason=None, cl=None):
         if persist_pool is None:
-            stages.run("persist", _persist_and_mark, payload, istart_,
-                       iend_, reason=reason)
+            with stages.bucket("persist"):
+                out = _persist_and_mark(payload, istart_, iend_,
+                                        reason=reason)
+                lineage_finish(cl, istart_, iend_, payload, out)
             return
+        # the searched chunk's persist, ended on the worker: the trace
+        # shows the overlap the serial budget leaves out
+        pspan = (begin_span("persist", track="persist-worker",
+                            chunk=istart_) if reason is None else None)
         persist_futures.append(persist_pool.submit(
-            _persist_async, payload, istart_, iend_, reason=reason))
+            _persist_async, payload, istart_, iend_, pspan, reason, cl))
         # backpressure: each queued payload holds its cutout and table on
         # the host; two in flight keep the overlap and bound the memory
         while len(persist_futures) > 2:
@@ -658,19 +896,34 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
         while persist_futures and (block or persist_futures[0].done()):
             persist_futures.pop(0).result()
 
-    def quarantine(istart_, iend_, reason, stats):
+    def quarantine(istart_, iend_, reason, stats, t_chunk, oom_floor=False):
         obs_metrics.counter("putpu_chunks_quarantined_total").inc()
         logger.error("chunk %d-%d QUARANTINED (%s): %s -> %s", istart_,
                      iend_, reason, stats, manifest.path)
         manifest.record(istart_, iend_, reason, stats)
         persist(None, istart_, iend_, reason=reason)
+        if canary is not None:
+            # the chunk never reached the search: its injection is no miss
+            canary.discard(istart_)
+        if lineage is not None:
+            lineage.discard(istart_)
+        health_update(istart_, time.perf_counter() - t_chunk,
+                      is_quarantined=True, oom_floor=oom_floor)
 
+    obs_server = None
+    if http_port is not None:
+        obs_server = start_obs_server(http_port, health=health,
+                                      progress_fn=progress_snapshot,
+                                      host=http_host, push=push)
     reader_pool = ThreadPoolExecutor(max_workers=1)
-    next_read = submit_read(0)
     prefetched = None  # (istart, Upload) of a chunk uploaded ahead
     try:
+        next_read = submit_read(0)
         for ichunk, istart in enumerate(todo):
+          with timer.chunk(istart):
+            t_chunk = time.perf_counter()
             iend = istart + chunk_size(istart)
+            t0 = istart * sample_time
             got = stages.run("read", next_read.result)
             next_read = submit_read(ichunk + 1)
 
@@ -683,7 +936,8 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
                 stats = {"expected": int(chunk_size(istart)),
                          "got": int(got.nread)}
             if reason is not None:
-                quarantine(istart, iend, reason, stats)
+                nproc += 1
+                quarantine(istart, iend, reason, stats, t_chunk)
                 prefetched = None
                 drain_persist()
                 continue
@@ -692,9 +946,10 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
             prefetched = None
             if gate_info is not None:
                 if gate_info["verdict"] == "quarantine":
+                    nproc += 1
                     quarantine(istart, iend, fault_reasons.INTEGRITY_PREFIX
                                + ",".join(gate_info["reasons"]),
-                               gate_info["stats"])
+                               gate_info["stats"], t_chunk)
                     drain_persist()
                     continue
                 if gate_info["verdict"] == "sanitized":
@@ -704,6 +959,8 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
                                    gate_info["stats"])
             # start chunk k+1's upload before chunk k's search
             prefetched = prefetch_upload(ichunk + 1, next_read)
+            if lineage is not None:
+                lineage.mark(istart, "dispatch")
             try:
                 result = stages.run(
                     "search", _search_with_fallback, array, dmmin, dmmax,
@@ -713,27 +970,86 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
                     policy=dispatch_policy)
             except _ladder.OOMFloorError as exc:
                 obs_metrics.counter("putpu_oom_floor_total").inc()
+                nproc += 1
                 quarantine(istart, iend, fault_reasons.OOM_FLOOR,
-                           {"error": repr(exc)})
+                           {"error": repr(exc)}, t_chunk, oom_floor=True)
                 drain_persist()
                 continue
             table, plane = result if capture else (result, None)
+            if lineage is not None:
+                lineage.mark(istart, "ready")
             if plane_consumer is not None:
                 stages.run("plane_consume", plane_consumer, istart, plane,
                            table)
+
+            canary_obs = (canary.observe(istart, table, snr_threshold)
+                          if canary is not None else None)
+            ncand_above = None
+            if health is not None:
+                # the candidate rate (rows above the threshold), less the
+                # rows a canary lit
+                ncand_above = int(np.count_nonzero(
+                    np.asarray(table["snr"], dtype=np.float64)
+                    > float(snr_threshold)))
+                if canary_obs is not None:
+                    ncand_above = max(
+                        ncand_above - canary_obs["n_above_near"], 0)
+
+            best = table.best_row()
+            is_hit = bool(best["snr"] > snr_threshold)
+            # what persist, sift and lineage see, and the plane row of the
+            # dedispersed profile: they move only when a canary tops the
+            # chunk and a genuine weaker pulse is promoted in its place
+            sci_table = table
+            best_plane_idx = None
+            if is_hit and canary_obs is not None \
+                    and canary_obs["best_is_canary"]:
+                canary.tag_hit(istart)
+                sci_idx = canary_obs["science_idx"]
+                sci_snr = canary_obs["science_snr"]
+                if sci_idx is not None and sci_snr > float(snr_threshold):
+                    keep = ~canary_obs["canary_rows"]
+                    sci_table = ResultTable(
+                        {name: table[name][keep]
+                         for name in table.colnames}, meta=table.meta)
+                    best = {name: table[name][sci_idx]
+                            for name in table.colnames}
+                    best_plane_idx = int(sci_idx)
+                    obs_metrics.counter(
+                        "putpu_canary_promoted_hits_total").inc()
+                    logger.info(
+                        "chunk %d-%d: canary outranked a genuine pulse "
+                        "— promoted the science best row (DM=%.2f "
+                        "snr=%.2f), canary rows dropped from the "
+                        "persisted table", istart, iend,
+                        float(best["DM"]), float(best["snr"]))
+                else:
+                    is_hit = False
+            elif is_hit and canary_obs is not None \
+                    and canary_obs["recovered"]:
+                obs_metrics.counter(
+                    "putpu_canary_contaminated_tables_total").inc()
+                logger.info(
+                    "chunk %d-%d: real hit persisted alongside a "
+                    "recovered canary — trial rows near DM %.1f in the "
+                    "persisted table include synthetic signal", istart,
+                    iend, canary.dm)
             if table.meta.get("certified"):
                 # the noise certificate: no detection above the floor, no
                 # exact rescore paid (is_hit is False by construction)
                 ncertified += 1
-            best = table.best_row()
-            is_hit = bool(best["snr"] > snr_threshold)
+                obs_metrics.counter("putpu_certified_chunks_total").inc()
             info = PulseInfo(
                 allprofs=array, start_freq=start_freq, bandwidth=bandwidth,
                 nbin=array.shape[1], nchan=array.shape[0],
-                date=header.get("tstart"), t0=istart * sample_time,
-                istart=istart, pulse_freq=1.0 / (array.shape[1] * eff_tsamp),
+                date=header.get("tstart"), t0=t0, istart=istart,
+                pulse_freq=1.0 / (array.shape[1] * eff_tsamp),
                 ibeam=reader.ibeam, nbeams=reader.nbeams)
-            if period_search:
+            if period_search and canary_obs is not None:
+                # an injected chunk's plane carries the canary's track: it
+                # skips the period stage
+                obs_metrics.counter("putpu_canary_period_skips_total").inc()
+            elif period_search:
                 pres = stages.run("period", period_search_plane, plane,
                                   eff_tsamp,
                                   fmin=4.0 / (plane.shape[1] * eff_tsamp),
@@ -750,35 +1066,91 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
                     logger.info("PERIODIC chunk %d-%d: f=%.4f Hz DM=%.2f "
                                 "sigma=%.1f", istart, iend, info.period_freq,
                                 info.period_dm, info.period_sigma)
-            payload = None
+            payload = cl = None
             if is_hit:
                 info.dm = float(best["DM"])
                 info.snr = float(best["snr"])
                 info.width = float(best["rebin"]) * eff_tsamp
-                info.disp_profile = to_numpy(array.mean(0))
-                if plane is not None:
-                    info.dedisp_profile = to_numpy(plane[table.argbest()])
-                # the cutout is sliced on the device: the chunk stays
-                # there, and the persist payload holds host arrays only
-                info = store.trim_waterfall(info, table)
-                info.allprofs = to_numpy(info.allprofs)
-                info.compute_stats()
-                hits.append((istart, iend, info, table))
-                payload = (info, table)
+                with stages.bucket("hit_products"):
+                    info.disp_profile = to_numpy(array.mean(0))
+                    if plane is not None:
+                        info.dedisp_profile = to_numpy(plane[
+                            best_plane_idx if best_plane_idx is not None
+                            else table.argbest()])
+                    # the cutout is sliced on the device: the chunk stays
+                    # there, and the persist payload holds host arrays
+                    info = store.trim_waterfall(info, sci_table)
+                    info.allprofs = to_numpy(info.allprofs)
+                    timer.count("readbacks", 2 + (plane is not None))
+                    obs_metrics.counter("putpu_bytes_readback_total").inc(
+                        int(info.allprofs.nbytes))
+                    # the profiles' Z^2 and H statistics, on the host
+                    info.compute_stats()
+                hits.append((istart, iend, info, sci_table))
+                obs_metrics.counter("putpu_hits_total").inc()
+                payload = (info, sci_table)
                 logger.info("HIT chunk %d-%d: DM=%.2f snr=%.2f width=%gs",
                             istart, iend, info.dm, info.snr, info.width)
+                if lineage is not None:
+                    cl = lineage.candidate(
+                        istart, iend, name=f"{root}_{istart}-{iend}",
+                        dm=info.dm, snr=info.snr, width=info.width)
+                if push is not None:
+                    push.publish(
+                        {"schema_version": 1, "kind": "candidate",
+                         "fname": os.path.basename(str(fname)),
+                         "root": root, "chunk": int(istart),
+                         "iend": int(iend), "t_start_s": float(t0),
+                         "dm": info.dm, "snr": info.snr,
+                         "width_s": info.width,
+                         "fingerprint": sp["fingerprint"]},
+                        on_delivered=(
+                            None if cl is None else
+                            lambda sub, _lat, _cl=cl:
+                            lineage.delivered(_cl, sub)))
+            if make_plots == "all" or (make_plots == "hits" and is_hit):
+                from .diagnostics import plot_diagnostics
+
+                # the full table backs the figure (its plane panel is
+                # labelled by the table's trials row for row), so a
+                # promoted chunk's figure shows the canary's track
+                stages.run("plot", plot_diagnostics, info, table, plane,
+                           outname=os.path.join(
+                               output_dir, f"{root}_{istart}-{iend}.jpg"),
+                           t0=t0, show=show_plots, waterfall=array)
             # a non-hit's info still holds the cleaned chunk on the card
             del array, plane, info
-            persist(payload, istart, iend)
+            # submitted after the figure: the ledger never marks a chunk
+            # whose figure is missing
+            persist(payload, istart, iend, cl=cl)
             # second prefetch window: the read has had the whole search to
             # finish
             if prefetched is None:
                 prefetched = prefetch_upload(ichunk + 1, next_read)
-            drain_persist()
+            headroom_frac = None
+            if dev.type == "cuda":
+                snap = obs_memory.record_watermark(dev)
+                headroom_frac = ((snap["bytes_limit"] - snap["bytes_in_use"])
+                                 / snap["bytes_limit"])
+            nproc += 1
+            health_update(istart, time.perf_counter() - t_chunk,
+                          candidates=ncand_above,
+                          headroom_frac=headroom_frac)
+            if lineage is not None:
+                lineage.discard(istart)
+            if roofline.enabled():
+                roofline.flush()
+          drain_persist()
     except BaseException:
         reader_pool.shutdown(wait=False, cancel_futures=True)
         if persist_pool is not None:
             persist_pool.shutdown(wait=False, cancel_futures=True)
+        if push is not None and push_owned:
+            push.close(timeout_s=1.0)
+        if obs_server is not None:
+            obs_server.close()
+        if stage_seconds is not None:
+            stage_seconds.update(_since(timer.stage_seconds(), base_seconds))
         raise
     reader_pool.shutdown(wait=True)
     if persist_pool is not None:
@@ -789,6 +1161,21 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
             drain_persist(block=True)
 
         stages.run("persist_drain", finish)
+    if push is not None and push_owned:
+        # bounded: a wedged subscriber journals to the dead letter
+        logger.info("PUSH_JSON %s", json.dumps(push.close()))
+    if health is not None and nproc:
+        # a dead letter from the final drain reaches the engine here
+        health_update("drain", None)
+    timer.report()
+    timer.footer()
+    logger.info("BUDGET_JSON %s", json.dumps(timer.to_json()))
+    if canary is not None:
+        logger.info("CANARY_JSON %s", json.dumps(canary.to_json()))
+    if health is not None:
+        logger.info("health verdict at end of run: %s%s", health.verdict,
+                    " (" + ", ".join(health.reasons()) + ")"
+                    if health.reasons() else "")
 
     if resume:
         # the complete result of the configuration: hits persisted by
@@ -826,6 +1213,36 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
     logger.info("done: %d chunks searched, %d hits, %d noise-certified, "
                 "%d quarantined", len(todo), len(hits), ncertified,
                 len(quarantined))
+    if report_out:
+        from ..obs import report as obs_report
+
+        try:  # never fatal: observability must not take down a run
+            md_path, html_path = obs_report.write_report(
+                str(report_out),
+                meta={"root": root, "fname": os.path.abspath(str(fname)),
+                      "fingerprint": sp["fingerprint"],
+                      "chunks_processed": nproc, "hits": len(hits),
+                      "certified": ncertified, "backend": "torch",
+                      "device": str(dev), "kernel": kernel,
+                      "snr_threshold": snr_threshold},
+                budget=timer.to_json(max_per_chunk=0),
+                roofline=roofline.table(),
+                health=health.snapshot() if health is not None else None,
+                canary=canary.to_json() if canary is not None else None,
+                quarantine=manifest.records(),
+                metrics=obs_metrics.REGISTRY.snapshot(),
+                lineage=(lineage.summary()
+                         if lineage is not None else None),
+                push=push.stats() if push is not None else None)
+        except Exception as exc:  # noqa: BLE001 — never fatal
+            logger.warning("survey report failed (%r); run result is "
+                           "unaffected", exc)
+        else:
+            logger.info("survey report -> %s + %s", md_path, html_path)
+    if obs_server is not None:
+        obs_server.close()
+    if stage_seconds is not None:
+        stage_seconds.update(_since(timer.stage_seconds(), base_seconds))
     if summary is not None:
         summary.update(snr_threshold=snr_threshold,
                        snr_floor=sp["search_snr_floor"], searched=len(todo),
@@ -833,3 +1250,10 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
                        fallback=state.get("fallback"),
                        oom_descents=_ladder.level())
     return hits, store
+
+
+def _since(now, base):
+    """The stage seconds of ``now`` less those already in ``base`` (a
+    caller-owned accountant may hold an earlier run's)."""
+    return {k: v - base.get(k, 0.0) for k, v in now.items()
+            if v - base.get(k, 0.0) > 0.0 or k not in base}

@@ -19,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -30,6 +31,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded = {}
+
+#: kernel libraries built or loaded for the first time in this process,
+#: and their seconds: the budget accountant's compile counter
+#: (:func:`..utils.logging_utils.compile_snapshot`)
+COMPILES = {"count": 0, "secs": 0.0}
+COMPILES_LOCK = threading.Lock()
 
 class KernelBuildError(RuntimeError):
     """A kernel could not be built, loaded or launched (no code for the
@@ -106,9 +113,13 @@ def build(names):
 def load(name):
     """The ctypes handle of ``csrc/<name>.cu``'s library, built if needed."""
     if name not in _loaded:
+        t0 = time.perf_counter()
         path, _, _ = build([name])[name]
         try:
             _loaded[name] = ctypes.CDLL(str(path))
         except OSError as exc:
             raise KernelBuildError(f"cannot load {path}: {exc}") from exc
+        with COMPILES_LOCK:
+            COMPILES["count"] += 1
+            COMPILES["secs"] += time.perf_counter() - t0
     return _loaded[name]

@@ -233,7 +233,8 @@ def test_persist_backpressure_keeps_two_in_flight(pulse_file, tmp_path,
         finally:
             in_flight.pop()
 
-    search = {**SEARCH, "snr_threshold": 3.0}  # every chunk a hit
+    # every chunk a hit; no figures, so the loop outpaces the slow disk
+    search = {**SEARCH, "snr_threshold": 3.0, "make_plots": False}
     search_by_chunks(pulse_file, device="cpu",
                      output_dir=str(tmp_path / "s"), overlap_persist=False,
                      **search)

@@ -237,6 +237,17 @@ hits, _ = pulsarutils_tpu_torch.search_by_chunks(
 assert hits
 assert COUNTS[("putpu_precision_compensated_engagements_total",
                "f32_compensated")] > 0
+del os.environ["PUTPU_PRECISION"]
+# the accounting and reporting layers: plots, the span and device traces,
+# the canary, lineage, the report and the HTTP surface
+from pulsarutils_tpu_torch.obs import trace
+out = {str(tmp_path / 'observe')!r}
+with trace.trace_session(out + ".json", device_trace_dir=out + "_device"):
+    hits, _ = pulsarutils_tpu_torch.search_by_chunks(
+        {path!r}, dmmin=100.0, dmmax=200.0, chunk_length=1.024,
+        device="cpu", canary=1.0, lineage=True, http_port=0,
+        report_out=out + "_report", output_dir=out)
+assert hits
 bad = [k for k in sys.modules if k == "jax" or k.startswith("jax.")
        or k == "pulsarutils_tpu" or k.startswith("pulsarutils_tpu.")]
 assert not bad, bad

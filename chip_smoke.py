@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (``pulsarutils_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N] [--quick | --breakdown | --overlap |
-                           --observe]
+                           --observe | --lowbit]
 
 Phases, one JSON line each:
 
@@ -128,7 +128,25 @@ Phases, one JSON line each:
    events in the loop; it prints the three loops' seconds, seconds a
    plot, the budget's unattributed share and the card's busy share over
    each traced loop from its device trace;
-9. the kernels line (B6 once per policy), then ``{"ok": true,
+9. the low-bit files (``e2e_lowbit``): the device unpack at 1024 x 2^18,
+   1, 2 and 4 bits in both band orders, equal to the host decode bit for
+   bit and timed against its byte bound; the end-to-end geometry at 2
+   bits (the DM 400 pulse quantised, 168 MB) and an 8-bit twin holding
+   the same codes, searched direct at S/N 8 in the order packed, twin,
+   twin, packed: equal hits, tables and ledgers, B1 and B4 as often as on
+   the twin, a quarter of its uploaded bytes, the ``putpu_lowbit_*``
+   counts of the JAX package's definition, stage seconds of each run;
+   1 and 4 bits the same over two chunks; the hybrid and the FDD on the
+   2-bit file against the twin (B3, B2a, B2b and B5 launched on packed
+   data); a copy with the first chunk at the top rail (quarantined with
+   the code gate's reason); the packed canary in every chunk (the science
+   hits unchanged); ``capture_plane="memmap"`` of one 514-trial chunk
+   equal to the dense capture bit for bit, its file removed by
+   ``release_plane``; ``PUclean`` on the card against the CPU (bytes
+   equal; with ``--fft-zap`` the zapped bins equal, the differing codes
+   counted); ``period_search`` on a 2-bit copy of the pulsar file (the
+   pulsar in every chunk);
+10. the kernels line (B6 once per policy), then ``{"ok": true,
    "device": {...}}`` last.
 
 Any failed check exits non-zero before the last line.  Without a CUDA
@@ -139,13 +157,15 @@ build and the breakdowns of the direct sweep, B6 and B3, which call
 only the wrappers' entry points: a copy of this script beside another
 checkout times that checkout the same way.  ``--overlap`` runs only the
 build and ``e2e_overlap``, ``--observe`` the build, the end-to-end file
-and ``e2e_observe``.  None of the four prints the last line.
+and ``e2e_observe``, ``--lowbit`` the build and ``e2e_lowbit`` (with
+its own pulsar file).  None of the five prints the last line.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -1792,19 +1812,13 @@ def _psr_match(freq, dm, spacing, t_obs):
     return bool(freq_ok and abs(dm - E2E_DM) <= 5 * spacing)
 
 
-def phase_e2e_period(torch, np, workdir, seed):
-    """A periodic pulsar file searched per chunk (``period_search``) and
-    by the full-observation periodicity job (with its canary)."""
+def _write_pulsar_file(np, path, seed):
+    """The pulsar file: the end-to-end geometry, 8 bits, a ~10 Hz pulse
+    train at DM 400."""
     from pulsarutils_tpu_torch.io.sigproc import write_simulated_filterbank
     from pulsarutils_tpu_torch.models.simulate import \
         simulate_accel_pulsar_data
-    from pulsarutils_tpu_torch.ops.plan import dedispersion_plan
-    from pulsarutils_tpu_torch.periodicity.driver import periodicity_search
-    from pulsarutils_tpu_torch.pipeline.search_pipeline import \
-        search_by_chunks
 
-    path = workdir / "pulsar.fil"
-    t0 = time.perf_counter()
     array, header = simulate_accel_pulsar_data(
         freq=PSR_FREQ, dm=E2E_DM, accel=0.0, tsamp=TSAMP,
         nsamples=E2E_NSAMPLES, nchan=NCHAN, start_freq=START_FREQ,
@@ -1812,7 +1826,19 @@ def phase_e2e_period(torch, np, workdir, seed):
         floor=20.0, rng=seed + 5)
     write_simulated_filterbank(str(path), array, header, descending=True,
                                nbits=8)
-    del array
+
+
+def phase_e2e_period(torch, np, workdir, seed):
+    """A periodic pulsar file searched per chunk (``period_search``) and
+    by the full-observation periodicity job (with its canary)."""
+    from pulsarutils_tpu_torch.ops.plan import dedispersion_plan
+    from pulsarutils_tpu_torch.periodicity.driver import periodicity_search
+    from pulsarutils_tpu_torch.pipeline.search_pipeline import \
+        search_by_chunks
+
+    path = workdir / "pulsar.fil"
+    t0 = time.perf_counter()
+    _write_pulsar_file(np, path, seed)
     emit("e2e_period_file", path=path.name, nchan=NCHAN,
          nsamples=E2E_NSAMPLES, nbits=8, dm=E2E_DM, freq_hz=PSR_FREQ,
          bytes=path.stat().st_size,
@@ -2752,6 +2778,463 @@ def phase_e2e_observe(torch, np, workdir, path, chunk_length, nchunks):
     return counts
 
 
+#: e2e_lowbit: the end-to-end file's geometry at 1, 2 and 4 bits, each
+#: beside an 8-bit twin holding the same codes: blocks of 2^17 samples
+#: (the 2-bit file's 5 blocks are the end-to-end file's four chunks; 1
+#: and 4 bits take two chunks, depth cut, widths not)
+LOWBIT_BLOCKS = {2: 5, 1: 3, 4: 3}
+#: the code step of each width on the simulator's |N(impulse, 8)|
+#: samples: 2 bits at 6 (the code-0 share ~55%, the top rail ~2.4%), 4
+#: at 1.5, 1 bit at 6.7 (~40% ones: neither the 8-bit twin's zero nor its
+#: saturation share reaches the float gate's limit)
+LOWBIT_STEP = {1: 6.7, 2: 6.0, 4: 1.5}
+#: the 2-bit copy of the pulsar file: codes at its 8-bit values 23, 26
+#: and 30 (|N| at 2.5, 5.5 and 9.5 above the floor of 20: its quartiles)
+PSR_2BIT_EDGES = (23.0, 26.0, 30.0)
+
+
+def _write_lowbit_pair(torch, np, path, twin, nbits, nblocks, seed):
+    """A ``nbits`` descending-band filterbank and its 8-bit twin, written
+    block by block with the same codes: the seeded simulator's model
+    (``|N(impulse, 8)|``, an impulse of 12 at the file's middle sample in
+    every channel, channels rolled by their DM 400 delays, drawn on the
+    card) cut into codes of :data:`LOWBIT_STEP` and clipped at the top,
+    encoded on the card (``FilterbankWriter.encode_frames``: packed for
+    ``nbits``, one byte a code for the twin)."""
+    from pulsarutils_tpu_torch.io.sigproc import (FilterbankWriter,
+                                                  header_from_simulated)
+    from pulsarutils_tpu_torch.ops.plan import dedispersion_shifts
+
+    block = E2E_CHUNK // 2
+    sim = {"nchans": NCHAN, "bandwidth": BANDWIDTH, "fbottom": START_FREQ,
+           "tsamp": TSAMP}
+    header = {"nchans": NCHAN, "nifs": 1, "tstart": 0.0,
+              "source_name": "chip_smoke", "machine_id": 0,
+              "telescope_id": 0, "data_type": 1,
+              **header_from_simulated(sim, descending=True)}
+    shifts = np.rint(dedispersion_shifts(NCHAN, E2E_DM, START_FREQ,
+                                         BANDWIDTH, TSAMP)).astype(np.int64)
+    idx = ((torch.arange(block, device="cuda")[None, :]
+            - torch.from_numpy(shifts).cuda()[:, None]) % block)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    top = float((1 << nbits) - 1)
+    with FilterbankWriter(str(path), {**header, "nbits": nbits}) as w, \
+            FilterbankWriter(str(twin), {**header, "nbits": 8}) as w8:
+        for b in range(nblocks):
+            x = torch.randn((NCHAN, block), generator=gen, device="cuda")
+            x *= 8.0
+            if b == nblocks // 2:  # nblocks is odd
+                x[:, block // 2] += 12.0
+            x = torch.gather(x.abs_(), 1, idx)
+            codes = torch.floor(x / LOWBIT_STEP[nbits]).clamp_(max=top)
+            frames = codes.flip(0).T  # time-major, file channel order
+            w.write_frames(w.encode_frames(frames))
+            w8.write_frames(w8.encode_frames(frames))
+            del x, codes, frames
+    torch.cuda.empty_cache()
+
+
+def _lowbit_run(torch, path, out, **kw):
+    """One ``search_by_chunks`` run on the card of the e2e geometry at S/N
+    8 (unless ``kw`` says otherwise): hits, store, launches, counter
+    deltas, stage seconds, the loop's seconds."""
+    from pulsarutils_tpu_torch.pipeline.search_pipeline import \
+        search_by_chunks
+
+    stages, summary = {}, {}
+    kw = {"snr_threshold": 8.0, **kw}
+    before = _counter_deltas(None)
+    reset_counts()
+    t0 = time.perf_counter()
+    hits, store = search_by_chunks(
+        str(path), chunk_length=E2E_CHUNK // 2 * TSAMP, dmmin=DMMIN,
+        dmmax=DMMAX, output_dir=str(out), device="cuda", make_plots=False,
+        stage_seconds=stages, summary=summary, **kw)
+    wall = time.perf_counter() - t0
+    return {"hits": hits, "store": store, "counts": read_counts(),
+            "counters": _counter_deltas(before), "stages": stages,
+            "summary": summary, "wall_s": wall,
+            "loop_s": wall - stages.get("badchans", 0.0), "out": out}
+
+
+def _lowbit_stages(run):
+    st = run["stages"]
+    return {**{k: st.get(k, 0.0) for k in ("read_decode", "read",
+                                          "upload_wait", "gate", "clean",
+                                          "search")},
+            "loop": run["loop_s"]}
+
+
+def _check_twin(np, label, packed, twin, nbits, nchunks, kernels):
+    """A packed run against its 8-bit twin's: equal hits and tables, equal
+    ledgers, equal launches of ``kernels`` (each launched), the packed
+    upload ``nbits / 8`` of the twin's and the ``putpu_lowbit_*`` counts
+    of the JAX package's definition."""
+    for run, which in ((packed, "packed"), (twin, "twin")):
+        check_clean_run(run["summary"], f"{label} {which}")
+    check(packed["hits"], f"{label}: the pulse was not found")
+    check(_tables_equal(np, packed["hits"], twin["hits"]),
+          f"{label}: hits differ from the 8-bit twin's: "
+          f"{_hit_mismatch(packed['hits'], twin['hits'])}")
+    check(all(h[2].dm == t[2].dm and h[2].snr == t[2].snr
+              for h, t in zip(packed["hits"], twin["hits"])),
+          f"{label}: candidates differ from the twin's")
+    check(packed["store"].done_chunks == twin["store"].done_chunks
+          and len(packed["store"].done_chunks) == nchunks,
+          f"{label}: ledgers {packed['store'].done_chunks} vs "
+          f"{twin['store'].done_chunks}")
+    for k in kernels:
+        check(packed["counts"][k] == twin["counts"][k] > 0,
+              f"{label}: {k} launched {packed['counts'][k]} times, "
+              f"{twin['counts'][k]} on the twin")
+    up = packed["counters"].get("putpu_bytes_uploaded_total", 0)
+    tup = twin["counters"].get("putpu_bytes_uploaded_total", 0)
+    check(up * 8 == tup * nbits and up > 0,
+          f"{label}: uploaded {up} bytes against the twin's {tup}")
+    c = packed["counters"]
+    saved = nchunks * E2E_CHUNK * NCHAN * (4 - nbits / 8)
+    check(c.get("putpu_lowbit_packed_chunks_total") == nchunks
+          and c.get("putpu_lowbit_bytes_saved_total") == saved,
+          f"{label}: lowbit counters {c.get('putpu_lowbit_packed_chunks_total')}"
+          f" / {c.get('putpu_lowbit_bytes_saved_total')} (want {nchunks} / "
+          f"{saved})")
+    return {"uploaded_bytes": up, "twin_uploaded_bytes": tup,
+            "launches": packed["counts"], "twin_launches": twin["counts"],
+            "hits": len(packed["hits"]),
+            "stage_seconds": _lowbit_stages(packed),
+            "twin_stage_seconds": _lowbit_stages(twin)}
+
+
+def _unpack_case(torch, np, nbits):
+    """The device unpack at 1024 x 2^18 against the host decode, both band
+    orders, bit for bit, and its CUDA-event ms against its byte bound
+    (packed bytes read, float32 written)."""
+    from pulsarutils_tpu_torch.io.lowbit import (device_unpack_block,
+                                                 unpack_numpy)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(nbits)
+    frames = torch.randint(0, 256, (E2E_CHUNK, NCHAN * nbits // 8),
+                           generator=gen, dtype=torch.uint8, device="cuda")
+    oracle = unpack_numpy(frames.cpu().numpy(), nbits).reshape(
+        E2E_CHUNK, NCHAN).T
+    out = {}
+    for descending in (False, True):
+        got = device_unpack_block(frames, nbits, NCHAN, descending)
+        want = oracle[::-1] if descending else oracle
+        check(np.array_equal(got.cpu().numpy(), want),
+              f"device unpack {nbits}-bit descending={descending}: not the "
+              "host decode")
+        ms, _ = time_ms(torch, lambda d=descending: device_unpack_block(
+            frames, nbits, NCHAN, d))
+        bms, by = bound_ms(0, frames.numel() + 4 * NCHAN * E2E_CHUNK)
+        out["descending" if descending else "ascending"] = {
+            "ms": ms, "bound_ms": bms, "bound_by": by,
+            "bound_share": bms / ms}
+    emit("e2e_lowbit_unpack", nbits=nbits, nchan=NCHAN, nsamples=E2E_CHUNK,
+         packed_bytes=frames.numel(), equal_host=True, **out)
+    return out
+
+
+def _write_pulsar_2bit(torch, np, src, dst):
+    """The 2-bit copy of the pulsar file: its 8-bit values cut at
+    :data:`PSR_2BIT_EDGES`, block by block on the card, and packed
+    there."""
+    from pulsarutils_tpu_torch.io.sigproc import (FilterbankReader,
+                                                  FilterbankWriter,
+                                                  read_header)
+
+    reader = FilterbankReader(str(src))
+    header, _ = read_header(str(src))
+    with FilterbankWriter(str(dst), {**header, "nbits": 2}) as w:
+        for istart in range(0, reader.nsamples, E2E_CHUNK // 2):
+            x = reader.read_block_tensor(istart, E2E_CHUNK // 2, "cuda")
+            codes = sum((x >= e).float() for e in PSR_2BIT_EDGES)
+            if reader.band_descending:
+                codes = codes.flip(0)
+            w.write_frames(w.encode_frames(codes.T))
+
+
+def _lowbit_clean(torch, np, path, workdir):
+    """``PUclean`` on the 2-bit file on the card against the CPU run:
+    the bytes without ``--fft-zap``; with it, the zapped bins, and the
+    codes that differ counted."""
+    import logging
+
+    from pulsarutils_tpu_torch.cli import clean_main
+    from pulsarutils_tpu_torch.io.sigproc import FilterbankReader
+    from pulsarutils_tpu_torch.io.lowbit import unpack_numpy
+    from pulsarutils_tpu_torch.pipeline.cleanup import cleanup_data
+
+    out = {}
+    root = logging.getLogger()
+    saved = root.handlers[:], root.level
+    try:
+        for label, device in (("card", "cuda"), ("host", "cpu")):
+            dst = workdir / f"clean_{label}.fil"
+            t0 = time.perf_counter()
+            rc = clean_main.main([str(path), "-o", str(dst), "--device",
+                                  device])
+            out[f"{label}_s"] = time.perf_counter() - t0
+            check(rc == 0, f"PUclean --device {device} returned {rc}")
+    finally:
+        root.handlers[:] = saved[0]
+        root.setLevel(saved[1])
+    a, b = (workdir / "clean_card.fil").read_bytes(), \
+        (workdir / "clean_host.fil").read_bytes()
+    check(a == b, "PUclean: the card's output bytes differ from the CPU's")
+    out["bytes"] = len(a)
+    del a, b
+    zap = {}
+    for label, device in (("card", "cuda"), ("host", "cpu")):
+        summary = {}
+        t0 = time.perf_counter()
+        cleanup_data(str(path), str(workdir / f"zap_{label}.fil"),
+                     fft_zap=True, device=device, summary=summary)
+        out[f"fft_zap_{label}_s"] = time.perf_counter() - t0
+        zap[label] = summary
+    check(len(zap["card"]["zapped"]) == len(zap["host"]["zapped"])
+          and all(np.array_equal(g[2], c[2]) and g[:2] == c[:2]
+                  for g, c in zip(zap["card"]["zapped"],
+                                  zap["host"]["zapped"])),
+          "PUclean --fft-zap: the zapped bins differ between card and CPU")
+    raw = [FilterbankReader(str(workdir / f"zap_{d}.fil"))._mmap
+           for d in ("card", "host")]
+    differ = np.flatnonzero(np.asarray(raw[0]).ravel()
+                            != np.asarray(raw[1]).ravel())
+    codes = 0
+    if differ.size:
+        ga = unpack_numpy(np.asarray(raw[0]).ravel()[differ], 2)
+        gb = unpack_numpy(np.asarray(raw[1]).ravel()[differ], 2)
+        codes = int(np.count_nonzero(ga != gb))
+    out.update(zapped_bins=zap["card"]["nzapped"], codes_differing=codes,
+               codes=int(raw[0].size * 4))
+    del raw
+    for name in ("clean_card", "clean_host", "zap_card", "zap_host"):
+        (workdir / f"{name}.fil").unlink()
+    return out
+
+
+def phase_e2e_lowbit(torch, np, workdir, seed, pulsar=None):
+    """1/2/4-bit files through every path on the card, each against its
+    8-bit twin: the device unpack, the packed chunk loop (direct; at 2
+    bits also the hybrid, the FDD and ``period_search`` on a 2-bit copy
+    of the pulsar file), the code-domain gate on a railed copy, the
+    packed canary, the memmap spill and ``PUclean``.  Returns the launch
+    counts of each packed path."""
+    from pulsarutils_tpu_torch.io.lowbit import PackedFrames
+    from pulsarutils_tpu_torch.io.sigproc import FilterbankReader
+    from pulsarutils_tpu_torch.obs.canary import CanaryController
+    from pulsarutils_tpu_torch.ops.plan import dedispersion_plan
+    from pulsarutils_tpu_torch.ops.search import (dedispersion_search,
+                                                  release_plane)
+    from pulsarutils_tpu_torch.pipeline.spectral_stats import get_bad_chans
+    from pulsarutils_tpu_torch.utils.logging_utils import BudgetAccountant
+
+    launches = {}
+    unpack = {n: _unpack_case(torch, np, n) for n in (1, 2, 4)}
+
+    # 1. the 2-bit file and its twin, direct sweep: P, T, T, P
+    files = {}
+    for nbits in (2, 1, 4):
+        t0 = time.perf_counter()
+        path, twin = workdir / f"lb{nbits}.fil", workdir / f"lb{nbits}_8.fil"
+        _write_lowbit_pair(torch, np, path, twin, nbits,
+                           LOWBIT_BLOCKS[nbits], seed + 20 + nbits)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        get_bad_chans(str(path))  # the cache, before the timed runs
+        scan_s = time.perf_counter() - t0
+        # the twin holds the same codes: the same bad channels
+        shutil.copy(f"{path}.badchans", f"{twin}.badchans")
+        files[nbits] = (path, twin)
+        emit("e2e_lowbit_file", nbits=nbits, nchan=NCHAN,
+             nsamples=LOWBIT_BLOCKS[nbits] * E2E_CHUNK // 2,
+             bytes=path.stat().st_size, twin_bytes=twin.stat().st_size,
+             write_s=write_s, badchans_s=scan_s)
+        if nbits != 2:
+            continue
+        runs = [_lowbit_run(torch, p, workdir / f"out_lb2_{i}")
+                for i, p in enumerate((path, twin, twin, path))]
+        nchunks = len(runs[0]["store"].done_chunks)
+        check(nchunks == 4, f"2-bit file: {nchunks} chunks")
+        rec = _check_twin(np, "e2e_lowbit 2-bit", runs[0], runs[1], 2,
+                          nchunks, ("B1", "B4"))
+        _check_twin(np, "e2e_lowbit 2-bit (repeat)", runs[3], runs[2], 2,
+                    nchunks, ("B1", "B4"))
+        check(runs[0]["counts"]["B1"] == 2 * nchunks,
+              f"2-bit direct: {runs[0]['counts']}")
+        emit("e2e_lowbit_direct", nbits=2, chunks=nchunks, **rec,
+             order="packed, twin, twin, packed",
+             runs_stage_seconds=[_lowbit_stages(r) for r in runs])
+        launches["2-bit direct sweep (e2e_lowbit)"] = runs[0]["counts"]
+        packed_run = runs[0]
+        for r in runs[1:]:
+            shutil.rmtree(r["out"], ignore_errors=True)
+
+    # 2. 1 and 4 bits: two chunks each against their twins
+    for nbits in (1, 4):
+        path, twin = files[nbits]
+        p = _lowbit_run(torch, path, workdir / f"out_lb{nbits}_p")
+        t = _lowbit_run(torch, twin, workdir / f"out_lb{nbits}_t")
+        rec = _check_twin(np, f"e2e_lowbit {nbits}-bit", p, t, nbits, 2,
+                          ("B1", "B4"))
+        emit("e2e_lowbit_direct", nbits=nbits, chunks=2, **rec)
+        launches[f"{nbits}-bit direct sweep (e2e_lowbit)"] = p["counts"]
+        for r in (p, t):
+            shutil.rmtree(r["out"], ignore_errors=True)
+        path.unlink()
+        twin.unlink()
+
+    # 3. the hybrid and the FDD on the 2-bit file
+    path, twin = files[2]
+    for kernel, kernels in (("hybrid", ("B1", "B2a", "B2b", "B3", "B4")),
+                            ("fourier", ("B4", "B5"))):
+        p = _lowbit_run(torch, path, workdir / f"out_lb2_{kernel}",
+                        kernel=kernel)
+        t = _lowbit_run(torch, twin, workdir / f"out_lb2_{kernel}_t",
+                        kernel=kernel)
+        rec = _check_twin(np, f"e2e_lowbit 2-bit {kernel}", p, t, 2, 4,
+                          kernels)
+        emit("e2e_lowbit_kernel", nbits=2, kernel=kernel, **rec)
+        launches[f"2-bit {kernel} (e2e_lowbit)"] = p["counts"]
+        for r in (p, t):
+            shutil.rmtree(r["out"], ignore_errors=True)
+    twin.unlink()
+
+    # 4. the gate: a copy with the first chunk's codes all at the top rail
+    railed = workdir / "lb2_railed.fil"
+    shutil.copy(path, railed)
+    # the clean file's bad channels: the gate is what this run checks
+    shutil.copy(f"{path}.badchans", f"{railed}.badchans")
+    reader = FilterbankReader(str(railed))
+    offset = reader._mmap.offset
+    nbytes = E2E_CHUNK * reader.bytes_per_frame
+    del reader
+    with open(railed, "r+b") as f:
+        f.seek(offset)
+        f.write(b"\xff" * nbytes)
+    g = _lowbit_run(torch, railed, workdir / "out_lb2_railed")
+    check(g["summary"]["quarantined"] == 1
+          and list(g["store"].quarantined_chunks) == ["0"],
+          f"e2e_lowbit gate: quarantined {g['store'].quarantined_chunks}")
+    man = [json.loads(line) for line in (g["out"] / (
+        f"quarantine_{g['store'].fingerprint}.jsonl")).read_text()
+        .splitlines()]
+    check(len(man) == 1 and man[0]["reason"]
+          == "integrity:rail_frac,dead_frac" and man[0]["chunk"] == 0,
+          f"e2e_lowbit gate: manifest {man}")
+    check(g["store"].done_chunks == packed_run["store"].done_chunks,
+          "e2e_lowbit gate: ledger")
+    clear = [h for h in packed_run["hits"] if h[0] >= E2E_CHUNK]
+    check(_tables_equal(np, [h for h in g["hits"] if h[0] >= E2E_CHUNK],
+                        clear), "e2e_lowbit gate: the chunks clear of the "
+          "railed samples differ from the clean run's")
+    emit("e2e_lowbit_gate", quarantined=g["store"].quarantined_chunks,
+         manifest=man, hits=len(g["hits"]),
+         stage_seconds=_lowbit_stages(g))
+    shutil.rmtree(g["out"], ignore_errors=True)
+    railed.unlink()
+
+    # 5. the packed canary in every chunk
+    canary = CanaryController(rate=1.0, snr=40.0, seed=seed)
+    c = _lowbit_run(torch, path, workdir / "out_lb2_canary", canary=canary)
+    check_clean_run(c["summary"], "e2e_lowbit canary")
+    summ = canary.summary()
+    check(summ["injected"] == 4 and c["counters"].get(
+        "putpu_canary_packed_injections_total") == 4,
+        f"e2e_lowbit canary: {summ}, {c['counters']}")
+    off = packed_run["hits"]
+    check([h[:2] for h in c["hits"]] == [h[:2] for h in off]
+          and all(h[2].dm == o[2].dm and abs(h[2].snr - o[2].snr)
+                  <= 1e-2 * o[2].snr for h, o in zip(c["hits"], off)),
+          "e2e_lowbit canary: the science hits changed: "
+          f"{[(h[0], h[2].dm, h[2].snr) for h in c['hits']]} vs "
+          f"{[(h[0], h[2].dm, h[2].snr) for h in off]}")
+    emit("e2e_lowbit_canary", injected=summ["injected"],
+         recovered=summ["recovered"], recall=summ["recall"],
+         snr_ratio=summ.get("snr_ratio_mean"), hits=len(c["hits"]),
+         launches=c["counts"], stage_seconds=_lowbit_stages(c))
+    shutil.rmtree(c["out"], ignore_errors=True)
+
+    # 6. the disk-spilled plane of one chunk, 514 trials
+    pf = PackedFrames.read(FilterbankReader(str(path)), E2E_CHUNK,
+                           E2E_CHUNK)
+    args = (DMMIN, DMMAX, START_FREQ, BANDWIDTH, TSAMP)
+    table, dense = dedispersion_search(pf, *args, capture_plane=True,
+                                       device="cuda")
+    os.environ["PUTPU_PLANE_DIR"] = str(workdir)
+    budget = BudgetAccountant()
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        with budget.chunk(0):
+            table_m, mm = dedispersion_search(pf, *args,
+                                              capture_plane="memmap",
+                                              device="cuda")
+        memmap_s = time.perf_counter() - t0
+    finally:
+        del os.environ["PUTPU_PLANE_DIR"]
+    counts = read_counts()
+    ndm = len(dedispersion_plan(NCHAN, *args))
+    check(isinstance(mm, np.memmap) and mm.shape == (ndm, E2E_CHUNK)
+          and Path(mm.filename).parent == workdir,
+          f"memmap: {type(mm)} {getattr(mm, 'shape', None)}")
+    on_disk = np.load(mm.filename, mmap_mode="r")
+    check(np.array_equal(on_disk, dense.cpu().numpy()),
+          "memmap: the plane on disk is not the dense capture")
+    check(all(np.array_equal(table_m[k], table[k]) for k in table.colnames),
+          "memmap: the table differs from the dense capture's")
+    size = Path(mm.filename).stat().st_size
+    del on_disk, dense
+    release_plane(mm)
+    check(not Path(mm.filename).exists(), "memmap: release_plane left the "
+          "file")
+    spill = budget.to_json()["buckets_s"].get("search/plane_spill")
+    emit("e2e_lowbit_memmap", ndm=ndm, nsamples=E2E_CHUNK, file_bytes=size,
+         equal_dense=True, launches=counts, search_s=memmap_s,
+         plane_spill_s=spill)
+    launches["2-bit chunk, capture_plane='memmap' (e2e_lowbit_memmap)"] = \
+        counts
+    del mm
+
+    # 7. PUclean on the card against the CPU
+    clean = _lowbit_clean(torch, np, path, workdir)
+    emit("e2e_lowbit_clean", **clean)
+    path.unlink()
+
+    # 8. period_search on the 2-bit copy of the pulsar file
+    if pulsar is None:
+        pulsar = workdir / "pulsar.fil"
+        _write_pulsar_file(np, pulsar, seed)
+    psr2 = workdir / "pulsar_2bit.fil"
+    _write_pulsar_2bit(torch, np, pulsar, psr2)
+    r = _lowbit_run(torch, psr2, workdir / "out_psr2", period_search=True)
+    check_clean_run(r["summary"], "e2e_lowbit period_search")
+    dms = dedispersion_plan(NCHAN, *args)
+    spacing = float(dms[1] - dms[0])
+    nchunks = len(r["store"].done_chunks)
+    found = [h for h in r["hits"] if h[2].period_freq is not None
+             and _psr_match(h[2].period_freq, h[2].period_dm, spacing,
+                            E2E_CHUNK * TSAMP)]
+    check(nchunks == 4 and len(found) == nchunks and r["counts"]["B6"] > 0,
+          f"2-bit pulsar found in {len(found)} of {nchunks} chunks: "
+          f"{[(h[2].period_freq, h[2].period_dm, h[2].period_sigma) for h in r['hits']]}")
+    check(r["counters"].get("putpu_lowbit_packed_chunks_total") == nchunks,
+          "2-bit pulsar: not searched packed")
+    emit("e2e_lowbit_period", chunks=nchunks, bytes=psr2.stat().st_size,
+         periodic=[{"istart": h[0], "freq": h[2].period_freq,
+                    "dm": h[2].period_dm, "sigma": h[2].period_sigma}
+                   for h in r["hits"]],
+         launches=r["counts"], stage_seconds=_lowbit_stages(r))
+    launches["2-bit direct sweep with period_search (e2e_lowbit)"] = \
+        r["counts"]
+    shutil.rmtree(r["out"], ignore_errors=True)
+    psr2.unlink()
+    return {"launches": launches, "unpack": unpack}
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2766,6 +3249,8 @@ def main(argv=None):
     parser.add_argument("--observe", action="store_true",
                         help="build, write the end-to-end file and run "
                              "e2e_observe only")
+    parser.add_argument("--lowbit", action="store_true",
+                        help="build and run e2e_lowbit only")
     opts = parser.parse_args(argv)
 
     import numpy as np
@@ -2803,6 +3288,11 @@ def main(argv=None):
             shutil.rmtree(workdir, ignore_errors=True)
             workdir.mkdir(parents=True)
             phase_e2e_overlap(torch, np, workdir, opts.seed)
+            return 0
+        if opts.lowbit:
+            shutil.rmtree(workdir, ignore_errors=True)
+            workdir.mkdir(parents=True)
+            phase_e2e_lowbit(torch, np, workdir, opts.seed)
             return 0
         if opts.observe:
             shutil.rmtree(workdir, ignore_errors=True)
@@ -2845,6 +3335,9 @@ def main(argv=None):
                                     nchunks)
         path.unlink()
         period = phase_e2e_period(torch, np, workdir, opts.seed)
+        lowbit = phase_e2e_lowbit(torch, np, workdir, opts.seed,
+                                  pulsar=workdir / "pulsar.fil")
+        (workdir / "pulsar.fil").unlink()
         overlap = phase_e2e_overlap(torch, np, workdir, opts.seed)
     except CheckFailed as exc:
         print(f"chip_smoke: check failed: {exc}", file=sys.stderr)
@@ -2867,7 +3360,7 @@ def main(argv=None):
                 "direct sweep, overlapped loop (e2e_overlap)":
                     overlap[1]["launches"],
                 "direct sweep, every observer on (e2e_observe)": observe,
-                **precision["runs"]}
+                **precision["runs"], **lowbit["launches"]}
     shape = {"nchan": NCHAN, "nsamples": NSAMPLES}
 
     def levels(kind):

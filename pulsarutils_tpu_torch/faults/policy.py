@@ -12,7 +12,9 @@ quarantine manifest.
   (non-finite values imputed with the per-channel median, NumPy's
   ``nanmedian``), unrecoverable ones **quarantined**.  Both return the
   JAX package's ``gate_chunk`` verdict, ``stats`` and sanitized values on
-  the same chunk;
+  the same chunk; :func:`gate_chunk_packed` and :func:`gate_chunk_lowbit`
+  — the code-domain gate of 1/2/4-bit chunks (rail, zero and
+  dead-channel fractions of the codes), on the reader thread;
 * :class:`QuarantineManifest` — the ``quarantine_<fingerprint>.jsonl``
   record of every quarantined chunk and persist dead-letter, which the
   end-of-run audit (:mod:`.audit`) checks against the ledger.
@@ -296,6 +298,69 @@ def gate_frames(frames, policy):
     return {"verdict": verdict, "stats": {k: round(v, 6)
                                           for k, v in raw.items()},
             "reasons": reasons}
+
+
+def lowbit_code_stats(codes, nbits):
+    """Integrity fractions of a low-bit CODE block ``(nchan, n)`` (integer
+    values ``0 .. 2^nbits - 1`` in any numeric dtype): ``zero_frac``,
+    codes at the bottom rail (dropped packets); ``rail_frac``, codes at
+    the top rail (a clipped digitiser, saturating RFI); ``dead_frac``,
+    channels whose codes never change.  The float gate's fractions mean
+    nothing on codes: a healthy 1-bit chunk sits at a rail half the
+    time."""
+    codes = np.asarray(codes)
+    mask = (1 << int(nbits)) - 1
+    zero_frac = float((codes == 0).mean())
+    rail_frac = float((codes == mask).mean())
+    dead_frac = float((codes.max(axis=1) == codes.min(axis=1)).mean())
+    return {"zero_frac": zero_frac, "rail_frac": rail_frac,
+            "dead_frac": dead_frac, "nbits": int(nbits)}
+
+
+def _lowbit_verdict(raw, nbits, policy):
+    """The code-domain rule of the packed and host-decoded low-bit gates.
+    Healthy uniform codes already put ``2^-nbits`` of the samples on each
+    rail, so the policy's zero and saturation limits are read as the
+    share of the way from there to 100%: ``limit' = expected + (1 -
+    expected) * limit``.  Codes hold nothing to sanitize: the verdict is
+    ``"clean"`` or ``"quarantine"`` under every policy."""
+    expected = 2.0 ** -int(nbits)
+    zero_lim = expected + (1.0 - expected) * policy.max_zero_frac
+    rail_lim = expected + (1.0 - expected) * policy.max_sat_frac
+    stats = {k: (round(v, 6) if isinstance(v, float) else v)
+             for k, v in raw.items()}
+    reasons = [name for name, frac, lim in (
+        ("zero_frac", raw["zero_frac"], zero_lim),
+        ("rail_frac", raw["rail_frac"], rail_lim),
+        ("dead_frac", raw["dead_frac"], policy.max_dead_frac),
+    ) if frac > lim]
+    if reasons:
+        return {"verdict": "quarantine", "stats": stats,
+                "reasons": reasons}
+    return {"verdict": "clean", "stats": stats, "reasons": []}
+
+
+def gate_chunk_packed(frames, nbits, nchan, policy, max_rows=4096):
+    """Gate one PACKED low-bit chunk ``(nsamps, bytes_per_frame)`` uint8
+    from a strided decode of at most ``max_rows`` frames
+    (:func:`~..io.lowbit.sample_codes`), on the reader thread; returns
+    ``(frames, info)`` with the frames untouched."""
+    from ..io.lowbit import sample_codes
+
+    frames = np.asarray(frames)
+    codes = sample_codes(frames, nbits, nchan, max_rows=max_rows)
+    return frames, _lowbit_verdict(lowbit_code_stats(codes, nbits),
+                                   nbits, policy)
+
+
+def gate_chunk_lowbit(block, nbits, policy, max_cols=4096):
+    """Gate one host-DECODED low-bit chunk (a float code block ``(nchan,
+    n)``, the multi-IF path) by the rule of :func:`gate_chunk_packed`, on
+    a strided subsample of at most ``max_cols`` columns."""
+    block = np.asarray(block)
+    stride = max(1, block.shape[1] // int(max_cols))
+    return block, _lowbit_verdict(
+        lowbit_code_stats(block[:, ::stride], nbits), nbits, policy)
 
 
 # ---------------------------------------------------------------------------

@@ -2,16 +2,18 @@
 
 A binary header of length-prefixed keyword/value records between
 ``HEADER_START`` and ``HEADER_END``, then time-major frames of
-``nifs * nchans`` samples of 8, 16 or 32 bits, little-endian.  Packed
-1, 2 and 4-bit files are not read or written by this package yet
-(ROADMAP.md, the low-bit path).
+``nifs * nchans`` samples of 1, 2, 4, 8, 16 or 32 bits, little-endian;
+1, 2 and 4-bit samples are packed LSB-first into whole bytes
+(:mod:`.lowbit`).  A multi-IF file stores its IF planes interleaved per
+frame, ``[t][if][chan]``.
 
 The search's read comes in two parts: :meth:`FilterbankReader.
 read_frames_into` copies the raw frames, as they are stored (one byte per
-sample for 8-bit data), into a caller's host buffer (the chunk loop's
-page-locked staging buffer, :mod:`..utils.staging`), and
-:meth:`FilterbankReader.block_from_frames` turns the frames, once on the
-device, into the float32 ``(nchan, n)`` ascending block there.
+sample for 8-bit data, the packed bytes of a low-bit file), into a
+caller's host buffer (the chunk loop's page-locked staging buffer,
+:mod:`..utils.staging`), and :meth:`FilterbankReader.block_from_frames`
+turns the frames, once on the device, into the float32 ``(nchan, n)``
+ascending block there (a low-bit file's unpack included).
 :meth:`FilterbankReader.read_block_tensor` is the two in one call.  The
 chunk loop's reads fire the ``read`` fault seam (:mod:`..faults.inject`),
 as the JAX package's ``read_block`` does.
@@ -43,12 +45,19 @@ _CHAR_KEYS = {"signed"}
 _DTYPES = {8: np.uint8, 16: np.uint16, 32: np.float32}
 
 
-def _check_nbits(nbits):
-    if nbits in (1, 2, 4):
-        raise NotImplementedError(
-            f"nbits={nbits}: packed low-bit filterbanks are not ported yet "
-            "(ROADMAP.md, the low-bit path)")
-    if nbits not in _DTYPES:
+#: packed widths (:mod:`.lowbit`)
+_LOWBIT = (1, 2, 4)
+
+
+def _check_width(nbits, nchans, nifs):
+    """Raise unless ``nbits`` is a SIGPROC width and a frame of ``nifs *
+    nchans`` values at that width fills whole bytes."""
+    if nbits in _LOWBIT:
+        if (nifs * nchans * nbits) % 8:
+            raise ValueError(
+                f"nchans={nchans} x nifs={nifs} at nbits={nbits} does not "
+                "pack to whole bytes")
+    elif nbits not in _DTYPES:
         raise ValueError(f"unsupported nbits={nbits}")
 
 
@@ -141,24 +150,43 @@ def derived_header(header, data_size_bytes):
 class FilterbankReader:
     """Memory-mapped SIGPROC filterbank reader.
 
-    A multi-IF file (``nifs > 1``, frames laid out ``[t][if][chan]``)
-    reads as its total intensity, the IF planes summed.
+    ``if_mode`` decides what a multi-IF file (``nifs > 1``, frames laid
+    out ``[t][if][chan]``) reads as: ``"sum"`` (the default), its total
+    intensity, the IF planes summed; an integer ``k``, IF plane ``k``
+    alone.
+
+    A low-bit file (1, 2 or 4 bits) maps its raw bytes,
+    :attr:`bytes_per_frame` a frame: :meth:`read_block` decodes them on
+    the host, :meth:`read_block_packed` returns them as stored, and the
+    frame API of the chunk loop (:attr:`frame_dtype`,
+    :meth:`read_frames_into`, :meth:`block_from_frames`,
+    :meth:`host_samples`) carries the packed bytes, unpacked where the
+    frames are (:func:`.lowbit.device_unpack_block`).
     """
 
-    def __init__(self, path):
+    def __init__(self, path, if_mode="sum"):
         self.path = path
         raw_header, offset = read_header(path)
         data_size = os.path.getsize(path) - offset
         self.header = derived_header(raw_header, data_size)
-        nbits = self.header.get("nbits", 32)
-        _check_nbits(nbits)
-        self.nifs = self.header.get("nifs", 1)
-        dtype = _DTYPES[nbits]
-        if nbits == 8 and self.header.get("signed"):
-            dtype = np.int8
+        self.nbits = nbits = self.header.get("nbits", 32)
+        self.nifs = nifs = self.header.get("nifs", 1)
+        if if_mode != "sum":
+            k = int(if_mode)
+            if not 0 <= k < nifs:
+                raise ValueError(f"if_mode={if_mode!r}: file has {nifs} "
+                                 "IF planes")
+        self.if_mode = if_mode
+        _check_width(nbits, self.nchans, nifs)
+        width = nifs * self.nchans  # values per frame
+        if nbits in _LOWBIT:
+            dtype, width = np.uint8, width * nbits // 8
+        else:
+            dtype = _DTYPES[nbits]
+            if nbits == 8 and self.header.get("signed"):
+                dtype = np.int8
         self._mmap = np.memmap(path, dtype=dtype, mode="r", offset=offset,
-                               shape=(self.header["nsamples"],
-                                      self.nifs * self.nchans))
+                               shape=(self.header["nsamples"], width))
 
     @property
     def nsamples(self):
@@ -173,6 +201,21 @@ class FilterbankReader:
         return self.header["foff"] < 0
 
     @property
+    def packed(self):
+        """True for a packed 1, 2 or 4-bit file."""
+        return self.nbits in _LOWBIT
+
+    @property
+    def frame_width(self):
+        """Stored values a frame: ``nifs * nchans``, or the bytes a frame
+        of a packed file."""
+        return self._mmap.shape[1]
+
+    @property
+    def bytes_per_frame(self):
+        return self._mmap.shape[1] * self._mmap.dtype.itemsize
+
+    @property
     def nbeams(self):
         n = self.header.get("nbeams")
         return int(n) if n is not None else None
@@ -184,84 +227,145 @@ class FilterbankReader:
 
     @property
     def frame_dtype(self):
-        """The host dtype of :meth:`read_frames_into`'s buffer: the file's,
-        with uint16 viewed as int16 (few tensor operations take uint16;
-        :meth:`block_from_frames` widens it back)."""
+        """The host dtype of :meth:`read_frames_into`'s buffer: the file's
+        (uint8 for a packed file), with uint16 viewed as int16 (few tensor
+        operations take uint16; :meth:`block_from_frames` widens it
+        back)."""
         dtype = self._mmap.dtype
         return np.dtype(np.int16) if dtype == np.uint16 else dtype
 
     def read_frames(self, istart, nsamps):
-        """A copy of the raw frames ``(n, nifs * nchans)`` in file dtype
-        (no fault seam)."""
+        """A copy of the raw frames ``(n, frame_width)`` in file dtype (no
+        fault seam)."""
         istart = int(istart)
         nsamps = int(min(nsamps, self.nsamples - istart))
         return np.array(self._mmap[istart:istart + nsamps])
 
+    def _seamed_length(self, istart, nsamps):
+        """Fire the ``read`` seam (an error, or a truncated length) for a
+        read of ``nsamps`` samples from ``istart``; the length to read."""
+        fault_inject.fire("read", chunk=istart)
+        nsamps = int(min(nsamps, self.nsamples - istart))
+        return fault_inject.truncated_length("read", istart, nsamps)
+
     def read_frames_into(self, istart, nsamps, out):
         """Copy the raw frames of ``nsamps`` samples from ``istart`` into
         the leading rows of ``out`` (a host array of
-        :attr:`frame_dtype`, ``(>= n, nifs * nchans)``); returns the
-        number of samples copied.  Fires the ``read`` seam (an error, or a
-        truncated length) as :meth:`read_block` does.  A plain copy: no
-        device call, so it runs on a reader thread."""
+        :attr:`frame_dtype`, ``(>= n, frame_width)``); returns the number
+        of samples copied.  Fires the ``read`` seam as :meth:`read_block`
+        does.  A plain copy: no device call, so it runs on a reader
+        thread."""
         istart = int(istart)
-        fault_inject.fire("read", chunk=istart)
-        nsamps = int(min(nsamps, self.nsamples - istart))
-        nsamps = fault_inject.truncated_length("read", istart, nsamps)
+        nsamps = self._seamed_length(istart, nsamps)
         src = self._mmap[istart:istart + nsamps]
         np.copyto(out[:nsamps], src.view(out.dtype))
         return nsamps
 
+    def read_block_packed(self, istart, nsamps):
+        """The raw packed frames ``(n, bytes_per_frame)`` uint8 of a
+        single-IF low-bit file, with the ``read`` seam (what
+        :class:`.lowbit.PackedFrames` carries).  A multi-IF file is
+        refused: the device unpack takes the first ``nchans`` values of a
+        frame, which is IF 0 and not what ``if_mode`` asks for."""
+        if not self.packed:
+            raise ValueError("read_block_packed needs a packed low-bit file "
+                             f"(nbits={self.nbits})")
+        if self.nifs != 1:
+            raise ValueError(
+                f"read_block_packed is single-IF only (nifs={self.nifs}); "
+                "use read_block, which honours if_mode")
+        istart = int(istart)
+        nsamps = self._seamed_length(istart, nsamps)
+        return np.asarray(self._mmap[istart:istart + nsamps])
+
+    def _select_if(self, frames):
+        """``(n, nchans)`` of frames ``(n, nifs * nchans)`` (numpy or
+        torch) after :attr:`if_mode`."""
+        frames = frames.reshape(frames.shape[0], self.nifs, self.nchans)
+        if self.nifs == 1:
+            return frames[:, 0]
+        if self.if_mode == "sum":
+            return frames.sum(1)
+        return frames[:, int(self.if_mode)]
+
+    def frame_values(self, frames, dtype=torch.float64):
+        """The stored values of raw ``frames`` ``(n, frame_width)`` (a
+        tensor in :attr:`frame_dtype`, on any device) as ``(n, nifs *
+        nchans)`` in ``dtype``, file channel order, every IF, computed
+        where the frames are (a packed file's codes unpacked there)."""
+        if self.packed:
+            from .lowbit import unpack_codes
+
+            frames = unpack_codes(frames, self.nbits)
+        elif frames.dtype == torch.int16 and self._mmap.dtype == np.uint16:
+            frames = frames.to(torch.int32) & 0xFFFF
+        return frames.to(dtype)
+
     def block_from_frames(self, frames):
         """The float32 ``(nchans, n)`` contiguous ascending block of raw
-        ``frames`` ``(n, nifs * nchans)`` (a tensor in :attr:`frame_dtype`,
-        on any device), computed where the frames are."""
-        if frames.dtype == torch.int16 and self._mmap.dtype == np.uint16:
-            frames = frames.to(torch.int32) & 0xFFFF
-        block = self._frames_to_block(frames.to(torch.float32))
+        ``frames`` ``(n, frame_width)`` (a tensor in :attr:`frame_dtype`,
+        on any device), computed where the frames are; one IF of a packed
+        file is unpacked straight into it
+        (:func:`.lowbit.device_unpack_block`)."""
+        if self.packed and self.nifs == 1:
+            from .lowbit import device_unpack_block
+
+            return device_unpack_block(frames, self.nbits, self.nchans,
+                                       self.band_descending)
+        block = self._select_if(self.frame_values(frames,
+                                                  torch.float32)).T
         if self.band_descending:
             block = block.flip(0)
         return block.contiguous()
 
-    def _frames_to_block(self, frames):
-        frames = frames.reshape(frames.shape[0], self.nifs, self.nchans)
-        return (frames[:, 0] if self.nifs == 1 else frames.sum(1)).T
-
     def host_samples(self, frames):
-        """The ``(n, nchans)`` host samples of raw ``frames`` ``(n, nifs *
-        nchans)`` (a numpy array in :attr:`frame_dtype`), channels in
+        """The ``(n, nchans)`` host samples of raw ``frames`` ``(n,
+        frame_width)`` (a numpy array in :attr:`frame_dtype`), channels in
         ascending order: the transpose of :meth:`read_block`'s
-        ``band_ascending`` block.  One IF: a view in the file's dtype;
-        several: their float64 sum."""
+        ``band_ascending`` block.  One IF: a view in the file's dtype (a
+        packed file's rows decoded to float32 codes); several: their
+        float64 sum, or the IF :attr:`if_mode` names."""
         frames = np.asarray(frames).view(self._mmap.dtype)
+        if self.packed:
+            frames = self._host_values(frames, torch.float32)
         if self.nifs == 1:
             samples = frames
         else:
-            samples = frames.reshape(frames.shape[0], self.nifs,
-                                     self.nchans).astype(float).sum(1)
+            samples = self._select_if(frames.astype(float))
         return samples[:, ::-1] if self.band_descending else samples
 
-    def read_block(self, istart, nsamps, band_ascending=False):
-        """Float64 ``(nchans, n)`` host block, file channel order unless
-        ``band_ascending``.  Fires the ``read`` seam, as the JAX
-        package's ``read_block`` does."""
-        istart = int(istart)
-        fault_inject.fire("read", chunk=istart)
-        nsamps = int(min(nsamps, self.nsamples - istart))
-        nsamps = fault_inject.truncated_length("read", istart, nsamps)
-        block = self._frames_to_block(
-            self.read_frames(istart, nsamps).astype(float))
+    def _host_values(self, raw, dtype=torch.float64):
+        """:meth:`frame_values` of host frames ``raw`` (file or frame
+        dtype), as a numpy array."""
+        raw = np.require(raw, requirements=["C", "W"])
+        return self.frame_values(torch.from_numpy(raw.view(
+            self.frame_dtype)), dtype).numpy()
+
+    def unpack_frames(self, raw, band_ascending=False):
+        """The float64 ``(nchans, n)`` host block of raw frames ``raw``
+        ``(n, frame_width)`` (packed or not), file channel order unless
+        ``band_ascending``: :meth:`frame_values` on the host."""
+        block = self._select_if(self._host_values(raw)).T
         if band_ascending and self.band_descending:
             block = block[::-1]
         return block
+
+    def read_block(self, istart, nsamps, band_ascending=False):
+        """Float64 ``(nchans, n)`` host block, file channel order unless
+        ``band_ascending``; a packed file is decoded on the host.  Fires
+        the ``read`` seam, as the JAX package's ``read_block`` does."""
+        istart = int(istart)
+        nsamps = self._seamed_length(istart, nsamps)
+        raw = np.asarray(self._mmap[istart:istart + nsamps])
+        return self.unpack_frames(raw, band_ascending=band_ascending)
 
     def read_block_tensor(self, istart, nsamps, device):
         """Float32 ``(nchans, n)`` contiguous block on ``device``, in
         ascending frequency order.
 
-        The frames cross to the device in their stored dtype and are
-        converted, transposed and (for a descending band) flipped there
-        (:meth:`block_from_frames`).  No fault seam.
+        The frames cross to the device as stored (a packed file's packed
+        bytes) and are converted, transposed and (for a descending band)
+        flipped there (:meth:`block_from_frames`).  No fault seam.
         """
         raw = self.read_frames(istart, nsamps)
         frames = torch.from_numpy(raw.view(self.frame_dtype)).to(device)
@@ -275,20 +379,28 @@ class FilterbankReader:
 
 
 class FilterbankWriter:
-    """Streaming single-IF SIGPROC filterbank writer (time-major frames).
-    Integer formats round and clip."""
+    """Streaming SIGPROC filterbank writer (time-major frames).
+
+    Integer formats round and clip: 8 and 16 bits to their dtype's range,
+    1, 2 and 4 bits to their codes, then packed (:func:`.lowbit.pack`).
+    With ``nifs > 1`` in the header, :meth:`write_block` takes ``(nifs,
+    nchans, n)`` blocks and interleaves the IF planes per frame
+    (``[t][if][chan]``, the layout the reader expects).
+    """
 
     def __init__(self, path, header):
         self.path = path
         self.header = dict(header)
         self.nchans = int(self.header["nchans"])
-        if int(self.header.get("nifs", 1)) != 1:
-            raise ValueError("the writer writes single-IF files only")
+        self.nifs = int(self.header.get("nifs", 1))
         self.nbits = int(self.header.get("nbits", 32))
-        _check_nbits(self.nbits)
-        self._dtype = _DTYPES[self.nbits]
-        if self.nbits == 8 and self.header.get("signed"):
-            self._dtype = np.int8
+        _check_width(self.nbits, self.nchans, self.nifs)
+        if self.nbits in _LOWBIT:
+            self._dtype = np.uint8
+        else:
+            self._dtype = _DTYPES[self.nbits]
+            if self.nbits == 8 and self.header.get("signed"):
+                self._dtype = np.int8
         self._file = open(path, "wb")
         self._file.write(_pack_string("HEADER_START"))
         for key in sorted(set(self.header) & (_INT_KEYS | _DOUBLE_KEYS |
@@ -299,16 +411,55 @@ class FilterbankWriter:
         self._file.write(_pack_string("HEADER_END"))
 
     def write_block(self, block):
-        """Write a ``(nchans, n)`` block."""
+        """Write a ``(nchans, n)`` block, or ``(nifs, nchans, n)`` for a
+        multi-IF file."""
         block = np.asarray(block)
-        if block.ndim != 2 or block.shape[0] != self.nchans:
-            raise ValueError(f"block of shape {block.shape}, expected "
-                             f"({self.nchans}, n)")
-        frames = np.ascontiguousarray(block.T)
-        if self.nbits < 32:
-            info = np.iinfo(self._dtype)
-            frames = np.clip(np.rint(frames), info.min, info.max)
-        self._file.write(frames.astype(self._dtype).tobytes())
+        if self.nifs > 1:
+            if block.ndim != 3 or block.shape[:2] != (self.nifs,
+                                                      self.nchans):
+                raise ValueError(
+                    f"multi-IF block must be ({self.nifs}, {self.nchans}, "
+                    f"n); got {block.shape}")
+            frames = np.ascontiguousarray(block.transpose(2, 0, 1)).reshape(
+                block.shape[2], self.nifs * self.nchans)
+        else:
+            if block.ndim != 2 or block.shape[0] != self.nchans:
+                raise ValueError(f"block of shape {block.shape}, expected "
+                                 f"({self.nchans}, n)")
+            frames = np.ascontiguousarray(block.T)
+        values = torch.from_numpy(frames)
+        if not values.is_floating_point():
+            values = values.to(torch.float64)
+        self.write_frames(self.encode_frames(values))
+
+    def encode_frames(self, values):
+        """The stored frames of float ``values`` ``(n, nifs * nchans)``
+        (a tensor on any device, time-major, file channel order), rounded
+        and clipped there as the JAX package's writer does: 8 and 16 bits
+        ``rint`` then clip to the dtype's range; 1, 2 and 4 bits a float32
+        cast, ``rint``, clip to the codes and LSB-first packing; 32 bits
+        a float32 cast.  (16-bit samples come back as int32: few tensor
+        operations take uint16.)"""
+        if self.nbits == 32:
+            return values.to(torch.float32)
+        if self.nbits in _LOWBIT:
+            from .lowbit import pack_codes
+
+            codes = values.to(torch.float32).round().clamp_(
+                0, (1 << self.nbits) - 1).to(torch.uint8)
+            return pack_codes(codes, self.nbits)
+        info = np.iinfo(self._dtype)
+        out = values.round().clamp_(info.min, info.max)
+        return out.to(torch.int32 if self.nbits == 16
+                      else torch.from_numpy(np.empty(0, self._dtype)).dtype)
+
+    def write_frames(self, frames):
+        """Write frames :meth:`encode_frames` made (a tensor or array on
+        any device)."""
+        host = np.ascontiguousarray(frames.cpu().numpy()
+                                    if isinstance(frames, torch.Tensor)
+                                    else frames)
+        self._file.write(host.astype(self._dtype, copy=False).tobytes())
 
     def close(self):
         if not self._file.closed:

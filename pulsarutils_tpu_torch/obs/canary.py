@@ -37,8 +37,11 @@ package:
   its canary persists normally, its table still holding the canary-lit
   rows (counted as ``putpu_canary_contaminated_tables_total``).
 
-The packed low-bit injection (``maybe_inject_packed``) waits for the
-port's low-bit path.
+A packed 1/2/4-bit chunk crosses to the card as its packed bytes, so
+its bump is quantised onto the code grid and re-packed on the reader
+thread, in the staging buffer before the upload
+(:meth:`CanaryController.maybe_inject_packed`, the JAX package's method):
+whatever unpacks those bytes sees the same codes.
 """
 
 from __future__ import annotations
@@ -223,6 +226,59 @@ class CanaryController:
                                           block[:, ::stride].T)
         out = block.copy()
         out[rows, cols] += amps
+        return out
+
+    def maybe_inject_packed(self, frames, chunk, *, nbits, nchan,
+                            band_descending=False):
+        """Inject the canary track into PACKED low-bit frames ``(nsamps,
+        bytes_per_frame)`` uint8 when this chunk is selected: a modified
+        copy, else ``frames`` itself.
+
+        The matched-filter amplitude is quantised into the codes: each lit
+        ``(channel, sample)`` becomes ``clip(rint(code + amp_c), 0, 2^nbits
+        - 1)``, and only its bits of the byte are rewritten.  Chunk
+        selection, ``t0`` and the pending expectation are those of
+        :meth:`maybe_inject` (the same rng keys); the noise scale is read
+        from a strided decode of at most 4096 frames
+        (:func:`~..io.lowbit.sample_codes`).  Counted as
+        ``putpu_canary_packed_injections_total``."""
+        if not self._bound or not self.selects(chunk):
+            return frames
+        from ..io.lowbit import sample_codes
+
+        mask = (1 << nbits) - 1
+        frames = np.asarray(frames)
+        nsamp = frames.shape[0]
+        rng = np.random.default_rng(self._rng_key(chunk, 1))
+        t0 = int(rng.integers(0, nsamp))
+        sub = sample_codes(frames, nbits, nchan)  # (nchan, k), file order
+        if band_descending:
+            sub = sub[::-1]  # ascending, like the shifts
+        std = sub.astype(np.float64).std(axis=1)
+        std = np.where(std > 0, std, std[std > 0].mean()
+                       if np.any(std > 0) else 1.0)
+        amp = self.snr * std / np.sqrt(nchan * self._width)
+        cols = (t0 + self._shifts[:, None]
+                + np.arange(self._width)[None, :]) % nsamp
+        out = frames.copy()
+        for c in range(nchan):
+            fc = (nchan - 1 - c) if band_descending else c
+            bi = (fc * nbits) // 8
+            sh = (fc * nbits) % 8
+            # channels share bytes below 8 bits: one channel at a time
+            # keeps each read-modify-write whole
+            b = out[cols[c], bi]
+            code = (b >> sh) & mask
+            bumped = np.clip(np.rint(code.astype(np.float64) + amp[c]),
+                             0, mask).astype(np.uint8)
+            out[cols[c], bi] = ((b & np.uint8(0xFF ^ (mask << sh)))
+                                | (bumped << np.uint8(sh)))
+        with self._lock:
+            self._pending[int(chunk)] = {
+                "chunk": int(chunk), "t0": t0, "nsamp": int(nsamp),
+                "dm": self.dm, "snr": self.snr, "width": self._width}
+        _metrics.counter("putpu_canary_packed_injections_total",
+                         **self._labels).inc()
         return out
 
     # -- matching (main thread, after the search) ----------------------------

@@ -268,7 +268,7 @@ def _spectral_chunk(plane_chunk, tsamp, max_harmonics, fmin, fmax,
     """Spectral-search one row chunk; a host dict out, one readback.  The
     card always scores with the harmonic kernel (the JAX package chooses
     between its kernels with an autotuner the port does not have yet,
-    ROADMAP.md queue A, item 8); the CPU with the plain chain."""
+    ROADMAP.md queue A, A8); the CPU with the plain chain."""
     stacked = to_numpy(spectral_stacked(plane_chunk, tsamp,
                                         max_harmonics=max_harmonics,
                                         fmin=fmin, fmax=fmax, policy=policy))

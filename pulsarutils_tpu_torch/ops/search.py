@@ -33,6 +33,9 @@ from __future__ import annotations
 
 import functools
 import logging
+import os
+import tempfile
+import weakref
 
 import numpy as np
 import torch
@@ -83,6 +86,46 @@ HYBRID_MAX_ROUNDS = 20
 #: when no certificate scores are supplied (``rho_cert=False``); the
 #: hybrid otherwise uses the per-config bound of :mod:`.certify`
 HYBRID_COARSE_TRUST = 0.60
+
+
+# ---------------------------------------------------------------------------
+# The disk-spilled plane
+# ---------------------------------------------------------------------------
+
+def plane_memmap(ndm, nsamples, directory=None, delete=False):
+    """A disk-backed ``(ndm, nsamples)`` float32 plane (a ``.npy`` memmap)
+    for ``capture_plane="memmap"``: a 4096-trial x 1M-sample capture is
+    16 GB, beyond host RAM on many hosts.  The file is a valid ``.npy``
+    (``np.load(..., mmap_mode="r")`` reopens it) at ``plane.filename``.
+
+    Directory: ``directory``, else ``$PUTPU_PLANE_DIR``, else the system
+    temp dir.  The file persists (diagnostics may outlive the search)
+    until :func:`release_plane`; ``delete=True`` ties it to the returned
+    memmap instead (unlinked when it is garbage-collected)."""
+    directory = directory or os.environ.get("PUTPU_PLANE_DIR") or None
+    fd, path = tempfile.mkstemp(suffix=".npy", prefix="putpu_plane_",
+                                dir=directory)
+    os.close(fd)
+    mm = np.lib.format.open_memmap(path, mode="w+", dtype=np.float32,
+                                   shape=(int(ndm), int(nsamples)))
+    if delete:
+        weakref.finalize(mm, _unlink_quiet, path)
+    return mm
+
+
+def _unlink_quiet(path):
+    try:
+        os.unlink(path)
+    except OSError:
+        pass
+
+
+def release_plane(plane):
+    """Unlink the file behind a :func:`plane_memmap` capture; a no-op for
+    any other plane.  Safe to call twice."""
+    path = getattr(plane, "filename", None)
+    if path:
+        _unlink_quiet(path)
 
 
 # ---------------------------------------------------------------------------
@@ -278,19 +321,38 @@ def _search_direct(data, superblocks, capture_plane):
                              device=data.device) if capture_plane else None)
         return (*[np.zeros(0, np.float32)] * 3, np.zeros(0, np.int32),
                 np.zeros(0, np.int64), plane)
+    ndm = sum(rows.shape[0] for rows, _ in superblocks)
+    mm = plane_memmap(ndm, nsamples) if capture_plane == "memmap" else None
     scores, planes = [], []
-    for rows, planned in superblocks:
-        with budget_bucket("search/dispatch"):
-            plane = dedisperse_plane(data, rows, planned)
-            scores.append(score_plane(plane))
-            budget_count("dispatches", 2)
-        if capture_plane:
-            planes.append(plane)
+    lo = 0
+    try:
+        for rows, planned in superblocks:
+            with budget_bucket("search/dispatch"):
+                plane = dedisperse_plane(data, rows, planned)
+                scores.append(score_plane(plane))
+                budget_count("dispatches", 2)
+            if mm is not None:
+                # the disk spill: the host holds one superblock at a time,
+                # the disk the plane; the largest transfer of the search,
+                # so it has a bucket of its own and one readback
+                with budget_bucket("search/plane_spill"):
+                    mm[lo:lo + plane.shape[0]] = to_numpy(plane)
+                    budget_count("readbacks")
+            elif capture_plane:
+                planes.append(plane)
+            lo += rows.shape[0]
+            del plane
+    except BaseException:
+        release_plane(mm)  # a ladder descent starts a new file
+        raise
     with budget_bucket("search/readback"):
         fields = unstack_scores(torch.cat(scores, dim=1))
         budget_count("readbacks")
     plane = None
-    if capture_plane:
+    if mm is not None:
+        mm.flush()
+        plane = mm
+    elif capture_plane:
         plane = planes[0] if len(planes) == 1 else torch.cat(planes)
     return (*fields, plane)
 
@@ -356,6 +418,8 @@ def _search_formulation(data, offsets, capture_plane, formulation, policy,
     for offs in blocks:
         plane = dedisperse_block_chunked(data, offs, chan_block, formulation,
                                          policy)
+        if not plane.is_floating_point():
+            plane = plane.to(torch.float32)  # exact integer sums
         scores.append(score_plane(plane))
         if capture_plane:
             planes.append(plane)
@@ -641,8 +705,18 @@ def dedispersion_search(data, dmmin, dmmax, start_freq, bandwidth, sample_time,
                         show=False, *, capture_plane=None, trial_dms=None,
                         kernel="auto", snr_floor=None, noise_certificate=True,
                         rho_cert=None, cert_slack=None, precision=None,
-                        dm_block=None, chan_block=None, device="cuda"):
+                        dm_block=None, chan_block=None, dtype=None,
+                        device="cuda"):
     """Sweep trial DMs over ``data`` ``(nchan, T)`` and score each series.
+
+    ``data`` is a float block or a :class:`~..io.lowbit.PackedFrames`, a
+    packed 1/2/4-bit chunk: its packed bytes go to ``device`` and are
+    unpacked there (:func:`~..io.lowbit.device_unpack_block`), to float32
+    for every kernel but ``"gather"`` and ``"roll"``, which sum the codes
+    in the exact integer type of :func:`~..io.lowbit.accum_dtype` (int16
+    or int32) unless the plane is captured, and score the integer plane's
+    float32 view (the same values).  ``dtype``: the input's dtype, float32
+    (None) only, as the JAX package requires of packed input.
 
     ``kernel``: ``"auto"`` and ``"pallas"`` run the exact direct sweep
     (the JAX package's names, so its flags carry over); ``"gather"`` and
@@ -678,26 +752,46 @@ def dedispersion_search(data, dmmin, dmmax, start_freq, bandwidth, sample_time,
     ``device`` is where the search runs: ``"cuda"`` (default; raises
     without a card) or ``"cpu"``.
 
+    ``capture_plane="memmap"`` (the direct sweep only) spills each
+    superblock's plane to a ``.npy`` memmap on disk (:func:`plane_memmap`)
+    and returns that ``np.memmap``; free its file with
+    :func:`release_plane`.  The other kernels hold the whole plane on the
+    device and raise ``ValueError``, as the JAX package's do.
+
     Returns a :class:`~..utils.table.ResultTable` with columns
     ``DM, max, std, snr, rebin, peak`` (the hybrid adds ``exact`` and
     ``cert`` and a certificate ``meta``) — plus the ``(ndm, T)`` plane
     tensor when ``show`` or ``capture_plane`` is set.
     """
+    from ..io.lowbit import PackedFrames, accum_dtype
+
     if kernel not in KERNELS:
         raise ValueError(f"unknown kernel {kernel!r}")
     policy = _sweep_policy(kernel, precision)
     if capture_plane is None:
         capture_plane = bool(show)
-    if capture_plane == "memmap":
-        if kernel in ("fourier", "gather", "roll"):
-            raise ValueError("capture_plane='memmap' requires kernel="
-                             "'pallas'/'auto' (the gather, roll and FDD "
-                             "kernels hold the plane in device memory)")
-        raise NotImplementedError(
-            "capture_plane='memmap' is not ported yet (ROADMAP.md queue A, "
-            "item 3)")
+    packed = data if isinstance(data, PackedFrames) else None
+    if dtype is not None and dtype not in (torch.float32, "float32"):
+        raise ValueError(
+            "packed low-bit input unpacks to float32 (or an exact integer "
+            "accumulator); pass dtype=None" if packed is not None else
+            f"dtype={dtype!r}: the search takes float32 input only")
+    if capture_plane == "memmap" and kernel not in ("auto", "pallas"):
+        why = {"fdmt": "the tree transform is one whole-plane program",
+               "hybrid": "the hybrid's coarse plane is one whole-plane "
+                         "program"}.get(kernel, "the gather, roll and FDD "
+                                        "kernels hold the plane in device "
+                                        "memory")
+        raise ValueError("capture_plane='memmap' requires kernel="
+                         f"'pallas'/'auto' ({why})")
     dev = resolve_device(device)
-    data = torch.as_tensor(data).to(device=dev, dtype=torch.float32)
+    if packed is not None:
+        acc = (accum_dtype(packed.nbits, packed.nchan)
+               if kernel in ("gather", "roll") and not capture_plane
+               else None)
+        data = packed.to_device(dev, getattr(torch, acc or "float32"))
+    else:
+        data = torch.as_tensor(data).to(device=dev, dtype=torch.float32)
     if data.ndim != 2:
         raise ValueError(f"data must be (nchan, T), got {tuple(data.shape)}")
     data = data.contiguous()

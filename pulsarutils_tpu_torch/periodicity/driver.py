@@ -41,14 +41,14 @@ _PLAN_KEYS = ("chunk_length", "new_sample_time", "tmin", "surelybad",
               "fft_zap", "cut_outliers", "zero_dm", "exact_floor")
 
 #: options of the JAX package's driver that are not ported, with the
-#: ROADMAP.md item that holds each
+#: ROADMAP.md item (its stable A-label) that holds each
 _NOT_PORTED = {
-    "health": "queue A, item 15 (periodicity service hooks)",
-    "http_port": "queue A, item 15 (periodicity service hooks)",
-    "report_out": "queue A, item 15 (periodicity service hooks)",
-    "fence": "queue A, item 15 (periodicity service hooks)",
-    "cancel_cb": "queue A, item 15 (periodicity service hooks)",
-    "mesh": "queue A, item 9 (multi-GPU)",
+    "health": "queue A, A15 (periodicity service hooks)",
+    "http_port": "queue A, A15 (periodicity service hooks)",
+    "report_out": "queue A, A15 (periodicity service hooks)",
+    "fence": "queue A, A15 (periodicity service hooks)",
+    "cancel_cb": "queue A, A15 (periodicity service hooks)",
+    "mesh": "queue A, A9 (multi-GPU)",
 }
 
 #: periodic-canary shape: a Gaussian pulse train of this duty cycle at
@@ -151,7 +151,7 @@ def periodicity_search(fname, dmmin=200, dmmax=800, *, accel_max=0.0,
     if accel_backend == "fdas":
         raise NotImplementedError(
             "accel_backend='fdas' is not ported yet: ROADMAP.md queue A, "
-            "item 14 (FDAS)")
+            "A14 (FDAS)")
     if accel_backend not in ("auto", "time_stretch"):
         raise ValueError(f"accel_backend must be 'auto', 'time_stretch' "
                          f"or 'fdas', got {accel_backend!r}")

@@ -5,6 +5,10 @@ sweep (the default) or the FDMT/hybrid/Fourier kernels, itself the
 counterpart of the reference's ``pulsarutils/clean.py:276-351``:
 
 * bad channels are flagged once from the file's bandpass statistics;
+* a single-IF 1, 2 or 4-bit file crosses to the card as its packed
+  bytes and is unpacked there; its chunks are gated in the code domain
+  and take the canary's bump on the reader thread (a multi-IF low-bit
+  file is decoded on the host);
 * the file is cut into 50%-overlap chunks sized by the search physics
   (:func:`..parallel.stream.plan_chunks`); a reader thread reads chunk
   ``k + 1`` into a page-locked buffer while the card searches chunk ``k``
@@ -54,8 +58,10 @@ from ..faults import inject as fault_inject
 from ..faults import reasons as fault_reasons
 from ..faults.audit import audit_run
 from ..faults.policy import (DispatchPolicy, QuarantineManifest,
-                             call_with_deadline, gate_chunk, gate_frames,
-                             gate_tensor, resolve_integrity_policy)
+                             call_with_deadline, gate_chunk,
+                             gate_chunk_lowbit, gate_chunk_packed,
+                             gate_frames, gate_tensor,
+                             resolve_integrity_policy)
 from ..io.candidates import CandidateStore, config_fingerprint
 from ..io.sigproc import FilterbankReader
 from ..obs import memory as obs_memory
@@ -504,6 +510,17 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
     Every resumable run ends with :func:`~..faults.audit.audit_run`
     (logged, never fatal).
 
+    A 1, 2 or 4-bit file: one IF is staged as its packed bytes (the
+    page-locked buffers hold ``(step, bytes_per_frame)`` uint8), the
+    canary's bump quantised into them and the chunk gated in the code
+    domain on the reader thread (:func:`~..faults.policy.
+    gate_chunk_packed`), the unpack on the card charged to ``clean``;
+    ``putpu_lowbit_packed_chunks_total`` and
+    ``putpu_lowbit_bytes_saved_total`` count as in the JAX package.  A
+    failed unpack raises: nothing decodes the chunk on the host instead.
+    Several IFs are decoded on the host and gated by
+    :func:`~..faults.policy.gate_chunk_lowbit`.
+
     ``stage_seconds``, a dict, receives the accountant's seconds of each
     stage on the main thread (``badchans``; ``read``, the wait for the
     reader; ``upload_wait``; ``gate``; ``clean``; ``search``;
@@ -619,7 +636,7 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
     ncertified = 0
     quarantined = []
     state = {}  # the sticky fallback of a CPU run: "host", "fallback"
-    staging = (FrameStaging((plan.step, reader.nifs * reader.nchans),
+    staging = (FrameStaging((plan.step, reader.frame_width),
                             reader.frame_dtype, dev) if todo else None)
 
     # -- the live surface: health engine, ETA, HTTP endpoints -------------
@@ -693,7 +710,13 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
     # chunk the canary lights is gated as a float block after the bump,
     # as the JAX package gates its injected block
     gate_bytes = (integrity is not None and reader.nifs == 1
-                  and reader.frame_dtype.itemsize == 1)
+                  and reader.frame_dtype.itemsize == 1 and not reader.packed)
+    # one IF of 1/2/4-bit samples: the packed bytes cross to the device
+    # (nbits / 32 of the float block's) and are unpacked there; the packed
+    # canary and the code-domain gate run on the reader thread.  Several
+    # IFs of them are decoded on the host and gated in the code domain.
+    packed_bits = reader.nbits if reader.packed and reader.nifs == 1 else 0
+    host_decoded = reader.packed and reader.nifs > 1
 
     def read_at(s, view, slot):
         """Read one chunk on the reader thread: its frames into ``view``
@@ -702,21 +725,34 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
         reads, corrupted, injected and gated here.  An ``OSError`` is
         retried twice with backoff (counted); a third returns a
         :class:`_ReadFailure`.  A bad sector under the memory map raises
-        SIGBUS, which nothing here can catch.  No CUDA call."""
+        SIGBUS, which nothing here can catch.  No CUDA call.
+
+        A packed chunk (one IF of 1/2/4-bit samples) is read as its packed
+        bytes, the canary's bump is quantised into them in ``view``
+        (:meth:`~..obs.canary.CanaryController.maybe_inject_packed`) and
+        the chunk gated in the code domain (:func:`~..faults.policy.
+        gate_chunk_packed`), in that order; no corrupt fault applies to
+        it, as in the JAX package.  A multi-IF low-bit chunk is decoded on
+        the host and gated by :func:`~..faults.policy.gate_chunk_lowbit`.
+        """
         t0 = time.perf_counter()
         if lineage is not None:
             lineage.mark(s, "read")
         try:
             for attempt in range(3):
                 try:
-                    if fault_inject.wants_corrupt("corrupt", s):
+                    if host_decoded or (
+                            not packed_bits
+                            and fault_inject.wants_corrupt("corrupt", s)):
                         block = reader.read_block(s, chunk_size(s),
                                                   band_ascending=True)
                         break
                     got = _HostChunk(slot=slot, nread=reader.
                                      read_frames_into(s, chunk_size(s),
                                                       view))
-                    if canary is not None and got.nread:
+                    if packed_bits:
+                        read_packed(s, view[:got.nread], got)
+                    elif canary is not None and got.nread:
                         stride = max(1, got.nread // 65536)
                         got.canary = canary.injection(
                             s, got.nread,
@@ -737,11 +773,30 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
                 # will see
                 block = canary.maybe_inject(block, s)
             gate = None
-            if integrity is not None:
+            if integrity is not None and reader.packed:
+                block, gate = gate_chunk_lowbit(np.asarray(block),
+                                                reader.nbits, integrity)
+            elif integrity is not None:
                 block, gate = gate_chunk(np.asarray(block), integrity)
             return _HostChunk(nread=block.shape[1], block=block, gate=gate)
         finally:
             stages.add("read_decode", time.perf_counter() - t0)
+
+    def read_packed(s, frames, got):
+        """The reader thread's work on packed ``frames`` (the staging
+        view's rows): the canary's bump, re-packed in place, then the
+        code-domain gate (``got.gate``)."""
+        if not got.nread:
+            return
+        if canary is not None:
+            bumped = canary.maybe_inject_packed(
+                frames, s, nbits=packed_bits, nchan=header["nchans"],
+                band_descending=reader.band_descending)
+            if bumped is not frames:
+                frames[...] = bumped
+        if integrity is not None:
+            _, got.gate = gate_chunk_packed(frames, packed_bits,
+                                            header["nchans"], integrity)
 
     def submit_read(index):
         if index >= len(todo):
@@ -763,7 +818,8 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
             return None
         got = future.result()
         if not isinstance(got, _HostChunk) or got.block is not None \
-                or got.nread < chunk_size(todo[index]):
+                or got.nread < chunk_size(todo[index]) \
+                or (got.gate is not None and got.gate["verdict"] != "clean"):
             return None
         timer.count("prefetch_uploads")
         return todo[index], upload(got)
@@ -773,16 +829,30 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
         device, in ascending band order; ``array`` is None when the gate
         quarantines it.  The frames' upload (prefetched or started now)
         is waited for under ``upload_wait``, their conversion to float
-        and the canary's bump are charged to ``clean``.  A chunk a
-        corrupt fault matched arrives as a host float block gated on the
-        reader thread."""
+        and the canary's bump are charged to ``clean``, as is a packed
+        chunk's unpack.  A chunk a corrupt fault matched (or a multi-IF
+        low-bit chunk) arrives as a host float block gated on the reader
+        thread, a packed chunk gated there.  A chunk the reader thread's
+        gate quarantined is not uploaded."""
         gate_info = got.gate
+        if gate_info is not None and gate_info["verdict"] == "quarantine":
+            return None, gate_info
         if got.block is not None:
-            block = stages.run("upload_wait", lambda: torch.from_numpy(
-                np.ascontiguousarray(got.block, dtype=np.float32)).to(dev))
+            host = np.ascontiguousarray(got.block, dtype=np.float32)
+            obs_metrics.counter("putpu_bytes_uploaded_total").inc(
+                int(host.nbytes))
+            block = stages.run("upload_wait",
+                               lambda: torch.from_numpy(host).to(dev))
         else:
             pending = (prefetched[1] if prefetched is not None
                        and prefetched[0] == istart else upload(got))
+            if packed_bits:
+                # the JAX package's counts of the packed path: the bytes
+                # saved are those of the float32 block less the packed
+                obs_metrics.counter("putpu_lowbit_packed_chunks_total").inc()
+                obs_metrics.counter("putpu_lowbit_bytes_saved_total").inc(
+                    int(header["nchans"] * got.nread * 4
+                        - got.nread * reader.bytes_per_frame))
             frames = stages.run("upload_wait", staging.wait, pending)
             by_bytes = gate_bytes and got.canary is None
             if by_bytes:
@@ -794,7 +864,7 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
             del frames
             if got.canary is not None:
                 block = stages.run("clean", inject_tensor, block, got.canary)
-            if integrity is not None and not by_bytes:
+            if integrity is not None and not by_bytes and not packed_bits:
                 block, gate_info = stages.run("gate", gate_tensor, block,
                                               integrity)
         if gate_info is not None and gate_info["verdict"] == "quarantine":

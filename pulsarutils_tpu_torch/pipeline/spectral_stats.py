@@ -2,7 +2,9 @@
 
 * :func:`get_spectral_stats` — one-pass mean and std bandpass spectra from
   running ``sum(x)`` / ``sum(x^2)`` moments over file blocks (reference
-  ``stats.py:35-60``), in float64;
+  ``stats.py:35-60``), in float64; the blocks come through the reader, so
+  a 1/2/4-bit file is decoded on the host and a multi-IF file read as its
+  IF sum, as in the JAX package;
 * :func:`get_bad_chans` — channels above ``medfilt(spec, 11) +
   4 * ref_mad(spec)`` on either spectrum, cached in ``<file>.badchans``
   (reference ``stats.py:63-90``), the format the JAX package reads and
@@ -51,16 +53,21 @@ def flag_bad_channels(mean_spec, std_spec, medfilt_size=11, nsigma=4.0):
     return bad.numpy()
 
 
-def get_bad_chans(source, cache=None, surelybad=(), refresh=False):
+def get_bad_chans(source, cache=None, surelybad=(), refresh=False,
+                  spectra=None):
     """Bad-channel mask (file channel order) with a ``.badchans`` text
-    cache beside a file source; ``surelybad`` channels are always bad."""
+    cache beside a file source; ``surelybad`` channels are always bad.
+    ``spectra=(mean, std)`` reuses bandpass spectra already computed
+    (``PUstats --plot``) instead of reading the file again."""
     path = source if isinstance(source, (str, os.PathLike)) else None
     if cache is None and path is not None:
         cache = f"{path}.badchans"
-    if cache is not None and os.path.exists(cache) and not refresh:
+    if spectra is None and cache is not None and os.path.exists(cache) \
+            and not refresh:
         bad = np.loadtxt(cache).astype(bool)
     else:
-        bad = flag_bad_channels(*get_spectral_stats(source))
+        bad = flag_bad_channels(*(spectra if spectra is not None
+                                  else get_spectral_stats(source)))
         if cache is not None:
             np.savetxt(cache, [bad.astype(int)], fmt="%d")
     bad = np.array(bad, dtype=bool).reshape(-1)

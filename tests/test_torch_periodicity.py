@@ -751,7 +751,7 @@ def test_periodicity_driver_matches_jax(pulsar_file, tmp_path):
 
 
 def test_periodicity_driver_refuses_what_is_not_ported(pulsar_file):
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="A14"):
         periodicity_search(pulsar_file, accel_backend="fdas", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         periodicity_search(pulsar_file, http_port=0, device="cpu")

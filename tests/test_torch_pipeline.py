@@ -21,6 +21,7 @@ from pulsarutils_tpu_torch.cli import search_main
 from pulsarutils_tpu_torch.io.sigproc import (FilterbankReader,
                                               write_simulated_filterbank)
 from pulsarutils_tpu_torch.models.simulate import simulate_test_data
+from pulsarutils_tpu_torch.ops.search import release_plane
 from pulsarutils_tpu_torch.pipeline import search_pipeline
 from pulsarutils_tpu_torch.pipeline.search_pipeline import search_by_chunks
 from pulsarutils_tpu_torch.pipeline.sift import sift_hits
@@ -176,11 +177,19 @@ def test_cli_searches_and_sifts(reference, tmp_path):
     # roll stays API-only, as in the JAX CLI
     with pytest.raises(SystemExit):
         search_main.build_parser().parse_args([path, "--kernel", "roll"])
-    # what is not ported yet still says where it stands
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        search_pipeline.dedispersion_search(
+    # the disk-spilled plane, once the last feature left out, is ported
+    os.environ["PUTPU_PLANE_DIR"] = str(tmp_path)
+    try:
+        table, plane = search_pipeline.dedispersion_search(
             np.zeros((32, 256), np.float32), 100.0, 200.0, 1200.0, 200.0,
             5e-4, capture_plane="memmap", device="cpu")
+    finally:
+        del os.environ["PUTPU_PLANE_DIR"]
+    assert isinstance(plane, np.memmap)
+    assert plane.shape == (table.nrows, 256)
+    assert os.path.dirname(plane.filename) == str(tmp_path)
+    release_plane(plane)
+    assert not os.path.exists(plane.filename)
 
 
 def _port_sources():

@@ -57,9 +57,18 @@ Phases, one JSON line each:
      the false-alarm chain within rtol 1e-5 with depths and bins exact;
 4. hybrid headline: the JAX package's benchmark data (1024 x 2^20,
    |N(0,1)| / 2, an impulse at T/2 dispersed at DM 350) searched by
-   ``dedispersion_search(kernel="hybrid")`` and by the full exact sweep;
-   the hybrid's best row must equal the sweep's (argbest, DM, rebin,
-   peak; snr within rel 1e-5); coarse, hybrid and sweep times; then the
+   ``dedispersion_search(kernel="hybrid")`` (the fused seed program: B4 =
+   B1 + 1 launches, B1 >= 2, the dispatches and readbacks of one call
+   printed, one each unless the host loop runs) and by the full exact
+   sweep; the hybrid's best row must equal the sweep's (argbest, DM,
+   rebin, peak; snr within rel 1e-5) and its every exact row the sweep's
+   row; B1 on the seed and need rows (planned on the card) equal to
+   plain bit for bit; coarse, fused, two-stage and sweep times; then the
+   hybrid's breakdown (``hybrid_breakdown``, at 1024 x 2^18 and 1024 x
+   2^20, fused and two-stage: the budget's buckets, B1 and B4 card
+   time, the rows' planning on the card, the rest; one 8-row B1 launch
+   planned on the card against the host-planned one, each bit for bit
+   and timed against its bound); then the
    direct sweep through its entry points, phase by phase (B1 through
    its wrapper at the superblocks, the rescore buckets and the tail; the
    exact search's first call and its repeats split into B1, B4 and the
@@ -72,7 +81,10 @@ Phases, one JSON line each:
 5. end to end: a simulated 1024-channel 8-bit filterbank with a dispersed
    pulse, searched by the port's ``search_by_chunks`` on the card in
    2^18-sample chunks with the direct sweep, then with the hybrid (at
-   S/N 8 and at the certifiable floor), then with the FDD: the pulse
+   S/N 8, fused on every chunk; at S/N 8 with an injected OOM at the
+   first dispatch, the ``unfuse`` rung taken and every chunk two-stage,
+   its hits, best rows and common exact rows the fused run's; at the
+   certifiable floor, two-stage), then with the FDD: the pulse
    must be found in its chunk at the injected DM, the hybrid's hits must
    equal the direct sweep's, and each path's kernels must have launched
    (their counts are set to 0 before each run and read after it); the
@@ -105,7 +117,17 @@ Phases, one JSON line each:
    a ~10 Hz pulsar at DM 400, searched by ``search_by_chunks(
    period_search=True)`` (the pulsar in every chunk) and by
    ``periodicity_search`` with 5 acceleration trials and the canary
-   (the pulsar the best candidate, the canary recovered);
+   (the pulsar the best candidate, the canary recovered); then FDAS
+   (``e2e_fdas``): the JAX package's benchmark case (a jerked sinusoid
+   on a synthetic 8 x 16384 plane, 9 accelerations x 5 jerks) through
+   ``fdas_search`` and ``accel_search`` on the card (each recovering the
+   injected cell, the tables equivalent, both walls), the pulsar job
+   again with ``accel_backend="fdas"`` resumed from the first job's
+   ledger and snapshot (the pulsar and the canary recovered, the best
+   candidate equivalent to the time-stretch job's; the trial sweep's
+   seconds, the peak device bytes, B6's launches), and ``fdas_search``
+   on the card against the CPU on 8 DM rows of that plane (discrete
+   fields equal, sigma within rel 1e-4);
 7. the overlapped loop (``e2e_overlap``): a 12-chunk, 1.74 GB file of
    the same geometry (DM 400 pulses in 8 chunks) searched serially and
    overlapped in the order S, O, O, S: equal hits, byte-equal ledgers
@@ -154,16 +176,18 @@ device, or without the package beside this script, it exits non-zero
 and prints no result.  ``--quick`` stops after the kernel checks at small
 shapes (a first run of a new kernel).  ``--breakdown`` runs only the
 build and the breakdowns of the direct sweep, B6 and B3, which call
-only the wrappers' entry points: a copy of this script beside another
-checkout times that checkout the same way.  ``--overlap`` runs only the
-build and ``e2e_overlap``, ``--observe`` the build, the end-to-end file
-and ``e2e_observe``, ``--lowbit`` the build and ``e2e_lowbit`` (with
-its own pulsar file).  None of the five prints the last line.
+only the wrappers' entry points (a copy of this script beside another
+checkout times that checkout the same way), and the hybrid's.
+``--overlap`` runs only the build and ``e2e_overlap``, ``--observe`` the
+build, the end-to-end file and ``e2e_observe``, ``--lowbit`` the build
+and ``e2e_lowbit`` (with its own pulsar file).  None of the five prints
+the last line.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import shutil
@@ -1242,6 +1266,7 @@ def phase_hybrid_headline(torch, np, seed):
     from pulsarutils_tpu_torch.ops.plan import (dedispersion_shifts,
                                                 dmmax_for_trials)
     from pulsarutils_tpu_torch.ops.search import (_search_fdmt,
+                                                  _search_hybrid,
                                                   dedispersion_search)
 
     dmmax = dmmax_for_trials(DMMIN, HYB_NTRIALS, START_FREQ, BANDWIDTH,
@@ -1289,11 +1314,26 @@ def phase_hybrid_headline(torch, np, seed):
     counts = read_counts()
     want = fdmt_launches(NCHAN, float(table["DM"].min()),
                          float(table["DM"].max()))
-    # one scorer launch for the coarse plane, one per rescore bucket
+    # the fused schedule: one scorer launch for the coarse plane, one for
+    # the seed's rows and one for the need stage's, one per host-loop
+    # bucket; a sweep launch for each but the coarse plane's
     check(want["B3"] == 1 and all(counts[k] == v for k, v in want.items())
-          and counts["B1"] >= 1 and counts["B4"] == 1 + counts["B1"],
+          and counts["B1"] >= 2 and counts["B4"] == 1 + counts["B1"],
           f"hybrid headline launches {counts}, schedule {want}")
+    # one dispatch and one readback for the fused program, one each per
+    # host-loop bucket (its B1 launches but the program's two)
+    trips = _budget_of(hybrid)
+    check(trips["counters"].get("dispatches")
+          == trips["counters"].get("readbacks") == counts["B1"] - 1
+          and "search/fused" in trips["buckets"],
+          f"hybrid headline trips {trips}, launches {counts}")
     table, hybrid_ms, hybrid_runs = wall(hybrid)
+    trial_dms = np.asarray(table["DM"])
+    _, two_stage_ms, two_stage_runs = wall(lambda: _search_hybrid(
+        data, trial_dms, START_FREQ, BANDWIDTH, TSAMP, False, fused=False))
+    two_trips = _budget_of(lambda: _search_hybrid(
+        data, trial_dms, START_FREQ, BANDWIDTH, TSAMP, False, fused=False))
+    rows_check = _seed_rows_bitwise(torch, np, data, trial_dms)
     ref, exact_ms, exact_runs = wall(exact)
     coarse_dms = fdmt_trial_dms(NCHAN, float(table["DM"].min()),
                                 float(table["DM"].max()), START_FREQ,
@@ -1314,6 +1354,17 @@ def phase_hybrid_headline(torch, np, seed):
                               / abs(ref["snr"][best_p])),
         "rescored_rows": int(np.count_nonzero(table["exact"])),
     }
+    # every exact row is the exact sweep's row: the same B1 sums (the
+    # rows planned on the card), B4 row by row
+    ex = np.flatnonzero(table["exact"])
+    exact_rows = {col: float(np.max(np.abs(
+        np.asarray(table[col][ex], np.float64)
+        - np.asarray(ref[col][ex], np.float64)))) for col in
+        ("max", "std", "snr", "rebin", "peak")}
+    check(exact_rows["rebin"] == 0 and exact_rows["peak"] == 0
+          and all(exact_rows[c] <= 1e-6 * float(np.max(np.abs(ref[c])))
+                  for c in ("max", "std", "snr")),
+          f"hybrid exact rows differ from the sweep's: {exact_rows}")
     ndm = table.nrows
     emit("hybrid_headline", nchan=NCHAN, nsamples=NSAMPLES, ndm=ndm,
          coarse_rows=len(coarse_dms), dm_range=[DMMIN, dmmax],
@@ -1322,6 +1373,15 @@ def phase_hybrid_headline(torch, np, seed):
          launches=counts, data_seconds=make_s, first_call_ms=first_ms,
          coarse_ms=coarse_ms, coarse_runs_ms=coarse_runs,
          hybrid_ms=hybrid_ms, hybrid_runs_ms=hybrid_runs,
+         dispatches=trips["counters"].get("dispatches"),
+         readbacks=trips["counters"].get("readbacks"),
+         buckets_s=trips["buckets"],
+         two_stage_ms=two_stage_ms, two_stage_runs_ms=two_stage_runs,
+         two_stage_dispatches=two_trips["counters"].get("dispatches"),
+         two_stage_readbacks=two_trips["counters"].get("readbacks"),
+         two_stage_buckets_s=two_trips["buckets"],
+         exact_rows_max_abs_diff_vs_sweep=exact_rows,
+         seed_rows_b1_vs_plain=rows_check,
          exact_sweep_ms=exact_ms, exact_sweep_runs_ms=exact_runs,
          hybrid_dm_trials_per_s=ndm / (hybrid_ms / 1e3),
          exact_dm_trials_per_s=ref.nrows / (exact_ms / 1e3),
@@ -1334,7 +1394,57 @@ def phase_hybrid_headline(torch, np, seed):
     del data
     torch.cuda.empty_cache()
     return {"hybrid_ms": hybrid_ms, "coarse_ms": coarse_ms,
-            "exact_ms": exact_ms}
+            "exact_ms": exact_ms, "two_stage_ms": two_stage_ms}
+
+
+def _budget_of(fn):
+    """The budget record (buckets in seconds, counters) of one call of
+    ``fn`` under a :class:`BudgetAccountant`."""
+    from pulsarutils_tpu_torch.utils.logging_utils import BudgetAccountant
+
+    acct = BudgetAccountant()
+    with acct.chunk(0) as rec:
+        fn()
+    return {"buckets": rec["buckets"], "counters": rec["counters"]}
+
+
+def _seed_rows_bitwise(torch, np, data, trial_dms):
+    """The fused seed program's seed and need rows of ``data``: B1 planned
+    on the card over the device-resident table against the plain sweep
+    of the same offsets, bit for bit."""
+    from pulsarutils_tpu_torch.ops import search
+    from pulsarutils_tpu_torch.ops.certify import fused_cert_params
+    from pulsarutils_tpu_torch.ops.dedisperse import dedisperse_plane_plain
+    from pulsarutils_tpu_torch.ops.dedisperse_cuda import dedisperse_rows
+    from pulsarutils_tpu_torch.ops.fdmt import fdmt_trial_dms
+    from pulsarutils_tpu_torch.ops.plan import offsets_for
+
+    nchan, nsamples = data.shape
+    ndm = len(trial_dms)
+    geom = (START_FREQ, BANDWIDTH, TSAMP)
+    coarse_dms, n_lo, n_hi = fdmt_trial_dms(
+        nchan, float(trial_dms.min()), float(trial_dms.max()), *geom)
+    table = search._row_table(trial_dms.tobytes(), nchan, *geom, nsamples,
+                              data.device)
+    bucket, bucket2 = search.HYBRID_SEED_BUCKET, search.HYBRID_NEED_BUCKET
+    packed = search._fused_seed(
+        data, table, search.nearest_rows(coarse_dms, trial_dms),
+        fused_cert_params(nchan, trial_dms, *geom, nsamples), n_lo, n_hi,
+        START_FREQ, BANDWIDTH, bucket, bucket2)
+    _, sel, _, _, sel2, _, n_need = search.unpack_fused_hybrid(
+        packed, ndm, bucket, bucket2)
+    offsets = offsets_for(trial_dms, nchan, *geom, nsamples)
+    out = {"n_need": n_need, "use_smem": table.use_smem,
+           "window": table.win, "spread": table.spread}
+    for name, rows in (("seed", sel), ("need", sel2)):
+        kernel = dedisperse_rows(data, table,
+                                 torch.from_numpy(rows).to(data.device))
+        plain = dedisperse_plane_plain(data, offsets[rows])
+        diff = float((kernel - plain).abs().max())
+        check(diff == 0.0, f"B1 on the {name} rows {rows.tolist()} differs "
+              f"from plain by {diff}")
+        out[name] = {"rows": rows.tolist(), "max_abs_diff": diff}
+    return out
 
 
 def phase_sweep_breakdown(torch, np, seed):
@@ -1417,6 +1527,119 @@ def phase_sweep_breakdown(torch, np, seed):
     del data
     torch.cuda.empty_cache()
     return record
+
+
+def _bench_data_on_card(torch, np, nsamples, seed):
+    """bench.py's kind of chunk, made on the card: |N(0, 1)| / 2 with an
+    impulse at T/2 rolled per channel by the DM 350 shifts."""
+    from pulsarutils_tpu_torch.ops.plan import dedispersion_shifts
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((NCHAN, nsamples), generator=gen, device="cuda").abs_()
+    x *= 0.5
+    x[:, nsamples // 2] += 1.0
+    shifts = np.rint(np.asarray(dedispersion_shifts(
+        NCHAN, HYB_DM, START_FREQ, BANDWIDTH, TSAMP))).astype(np.int64)
+    for c in range(NCHAN):
+        x[c] = torch.roll(x[c], int(shifts[c] % nsamples))
+    return x
+
+
+def phase_hybrid_breakdown(torch, np, seed):
+    """The hybrid's search split, fused and two-stage, at the end-to-end
+    chunk (1024 x 2^18, the DM 300-635 plan) and the headline (1024 x
+    2^20, bench.py's 512-trial grid): the budget's buckets (the fused
+    program, the coarse sweep and its readback, the host loop's rescore
+    buckets, the certificate bound), the card time of B1 and B4 (CUDA
+    events around each launch), the host's planning of a bucket's rows
+    on the card, and the rest; then one 8-row B1 launch planned on the
+    card (the table's static window) against the same rows planned on
+    the host (their own window), each against plain bit for bit and
+    against its bound."""
+    from pulsarutils_tpu_torch.ops import dedisperse_cuda as dc
+    from pulsarutils_tpu_torch.ops import score_cuda as sc
+    from pulsarutils_tpu_torch.ops.dedisperse import dedisperse_plane_plain
+    from pulsarutils_tpu_torch.ops.plan import (dedispersion_plan,
+                                                dmmax_for_trials, offsets_for)
+    from pulsarutils_tpu_torch.ops.search import _row_table, _search_hybrid
+
+    geom = (START_FREQ, BANDWIDTH, TSAMP)
+    out = {}
+    for label, nsamples, dmmax in (
+            ("e2e_chunk", E2E_CHUNK, DMMAX),
+            ("headline", NSAMPLES, dmmax_for_trials(DMMIN, HYB_NTRIALS,
+                                                    *geom))):
+        data = _bench_data_on_card(torch, np, nsamples, seed + 11)
+        dms = dedispersion_plan(NCHAN, DMMIN, dmmax, *geom)
+        rec = {"nchan": NCHAN, "nsamples": nsamples, "ndm": len(dms)}
+        for mode, fused in (("fused", True), ("two_stage", False)):
+            def search():
+                return _search_hybrid(data, dms, *geom, False, fused=fused)
+
+            search()   # the warm-up: the certificate bound, the table
+            torch.cuda.synchronize()
+            b1, undo1 = _timed_launches(torch, dc, "dedisperse_plane_cuda")
+            b4, undo4 = _timed_launches(torch, sc, "score_plane_cuda")
+            try:
+                t0 = time.perf_counter()
+                budget = _budget_of(search)
+                torch.cuda.synchronize()
+                wall = 1e3 * (time.perf_counter() - t0)
+            finally:
+                undo1()
+                undo4()
+            buckets = {k: 1e3 * v for k, v in budget["buckets"].items()}
+            kernels = {"B1": sum(a.elapsed_time(b) for a, b in b1),
+                       "B4": sum(a.elapsed_time(b) for a, b in b4)}
+            rec[mode] = {"wall_ms": wall, "buckets_ms": buckets,
+                         "counters": budget["counters"],
+                         "launches": {"B1": len(b1), "B4": len(b4)},
+                         "card_ms": kernels,
+                         "rest_ms": wall - sum(buckets.values())}
+        table = _row_table(dms.tobytes(), NCHAN, *geom, nsamples,
+                           data.device)
+        offsets = offsets_for(dms, NCHAN, *geom, nsamples)
+        best = int(np.argmin(np.abs(dms - HYB_DM)))
+        seed_rows = np.clip(np.array([best - 1, best, best + 1, 60, 61, 62,
+                                      best - 1, best - 1]), 0, len(dms) - 1)
+        plan_ms = {}
+        for n in (8, 32):
+            rows = torch.arange(n, device="cuda") * 3 % len(dms)
+            walls = []
+            for _ in range(20):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                dc.table_plan(table, rows)
+                torch.cuda.synchronize()
+                walls.append(1e3 * (time.perf_counter() - t0))
+            plan_ms[f"rows_{n}"] = statistics.median(walls)
+        rec["plan_rows_on_card_ms"] = plan_ms
+        plain = dedisperse_plane_plain(data, offsets[seed_rows])
+        dplan, dmeta = dc.table_plan(table, torch.from_numpy(seed_rows)
+                                     .cuda())
+        hplan, hmeta = dc.device_plan(offsets[seed_rows], nsamples,
+                                      data.device)
+        launch = {}
+        for name, plan, meta in (("card_planned", dplan, dmeta),
+                                 ("host_planned", hplan, hmeta)):
+            got = dc.dedisperse_plane_cuda(data, meta, plan)
+            diff = float((got - plain).abs().max())
+            check(diff == 0.0, f"{label}: the {name} 8-row B1 launch "
+                  f"differs from plain by {diff}")
+            ms, runs = time_ms(torch, lambda plan=plan, meta=meta:
+                               dc.dedisperse_plane_cuda(data, meta, plan))
+            launch[name] = {"kernel_ms": ms, "runs_ms": runs,
+                            "window": plan.win, "use_smem": plan.use_smem,
+                            "max_abs_diff": diff}
+        bound, by = sweep_bound_ms(8, NCHAN, nsamples)
+        launch["bound_ms"], launch["bound_by"] = bound, by
+        launch["rows"] = seed_rows.tolist()
+        rec["b1_8_rows"] = launch
+        emit("hybrid_breakdown", case=label, **rec)
+        out[label] = rec
+        del data, plain
+        torch.cuda.empty_cache()
+    return out
 
 
 def phase_kernel_breakdown(torch, np, seed):
@@ -1506,8 +1729,12 @@ def phase_kernel_breakdown(torch, np, seed):
 
 def phase_e2e_hybrid(torch, np, workdir, path, chunk_length, nchunks,
                      direct_hits):
-    """The end-to-end file through the hybrid: at S/N 8 (floorless), then
-    at the certifiable floor (the noise certificate)."""
+    """The end-to-end file through the hybrid: at S/N 8 (floorless: the
+    fused seed program on every chunk), the same with the OOM ladder's
+    ``unfuse`` rung engaged by an injected OOM at the first chunk's
+    dispatch (two-stage on every chunk), then at the certifiable floor
+    (the noise certificate; two-stage)."""
+    from pulsarutils_tpu_torch.faults import FaultPlan, FaultSpec
     from pulsarutils_tpu_torch.ops.plan import dedispersion_plan
     from pulsarutils_tpu_torch.pipeline.search_pipeline import \
         search_by_chunks
@@ -1518,19 +1745,46 @@ def phase_e2e_hybrid(torch, np, workdir, path, chunk_length, nchunks,
                             TSAMP)
     per_chunk = fdmt_launches(NCHAN, float(dms.min()), float(dms.max()))
     check(per_chunk["B3"] == 1, f"e2e schedule {per_chunk}")
-    runs = {}
-    for label, threshold in (("snr_8", 8.0), ("certifiable", "certifiable")):
+    runs, hits_of = {}, {}
+    unfuse = FaultPlan([FaultSpec(site="dispatch", kind="oom", times=1)])
+    for label, threshold, fused in (("snr_8", 8.0, True),
+                                    ("snr_8_unfused", 8.0, False),
+                                    ("certifiable", "certifiable", False)):
         stages, summary = {}, {}
         reset_counts()
         t0 = time.perf_counter()
-        hits, store = search_by_chunks(
-            str(path), kernel="hybrid", snr_threshold=threshold,
-            output_dir=str(workdir / f"out_hybrid_{label}"),
-            stage_seconds=stages, summary=summary, **common)
+        with (unfuse.armed() if label == "snr_8_unfused"
+              else contextlib.nullcontext()):
+            hits, store = search_by_chunks(
+                str(path), kernel="hybrid", snr_threshold=threshold,
+                output_dir=str(workdir / f"out_hybrid_{label}"),
+                stage_seconds=stages, summary=summary, **common)
         wall = time.perf_counter() - t0
         counts = read_counts()
         floor = summary["snr_threshold"]
-        check_clean_run(summary, f"e2e_hybrid {label}")
+        if label == "snr_8_unfused":
+            check(summary.get("fallback") is None
+                  and summary.get("oom_descents") == 1
+                  and summary.get("quarantined") == 0,
+                  f"{label}: {summary}")
+            # the rung's contract: the same hits, best rows and rows
+            # exact in both runs
+            bad = _hit_mismatch(hits, hits_of["snr_8"])
+            check(bad is None, f"{label}: hits differ from the fused "
+                  f"run's: {bad}")
+            for (_, _, _, t), (_, _, _, r) in zip(hits, hits_of["snr_8"]):
+                both = np.asarray(t["exact"]) & np.asarray(r["exact"])
+                check(all(np.array_equal(np.asarray(t[c])[both],
+                                         np.asarray(r[c])[both])
+                          for c in ("max", "std", "snr", "rebin", "peak")),
+                      f"{label}: a row exact in both runs differs")
+        else:
+            check_clean_run(summary, f"e2e_hybrid {label}")
+        # the fused program on every chunk, or on none
+        check(("search/fused" in stages) == fused
+              and ("search/coarse" in stages) != fused,
+              f"{label}: stages {sorted(stages)}")
+        hits_of[label] = hits
         check(summary["searched"] == nchunks, f"{label}: searched "
               f"{summary['searched']} of {nchunks} chunks")
         check(all(counts[k] == v * nchunks for k, v in per_chunk.items())
@@ -1557,6 +1811,7 @@ def phase_e2e_hybrid(torch, np, workdir, path, chunk_length, nchunks,
         emit("e2e_hybrid", run=label, snr_threshold=floor,
              snr_floor=summary["snr_floor"], chunks=nchunks,
              certified_chunks=summary["certified"], hits=len(hits),
+             fused=fused, oom_descents=summary.get("oom_descents"),
              launches=counts,
              launches_per_chunk={k: v / nchunks for k, v in counts.items()},
              wall_s=wall, chunk_loop_s=loop_s,
@@ -1910,7 +2165,140 @@ def phase_e2e_period(torch, np, workdir, seed):
          canary=res["canary"], launches=job, wall_s=wall,
          trial_sweep_s=res["seconds"]["trials"],
          fold_s=res["seconds"]["fold"], stage_seconds=stages)
-    return {"period_search": per_chunk, "periodicity_search": job}
+    return {"period_search": per_chunk, "periodicity_search": job,
+            "job": res, "job_dir": workdir / "out_puperiod",
+            "trial_sweep_s": res["seconds"]["trials"]}
+
+
+def _one_row(cand):
+    """A candidate dict as a one-row trial table for
+    ``accel_tables_match``."""
+    import numpy as np
+
+    return {k: np.array([cand[k]]) for k in (
+        "dm_index", "accel_index", "jerk_index", "nharm", "freq", "sigma")}
+
+
+def phase_e2e_fdas(torch, np, workdir, seed, period):
+    """``accel_backend="fdas"`` on the card: (i) the JAX package's
+    benchmark case (a jerked sinusoid on a synthetic 8 x 16384 plane, 9
+    accelerations x 5 jerks) through ``fdas_search`` and ``accel_search``,
+    each recovering the injected cell, the two tables equivalent; (ii)
+    the pulsar file's periodicity job (514 x 655,360 plane, 5
+    accelerations, the canary) with the FDAS backend, resumed from the
+    time-stretch job's ledger and snapshot: the pulsar and the canary
+    recovered, its best candidate equivalent to the time-stretch job's;
+    (iii) ``fdas_search`` on the card against the CPU on one block of 8
+    DM rows of that plane."""
+    from pulsarutils_tpu_torch.ops.plan import dedispersion_plan
+    from pulsarutils_tpu_torch.periodicity.accel import accel_search
+    from pulsarutils_tpu_torch.periodicity.driver import periodicity_search
+    from pulsarutils_tpu_torch.periodicity.fdas import fdas_search
+    from pulsarutils_tpu_torch.tuning.autotune import (accel_tables_match,
+                                                       synthetic_accel_plane)
+
+    # (i) the benchmark case
+    tsamp, nsamples, ndm = 5e-4, 16384, 8
+    accels = np.linspace(-2e5, 2e5, 9)
+    jerks = np.linspace(-5e4, 5e4, 5)
+    inj_a, inj_j, inj_dm = 6, 3, ndm // 3
+    k0 = int(round(0.175 * nsamples))
+    f0 = k0 / (nsamples * tsamp)
+    plane = torch.from_numpy(synthetic_accel_plane(
+        ndm, nsamples, tsamp, float(accels[inj_a]),
+        jerk=float(jerks[inj_j]), seed=20).astype(np.float32)).cuda()
+    kw = dict(jerks=jerks, max_harmonics=1, fmax=1.25 * f0, topk=8,
+              device="cuda")
+    bench = {}
+    tables = {}
+    for name, fn in (("time_stretch", accel_search), ("fdas", fdas_search)):
+        fn(plane, tsamp, accels, **kw)   # the warm-up
+        walls = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tables[name] = fn(plane, tsamp, accels, **kw)
+            walls.append(1e3 * (time.perf_counter() - t0))
+        tbl = tables[name]
+        cell = (int(tbl["dm_index"][0]), int(tbl["accel_index"][0]),
+                int(tbl["jerk_index"][0]), int(tbl["freq_bin"][0]))
+        want = (inj_dm, inj_a, inj_j, k0)
+        check(cell[:3] == want[:3] and abs(cell[3] - k0) <= 1,
+              f"{name}: top cell {cell}, injected {want}")
+        bench[name] = {"wall_ms": statistics.median(walls),
+                       "walls_ms": walls, "top_cell": cell,
+                       "sigma": float(tbl["sigma"][0])}
+    match = accel_tables_match(tables["time_stretch"], tables["fdas"])
+    check(match, f"benchmark case: the backends' tables differ: {bench}")
+    emit("e2e_fdas", case="benchmark", ndm=ndm, nsamples=nsamples,
+         accels=len(accels), jerks=len(jerks), tables_match=match, **bench)
+
+    # (ii) the pulsar file's job, resumed from the time-stretch job's files
+    path = workdir / "pulsar.fil"
+    dms = dedispersion_plan(NCHAN, DMMIN, DMMAX, START_FREQ, BANDWIDTH,
+                            TSAMP)
+    spacing = float(dms[1] - dms[0])
+    stages, summary = {}, {}
+    torch.cuda.synchronize()
+    base_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = periodicity_search(
+        str(path), DMMIN, DMMAX, accel_max=1000.0, n_accel=5, canary=True,
+        accel_backend="fdas", output_dir=str(period["job_dir"]),
+        stage_seconds=stages, summary=summary,
+        chunk_length=E2E_CHUNK // 2 * TSAMP, snr_threshold=8.0,
+        device="cuda")
+    wall = time.perf_counter() - t0
+    job = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check_clean_run(summary, "e2e_fdas")
+    acc = res["accumulator"]
+    t_obs = acc.nout * acc.tsamp
+    check(res["complete"] and res["candidates"]
+          and res["accel_backend"] == "fdas", "fdas job: no candidates")
+    best = res["candidates"][0]
+    check(_psr_match(best["freq"], best["dm"], spacing, t_obs),
+          f"fdas job best candidate f={best['freq']} DM={best['dm']} vs "
+          f"{PSR_FREQ} Hz, DM {E2E_DM}")
+    check(res["canary"]["recovered"], f"fdas canary missed: {res['canary']}")
+    check(job["B6"] >= len(res["accels"]), f"fdas job launches {job}")
+    stretch_best = period["job"]["candidates"][0]
+    agree = accel_tables_match(_one_row(stretch_best), _one_row(best))
+    check(agree, f"fdas best {best} vs time_stretch best {stretch_best}")
+    emit("e2e_fdas", case="periodicity_job", ndm=acc.ndm, nout=acc.nout,
+         accels=[float(a) for a in res["accels"]],
+         best={k: best[k] for k in ("dm", "accel", "freq", "freq_bin",
+                                    "nharm", "sigma")},
+         time_stretch_best={k: stretch_best[k] for k in (
+             "dm", "accel", "freq", "freq_bin", "nharm", "sigma")},
+         tables_match=agree, canary=res["canary"], launches=job,
+         wall_s=wall, trial_sweep_s=res["seconds"]["trials"],
+         time_stretch_trial_sweep_s=period["trial_sweep_s"],
+         peak_device_bytes=peak, bytes_before=base_bytes,
+         peak_extra_bytes=peak - base_bytes, stage_seconds=stages)
+
+    # (iii) the card against the CPU on one block of DM rows
+    d0 = max(0, min(acc.ndm - 8, int(best["dm_index"]) - 4))
+    block = np.ascontiguousarray(acc.plane[d0:d0 + 8], dtype=np.float32)
+    kw = dict(max_harmonics=4, fmax=20.0, topk=16)
+    card = fdas_search(block, acc.tsamp, [-1000.0, 0.0, 1000.0],
+                       device="cuda", **kw)
+    host = fdas_search(block, acc.tsamp, [-1000.0, 0.0, 1000.0],
+                       device="cpu", **kw)
+    discrete = all(np.array_equal(card[k], host[k]) for k in (
+        "dm_index", "accel_index", "jerk_index", "freq_bin", "nharm"))
+    rel = float(np.max(np.abs(card["sigma"] - host["sigma"])
+                       / np.abs(host["sigma"])))
+    check(discrete and rel <= 1e-4, f"fdas card vs CPU: discrete "
+          f"{discrete}, sigma rel {rel}")
+    emit("e2e_fdas", case="card_vs_cpu", rows=[d0, d0 + 8],
+         discrete_equal=discrete, sigma_max_rel_diff=rel)
+    del plane, block
+    torch.cuda.empty_cache()
+    return {"periodicity_search": job, "trial_sweep_s":
+            res["seconds"]["trials"], "peak_extra_bytes": peak - base_bytes}
 
 
 def _write_e2e_file(np, path, seed):
@@ -3242,8 +3630,8 @@ def main(argv=None):
                         help="build and check the kernels at small shapes "
                              "only")
     parser.add_argument("--breakdown", action="store_true",
-                        help="time the direct sweep, B6 and B3 phase by "
-                             "phase only")
+                        help="time the direct sweep, B6, B3 and the "
+                             "hybrid phase by phase only")
     parser.add_argument("--overlap", action="store_true",
                         help="build and run e2e_overlap only")
     parser.add_argument("--observe", action="store_true",
@@ -3283,6 +3671,7 @@ def main(argv=None):
         if opts.breakdown:
             phase_sweep_breakdown(torch, np, opts.seed)
             phase_kernel_breakdown(torch, np, opts.seed)
+            phase_hybrid_breakdown(torch, np, opts.seed)
             return 0
         if opts.overlap:
             shutil.rmtree(workdir, ignore_errors=True)
@@ -3317,6 +3706,7 @@ def main(argv=None):
         if opts.quick:
             return 0
         phase_hybrid_headline(torch, np, opts.seed)
+        hybrid_split = phase_hybrid_breakdown(torch, np, opts.seed)
         breakdown = phase_sweep_breakdown(torch, np, opts.seed)
         kernel_breakdown = phase_kernel_breakdown(torch, np, opts.seed)
         shutil.rmtree(workdir, ignore_errors=True)
@@ -3335,6 +3725,7 @@ def main(argv=None):
                                     nchunks)
         path.unlink()
         period = phase_e2e_period(torch, np, workdir, opts.seed)
+        fdas = phase_e2e_fdas(torch, np, workdir, opts.seed, period)
         lowbit = phase_e2e_lowbit(torch, np, workdir, opts.seed,
                                   pulsar=workdir / "pulsar.fil")
         (workdir / "pulsar.fil").unlink()
@@ -3347,9 +3738,13 @@ def main(argv=None):
 
     main_path = hybrid["snr_8"]
     launches = {"direct sweep (e2e_search)": direct,
-                "hybrid at S/N 8 (e2e_hybrid)": main_path,
+                "hybrid, fused seed (e2e_hybrid S/N 8)": main_path,
+                "hybrid, two-stage after the unfuse rung (e2e_hybrid S/N 8)":
+                    hybrid["snr_8_unfused"],
                 "hybrid at the certifiable floor (e2e_hybrid)":
                     hybrid["certifiable"],
+                "periodicity job, fdas (e2e_fdas)":
+                    fdas["periodicity_search"],
                 "fourier (e2e_fourier)": fourier,
                 "direct sweep with period_search (e2e_period_chunks)":
                     period["period_search"],
@@ -3400,6 +3795,8 @@ def main(argv=None):
                   "trial_blocks": head["trial_blocks"]},
         "distinct_share": head["distinct_share"],
         "through_entry_points": breakdown,
+        "planned_on_card_8_rows": {
+            k: v["b1_8_rows"] for k, v in hybrid_split.items()},
         "launches_at": {k: {f: r[f] for f in (
             "ndm", "trial_blocks", "kernel_ms", "plain_ms", "bound_ms",
             "bound_share", "max_abs_diff")}

@@ -43,8 +43,9 @@ def build_parser():
     parser.add_argument("--accel-backend", default="auto",
                         choices=["auto", "time_stretch", "fdas"],
                         help="trial formulation: time_stretch (one FFT per "
-                             "trial; what auto resolves to); fdas is not "
-                             "ported yet")
+                             "trial; what auto resolves to) or fdas (one "
+                             "FFT per DM row and a z/w-response "
+                             "correlation per trial)")
     parser.add_argument("--sigma-threshold", type=float, default=8.0,
                         help="candidate significance floor (Gaussian-"
                              "equivalent sigma)")

@@ -37,18 +37,23 @@
 //   share of loads changes.
 // - Asynchronous staging.  Channels are taken kChanBlock at a time through a
 //   ring of three shared-memory stages filled with cp.async: the windows
-//   [tile start + the channel's least offset, + tile + spread) and the
-//   block's per-channel plan rows.  A window that crosses T is copied in two
-//   pieces (no wrap per element).  One barrier per channel block: stage s+2
-//   is issued after the barrier that ends every thread's reading of stage
-//   s-1, which used the same buffer.
+//   [tile start + the channel's least offset, + tile + the channel's
+//   largest relative offset in the block) and the block's per-channel plan
+//   rows.  Each channel copies its own span, so a launch whose window
+//   bounds many blocks (the hybrid's rows planned on the card, sized by the
+//   whole plan's spread) copies what each block needs, not the bound.  A
+//   window that crosses T is copied in two pieces (no wrap per element).
+//   One barrier per channel block: stage s+2 is issued after the barrier
+//   that ends every thread's reading of stage s-1, which used the same
+//   buffer.
 // - Where the host finds the spread too large for the shared-memory budget
 //   (use_smem == 0), the same kernel reads the input straight from global
 //   memory with the same marks.
 //
-// The plan rows: meta[(blk * nchan + c) * (D + 2) + ...] = {base, mask,
+// The plan rows: meta[(blk * nchan + c) * (D + 3) + ...] = {base, mask, top,
 // rel[0 .. D)}: the channel's least rebased offset in the block, the change
-// mask (bit d for trial d), and each trial's offset minus base.  The offsets
+// mask (bit d for trial d), the largest of rel (the channel's span beyond
+// the tile), and each trial's offset minus base.  The offsets
 // arrive rebased (the host maps them to a signed form and subtracts their
 // minimum, so they lie in [0, T)); the rebase constant is folded into the
 // store index as store_shift.
@@ -63,8 +68,8 @@ constexpr int kTile = kThreads * kPerThread;    // samples a block
 constexpr int kChanBlock = 4;                   // channels a stage
 constexpr int kStages = 3;
 
-// plan ints per (trial block, channel): base, mask, d relative offsets
-__host__ __device__ constexpr int meta_width(int d) { return d + 2; }
+// plan ints per (trial block, channel): base, mask, top, d relative offsets
+__host__ __device__ constexpr int meta_width(int d) { return d + 3; }
 
 __device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -120,9 +125,14 @@ dedisperse_kernel(const float* __restrict__ x, const int* __restrict__ meta,
     int* sm = s_meta + buf * CB * M;
     for (int i = tid; i < nc * M; i += kThreads) cp_async4(sm + i, gm + i);
     if (!use_smem) return;
-    int base[CB];
+    // each channel's least offset and its own span: the tile plus its
+    // largest relative offset in this block (at most win, the launch's)
+    int base[CB], span[CB];
 #pragma unroll
-    for (int cc = 0; cc < CB; ++cc) base[cc] = cc < nc ? __ldg(gm + cc * M) : 0;
+    for (int cc = 0; cc < CB; ++cc) {
+      base[cc] = cc < nc ? __ldg(gm + cc * M) : 0;
+      span[cc] = cc < nc ? min(win, kTile + __ldg(gm + cc * M + 2)) : 0;
+    }
     float* sw = s_win + (size_t)buf * CB * win;
 #pragma unroll
     for (int cc = 0; cc < CB; ++cc) {
@@ -130,11 +140,12 @@ dedisperse_kernel(const float* __restrict__ x, const int* __restrict__ meta,
       const float* row = x + (size_t)(c0 + cc) * nsamples;
       int start = u0 + base[cc];  // u0 < T and base < T
       if (start >= nsamples) start -= nsamples;
-      const int n1 = min(win, nsamples - start);  // the piece before T
+      const int n = span[cc];
+      const int n1 = min(n, nsamples - start);  // the piece before T
       float* w = sw + cc * win;
       for (int j = tid; j < n1; j += kThreads) cp_async4(w + j, row + start + j);
-      // the rest from the row's start (past T again only when win > T)
-      for (int j = n1 + tid; j < win; j += kThreads) {
+      // the rest from the row's start (past T again only when n > T)
+      for (int j = n1 + tid; j < n; j += kThreads) {
         int i = j - n1;
         while (i >= nsamples) i -= nsamples;
         cp_async4(w + j, row + i);
@@ -170,7 +181,7 @@ dedisperse_kernel(const float* __restrict__ x, const int* __restrict__ meta,
 #pragma unroll
         for (int d = 0; d < D; ++d) {
           if ((mask >> d) & 1u) {
-            const float* p = w + m[2 + d];
+            const float* p = w + m[3 + d];
 #pragma unroll
             for (int v = 0; v < P; ++v) cur[v] = p[v * kThreads];
           }
@@ -186,7 +197,7 @@ dedisperse_kernel(const float* __restrict__ x, const int* __restrict__ meta,
 #pragma unroll
         for (int d = 0; d < D; ++d) {
           if ((mask >> d) & 1u) {
-            const int r = m[0] + m[2 + d];  // in [0, 2T)
+            const int r = m[0] + m[3 + d];  // in [0, 2T)
 #pragma unroll
             for (int v = 0; v < P; ++v) {
               // u < T + tile, so the index is below 3T + tile

@@ -20,7 +20,10 @@ serves both:
 * B6, the harmonic scorer (:func:`b6_work`): the stack's harmonic adds
   under each precision policy; the power rows read and the peaks
   written;
-* ``device_clean`` (:func:`clean_work`): the chunk read and written.
+* ``device_clean`` (:func:`clean_work`): the chunk read and written;
+* the hybrid's fused seed program (:func:`fused_seed_work`): its coarse
+  passes, their scoring, and the sweep and scoring of its seed and need
+  buckets.
 
 Times are the card's own: a CUDA event pair around each launch on the
 current stream, read back lazily (:func:`flush`), so recording adds no
@@ -43,9 +46,9 @@ from . import metrics
 __all__ = ["CARD_PEAKS", "PEAK_FP32_ADDS", "PEAK_HBM_BYTES_S",
            "B6_OPS_PER_ADD", "bound_ms", "sweep_bound_ms", "b6_bound_ms",
            "sweep_work", "fdmt_pass_work", "score_work", "fdd_work",
-           "b6_work", "clean_work", "enable", "disable", "enabled",
-           "begin", "end", "flush", "record", "table", "log_table",
-           "reset"]
+           "b6_work", "clean_work", "fused_seed_work", "enable", "disable",
+           "enabled", "begin", "end", "flush", "record", "table",
+           "log_table", "reset"]
 
 #: NVIDIA H100 SXM data-sheet peaks (700 W).  The sheet's 67 TFLOP/s
 #: float32 on the CUDA cores counts each fused multiply-add as two
@@ -133,6 +136,21 @@ def clean_work(nchan, nsamples):
     """``device_clean``: the chunk read and the cleaned chunk written (its
     operations are not counted: a bytes-only model)."""
     return 0, 8 * nchan * nsamples
+
+
+def fused_seed_work(coarse_work, coarse_rows, nchan, nsamples, buckets):
+    """The hybrid's fused seed program: ``coarse_work``, the FDMT passes'
+    ``(operations, bytes)``, the scoring of their ``coarse_rows`` rows
+    with the certificate row, and a B1 sweep and a B4 scoring of each of
+    the ``buckets`` (the seed's rows, the need stage's)."""
+    ops, nbytes = coarse_work
+    parts = [score_work(coarse_rows, nsamples, 6 * coarse_rows)]
+    for rows in buckets:
+        parts += [sweep_work(rows, nchan, nsamples),
+                  score_work(rows, nsamples, 5 * rows)]
+    for o, b in parts:
+        ops, nbytes = ops + o, nbytes + b
+    return ops, nbytes
 
 
 # -- accounting --------------------------------------------------------------

@@ -1,10 +1,9 @@
 """Per-config soundness bounds for the hybrid search (host math).
 
-A copy of the JAX package's ``ops/certify.py`` (less
-``fused_cert_params``, which serves only the fused TPU seed program):
-a lower bound on how much of a real pulse's exact S/N the coarse (FDMT)
-sweep retains, computed exactly per search configuration from the
-transform's own merge tables (:func:`~.fdmt.fdmt_tracks`), and the noise
+A copy of the JAX package's ``ops/certify.py``: a lower bound on how
+much of a real pulse's exact S/N the coarse (FDMT) sweep retains,
+computed exactly per search configuration from the transform's own merge
+tables (:func:`~.fdmt.fdmt_tracks`), and the noise
 certificate built on it.  Float64 NumPy on the host; the tests pin every
 function's values equal to the reference's.
 
@@ -307,6 +306,34 @@ def retention_bound(nchan, trial_dms, start_freq, bandwidth, sample_time,
                                                        min_width=min_width)
     return float(fn(nchan, trial_dms, start_freq, bandwidth, sample_time,
                     nsamples).min())
+
+
+def fused_cert_params(nchan, trial_dms, start_freq, bandwidth, sample_time,
+                      nsamples, snr_floor=None, rho_cert=None,
+                      cert_slack=None):
+    """The ``(rho, slack, floor)`` float32 operand of the hybrid's fused
+    seed program (``ops/search.py:_fused_seed``), whose need stage it
+    parameterises: ``rho = +inf`` disables the device's certificate
+    terms (the consistency guards still fire), ``floor = +inf`` the floor
+    terms.  ``rho_cert=None`` computes the retention bound, the same
+    cached computation the certificate gate performs, under the
+    ``search/cert_floor`` budget bucket so a cache miss cannot hide
+    inside the fused search."""
+    from ..utils.logging_utils import budget_bucket
+
+    if rho_cert is False:
+        rho_val = np.inf
+    elif rho_cert is not None:
+        rho_val = float(rho_cert)
+    else:
+        with budget_bucket("search/cert_floor"):
+            rho_val = retention_bound(nchan, trial_dms, start_freq,
+                                      bandwidth, sample_time, nsamples,
+                                      cert=True)
+    slack_val = (HYBRID_CERT_SLACK if cert_slack is None
+                 else float(cert_slack))
+    floor_val = np.inf if snr_floor is None else float(snr_floor)
+    return np.asarray([rho_val, slack_val, floor_val], np.float32)
 
 
 def certify_noise_only(cert_scores, snr_floor, rho_cert_min,

@@ -11,12 +11,21 @@ into the kernel's store index, chooses the trial block (8 trials for a
 launch of at most 8, else 16), and writes the kernel's per (trial block,
 channel) rows: the channel's least offset in the block, a mask of the
 trials whose offset differs from the previous trial's (the kernel loads
-its window values only there and reuses its registers otherwise), and
-each trial's offset relative to the least.  The largest relative offset
-sizes the shared-memory window or sends the kernel to its global-memory
-branch.  :func:`device_plan` adds the rows' upload; a caller that sweeps
-one geometry chunk after chunk keeps its result (the direct search does)
-and passes it back to :func:`dedisperse_plane`.
+its window values only there and reuses its registers otherwise), the
+largest relative offset (the channel's span beyond the tile, which the
+kernel stages), and each trial's offset relative to the least.  The
+launch's largest relative offset sizes the shared-memory window or sends
+the kernel to its global-memory branch.  :func:`device_plan` adds the
+rows' upload; a caller that sweeps one geometry chunk after chunk keeps
+its result (the direct search does) and passes it back to
+:func:`dedisperse_plane`.
+
+The hybrid sweeps rows that the card picks (its fused seed program)
+without a host synchronisation: :func:`row_table` keeps a whole plan's
+offsets on the device, rebased once, with a window that bounds every
+subset's spread; :func:`table_plan` builds a launch's rows on the device
+from the gathered offsets (:func:`plan_rows`), and
+:func:`dedisperse_rows` sweeps them.
 """
 
 from __future__ import annotations
@@ -96,7 +105,7 @@ def choose_trial_block(ndm):
 class LaunchPlan:
     """Host-side arguments of one kernel launch."""
     offsets: np.ndarray   # (ndm, nchan) int32, rebased
-    meta: np.ndarray      # (nblocks, nchan, trial_block + 2) int32 rows
+    meta: np.ndarray      # (nblocks, nchan, trial_block + 3) int32 rows
     trial_block: int      # trials per block (a compiled template)
     time_tile: int        # samples per block
     chan_block: int       # channels per shared-memory stage
@@ -109,7 +118,7 @@ class LaunchPlan:
     @property
     def smem_bytes(self):
         """Dynamic shared memory of one block of this launch."""
-        per_chan = self.trial_block + 2 + (self.win if self.use_smem else 0)
+        per_chan = self.trial_block + 3 + (self.win if self.use_smem else 0)
         return 4 * STAGES * self.chan_block * per_chan
 
 
@@ -139,8 +148,8 @@ def launch_plan(offsets, nsamples, trial_block=None):
             << np.arange(block, dtype=np.int32)[None, :, None]).sum(
                 axis=1, dtype=np.int32)
     meta = np.concatenate(
-        [base[..., None], bits[..., None], rel.transpose(0, 2, 1)],
-        axis=2).astype(np.int32)
+        [base[..., None], bits[..., None], rel.max(axis=1)[..., None],
+         rel.transpose(0, 2, 1)], axis=2).astype(np.int32)
     spread = int(rel.max(initial=0))
     win = tile + spread
     use_smem = _window_bytes(win, chan_block) <= SMEM_BUDGET
@@ -156,6 +165,86 @@ def device_plan(offsets, nsamples, device):
     ``nsamples`` and its rows uploaded to ``device``."""
     plan = launch_plan(offsets, nsamples)
     return plan, torch.from_numpy(plan.meta).to(device)
+
+
+@dataclasses.dataclass(frozen=True)
+class RowTable:
+    """A plan's whole offset table on the device, for sweeps of any of
+    its rows planned there (:func:`table_plan`)."""
+    offsets: torch.Tensor  # (ndm, nchan) int32, rebased once, on the device
+    nsamples: int
+    store_shift: int       # (-k) mod T of the whole table's rebase
+    spread: int            # largest per-channel range: bounds any subset's
+    win: int               # shared-memory window of every launch
+    use_smem: bool
+
+
+def row_table(offsets, nsamples, device):
+    """:class:`RowTable` of the host ``offsets`` ``(ndm, nchan)`` over
+    ``nsamples``: one rebase of the whole table (one ``k`` for every
+    subset), uploaded to ``device``.  A subset's spread in a channel is
+    at most the table's range there, so the table's largest range sizes
+    one window for every launch (the global-memory branch where it
+    exceeds :data:`SMEM_BUDGET`)."""
+    rebased, k = rebase_offsets(offsets, nsamples)
+    spread = (int((rebased.max(axis=0) - rebased.min(axis=0)).max())
+              if rebased.size else 0)
+    win = TIME_TILE + spread
+    return RowTable(offsets=torch.from_numpy(rebased).to(device),
+                    nsamples=int(nsamples), store_shift=(-k) % nsamples,
+                    spread=spread, win=win,
+                    use_smem=_window_bytes(win, CHAN_BLOCK) <= SMEM_BUDGET)
+
+
+def plan_rows(offs, trial_block):
+    """:func:`launch_plan`'s per (trial block, channel) rows of rebased
+    offsets ``offs`` ``(ndm, nchan)`` (an int tensor), built with tensor
+    operations on its device: ``(nblocks, nchan, trial_block + 3)``
+    int32, the least offset, the change mask, the largest relative offset
+    and the relative offsets."""
+    ndm, nchan = offs.shape
+    nblocks = -(-ndm // trial_block)
+    if nblocks * trial_block > ndm:
+        # the last block's padding repeats the last trial: never a load
+        offs = torch.cat([offs, offs[-1:].expand(
+            nblocks * trial_block - ndm, nchan)])
+    blocks = offs.to(torch.int32).reshape(nblocks, trial_block, nchan)
+    base = blocks.amin(dim=1)
+    rel = blocks - base[:, None, :]
+    change = torch.ones_like(rel, dtype=torch.bool)
+    change[:, 1:] = rel[:, 1:] != rel[:, :-1]
+    weight = 1 << torch.arange(trial_block, dtype=torch.int32,
+                               device=offs.device)
+    bits = (change.to(torch.int32) * weight[None, :, None]).sum(
+        dim=1, dtype=torch.int32)
+    return torch.cat([base[..., None], bits[..., None],
+                      rel.amax(dim=1)[..., None], rel.transpose(1, 2)],
+                     dim=2).contiguous()
+
+
+def _index(rows, device):
+    """``rows`` (a tensor or host indices) as an index tensor on
+    ``device``."""
+    if not isinstance(rows, torch.Tensor):
+        rows = torch.from_numpy(np.ascontiguousarray(rows, dtype=np.int64))
+    return rows.to(device)
+
+
+def table_plan(table, rows):
+    """``(plan, meta)`` of a launch over the :class:`RowTable` rows
+    ``rows`` (a device index tensor, or host indices), as
+    :func:`device_plan` returns them, planned on the table's device with
+    no host synchronisation: ``plan.offsets`` is the gathered device
+    tensor, the window the table's, and ``plan.distinct_share`` NaN (it
+    would need a readback)."""
+    offs = table.offsets[_index(rows, table.offsets.device)]
+    block = choose_trial_block(offs.shape[0])
+    meta = plan_rows(offs, block)
+    return LaunchPlan(offsets=offs, meta=meta, trial_block=block,
+                      time_tile=TIME_TILE, chan_block=CHAN_BLOCK,
+                      store_shift=table.store_shift, spread=table.spread,
+                      win=table.win, use_smem=table.use_smem,
+                      distinct_share=float("nan")), meta
 
 
 def dedisperse_plane_cuda(data, meta, plan):
@@ -179,7 +268,7 @@ def dedisperse_plane_cuda(data, meta, plan):
     nchan, nsamples = data.shape
     ndm = plan.offsets.shape[0]
     block = plan.trial_block
-    want = (-(-ndm // block), nchan, block + 2)
+    want = (-(-ndm // block), nchan, block + 3)
     if tuple(meta.shape) != want or plan.offsets.shape[1] != nchan \
             or ndm == 0 or nchan == 0:
         raise ValueError(f"plan rows {tuple(meta.shape)} (offsets "
@@ -226,4 +315,26 @@ def dedisperse_plane(data, offsets, planned=None):
                 f"no dedispersion sweep for device {data.device}")
         plan, meta = planned or device_plan(to_numpy(offsets),
                                             data.shape[1], data.device)
+        return dedisperse_plane_cuda(data, meta, plan)
+
+
+def dedisperse_rows(data, table, rows):
+    """The plane of the :class:`RowTable` rows ``rows`` (a device index
+    tensor or host indices) of ``data``: on a CUDA tensor the kernel,
+    planned on the card (:func:`table_plan`), on a CPU tensor the plain
+    version of the same offsets.  Either way each row equals the direct
+    sweep's row of that trial bit for bit (the kernel stores the plane
+    un-rotated)."""
+    with roofline.measure(data.device, "dedisperse_direct_sweep",
+                          lambda: roofline.sweep_work(len(rows),
+                                                      *data.shape)):
+        if data.device.type == "cpu":
+            # rebased + k == the offsets mod T, and -k == store_shift
+            return dedisperse_plane_plain(
+                data, table.offsets[_index(rows, data.device)].to(
+                    torch.int64) - table.store_shift)
+        if data.device.type != "cuda":
+            raise ValueError(
+                f"no dedispersion sweep for device {data.device}")
+        plan, meta = table_plan(table, rows)
         return dedisperse_plane_cuda(data, meta, plan)

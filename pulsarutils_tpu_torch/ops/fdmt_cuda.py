@@ -243,21 +243,61 @@ def head_cuda(state, table, params, rows_out):
     return out
 
 
+def _upload(table, device):
+    """A host launch table on ``device`` without a host synchronisation:
+    copied from page-locked memory, queued on the current stream (a copy
+    from pageable memory would wait for the stream, stalling a chain of
+    passes between launches)."""
+    return torch.from_numpy(table).pin_memory().to(device, non_blocking=True)
+
+
+def step_work(kind, step, nsamples, rows_in):
+    """``((operations, bytes), rows_out)`` of one pass of
+    :func:`~.fdmt.transform_schedule` (``kind``, ``step``) on a
+    ``(rows_in, nsamples)`` state: the work model of
+    :func:`~..obs.roofline.fdmt_pass_work`."""
+    if kind == "head":
+        rows = step.rows_out
+        work = roofline.fdmt_pass_work(int(step.counts.sum()), nsamples,
+                                       rows_in, rows,
+                                       head_table(step)[0].size)
+    elif kind == "merge":
+        rows = len(step["idx_low"])
+        work = roofline.fdmt_pass_work(rows, nsamples, rows_in, rows,
+                                       4 * rows)
+    else:
+        rows = len(step[0][0])
+        work = roofline.fdmt_pass_work(3 * rows, nsamples, rows_in, rows,
+                                       8 * rows)
+    return work, rows
+
+
+def transform_work(plan, nsamples):
+    """``(operations, bytes)`` of every pass of ``plan``'s transform of a
+    ``(plan.nchan, nsamples)`` block, summed."""
+    from .fdmt import transform_schedule
+
+    ops = nbytes = 0
+    rows = plan.nchan
+    for kind, step in transform_schedule(plan):
+        (o, b), rows = step_work(kind, step, nsamples, rows)
+        ops, nbytes = ops + o, nbytes + b
+    return ops, nbytes
+
+
 def head(state, hp):
     """The fused head (:class:`~.fdmt.HeadPlan` ``hp``) on ``state``: the
     kernel for a CUDA tensor, the plain version for a CPU tensor."""
     with roofline.measure(state.device, "fdmt_head_fused_levels",
-                          lambda: roofline.fdmt_pass_work(
-                              int(hp.counts.sum()), state.shape[1],
-                              state.shape[0], hp.rows_out,
-                              head_table(hp)[0].size)):
+                          lambda: step_work("head", hp, state.shape[1],
+                                            state.shape[0])[0]):
         if state.device.type == "cpu":
             return head_plain(state, hp)
         if state.device.type != "cuda":
             raise ValueError(f"no FDMT merge for device {state.device}")
         table, offsets = head_table(hp)
         params = head_params(hp, offsets, state.shape[1], state.shape[0])
-        return head_cuda(state, torch.from_numpy(table).to(state.device),
+        return head_cuda(state, _upload(table, state.device),
                          params, hp.rows_out)
 
 
@@ -265,32 +305,30 @@ def merge(state, it):
     """One FDMT level ``it`` (a :class:`~.fdmt.FdmtPlan` iteration) on
     ``state``: the kernel for a CUDA tensor, the plain version for a CPU
     tensor."""
-    rows = len(it["idx_low"])
     with roofline.measure(state.device, "fdmt_merge_level",
-                          lambda: roofline.fdmt_pass_work(
-                              rows, state.shape[1], state.shape[0], rows,
-                              4 * rows)):
+                          lambda: step_work("merge", it, state.shape[1],
+                                            state.shape[0])[0]):
         if state.device.type == "cpu":
             return merge_plain(state, it["idx_low"], it["idx_high"],
                                it["shift"], it["shift_high"])
         if state.device.type != "cuda":
             raise ValueError(f"no FDMT merge for device {state.device}")
-        table = torch.from_numpy(merge_table(it, state.shape[1]))
-        return merge_cuda(state, table.to(state.device))
+        return merge_cuda(state, _upload(merge_table(it, state.shape[1]),
+                                         state.device))
 
 
 def merge4(state, idx, shift):
     """The fused last two levels (:func:`~.fdmt.compose_iterations`'s
     ``idx``, ``shift``) on ``state``: the kernel for a CUDA tensor, the
     plain version for a CPU tensor."""
-    rows = len(idx[0])
     with roofline.measure(state.device, "fdmt_merge4_last_two_levels",
-                          lambda: roofline.fdmt_pass_work(
-                              3 * rows, state.shape[1], state.shape[0],
-                              rows, 8 * rows)):
+                          lambda: step_work("merge4", (idx, shift),
+                                            state.shape[1],
+                                            state.shape[0])[0]):
         if state.device.type == "cpu":
             return merge4_plain(state, idx, shift)
         if state.device.type != "cuda":
             raise ValueError(f"no FDMT merge for device {state.device}")
-        table = torch.from_numpy(merge4_table(idx, shift, state.shape[1]))
-        return merge4_cuda(state, table.to(state.device))
+        return merge4_cuda(state, _upload(merge4_table(idx, shift,
+                                                       state.shape[1]),
+                                          state.device))

@@ -19,8 +19,11 @@ façade, with six kernels:
 * ``"hybrid"``: the FDMT coarse sweep with the sliding certificate row,
   the noise certificate and guarantee loop (:mod:`.certify`), and an
   exact direct-sweep rescore of every row that could hold the best hit
-  (or, with ``snr_floor``, any above-floor detection) — the two-stage
-  path of the JAX package's ``_search_jax_hybrid``;
+  (or, with ``snr_floor``, any above-floor detection) — the JAX
+  package's ``_search_jax_hybrid``: on the card a floorless search runs
+  its first round as one chain of launches and one readback
+  (:func:`_fused_seed`), elsewhere the two-stage path; every rescore
+  gathers its rows from the plan's offset table kept on the device;
 * ``"fourier"``: Fourier-domain dedispersion at exact fractional-sample
   delays (:func:`~.fourier.search_fourier`).
 
@@ -40,12 +43,14 @@ import weakref
 import numpy as np
 import torch
 
+from ..obs import roofline
 from ..resilience import ladder as _ladder
 from ..utils.device import resolve_device, to_numpy
 from ..utils.logging_utils import budget_bucket, budget_count
 from ..utils.nvcc import KernelBuildError
 from ..utils.table import ResultTable
-from .dedisperse_cuda import TRIAL_BLOCKS, dedisperse_plane, device_plan
+from .dedisperse_cuda import (TRIAL_BLOCKS, dedisperse_plane,
+                              dedisperse_rows, device_plan, row_table)
 from .plan import dedispersion_plan, offsets_for
 from .rebin import block_sum_time
 
@@ -77,6 +82,19 @@ GATHER_BUDGET_ELEMENTS = 1 << 28
 #: as in the JAX package, so each rescore is one sweep launch of 8, 16
 #: or 32 trials)
 HYBRID_RESCORE_BUCKETS = (8, 16, 32)
+
+#: top-k coarse rows the fused seed program rescores on the device (with
+#: their grid neighbours, padded to one :data:`HYBRID_SEED_BUCKET`)
+HYBRID_SEED_TOPK = 2
+
+#: rows the fused seed program rescores exactly (the JAX package's
+#: choice, kept apart from :data:`HYBRID_RESCORE_BUCKETS`)
+HYBRID_SEED_BUCKET = 8
+
+#: rows the fused program's need stage rescores: the top flagged rows of
+#: the guarantee loop's first round, evaluated on the device; a chunk
+#: flagging more falls through to the host loop
+HYBRID_NEED_BUCKET = 8
 
 #: cap on guarantee-loop iterations before the hybrid rescores every
 #: remaining candidate row (correctness is then trivial)
@@ -622,9 +640,152 @@ def hybrid_certificate_gate(cert_scores, coarse_snrs, snrs, exact, rescore,
     return certified, rho_cert_min
 
 
+def fused_masked_topk(score, mask, bucket):
+    """Up to ``bucket`` rows of ``mask``, chosen on the device: the top
+    of ``score`` restricted to ``mask`` by a stable descending sort (ties
+    to the lower index, as ``jax.lax.top_k``; masked rows are ``-inf``),
+    slots beyond the flagged count ``n = mask.sum()`` repeating the top
+    row, so every index names a flagged row or a duplicate of one.
+    Returns ``(sel, n)``: int64 ``(bucket,)`` and a 0-d count, both on
+    ``score``'s device."""
+    ndm = score.shape[0]
+    k = min(bucket, ndm)
+    masked = torch.where(mask, score, torch.full_like(score, -np.inf))
+    sel = torch.sort(masked, descending=True, stable=True).indices[:k]
+    if bucket > k:
+        sel = torch.cat([sel, sel[:1].expand(bucket - k)])
+    n = mask.sum()
+    slots = torch.arange(bucket, device=score.device)
+    return torch.where(slots < n, sel, sel[0]), n
+
+
+def fused_need_stage(coarse, best_exact, rescored, cert_params, bucket2):
+    """The guarantee loop's round-1 need mask (:func:`hybrid_guarantee_loop`'s
+    certificate criterion, both consistency guards and the floor terms)
+    against the seed's ``best_exact``, on the device.  ``coarse`` is the
+    ``(6, ndm)`` plan-grid score pack (row 2 the block S/N, row 5 the
+    certificate score), ``cert_params`` the ``(rho, slack, floor)``
+    tensor of :func:`~.certify.fused_cert_params` (``+inf`` disables the
+    certificate or the floor terms).  Returns ``(sel2, n_need)``: the top
+    ``bucket2`` flagged rows by certificate score and the flagged count
+    (:func:`fused_masked_topk`)."""
+    rho, slack, floor = cert_params[0], cert_params[1], cert_params[2]
+    snr_c, cert = coarse[2], coarse[5]
+    need = cert >= rho * best_exact - slack
+    need |= snr_c >= best_exact          # consistency guard
+    need |= cert >= rho * floor - slack  # floor contract
+    need |= snr_c >= floor               # its consistency guard
+    need &= ~rescored
+    return fused_masked_topk(cert, need, bucket2)
+
+
+def unpack_fused_hybrid(packed, ndm, bucket, bucket2):
+    """Host inverse of the fused seed program's packed readback:
+    ``[coarse (6*ndm) | sel (bucket) | exact (5*bucket) | n_seed (1) |
+    sel2 (bucket2) | exact2 (5*bucket2) | n_need (1)]``, the last four
+    parts absent when ``bucket2 == 0``.  The port packs float64 (the
+    scorer's own type: peaks exact at any ``T``); a float32 pack, the JAX
+    package's, unpacks the same (indices exact below 2^24).  Returns
+    ``(coarse, sel, seed_scores, n_seed, sel2, need_scores, n_need)``,
+    ``coarse`` float64 ``(6, ndm)``."""
+    coarse = packed[:6 * ndm].reshape(6, ndm).astype(np.float64)
+    pos = 6 * ndm
+    sel = np.rint(packed[pos:pos + bucket]).astype(np.int64)
+    pos += bucket
+    seed_scores = packed[pos:pos + 5 * bucket].reshape(5, bucket)
+    pos += 5 * bucket
+    n_seed = int(np.rint(packed[pos]))
+    pos += 1
+    if not bucket2:
+        return coarse, sel, seed_scores, n_seed, None, None, 0
+    sel2 = np.rint(packed[pos:pos + bucket2]).astype(np.int64)
+    pos += bucket2
+    need_scores = packed[pos:pos + 5 * bucket2].reshape(5, bucket2)
+    n_need = int(np.rint(packed[pos + 5 * bucket2]))
+    return coarse, sel, seed_scores, n_seed, sel2, need_scores, n_need
+
+
+def fused_scores_to_host(scores):
+    """A ``(5, n)`` score pack -> the host columns ``(max, std, snr,
+    window, peak)``.  The JAX package's version also undoes its rebase
+    rotation on the peak; the port's sweep stores its plane un-rotated,
+    so its peaks need no correction."""
+    m, s, b, w, p = (np.asarray(scores[i], dtype=np.float64)
+                     for i in range(5))
+    return m, s, b, np.rint(w).astype(np.int32), np.rint(p).astype(np.int64)
+
+
+@functools.lru_cache(maxsize=4)
+def _row_table(dms_bytes, nchan, start_freq, bandwidth, sample_time,
+               nsamples, device):
+    """The hybrid's :func:`~.dedisperse_cuda.row_table` for one geometry:
+    the whole plan's offsets computed, rebased and uploaded once and kept
+    (every chunk of a file and every rescore bucket gathers its rows from
+    it).  Keyed on the geometry, as :func:`_direct_sweep`, so a cached
+    table costs no host work at all."""
+    offsets = offsets_for(np.frombuffer(dms_bytes, dtype=np.float64), nchan,
+                          start_freq, bandwidth, sample_time, nsamples)
+    return row_table(offsets, nsamples, device)
+
+
+def _fused_seed(data, table, idx, cert_params, n_lo, n_hi, start_freq,
+                bandwidth, bucket, bucket2):
+    """The hybrid's first round as one chain of launches on the current
+    stream and ONE readback: the FDMT coarse sweep and its scores with the
+    certificate row, gathered onto the plan rows ``idx`` -> the top
+    :data:`HYBRID_SEED_TOPK` rows by coarse S/N with their grid
+    neighbours, padded to ``bucket`` -> their exact sweep (rows planned
+    on the card) and scores -> the need stage against the seed's best
+    exact S/N (:func:`fused_need_stage`) -> the exact sweep and scores of
+    its ``bucket2`` rows -> one packed float64 readback
+    (:func:`unpack_fused_hybrid`).  The need stage's launches run
+    whatever its count: a host test of ``n_need`` would synchronise, and
+    the host applies those rows only when ``n_need > 0``."""
+    from .fdmt import fdmt_transform
+    from .score_cuda import score_plane
+
+    dev = data.device
+    ndm = len(idx)
+    # the host operands go up first: a copy from pageable host memory
+    # waits for the stream, so one in the chain would stall it
+    idx = torch.from_numpy(np.ascontiguousarray(idx)).to(dev)
+    cert_params = torch.from_numpy(cert_params).to(dev)
+    stacked = score_plane(fdmt_transform(data, n_hi, start_freq, bandwidth,
+                                         min_delay=n_lo), with_cert=True)
+    coarse = stacked[:, idx]                             # (6, ndm)
+    k = min(HYBRID_SEED_TOPK, ndm)
+    top = fused_masked_topk(coarse[2], torch.ones(ndm, dtype=torch.bool,
+                                                  device=dev), k)[0]
+    sel = torch.cat([top - 1, top, top + 1]).clamp(0, ndm - 1)
+    sel = torch.cat([sel, sel[:1].expand(bucket - 3 * k)])
+    exact = score_plane(dedisperse_rows(data, table, sel))  # (5, bucket)
+    parts = [coarse.reshape(-1), sel.to(torch.float64), exact.reshape(-1),
+             torch.full((1,), float(bucket), dtype=torch.float64,
+                        device=dev)]
+    if bucket2:
+        # the need mask in float32, as the JAX package evaluates it: the
+        # scores are float32 values, the operand float32
+        rescored = torch.zeros(ndm, dtype=torch.bool, device=dev)
+        rescored[sel] = True
+        sel2, n_need = fused_need_stage(
+            coarse.to(torch.float32), exact[2].max().to(torch.float32),
+            rescored, cert_params, bucket2)
+        exact2 = score_plane(dedisperse_rows(data, table, sel2))
+        parts += [sel2.to(torch.float64), exact2.reshape(-1),
+                  n_need.to(torch.float64)[None]]
+    return torch.cat(parts).cpu().numpy()
+
+
+def _fused_default(data):
+    """Whether a hybrid search of ``data`` takes the fused seed program
+    when the caller does not say: on the card, as the JAX package takes
+    it on its accelerator."""
+    return data.device.type == "cuda"
+
+
 def _search_hybrid(data, trial_dms, start_freq, bandwidth, sample_time,
                    capture_plane, snr_floor=None, noise_certificate=True,
-                   rho_cert=None, cert_slack=None):
+                   rho_cert=None, cert_slack=None, fused=None):
     """FDMT coarse sweep + exact rescore of the hit region.
 
     1. coarse-score every plan trial with the FDMT (each plan row takes
@@ -633,7 +794,18 @@ def _search_hybrid(data, trial_dms, start_freq, bandwidth, sample_time,
     2. certify the chunk signal-free, or seed and iterate the guarantee
        loop (:func:`hybrid_certificate_gate`), rescoring rows exactly —
        same offsets, same sweep, same scorer as the direct search — in
-       :data:`HYBRID_RESCORE_BUCKETS`-sized sweep launches.
+       :data:`HYBRID_RESCORE_BUCKETS`-sized sweep launches, each bucket's
+       rows gathered from the plan's offset table kept on the device
+       (:func:`_row_table`).
+
+    ``fused`` (None: the data are on the card) runs step 1 and the
+    seed, with the first round's need stage, as one chain of launches and
+    one readback (:func:`_fused_seed`) where the search is floorless (no
+    ``snr_floor``, or no ``noise_certificate``), ``capture_plane`` is off,
+    there are at least ``3 * HYBRID_SEED_TOPK`` trials and the OOM
+    ladder's ``unfuse`` rung is not engaged; the host loop then goes on
+    from the seed.  ``fused=True`` forces it on the CPU (the plain
+    kernels), for the tests.
 
     The argbest row (DM, snr, rebin, peak) is therefore the exact
     sweep's; the ``exact`` column marks the rescored rows.  A certified
@@ -641,57 +813,117 @@ def _search_hybrid(data, trial_dms, start_freq, bandwidth, sample_time,
     of detections above ``snr_floor``).  ``capture_plane`` returns the
     coarse plane gathered onto the plan rows.
     """
+    from .certify import fused_cert_params
+    from .fdmt import fdmt_plan, fdmt_trial_dms
+    from .fdmt_cuda import transform_work
     from .score_cuda import score_plane
 
     ndm = len(trial_dms)
     nchan, nsamples = data.shape
     dmmin = float(np.min(trial_dms))
     dmmax = float(np.max(trial_dms))
+    if fused is None:
+        fused = _fused_default(data)
+    # The JAX package also requires a time tile that divides T
+    # (_pick_fdmt_tile(T) > 0): its TPU transform zero-pads any other T,
+    # which would move the rescore's circular wrap.  The port's transform
+    # is circular mod T at every T and never pads, so there is nothing to
+    # guard here.
+    fused_seed = (fused and not capture_plane
+                  and ndm >= 3 * HYBRID_SEED_TOPK
+                  and (snr_floor is None or not noise_certificate)
+                  and not _ladder.unfuse_engaged())
+    table = _row_table(trial_dms.tobytes(), nchan, float(start_freq),
+                       float(bandwidth), float(sample_time), nsamples,
+                       data.device)
 
-    coarse_dms, coarse, plane = _search_fdmt(
-        data, dmmin, dmmax, start_freq, bandwidth, sample_time,
-        capture_plane, with_cert=True)
-    idx = nearest_rows(coarse_dms, trial_dms)
-    if plane is not None:
-        plane = plane[torch.from_numpy(idx).to(plane.device)]
-    c_max, c_std, c_snr, c_win, c_peak, c_cert = coarse
-    maxvalues = c_max.astype(np.float64)[idx]
-    stds = c_std.astype(np.float64)[idx]
-    snrs = c_snr.astype(np.float64)[idx]
-    windows = c_win[idx]
-    peaks = c_peak[idx]
-    cert_scores = c_cert.astype(np.float64)[idx]
+    plane = None
+    n_need = 0
+    if fused_seed:
+        bucket = HYBRID_SEED_BUCKET
+        bucket2 = min(HYBRID_NEED_BUCKET, ndm)
+        cert_params = fused_cert_params(
+            nchan, trial_dms, start_freq, bandwidth, sample_time, nsamples,
+            snr_floor=snr_floor, rho_cert=rho_cert, cert_slack=cert_slack)
+        coarse_dms, n_lo, n_hi = fdmt_trial_dms(nchan, dmmin, dmmax,
+                                                start_freq, bandwidth,
+                                                sample_time)
+        idx = nearest_rows(coarse_dms, trial_dms)
+        with budget_bucket("search/fused"):
+            with roofline.measure(data.device, "fused_hybrid_seed",
+                                  lambda: roofline.fused_seed_work(
+                                      transform_work(fdmt_plan(
+                                          nchan, float(start_freq),
+                                          float(bandwidth), n_hi, n_lo),
+                                          nsamples),
+                                      len(coarse_dms), nchan, nsamples,
+                                      (bucket, bucket2))):
+                packed = _fused_seed(data, table, idx, cert_params, n_lo,
+                                     n_hi, start_freq, bandwidth, bucket,
+                                     bucket2)
+            budget_count("dispatches")
+            budget_count("readbacks")
+        (coarse, sel, seed_scores, _, sel2, need_scores,
+         n_need) = unpack_fused_hybrid(packed, ndm, bucket, bucket2)
+        maxvalues, stds, snrs = coarse[0], coarse[1], coarse[2]
+        windows = np.rint(coarse[3]).astype(np.int32)
+        peaks = np.rint(coarse[4]).astype(np.int64)
+        cert_scores = coarse[5]
+    else:
+        coarse_dms, coarse, plane = _search_fdmt(
+            data, dmmin, dmmax, start_freq, bandwidth, sample_time,
+            capture_plane, with_cert=True)
+        idx = nearest_rows(coarse_dms, trial_dms)
+        if plane is not None:
+            plane = plane[torch.from_numpy(idx).to(plane.device)]
+        c_max, c_std, c_snr, c_win, c_peak, c_cert = coarse
+        maxvalues = c_max.astype(np.float64)[idx]
+        stds = c_std.astype(np.float64)[idx]
+        snrs = c_snr.astype(np.float64)[idx]
+        windows = c_win[idx]
+        peaks = c_peak[idx]
+        cert_scores = c_cert.astype(np.float64)[idx]
     coarse_snrs = snrs.copy()
     exact = np.zeros(ndm, dtype=bool)
 
+    def apply(blk, scored):
+        m, s, b, w, p = scored
+        k = len(blk)
+        maxvalues[blk] = m[:k]
+        stds[blk] = s[:k]
+        snrs[blk] = b[:k]
+        windows[blk] = w[:k]
+        peaks[blk] = p[:k]
+        exact[blk] = True
+
     def rescore(rows):
-        """Exact scores for ``rows``: one direct-sweep launch and one
-        scorer launch per bucket."""
+        """Exact scores for ``rows``: one direct-sweep launch of the
+        table's rows and one scorer launch per bucket."""
         budget_count("rescore_calls")
         budget_count("rescore_rows", len(rows))
         for blk, padded in iter_rescore_buckets(rows):
-            offsets = offsets_for(trial_dms[padded], nchan, start_freq,
-                                  bandwidth, sample_time, nsamples)
             with budget_bucket("search/rescore"):
-                m, s, b, w, p = unstack_scores(
-                    score_plane(dedisperse_plane(data, offsets)))
+                scored = unstack_scores(
+                    score_plane(dedisperse_rows(data, table, padded)))
                 budget_count("dispatches")
                 budget_count("readbacks")
-            k = len(blk)
-            maxvalues[blk] = m[:k]
-            stds[blk] = s[:k]
-            snrs[blk] = b[:k]
-            windows[blk] = w[:k]
-            peaks[blk] = p[:k]
-            exact[blk] = True
+            apply(blk, scored)
 
+    if fused_seed:
+        # the device's seed rows, and its need-stage rows only where the
+        # stage flagged any (its scores are then of flagged rows)
+        apply(sel, fused_scores_to_host(seed_scores))
+        if n_need > 0:
+            apply(sel2, fused_scores_to_host(need_scores))
     certified, rho_cert_min = hybrid_certificate_gate(
         cert_scores, coarse_snrs, snrs, exact, rescore, nchan=nchan,
         trial_dms=trial_dms, start_freq=start_freq, bandwidth=bandwidth,
         sample_time=sample_time, nsamples=nsamples, snr_floor=snr_floor,
-        noise_certificate=noise_certificate, rho_cert=rho_cert,
-        cert_slack=cert_slack)
-    logger.debug("hybrid: %d/%d rows rescored exactly%s", exact.sum(), ndm,
+        noise_certificate=noise_certificate, seed_done=fused_seed,
+        rho_cert=rho_cert, cert_slack=cert_slack)
+    logger.debug("hybrid: %d/%d rows rescored exactly%s%s", exact.sum(),
+                 ndm, f" (device need stage flagged {n_need})"
+                 if fused_seed else "",
                  " (noise-certified)" if certified else "")
     return (maxvalues, stds, snrs, windows, peaks, exact, plane,
             cert_scores, certified, rho_cert_min)

@@ -6,6 +6,8 @@
   DM–time plane;
 * :mod:`.accel` — acceleration (and jerk) trials by time-domain
   resampling, each scored by the spectral search;
+* :mod:`.fdas` — the same trials in the Fourier domain: one rfft per DM
+  row and a z/w-response correlation per trial;
 * :mod:`.candidates` — zap list, DM grouping, harmonic sift, folding of
   the survivors, the candidate npz;
 * :mod:`.driver` — the job: accumulate -> trial search -> sift -> fold
@@ -18,3 +20,4 @@ from .accumulate import DMTimeAccumulator, choose_rebin  # noqa: F401
 from .candidates import (ZapList, fold_candidates,  # noqa: F401
                          sift_candidates)
 from .driver import periodicity_search  # noqa: F401
+from .fdas import fdas_search  # noqa: F401

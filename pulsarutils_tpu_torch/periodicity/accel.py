@@ -27,7 +27,8 @@ from ..ops.rebin import stretch_resample
 from ..utils.device import resolve_device, to_numpy
 
 __all__ = ["C_M_S", "accel_grid", "accel_search", "fractional_resample",
-           "jerk_grid", "stretch_index_table", "trial_product"]
+           "jerk_grid", "stretch_index_table", "topk_table",
+           "trial_product"]
 
 #: speed of light (m/s) — acceleration trials are in m/s^2
 C_M_S = 299792458.0
@@ -180,6 +181,16 @@ def accel_search(plane, tsamp, accels, *, jerks=None, max_harmonics=16,
         stacked[a] = spectral_stacked(stretch_resample(plane, idx_table[a]),
                                       tsamp, max_harmonics=max_harmonics,
                                       fmin=lo, fmax=hi)
+    return topk_table(stacked, topk, accels, tsamp, nsamples, jerks=jerks)
+
+
+def topk_table(stacked, topk, accels, tsamp, nsamples, jerks=None):
+    """The candidate table of a device score pack ``stacked``
+    ``(ntrials, 5, ndm)``: one stable descending sort of its sigmas on
+    the device (ties to the lower ``(trial, dm)`` flat index, the JAX
+    package's rule), the top ``topk`` cells gathered there, one
+    readback."""
+    ndm = stacked.shape[2]
     sigma = stacked[:, _SPEC_KEYS.index("sigma"), :].reshape(-1)
     k = min(int(topk), sigma.numel())
     flat = torch.sort(sigma, descending=True, stable=True).indices[:k]

@@ -30,6 +30,7 @@ from .accel import accel_grid, accel_search, jerk_grid
 from .accumulate import DMTimeAccumulator
 from .candidates import (ZapList, candidate_list, fold_candidates,
                          harmonic_ratio, save_candidates, sift_candidates)
+from .fdas import fdas_search
 
 logger = logging.getLogger("pulsarutils_tpu_torch")
 
@@ -111,9 +112,12 @@ def periodicity_search(fname, dmmin=200, dmmax=800, *, accel_max=0.0,
     2. **trial search**: the (DM, accel[, jerk]) sweep over
        ``accel_grid(accel_max)`` x ``jerk_grid(jerk_max)``
        (``n_accel``/``n_jerk`` give odd linear grids instead) on
-       ``device``.  ``accel_backend`` ``"auto"`` resolves to
-       ``"time_stretch"`` (:func:`~.accel.accel_search`), the JAX
-       package's choice below its tuning floor; ``"fdas"`` is not ported;
+       ``device``.  ``accel_backend`` ``"time_stretch"``
+       (:func:`~.accel.accel_search`) or ``"fdas"``
+       (:func:`~.fdas.fdas_search`, one rfft per DM row and the
+       z/w-response correlation); ``"auto"`` resolves to
+       ``"time_stretch"``, the JAX package's choice below its tuning
+       floor (the measured tuner is not ported);
     3. **candidates**: threshold at ``sigma_threshold``, zap / DM
        grouping / harmonic sift, fold the survivors;
     4. **persist**: ``period_cands_<root>_<fingerprint>.npz`` beside the
@@ -148,14 +152,12 @@ def periodicity_search(fname, dmmin=200, dmmax=800, *, accel_max=0.0,
             raise ValueError(
                 f"{k} is owned by the periodicity driver (use "
                 "sigma_threshold for the candidate floor)")
-    if accel_backend == "fdas":
-        raise NotImplementedError(
-            "accel_backend='fdas' is not ported yet: ROADMAP.md queue A, "
-            "A14 (FDAS)")
-    if accel_backend not in ("auto", "time_stretch"):
+    if accel_backend not in ("auto", "time_stretch", "fdas"):
         raise ValueError(f"accel_backend must be 'auto', 'time_stretch' "
                          f"or 'fdas', got {accel_backend!r}")
-    chosen_backend = "time_stretch"
+    # "auto" is the static choice: the measured tuner is not ported
+    chosen_backend = ("time_stretch" if accel_backend == "auto"
+                      else accel_backend)
     dev = resolve_device(device)
     output_dir = output_dir or os.path.dirname(os.path.abspath(str(fname)))
     extra = {"workload": "periodicity", "accel_max": float(accel_max)}
@@ -252,10 +254,11 @@ def periodicity_search(fname, dmmin=200, dmmax=800, *, accel_max=0.0,
         canary_info = {"dm_index": c_row, "freq": c_freq,
                        "recovered": False}
 
+    search_fn = fdas_search if chosen_backend == "fdas" else accel_search
     t0 = time.perf_counter()
-    table = accel_search(plane_search, tsamp_out, accels, jerks=jerks_axis,
-                         max_harmonics=max_harmonics, fmin=fmin_eff,
-                         fmax=fmax, topk=topk, device=dev)
+    table = search_fn(plane_search, tsamp_out, accels, jerks=jerks_axis,
+                      max_harmonics=max_harmonics, fmin=fmin_eff,
+                      fmax=fmax, topk=topk, device=dev)
     trial_s = time.perf_counter() - t0
     logger.info("periodicity trial sweep: %d DM x %d accel%s trials in "
                 "%.2fs [%s]", acc.ndm, len(accels),

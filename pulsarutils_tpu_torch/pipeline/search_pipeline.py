@@ -278,7 +278,9 @@ def _search_with_fallback(array, dmmin, dmmax, start_freq, bandwidth,
       has a smaller dispatch left, the OOM ladder (:mod:`..resilience.
       ladder`, counted under ``putpu_oom_*``) descends and the chunk is
       re-dispatched; the sweep descends itself on an OOM inside it, so
-      this re-dispatch only follows one raised before the sweep.  With
+      this re-dispatch only follows one raised before the sweep.  The
+      hybrid descends the ``unfuse`` rung once (its fused seed program
+      gives way to the two-stage path) and is re-dispatched.  With
       nothing smaller left, the next rung is the host path on the CPU;
       an out-of-memory error there, or at the card's floor, raises
       :class:`~..resilience.ladder.OOMFloorError`, which the driver
@@ -346,14 +348,20 @@ def _search_with_fallback(array, dmmin, dmmax, start_freq, bandwidth,
             last = exc
             if _ladder.is_resource_exhausted(exc):
                 _ladder.oom_event("chunk_search")
+                step = None
                 if where == "device" and k in ("auto", "pallas") \
                         and not _ladder.direct_maxed(nblocks):
-                    _ladder.descend("split_dm")
+                    step = "split_dm"
+                elif where == "device" and k == "hybrid" \
+                        and not _ladder.unfuse_engaged():
+                    step = "unfuse"   # the two-stage path from now on
+                if step is not None:
+                    _ladder.descend(step)
                     attempts.insert(i + 1, (where, k, True))
                     logger.warning(
                         "chunk %s search ran out of memory on %s "
-                        "kernel=%s (%r); ladder step split_dm, "
-                        "re-dispatching smaller", chunk, device, k, exc)
+                        "kernel=%s (%r); ladder step %s, re-dispatching "
+                        "smaller", chunk, device, k, exc, step)
                     i += 1
                     continue
                 if attempts[-1][0] == where:

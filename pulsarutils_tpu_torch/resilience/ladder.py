@@ -12,15 +12,20 @@ split_dm    the direct sweep dedisperses its trials in         direct
             2, 4, ... times smaller superblocks (a trial       sweep
             row is an independent sum over channels, scored
             on its own), down to one trial block a launch
+unfuse      the hybrid's fused seed program (one chain of      hybrid
+            launches, one readback) splits back into its
+            coarse sweep and the host-driven rescore (the
+            two-stage path); its best row, rebin, peak and
+            hits are the fused run's
 floor       nothing smaller is left: on ``device="cpu"`` the   chunk
             host path (``kernel="auto"``) is tried once; an    loop
             out-of-memory error there, or at the card's
             floor, quarantines the chunk as ``oom_floor``
 =========== ================================================= ==========
 
-The JAX package's ``unfuse`` and ``halve_batch`` rungs have nothing to
-split in the port (its hybrid is always two-stage; beam batching is not
-ported), and it never falls back from the card to the host.
+The JAX package's ``halve_batch`` rung has nothing to split in the port
+(beam batching is not ported), and the port never falls back from the
+card to the host.
 
 State is one process-global level (device memory is a global resource),
 reset at the start of each ``search_by_chunks`` session: within a run a
@@ -38,8 +43,8 @@ import torch
 from ..obs import metrics as _metrics
 
 __all__ = ["OOMFloorError", "is_resource_exhausted", "reset", "level",
-           "descend", "direct_plan", "direct_maxed", "oom_event",
-           "count_split"]
+           "descend", "direct_plan", "direct_maxed", "unfuse_engaged",
+           "oom_event", "count_split"]
 
 #: message markers of an allocator failure: the XLA status text the JAX
 #: package matches, and the CUDA caching allocator's
@@ -118,3 +123,9 @@ def direct_plan(nblocks):
 def direct_maxed(nblocks):
     """True when the direct sweep has no smaller dispatch left."""
     return direct_plan(nblocks) >= max(int(nblocks), 1)
+
+
+def unfuse_engaged():
+    """True once any descent happened: the hybrid drops its fused seed
+    program for the two-stage path."""
+    return _LEVEL >= 1

@@ -128,9 +128,11 @@ def test_dedisperse_plane_runs_plain_on_cpu():
 
 def _replay_kernel(x, plan):
     """The kernel's loops, on the host, from the plan rows it reads: per
-    block of trials and time tile, channels ascending; the window staged
-    from the channel's least offset in two pieces split at ``T``
-    (shared-memory branch) or the input read with circular indexing
+    block of trials and time tile, channels ascending; the channel's span
+    (the tile plus its largest relative offset in the block) staged from
+    its least offset in two pieces split at ``T``, the rest of the window
+    left unstaged (shared-memory branch), or the input read with circular
+    indexing
     (global branch); each trial's values loaded only at a marked trial
     and reused from the last marked one otherwise; float32 accumulation
     from zero; stores at ``u + shift``."""
@@ -146,20 +148,25 @@ def _replay_kernel(x, plan):
             u = u0 + lane
             acc = np.zeros((block, tile), np.float32)
             for c in range(nchan):
-                base, mask = rows[c, :2]
-                rel = rows[c, 2:]
+                base, mask, top = rows[c, :3]
+                rel = rows[c, 3:]
+                assert top == rel.max()
                 marked = ((mask & 0xFFFFFFFF) >> trials) & 1 == 1
                 assert marked[0]
                 # the trial whose load each trial's registers hold
                 src = np.maximum.accumulate(np.where(marked, trials, 0))
                 r = rel[src]
                 if plan.use_smem:
+                    # the channel's own span, then unstaged (NaN) up to
+                    # the launch's window
+                    span = min(plan.win, tile + int(top))
                     start = (u0 + base) % t
-                    n1 = min(plan.win, t - start)
-                    rest = np.arange(plan.win - n1) % t
-                    window = np.concatenate([x[c, start:start + n1],
-                                             x[c, rest]])
-                    assert r.max() + tile <= plan.win
+                    n1 = min(span, t - start)
+                    rest = np.arange(span - n1) % t
+                    window = np.concatenate([
+                        x[c, start:start + n1], x[c, rest],
+                        np.full(plan.win - span, np.nan, np.float32)])
+                    assert r.max() + tile <= span
                     acc += window[r[:, None] + lane[None, :]]
                 else:
                     acc += x[c, (u[None, :] + base + r[:, None]) % t]
@@ -189,7 +196,7 @@ def test_replay_each_trial_block_equals_plain(name, block, branch):
     plan = launch_plan(off, data.shape[1], trial_block=block)
     assert plan.trial_block == block
     assert plan.meta.shape == (-(-off.shape[0] // block), off.shape[1],
-                               block + 2)
+                               block + 3)
     plan = dataclasses.replace(plan, use_smem=branch == "smem")
     assert np.array_equal(_replay_kernel(data, plan), _plain(data, off))
 
@@ -221,7 +228,7 @@ def test_plan_chooses_the_covering_trial_block(ndm, block):
     assert choose_trial_block(ndm) == block
     plan = launch_plan(np.zeros((ndm, 5), np.int32), 4096)
     assert plan.trial_block == block
-    assert plan.meta.shape == (-(-ndm // block), 5, block + 2)
+    assert plan.meta.shape == (-(-ndm // block), 5, block + 3)
 
 
 def test_plan_marks_only_changed_offsets():
@@ -229,8 +236,9 @@ def test_plan_marks_only_changed_offsets():
     plan = launch_plan(off, 100, trial_block=8)
     rows = plan.meta[0]
     assert list(rows[:, 0]) == [0, 5]                  # least offsets
-    assert list(rows[0, 2:]) == [0, 0, 1, 1, 3, 3, 3, 3]   # padded
-    assert list(rows[1, 2:]) == [0, 1, 1, 0, 0, 0, 0, 0]
+    assert list(rows[:, 2]) == [3, 1]                  # largest rel
+    assert list(rows[0, 3:]) == [0, 0, 1, 1, 3, 3, 3, 3]   # padded
+    assert list(rows[1, 3:]) == [0, 1, 1, 0, 0, 0, 0, 0]
     assert rows[0, 1] == 0b10101 and rows[1, 1] == 0b1011
     assert plan.distinct_share == 6 / 10
     # a 16-trial block: every trial of channel 0 changes, none of channel 1
@@ -279,7 +287,7 @@ def no_build(monkeypatch):
 
 
 def _meta(nchan=4, dtype=torch.int32):
-    return torch.zeros((1, nchan, 8 + 2), dtype=dtype)
+    return torch.zeros((1, nchan, 8 + 3), dtype=dtype)
 
 
 #: a plan for 3 trials over 4 channels and 64 samples

@@ -851,15 +851,16 @@ CARD_CASES = {
                     nvcc.KernelBuildError, 1, 0),
     "transient_oom": ("auto", [_oom(), None], None, 2, 1),
     "persistent_oom": ("auto", [_oom()] * 9, ladder.OOMFloorError, 6, 5),
-    "hybrid_oom": ("hybrid", [_oom()] * 9, ladder.OOMFloorError, 1, 0),
+    "hybrid_oom": ("hybrid", [_oom()] * 9, ladder.OOMFloorError, 2, 1),
+    "hybrid_transient_oom": ("hybrid", [_oom(), None], None, 2, 1),
 }
 
 
 @pytest.mark.parametrize("case", list(CARD_CASES))
 def test_card_search_never_falls_back(monkeypatch, case):
     """On a CUDA device the dispatch is retried on the card, an OOM
-    descends while the sweep has a smaller dispatch left (a kernel that
-    ignores the ladder goes straight to the floor), and then the error
+    descends while the sweep has a smaller dispatch left (the hybrid
+    descends the ``unfuse`` rung once), and then the error
     propagates (``oom_floor`` for an OOM): no call ever runs on the CPU
     and nothing is recorded as a fallback."""
     kernel, errors, raises, ncalls, descents = CARD_CASES[case]

@@ -270,26 +270,53 @@ def _schema(doc):
              for e in doc["traceEvents"]}, sorted(doc), sorted(doc["putpu"]))
 
 
-def test_span_json_schema_and_names_equal_jax_driver(pulse_file, tmp_path,
-                                                     clean_state):
+def _traced_pair(pulse_file, tmp_path, **kw):
+    """The port's and the JAX driver's trace JSON of one search of
+    ``pulse_file`` each, with the loop knobs ``kw``."""
     ours_path, theirs_path = tmp_path / "ours.json", tmp_path / "theirs.json"
     with trace.trace_session(str(ours_path)):
         search_by_chunks(pulse_file, device="cpu", make_plots=False,
-                         output_dir=str(tmp_path / "ours"), **SEARCH)
+                         output_dir=str(tmp_path / "ours"), **SEARCH, **kw)
     with jax_trace.trace_session(str(theirs_path)):
         jax_search_by_chunks(pulse_file, backend="jax", kernel="pallas",
                              make_plots=False, progress=False,
-                             output_dir=str(tmp_path / "theirs"), **SEARCH)
-    ours = json.loads(ours_path.read_text())
-    theirs = json.loads(theirs_path.read_text())
+                             output_dir=str(tmp_path / "theirs"), **SEARCH,
+                             **kw)
+    return (json.loads(ours_path.read_text()),
+            json.loads(theirs_path.read_text()))
+
+
+def _tracks(doc):
+    return [e["args"]["name"] for e in doc["traceEvents"]
+            if e["name"] == "thread_name"]
+
+
+def test_span_json_schema_and_names_equal_jax_driver(pulse_file, tmp_path,
+                                                     clean_state):
+    # the serial loop: every span it opens is a function of the file
+    # alone (an overlapped persist worker adds persist_backpressure only
+    # when it falls two tasks behind, which depends on the host's load)
+    ours, theirs = _traced_pair(pulse_file, tmp_path, overlap_persist=False)
     assert _schema(ours) == _schema(theirs)
-    tracks = [e["args"]["name"] for e in ours["traceEvents"]
-              if e["name"] == "thread_name"]
-    assert tracks == [e["args"]["name"] for e in theirs["traceEvents"]
-                      if e["name"] == "thread_name"]
+    assert _tracks(ours) == _tracks(theirs)
     # the port gates the frames on the card, on the main thread (the JAX
     # package on its reader thread, off the chunk's budget): one span more
     assert _span_names(ours) == _span_names(theirs) | {"gate"}
+    persists = [e["ph"] for e in ours["traceEvents"]
+                if e["name"] == "persist"]
+    assert "X" in persists and "b" not in persists
+
+
+def test_overlapped_persist_spans_equal_jax_driver(pulse_file, tmp_path,
+                                                   clean_state):
+    # the overlapped loop (the default): the persist worker's balanced
+    # async persist spans on the chunks' tracks, the schema, and the span
+    # names up to the load-dependent persist_backpressure
+    ours, theirs = _traced_pair(pulse_file, tmp_path)
+    assert _schema(ours) == _schema(theirs)
+    assert _tracks(ours) == _tracks(theirs)
+    load = {"persist_backpressure"}
+    assert _span_names(ours) - load == (_span_names(theirs) - load) | {"gate"}
     persists = [e["ph"] for e in ours["traceEvents"]
                 if e["name"] == "persist"]
     assert persists.count("b") == persists.count("e") > 0

@@ -751,8 +751,13 @@ def test_periodicity_driver_matches_jax(pulsar_file, tmp_path):
 
 
 def test_periodicity_driver_refuses_what_is_not_ported(pulsar_file):
-    with pytest.raises(NotImplementedError, match="A14"):
-        periodicity_search(pulsar_file, accel_backend="fdas", device="cpu")
+    # fdas is ported (tests/test_torch_fdas.py); an unknown backend and
+    # the mesh are refused
+    with pytest.raises(ValueError, match="accel_backend"):
+        periodicity_search(pulsar_file, accel_backend="stretch",
+                           device="cpu")
+    with pytest.raises(NotImplementedError, match="A9"):
+        periodicity_search(pulsar_file, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         periodicity_search(pulsar_file, http_port=0, device="cpu")
     with pytest.raises(ValueError, match="owned"):

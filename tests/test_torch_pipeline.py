@@ -257,6 +257,19 @@ with trace.trace_session(out + ".json", device_trace_dir=out + "_device"):
         device="cpu", canary=1.0, lineage=True, http_port=0,
         report_out=out + "_report", output_dir=out)
 assert hits
+# the hybrid's fused seed program (the plain kernels) and the FDAS backend
+import numpy as np
+import torch
+from pulsarutils_tpu_torch.ops import search
+from pulsarutils_tpu_torch.ops.plan import dedispersion_plan
+from pulsarutils_tpu_torch.periodicity import fdas_search
+x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+    (16, 2048)).astype(np.float32))
+dms = dedispersion_plan(16, 100.0, 200.0, 1200.0, 200.0, 5e-4)
+assert search._search_hybrid(x, dms, 1200.0, 200.0, 5e-4, False,
+                             fused=True)[5].any()
+table = fdas_search(x[:4], 5e-4, [-1e5, 0.0, 1e5], topk=4, device="cpu")
+assert len(table["sigma"]) == 4
 bad = [k for k in sys.modules if k == "jax" or k.startswith("jax.")
        or k == "pulsarutils_tpu" or k.startswith("pulsarutils_tpu.")]
 assert not bad, bad

@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (``pulsarutils_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N] [--quick | --breakdown | --overlap |
-                           --observe | --lowbit]
+                           --observe | --lowbit | --autotune]
 
 Phases, one JSON line each:
 
@@ -168,7 +168,33 @@ Phases, one JSON line each:
    equal; with ``--fft-zap`` the zapped bins equal, the differing codes
    counted); ``period_search`` on a 2-bit copy of the pulsar file (the
    pulsar in every chunk);
-10. the kernels line (B6 once per policy), then ``{"ok": true,
+10. the tuner, the knobs, the preflight and the library surface:
+   ``fdmt_knobs`` (the coarse plane under ``PUTPU_FDMT_HEAD=0`` and
+   ``PUTPU_FDMT_DEEP_PAIR=0`` equal to the default's bit for bit at
+   1024 x 2^18 and 1024 x 2^20, the launches of B3, B2a and B2b and the
+   coarse ms of each setting); ``autotune`` (``resolve_search_kernel`` at
+   the e2e chunk: each candidate's median, the abandoned ones, the winner
+   and the equivalence verdicts, then a memory hit and a disk hit; the
+   e2e file with ``kernel="auto"`` under ``PUTPU_AUTOTUNE=on`` with a
+   cold cache and ``off``: equal hits, the decision in the budget
+   record, B1 twice a chunk outside the tuner's probe;
+   ``resolve_search_policy`` for the gather and the file under the
+   measured policy beside ``f32``; ``resolve_harmonic_kernel`` on the
+   card; after the periodicity job, ``resolve_accel_backend`` at its
+   geometry and the job with the backend named, resumed: the same best
+   candidate); ``preflight`` (gather and roll on the pulse's chunk under
+   ``PUTPU_MEM_LIMIT`` at half the model's estimate: splits, the ladder
+   level, the table bit for bit; then the allocator's high-water mark
+   over the estimate and the calibration file); ``surface``
+   (``quick_chan_rebin``, ``get_noisier_channels``,
+   ``measure_channel_variability`` and ``spectral_stats_scan`` on the
+   card against the CPU, the scan's flags against ``.badchans``).  Every
+   phase that searches a file runs with a cold tune cache of its own in
+   a fresh directory (``cold_tuner``; the phases whose loops are timed
+   warm it first) and prints its tuning seconds (``autotune_cost``);
+   launches inside the tuner's measurements are kept apart (the
+   ``autotune probe`` paths of the kernels line);
+11. the kernels line (B6 once per policy), then ``{"ok": true,
    "device": {...}}`` last.
 
 Any failed check exits non-zero before the last line.  Without a CUDA
@@ -180,8 +206,9 @@ only the wrappers' entry points (a copy of this script beside another
 checkout times that checkout the same way), and the hybrid's.
 ``--overlap`` runs only the build and ``e2e_overlap``, ``--observe`` the
 build, the end-to-end file and ``e2e_observe``, ``--lowbit`` the build
-and ``e2e_lowbit`` (with its own pulsar file).  None of the five prints
-the last line.
+and ``e2e_lowbit`` (with its own pulsar file), ``--autotune`` the build,
+the end-to-end and pulsar files and the phases of item 10.  None of the
+six prints the last line.
 """
 
 from __future__ import annotations
@@ -198,6 +225,10 @@ import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
+
+#: each phase's tune cache lives in a directory under this one (set in
+#: :func:`main`, inside the checkout's build directory; removed at the end)
+TUNE_ROOT = None
 
 #: dynamic shared memory one block may take on an H100 (227 KB)
 SMEM_PER_BLOCK = 232448
@@ -1188,6 +1219,15 @@ def phase_harmonic(torch, np, seed, quick):
     return head, records, main
 
 
+#: launches inside the tuner's measurements since :func:`reset_counts`
+#: (:func:`read_counts` leaves them out, so each path's counts are its own
+#: work; :data:`PROBES` keeps each phase's as a path of its own)
+_PROBE = {}
+
+#: per phase, the launches of the tuner's measurements (the autotune probe)
+PROBES = {}
+
+
 def reset_counts():
     """Set every kernel's launch count to 0."""
     from pulsarutils_tpu_torch.ops import (dedisperse_cuda, fdmt_cuda,
@@ -1202,9 +1242,10 @@ def reset_counts():
     fourier_cuda.launches = 0
     for policy in harmonic_cuda.launches:
         harmonic_cuda.launches[policy] = 0
+    _PROBE.clear()
 
 
-def read_counts():
+def _raw_counts():
     """Every kernel's launch count since :func:`reset_counts`: B6 under
     ``f32`` as "B6", under another policy as "B6[policy]"."""
     from pulsarutils_tpu_torch.ops import (dedisperse_cuda, fdmt_cuda,
@@ -1216,6 +1257,131 @@ def read_counts():
             "B4": score_cuda.launches, "B5": fourier_cuda.launches,
             **{("B6" if policy == "f32" else f"B6[{policy}]"): n
                for policy, n in harmonic_cuda.launches.items()}}
+
+
+def read_counts():
+    """Every kernel's launch count since :func:`reset_counts`, less the
+    launches inside the tuner's measurements (:func:`read_probe_counts`)."""
+    return {k: v - _PROBE.get(k, 0) for k, v in _raw_counts().items()}
+
+
+def read_probe_counts():
+    """The launches inside the tuner's measurements since
+    :func:`reset_counts`."""
+    return {k: _PROBE.get(k, 0) for k in _raw_counts()}
+
+
+def _counting_tuner(cache):
+    """The process tuner of a phase: the package's :class:`KernelTuner`
+    that also counts the launches and the seconds of its measurements
+    (:data:`_PROBE`, ``probe``, ``seconds``: the whole measurement, its
+    set-up (the synthetic data made and uploaded) and each candidate's
+    runs) and keeps each candidate's warm-up output
+    (``outputs[key][candidate]``, the equivalence checks' inputs)."""
+    from pulsarutils_tpu_torch.tuning.autotune import KernelTuner
+
+    class CountingTuner(KernelTuner):
+        def __init__(self):
+            super().__init__(cache=cache)
+            self.probe = {}
+            self.seconds = {}
+            self.outputs = {}
+
+        def _measure(self, key, candidates, static, runner_factory,
+                     **kwargs):
+            before = _raw_counts()
+            spent = self.seconds.setdefault(key, {})
+
+            def timed_factory():
+                t0 = time.perf_counter()
+                try:
+                    return runner_factory()
+                finally:
+                    spent["setup"] = time.perf_counter() - t0
+
+            t0 = time.perf_counter()
+            try:
+                return super()._measure(key, candidates, static,
+                                        timed_factory, **kwargs)
+            finally:
+                spent["total"] = time.perf_counter() - t0
+                for k, v in _raw_counts().items():
+                    d = v - before.get(k, 0)
+                    self.probe[k] = self.probe.get(k, 0) + d
+                    _PROBE[k] = _PROBE.get(k, 0) + d
+
+        def _time_one(self, key, cand, *args, **kwargs):
+            t0 = time.perf_counter()
+            median, scores = super()._time_one(key, cand, *args, **kwargs)
+            self.seconds.setdefault(key, {})[cand] = \
+                time.perf_counter() - t0
+            self.outputs.setdefault(key, {})[cand] = scores
+            return median, scores
+
+    return CountingTuner()
+
+
+def e2e_trial_dms():
+    """The end-to-end files' plan: DM 300-635 over 1024 channels."""
+    from pulsarutils_tpu_torch.ops.plan import dedispersion_plan
+
+    return dedispersion_plan(NCHAN, DMMIN, DMMAX, START_FREQ, BANDWIDTH,
+                             TSAMP)
+
+
+@contextlib.contextmanager
+def cold_tuner(label, warm=False):
+    """One phase's tuning state: ``PUTPU_TUNE_CACHE`` in a fresh
+    temporary directory under :data:`TUNE_ROOT` (so no phase, and no run of
+    this script, reads an earlier one's winners) and a fresh counting
+    process tuner.  ``warm`` resolves the end-to-end chunk's search kernel
+    first (what ``cli.tune_main tune`` does before a survey), so the
+    phase's timed loops hold no measurement.  On exit the phase's probe
+    launches go to :data:`PROBES` and its tuning seconds are printed."""
+    from pulsarutils_tpu_torch.tuning import autotune
+    from pulsarutils_tpu_torch.tuning.cache import TuneCache
+
+    tmp = TUNE_ROOT / label
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    prev_env = os.environ.get("PUTPU_TUNE_CACHE")
+    os.environ["PUTPU_TUNE_CACHE"] = str(tmp / "tune_cache.json")
+    tuner = _counting_tuner(TuneCache(str(tmp / "tune_cache.json")))
+    prev = autotune.set_tuner(tuner)
+    try:
+        if warm:
+            dms = e2e_trial_dms()
+            autotune.resolve_search_kernel(
+                NCHAN, E2E_CHUNK, len(dms), None, False, START_FREQ,
+                BANDWIDTH, TSAMP, dms, device="cuda")
+        yield tuner
+    finally:
+        autotune.set_tuner(prev)
+        if prev_env is None:
+            os.environ.pop("PUTPU_TUNE_CACHE", None)
+        else:
+            os.environ["PUTPU_TUNE_CACHE"] = prev_env
+        shutil.rmtree(tmp, ignore_errors=True)
+        if any(tuner.probe.values()):
+            PROBES[label] = {k: tuner.probe.get(k, 0) for k in _raw_counts()}
+        emit("autotune_cost", label=label, warm=warm,
+             seconds=tuner.seconds, decisions=tuner.decisions(),
+             probe_launches={k: v for k, v in tuner.probe.items() if v})
+
+
+@contextlib.contextmanager
+def env_set(**values):
+    """Environment variables set for the block, restored after."""
+    prev = {k: os.environ.get(k) for k in values}
+    os.environ.update({k: str(v) for k, v in values.items()})
+    try:
+        yield
+    finally:
+        for k, v in prev.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def fdmt_launches(nchan, dmmin, dmmax, f0=START_FREQ, bw=BANDWIDTH,
@@ -1293,7 +1459,7 @@ def phase_hybrid_headline(torch, np, seed):
                                    device="cuda")
 
     def exact():
-        return dedispersion_search(data, *args, kernel="auto",
+        return dedispersion_search(data, *args, kernel="pallas",
                                    device="cuda")
 
     def wall(fn, runs=3):
@@ -1452,7 +1618,8 @@ def phase_sweep_breakdown(torch, np, seed):
     geometry: B1 through ``dedisperse_plane`` (host planning and upload
     included) at the search's superblocks, the hybrid's 8- and 16-row
     rescore buckets and the plan's 2-trial tail, with the card time of
-    its kernel launches; then ``dedispersion_search(kernel="auto")``, its
+    its kernel launches; then ``dedispersion_search(kernel="pallas")``
+    (the direct sweep ``kernel="auto"`` ran before it was measured), its
     first call on the geometry and its repeats split into B1, B4 and the
     rest.  It uses no name that earlier versions of the package lack, so
     this script can time another checkout of the package (``--breakdown``
@@ -1497,7 +1664,7 @@ def phase_sweep_breakdown(torch, np, seed):
         torch.cuda.empty_cache()
 
     def search():
-        dedispersion_search(data, DMMIN, DMMAX, *geom, kernel="auto",
+        dedispersion_search(data, DMMIN, DMMAX, *geom, kernel="pallas",
                             device="cuda")
         torch.cuda.synchronize()
 
@@ -3623,6 +3790,415 @@ def phase_e2e_lowbit(torch, np, workdir, seed, pulsar=None):
     return {"launches": launches, "unpack": unpack}
 
 
+def phase_autotune_search(torch, np, workdir, path, chunk_length, nchunks):
+    """The tuner on the card at the end-to-end chunk (1024 x 2^18, the
+    DM 300-635 plan): ``resolve_search_kernel`` measured, then a memory
+    hit and a disk hit; the e2e file with ``kernel="auto"`` under
+    ``PUTPU_AUTOTUNE=on`` (cold) and ``off`` (equal hits, the decision in
+    the budget record, B1 twice a chunk outside the probe);
+    ``resolve_search_policy`` for the gather with the file searched under
+    ``PUTPU_PRECISION=auto`` beside ``f32``; ``resolve_harmonic_kernel``
+    on the card."""
+    from pulsarutils_tpu_torch.obs.metrics import REGISTRY
+    from pulsarutils_tpu_torch.pipeline.search_pipeline import \
+        search_by_chunks
+    from pulsarutils_tpu_torch.precision import STRATEGIES
+    from pulsarutils_tpu_torch.tuning import autotune
+    from pulsarutils_tpu_torch.tuning.cache import TuneCache
+    from pulsarutils_tpu_torch.utils.logging_utils import BudgetAccountant
+
+    dms = e2e_trial_dms()
+    geom = (START_FREQ, BANDWIDTH, TSAMP)
+    common = dict(chunk_length=chunk_length, dmmin=DMMIN, dmmax=DMMAX,
+                  snr_threshold=8.0, device="cuda", make_plots=False)
+
+    # 1. one resolution, measured; a memory hit; a disk hit
+    with cold_tuner("autotune_resolve") as tuner:
+        reset_counts()
+        mark = autotune.decision_seq()
+        t0 = time.perf_counter()
+        winner = autotune.resolve_search_kernel(
+            NCHAN, E2E_CHUNK, len(dms), None, False, *geom, dms,
+            device="cuda")
+        first_s = time.perf_counter() - t0
+        probe = read_probe_counts()
+        rec, = autotune.decisions_since(mark)
+        key = rec["key"]
+        outputs = tuner.outputs[key]
+        verdicts = {c: autotune.hits_match(outputs["pallas"], o)
+                    for c, o in outputs.items()}
+        check(rec["source"] == "measured" and rec["static"] == "pallas"
+              and winner in rec["measured_s"],
+              f"resolve_search_kernel: {rec}")
+        check(probe["B1"] > 0 and probe["B4"] > 0,
+              f"the probe launched no sweep: {probe}")
+        check(key == f"gpu|c{NCHAN}|t{E2E_CHUNK}|d{len(dms)}|float32|m-",
+              f"key {key}")
+        hits_before = REGISTRY.counter(
+            "putpu_autotune_cache_hits_total").value
+        t0 = time.perf_counter()
+        again = autotune.resolve_search_kernel(
+            NCHAN, E2E_CHUNK, len(dms), None, False, *geom, dms,
+            device="cuda")
+        memory_s = time.perf_counter() - t0
+        check(again == winner and read_probe_counts() == probe
+              and autotune.decision_seq() == mark + 1
+              and REGISTRY.counter("putpu_autotune_cache_hits_total").value
+              == hits_before + 1,
+              "a second resolution measured again")
+        fresh = autotune.KernelTuner(cache=TuneCache(tuner.cache.path))
+        prev = autotune.set_tuner(fresh)
+        try:
+            disk = autotune.resolve_search_kernel(
+                NCHAN, E2E_CHUNK, len(dms), None, False, *geom, dms,
+                device="cuda")
+        finally:
+            autotune.set_tuner(prev)
+        disk_rec = autotune.decisions_since(mark)[-1]
+        check(disk == winner and disk_rec["source"] == "cache"
+              and read_probe_counts() == probe,
+              f"a fresh tuner on the file: {disk_rec}")
+    emit("autotune", case="resolve_search_kernel", key=key, winner=winner,
+         measured_s=rec["measured_s"], abandoned=rec.get("abandoned", []),
+         speedup_vs_static=rec.get("speedup_vs_static"),
+         equivalent=verdicts, first_resolve_s=first_s,
+         memory_hit_s=memory_s, disk_hit=disk_rec["source"],
+         probe_launches={k: v for k, v in probe.items() if v})
+
+    # 2. the e2e file, kernel="auto": cold and on, then off
+    runs = {}
+    for mode in ("on", "off"):
+        with cold_tuner(f"autotune_e2e_{mode}"), \
+                env_set(PUTPU_AUTOTUNE=mode):
+            budget = BudgetAccountant()
+            stages, summary = {}, {}
+            reset_counts()
+            t0 = time.perf_counter()
+            hits, _ = search_by_chunks(
+                str(path), output_dir=str(workdir / f"out_autotune_{mode}"),
+                budget=budget, stage_seconds=stages, summary=summary,
+                **common)
+            wall = time.perf_counter() - t0
+            counts, probe = read_counts(), read_probe_counts()
+            check_clean_run(summary, f"autotune_e2e_{mode}")
+            record = budget.to_json().get("autotune", [])
+        runs[mode] = dict(hits=hits, counts=counts, probe=probe,
+                          record=record, wall=wall, stages=stages)
+        emit("autotune", case=f"e2e_file_autotune_{mode}", wall_s=wall,
+             autotune_s=stages.get("search/autotune", 0.0),
+             stage_seconds=stages, launches=counts,
+             probe_launches={k: v for k, v in probe.items() if v},
+             budget_autotune=record)
+    bad = _hit_mismatch(runs["on"]["hits"], runs["off"]["hits"])
+    check(bad is None, f"autotune on vs off: {bad}")
+    measured = [r for r in runs["on"]["record"] if r["key"] == key
+                and r["source"] == "measured"]
+    check(measured, f"the budget record names no measured decision for "
+          f"{key}: {runs['on']['record']}")
+    check(runs["off"]["record"] == [] and not any(
+        runs["off"]["probe"].values()), "PUTPU_AUTOTUNE=off measured")
+    for mode in ("on", "off"):
+        b1 = runs[mode]["counts"]["B1"]
+        check(b1 == 2 * nchunks,
+              f"autotune {mode}: {b1} B1 launches outside the probe")
+    check(runs["on"]["probe"]["B1"] > 0, "the e2e run's probe launched no B1")
+
+    # 3. the gather's precision policy
+    with cold_tuner("autotune_policy"):
+        mark = autotune.decision_seq()
+        t0 = time.perf_counter()
+        pair = autotune.resolve_search_policy(
+            "gather", NCHAN, E2E_CHUNK, len(dms), *geom, dms, device="cuda")
+        policy_s = time.perf_counter() - t0
+        prec = autotune.decisions_since(mark)[0]
+        strategy = pair.split("+", 1)[1]
+        hits_by = {}
+        for label, policy in (("f32", "f32"), ("auto", "auto")):
+            with env_set(PUTPU_PRECISION=policy):
+                reset_counts()
+                hits_by[label], _ = search_by_chunks(
+                    str(path), kernel="gather",
+                    output_dir=str(workdir / f"out_autotune_gather_{label}"),
+                    **common)
+        rtol = STRATEGIES[strategy].score_rtol
+        bad = _policy_hit_mismatch(hits_by["auto"], hits_by["f32"], rtol)
+        check(bad is None, f"gather under the measured policy {pair}: {bad}")
+    emit("autotune", case="resolve_search_policy", key=prec["key"],
+         winner=pair, measured_s=prec.get("measured_s"),
+         abandoned=prec.get("abandoned", []), source=prec["source"],
+         seconds=policy_s, score_rtol=rtol)
+
+    # 4. the harmonic chain: one applicable variant on the card
+    with cold_tuner("autotune_harmonic"):
+        mark = autotune.decision_seq()
+        kern = autotune.resolve_harmonic_kernel(
+            514, (1 << 18) // 2 + 1, TSAMP, device="cuda")
+        hrec, = autotune.decisions_since(mark)
+    check(kern == "pallas" and hrec["source"] == "static"
+          and hrec.get("reason") == "single applicable variant",
+          f"resolve_harmonic_kernel on the card: {hrec}")
+    emit("autotune", case="resolve_harmonic_kernel", decision=hrec)
+    return {"winner": winner, "on": runs["on"]["counts"],
+            "off": runs["off"]["counts"]}
+
+
+def phase_autotune_accel(torch, np, workdir, period):
+    """``resolve_accel_backend`` at the pulsar job's geometry (both
+    medians, the winner, the two probe tables' ``accel_tables_match``),
+    and the job with that backend named, resumed from the
+    ``accel_backend="auto"`` job's files: the same best candidate."""
+    from pulsarutils_tpu_torch.periodicity.driver import periodicity_search
+    from pulsarutils_tpu_torch.tuning import autotune
+
+    res = period["job"]
+    acc = res["accumulator"]
+    fmin = 4.0 / (acc.nout * acc.tsamp)
+    with cold_tuner("autotune_accel") as tuner:
+        mark = autotune.decision_seq()
+        t0 = time.perf_counter()
+        winner = autotune.resolve_accel_backend(
+            acc.ndm, acc.nout, acc.tsamp, res["accels"], max_harmonics=16,
+            fmin=fmin, device="cuda")
+        seconds = time.perf_counter() - t0
+        rec, = autotune.decisions_since(mark)
+        outputs = tuner.outputs[rec["key"]]
+        match = autotune.accel_tables_match(outputs["time_stretch"],
+                                            outputs["fdas"])
+    check(rec["source"] == "measured", f"resolve_accel_backend: {rec}")
+    auto_backend = res["accel_backend"]
+    reset_counts()
+    t0 = time.perf_counter()
+    named = periodicity_search(
+        str(workdir / "pulsar.fil"), DMMIN, DMMAX, accel_max=1000.0,
+        n_accel=5, canary=True, accel_backend=auto_backend,
+        output_dir=str(period["job_dir"]), chunk_length=E2E_CHUNK // 2 * TSAMP,
+        snr_threshold=8.0, device="cuda")
+    wall = time.perf_counter() - t0
+    best, auto_best = named["candidates"][0], res["candidates"][0]
+    cell = ("dm_index", "accel_index", "freq_bin", "nharm")
+    check([best[k] for k in cell] == [auto_best[k] for k in cell]
+          and best["sigma"] == auto_best["sigma"],
+          f"the {auto_backend} job's best {best} vs the auto job's "
+          f"{auto_best}")
+    emit("autotune", case="resolve_accel_backend", key=rec["key"],
+         winner=winner, auto_job_backend=auto_backend,
+         measured_s=rec.get("measured_s"),
+         abandoned=rec.get("abandoned", []),
+         speedup_vs_static=rec.get("speedup_vs_static"),
+         accel_tables_match=match, seconds=seconds,
+         named_job_wall_s=wall,
+         best={k: best[k] for k in (*cell, "freq", "sigma")})
+    return {"winner": winner, "named_job": read_counts()}
+
+
+def phase_fdmt_knobs(torch, np, seed):
+    """``PUTPU_FDMT_HEAD=0`` and ``PUTPU_FDMT_DEEP_PAIR=0`` against the
+    default schedule at the end-to-end chunk (1024 x 2^18, DM 300-635)
+    and the headline (1024 x 2^20, the 512-trial grid): the coarse plane
+    bit for bit, the launches of B3, B2a and B2b of one transform, and
+    its ms (CUDA events, one warm-up, median of 5)."""
+    from pulsarutils_tpu_torch.ops.fdmt import fdmt_transform, fdmt_trial_dms
+    from pulsarutils_tpu_torch.ops.plan import dmmax_for_trials
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 11)
+    settings = (("default", {}), ("PUTPU_FDMT_HEAD=0",
+                                  {"PUTPU_FDMT_HEAD": "0"}),
+                ("PUTPU_FDMT_DEEP_PAIR=0", {"PUTPU_FDMT_DEEP_PAIR": "0"}))
+    paths = {}
+    out = {}
+    for label, nsamples, dmmax in (
+            ("e2e_chunk", E2E_CHUNK, DMMAX),
+            ("headline", NSAMPLES, dmmax_for_trials(
+                DMMIN, HYB_NTRIALS, START_FREQ, BANDWIDTH, TSAMP))):
+        data = torch.randn((NCHAN, nsamples), generator=gen, device="cuda")
+        _, n_lo, n_hi = fdmt_trial_dms(NCHAN, DMMIN, dmmax, START_FREQ,
+                                       BANDWIDTH, TSAMP)
+
+        def run():
+            return fdmt_transform(data, n_hi, START_FREQ, BANDWIDTH,
+                                  min_delay=n_lo)
+
+        ref = None
+        recs = {}
+        for name, env in settings:
+            with env_set(**env):
+                reset_counts()
+                plane = run()
+                torch.cuda.synchronize()
+                counts = read_counts()
+                ms, times = time_ms(torch, run)
+            if ref is None:
+                ref = plane
+            equal = bool(torch.equal(plane, ref))
+            check(equal, f"fdmt_knobs {label}: {name} changed the plane")
+            recs[name] = {"B3": counts["B3"], "B2a": counts["B2a"],
+                          "B2b": counts["B2b"], "coarse_ms": ms,
+                          "coarse_times_ms": times, "bit_equal": equal}
+            paths[f"fdmt_knobs {label} {name}"] = counts
+            del plane
+        d = recs["default"]
+        check(d["B3"] == 1 and d["B2b"] == 1
+              and recs["PUTPU_FDMT_HEAD=0"]["B3"] == 0
+              and recs["PUTPU_FDMT_HEAD=0"]["B2a"] == d["B2a"] + 7
+              and recs["PUTPU_FDMT_DEEP_PAIR=0"]["B2b"] == 0
+              and recs["PUTPU_FDMT_DEEP_PAIR=0"]["B2a"] == d["B2a"] + 2,
+              f"fdmt_knobs {label}: launches {recs}")
+        emit("fdmt_knobs", case=label, nchan=NCHAN, nsamples=nsamples,
+             rows=n_hi - n_lo + 1, **recs)
+        out[label] = recs
+        del data, ref
+        torch.cuda.empty_cache()
+    return out, paths
+
+
+def phase_preflight(torch, np, workdir, path, hits):
+    """The memory preflight on the card: ``kernel="gather"`` and
+    ``"roll"`` on the pulse's end-to-end chunk with ``PUTPU_MEM_LIMIT`` at
+    half the model's estimate (``putpu_oom_splits_total`` and the ladder
+    level rise, the table equal to the unconstrained one bit for bit),
+    then with no limit the allocator's high-water mark over the model's
+    estimate, and the calibration file written."""
+    from pulsarutils_tpu_torch.io.sigproc import FilterbankReader
+    from pulsarutils_tpu_torch.obs.metrics import REGISTRY
+    from pulsarutils_tpu_torch.ops.search import (auto_chan_block,
+                                                  dedispersion_search)
+    from pulsarutils_tpu_torch.pipeline.search_pipeline import clean_chunk
+    from pulsarutils_tpu_torch.resilience import ladder
+    from pulsarutils_tpu_torch.resilience import memory_budget as mb
+
+    dms = e2e_trial_dms()
+    ndm = len(dms)
+    istart = max(hits, key=lambda h: h[2].snr)[0]
+    reader = FilterbankReader(str(path))
+    raw = reader.read_block_tensor(istart, E2E_CHUNK, "cuda")
+    chunk = clean_chunk(raw, torch.zeros(NCHAN, dtype=torch.bool,
+                                         device="cuda"))
+    del raw
+    args = (DMMIN, DMMAX, START_FREQ, BANDWIDTH, TSAMP)
+    dm_block = min(ndm, 32)
+    chan_block = auto_chan_block(NCHAN, E2E_CHUNK, dm_block)
+    out = {}
+    with cold_tuner("preflight"):
+        split_tables = {}
+        for form in ("gather", "roll"):
+            est = mb.estimate_direct(NCHAN, E2E_CHUNK, ndm,
+                                     dm_block=dm_block,
+                                     chan_block=chan_block,
+                                     formulation=form)["total"]
+            splits = REGISTRY.counter("putpu_oom_splits_total",
+                                      stage="preflight")
+            before = splits.value
+            ladder.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with env_set(PUTPU_MEM_LIMIT=est // 2):
+                split_tables[form] = dedispersion_search(
+                    chunk, *args, trial_dms=dms, kernel=form,
+                    precision="f32", device="cuda")
+            split_s = time.perf_counter() - t0
+            level = ladder.level()
+            ladder.reset()
+            check(splits.value > before and level > 0,
+                  f"preflight {form}: splits {splits.value - before}, "
+                  f"level {level}")
+            out[form] = {"estimate_bytes": est, "limit_bytes": est // 2,
+                         "splits": splits.value - before, "level": level,
+                         "split_s": split_s}
+        for form in ("gather", "roll"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            table = dedispersion_search(chunk, *args, trial_dms=dms,
+                                        kernel=form, precision="f32",
+                                        device="cuda")
+            whole_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            check(ladder.level() == 0, "an unconstrained run descended")
+            for col in ("DM", "max", "std", "snr", "rebin", "peak"):
+                check(np.array_equal(table[col], split_tables[form][col]),
+                      f"preflight {form}: column {col} differs after the "
+                      "split")
+            key = mb._direct_key(NCHAN, E2E_CHUNK, ndm, "cuda")
+            out[form].update(peak_bytes=peak,
+                             measured_over_estimate=peak
+                             / out[form]["estimate_bytes"],
+                             whole_s=whole_s,
+                             calibration_offset=mb.calibration_offset(key))
+        calib = Path(mb.calibration_path())
+        check(calib.is_file() and key in json.loads(
+            calib.read_text())["offsets"],
+            f"no calibration for {key} in {calib}")
+    emit("preflight", chunk=istart, ndm=ndm, dm_block=dm_block,
+         chan_block=chan_block, key=key, **out)
+    del chunk
+    torch.cuda.empty_cache()
+    return out
+
+
+#: the tolerance of a float32 device reduction against the same call on
+#: the CPU (the port's surface tests state it)
+SURFACE_RTOL = 1e-5
+
+
+def phase_surface(torch, np, path):
+    """The reference's library surface on the card against the same call
+    on the CPU: ``quick_chan_rebin``, ``get_noisier_channels`` and
+    ``measure_channel_variability`` on the end-to-end file's first chunk,
+    ``spectral_stats_scan`` over the whole file in 2^17-sample chunks;
+    that scan's flag mask equal to the host scan's ``.badchans``."""
+    from pulsarutils_tpu_torch import (get_bad_chans, get_noisier_channels,
+                                       measure_channel_variability,
+                                       quick_chan_rebin)
+    from pulsarutils_tpu_torch.io.sigproc import FilterbankReader
+    from pulsarutils_tpu_torch.pipeline.spectral_stats import (
+        flag_bad_channels, spectral_stats_scan)
+
+    reader = FilterbankReader(str(path))
+    block = reader.read_block_tensor(0, E2E_CHUNK, "cpu")
+    card = block.cuda()
+    rec = {}
+    t0 = time.perf_counter()
+    reb, reb_cpu = quick_chan_rebin(card, 4), quick_chan_rebin(block, 4)
+    rel = float(((reb.cpu() - reb_cpu).abs()
+                 / reb_cpu.abs().clamp(min=1e-30)).max())
+    check(reb.device.type == "cuda" and rel <= SURFACE_RTOL,
+          f"quick_chan_rebin: rel {rel}")
+    rec["quick_chan_rebin"] = {"shape": list(reb.shape), "max_rel": rel}
+    for name, fn in (("get_noisier_channels", get_noisier_channels),
+                     ("measure_channel_variability",
+                      measure_channel_variability)):
+        on_card, on_cpu = fn(card), fn(block)
+        equal = bool(torch.equal(on_card.cpu(), on_cpu))
+        check(on_card.device.type == "cuda" and equal,
+              f"{name}: card and CPU flags differ")
+        rec[name] = {"flagged": int(on_cpu.sum()), "equal": equal}
+    step = E2E_CHUNK // 2
+    chunks = torch.stack([torch.from_numpy(b.astype(np.float32)) for _, b in
+                          reader.iter_blocks(step)]).cuda()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    mean, std = spectral_stats_scan(chunks)
+    torch.cuda.synchronize()
+    scan_s = time.perf_counter() - t1
+    mean_cpu, std_cpu = spectral_stats_scan(chunks.cpu())
+    rel_mean = float(((mean.cpu() - mean_cpu).abs() / mean_cpu.abs()).max())
+    rel_std = float(((std.cpu() - std_cpu).abs() / std_cpu.abs()).max())
+    check(rel_mean <= SURFACE_RTOL and rel_std <= SURFACE_RTOL,
+          f"spectral_stats_scan: card vs CPU rel {rel_mean}, {rel_std}")
+    flags = flag_bad_channels(mean.cpu().numpy(), std.cpu().numpy())
+    host = get_bad_chans(str(path))
+    check(np.array_equal(flags, host), f"spectral_stats_scan flags "
+          f"{np.flatnonzero(flags)} vs .badchans {np.flatnonzero(host)}")
+    rec["spectral_stats_scan"] = {
+        "chunks": list(chunks.shape), "max_rel_mean": rel_mean,
+        "max_rel_std": rel_std, "scan_s": scan_s,
+        "flagged": int(flags.sum()), "badchans_equal": True}
+    emit("surface", seconds=time.perf_counter() - t0, tolerance=SURFACE_RTOL,
+         **rec)
+    del chunks, card
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3639,6 +4215,9 @@ def main(argv=None):
                              "e2e_observe only")
     parser.add_argument("--lowbit", action="store_true",
                         help="build and run e2e_lowbit only")
+    parser.add_argument("--autotune", action="store_true",
+                        help="build, the end-to-end and pulsar files and "
+                             "this slice's phases only")
     opts = parser.parse_args(argv)
 
     import numpy as np
@@ -3664,7 +4243,13 @@ def main(argv=None):
 
     from pulsarutils_tpu_torch.utils.nvcc import BUILD_DIR
 
+    global TUNE_ROOT
     workdir = BUILD_DIR / "chip_smoke"
+    TUNE_ROOT = BUILD_DIR / "chip_smoke_tune"
+    shutil.rmtree(TUNE_ROOT, ignore_errors=True)
+    # any tuning outside a phase's own cache stays in the checkout too
+    os.environ["PUTPU_TUNE_CACHE"] = str(TUNE_ROOT / "outside_phases"
+                                         / "tune_cache.json")
     try:
         card = phase_environment(torch)
         phase_build()
@@ -3676,20 +4261,39 @@ def main(argv=None):
         if opts.overlap:
             shutil.rmtree(workdir, ignore_errors=True)
             workdir.mkdir(parents=True)
-            phase_e2e_overlap(torch, np, workdir, opts.seed)
+            with cold_tuner("e2e_overlap", warm=True):
+                phase_e2e_overlap(torch, np, workdir, opts.seed)
             return 0
         if opts.lowbit:
             shutil.rmtree(workdir, ignore_errors=True)
             workdir.mkdir(parents=True)
-            phase_e2e_lowbit(torch, np, workdir, opts.seed)
+            with cold_tuner("e2e_lowbit", warm=True):
+                phase_e2e_lowbit(torch, np, workdir, opts.seed)
             return 0
         if opts.observe:
             shutil.rmtree(workdir, ignore_errors=True)
             workdir.mkdir(parents=True)
             path = workdir / "e2e.fil"
             _write_e2e_file(np, path, opts.seed)
-            phase_e2e_observe(torch, np, workdir, path,
-                              E2E_CHUNK // 2 * TSAMP, 4)
+            with cold_tuner("e2e_observe", warm=True):
+                phase_e2e_observe(torch, np, workdir, path,
+                                  E2E_CHUNK // 2 * TSAMP, 4)
+            return 0
+        if opts.autotune:
+            shutil.rmtree(workdir, ignore_errors=True)
+            workdir.mkdir(parents=True)
+            with cold_tuner("e2e_search"):
+                _, hits, path, chunk_length, nchunks = phase_end_to_end(
+                    torch, np, opts.seed, workdir)
+            phase_autotune_search(torch, np, workdir, path, chunk_length,
+                                  nchunks)
+            phase_fdmt_knobs(torch, np, opts.seed)
+            phase_preflight(torch, np, workdir, path, hits)
+            phase_surface(torch, np, path)
+            path.unlink()
+            with cold_tuner("e2e_period"):
+                period = phase_e2e_period(torch, np, workdir, opts.seed)
+            phase_autotune_accel(torch, np, workdir, period)
             return 0
         head, records, head_data = phase_kernels(torch, np, opts.seed,
                                                  opts.quick)
@@ -3709,32 +4313,49 @@ def main(argv=None):
         hybrid_split = phase_hybrid_breakdown(torch, np, opts.seed)
         breakdown = phase_sweep_breakdown(torch, np, opts.seed)
         kernel_breakdown = phase_kernel_breakdown(torch, np, opts.seed)
+        knobs, knob_paths = phase_fdmt_knobs(torch, np, opts.seed)
         shutil.rmtree(workdir, ignore_errors=True)
         workdir.mkdir(parents=True)
-        direct, hits, path, chunk_length, nchunks = phase_end_to_end(
-            torch, np, opts.seed, workdir)
-        hybrid = phase_e2e_hybrid(torch, np, workdir, path, chunk_length,
-                                  nchunks, hits)
-        fourier = phase_e2e_fourier(torch, np, workdir, path, chunk_length,
-                                    nchunks)
-        precision = phase_e2e_precision(torch, np, workdir, path,
-                                        chunk_length, nchunks, hits)
-        phase_e2e_faults(torch, np, workdir, path, chunk_length, nchunks,
-                         opts.seed)
-        observe = phase_e2e_observe(torch, np, workdir, path, chunk_length,
-                                    nchunks)
+        with cold_tuner("e2e_search", warm=True):
+            direct, hits, path, chunk_length, nchunks = phase_end_to_end(
+                torch, np, opts.seed, workdir)
+        tuned = phase_autotune_search(torch, np, workdir, path,
+                                      chunk_length, nchunks)
+        with cold_tuner("e2e_hybrid", warm=True):
+            hybrid = phase_e2e_hybrid(torch, np, workdir, path,
+                                      chunk_length, nchunks, hits)
+        with cold_tuner("e2e_fourier"):
+            fourier = phase_e2e_fourier(torch, np, workdir, path,
+                                        chunk_length, nchunks)
+        with cold_tuner("e2e_precision"):
+            precision = phase_e2e_precision(torch, np, workdir, path,
+                                            chunk_length, nchunks, hits)
+        phase_preflight(torch, np, workdir, path, hits)
+        phase_surface(torch, np, path)
+        with cold_tuner("e2e_faults", warm=True):
+            phase_e2e_faults(torch, np, workdir, path, chunk_length,
+                             nchunks, opts.seed)
+        with cold_tuner("e2e_observe", warm=True):
+            observe = phase_e2e_observe(torch, np, workdir, path,
+                                        chunk_length, nchunks)
         path.unlink()
-        period = phase_e2e_period(torch, np, workdir, opts.seed)
-        fdas = phase_e2e_fdas(torch, np, workdir, opts.seed, period)
-        lowbit = phase_e2e_lowbit(torch, np, workdir, opts.seed,
-                                  pulsar=workdir / "pulsar.fil")
+        with cold_tuner("e2e_period", warm=True):
+            period = phase_e2e_period(torch, np, workdir, opts.seed)
+        with cold_tuner("e2e_fdas"):
+            fdas = phase_e2e_fdas(torch, np, workdir, opts.seed, period)
+        accel = phase_autotune_accel(torch, np, workdir, period)
+        with cold_tuner("e2e_lowbit", warm=True):
+            lowbit = phase_e2e_lowbit(torch, np, workdir, opts.seed,
+                                      pulsar=workdir / "pulsar.fil")
         (workdir / "pulsar.fil").unlink()
-        overlap = phase_e2e_overlap(torch, np, workdir, opts.seed)
+        with cold_tuner("e2e_overlap", warm=True):
+            overlap = phase_e2e_overlap(torch, np, workdir, opts.seed)
     except CheckFailed as exc:
         print(f"chip_smoke: check failed: {exc}", file=sys.stderr)
         return 1
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+        shutil.rmtree(TUNE_ROOT, ignore_errors=True)
 
     main_path = hybrid["snr_8"]
     launches = {"direct sweep (e2e_search)": direct,
@@ -3755,7 +4376,14 @@ def main(argv=None):
                 "direct sweep, overlapped loop (e2e_overlap)":
                     overlap[1]["launches"],
                 "direct sweep, every observer on (e2e_observe)": observe,
-                **precision["runs"], **lowbit["launches"]}
+                "direct sweep, kernel=auto tuned (autotune_e2e_on)":
+                    tuned["on"],
+                "direct sweep, PUTPU_AUTOTUNE=off (autotune_e2e_off)":
+                    tuned["off"],
+                "periodicity job, the tuner's backend named "
+                "(autotune_accel)": accel["named_job"],
+                **{f"autotune probe ({k})": v for k, v in PROBES.items()},
+                **knob_paths, **precision["runs"], **lowbit["launches"]}
     shape = {"nchan": NCHAN, "nsamples": NSAMPLES}
 
     def levels(kind):

@@ -13,12 +13,178 @@ this package imports nothing from it.
 
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for the CPU (``device="cpu"``), and raise when no card is present.
+
+The top level exports the JAX package's public names: the reference's
+library surface eagerly, the pipeline, I/O and accounting layers lazily
+(:data:`_LAZY`).  The multi-device names are not ported yet
+(:data:`_NOT_PORTED`).
 """
 
-from .ops.plan import dedispersion_plan, dedispersion_shifts_batch
+from .version import __version__
+
+from .models.simulate import simulate_pulsar_data, simulate_test_data
+from .ops.clean_ops import (
+    fft_zap_time,
+    get_noisier_channels,
+    measure_channel_variability,
+    renormalize_data,
+    zero_dm_filter,
+)
+from .ops.dedisperse import apply_dm_shifts_to_data, dedisperse, roll_and_sum
+from .ops.periodicity import (
+    epoch_folding_search,
+    fold,
+    harmonic_sum,
+    period_search_plane,
+    power_spectrum,
+    spectral_search,
+)
+from .ops.plan import (
+    DM_DELAY_CONST,
+    DM_SMEARING_CONST,
+    dedispersion_plan,
+    dedispersion_shifts,
+    dedispersion_shifts_batch,
+    delta_delay,
+    dm_broadening,
+    normalize_shifts,
+)
+from .ops.rebin import quick_chan_rebin, quick_resample
+from .ops.robust import digitize, h_test, mad, ref_mad, z_n_test
 from .ops.search import dedispersion_search
 from .pipeline.search_pipeline import plan_survey, search_by_chunks
 from .utils.table import ResultTable
 
-__all__ = ["ResultTable", "dedispersion_plan", "dedispersion_search",
-           "dedispersion_shifts_batch", "plan_survey", "search_by_chunks"]
+
+def test(extra_args=None):
+    """Run the port's tests (``tests/test_torch_*.py``) and return the
+    pytest exit code.
+
+    Runs pytest in a fresh subprocess from the source checkout root, as
+    the JAX package's ``test()`` runs its suite; the tests import both
+    packages.  ``extra_args`` is a string (``"-k search"``) or an
+    iterable of pytest arguments.  Needs a source checkout.
+    """
+    import glob
+    import os
+    import shlex
+    import subprocess
+    import sys
+
+    repo_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    files = sorted(glob.glob(os.path.join(repo_root, "tests",
+                                          "test_torch_*.py")))
+    if not files:
+        raise RuntimeError(
+            "pulsarutils_tpu_torch.test() needs a source checkout (no "
+            f"tests/test_torch_*.py under {repo_root})")
+    if isinstance(extra_args, str):
+        extra = shlex.split(extra_args)
+    else:
+        extra = list(extra_args) if extra_args else []
+    proc = subprocess.run([sys.executable, "-m", "pytest", *files, "-q"]
+                          + extra, cwd=repo_root)
+    return int(proc.returncode)
+
+
+#: lazy re-exports of the pipeline, I/O and accounting layers (keeps a
+#: bare ``import pulsarutils_tpu_torch`` light), the JAX package's table
+#: less the names in :data:`_NOT_PORTED`
+_LAZY = {
+    "cleanup_data": ("pipeline.cleanup", "cleanup_data"),
+    "get_bad_chans": ("pipeline.spectral_stats", "get_bad_chans"),
+    "get_spectral_stats": ("pipeline.spectral_stats",
+                           "get_spectral_stats"),
+    "PulseInfo": ("pipeline.pulse_info", "PulseInfo"),
+    "plot_diagnostics": ("pipeline.diagnostics", "plot_diagnostics"),
+    "sift_hits": ("pipeline.sift", "sift_hits"),
+    "sift_candidates": ("pipeline.sift", "sift_candidates"),
+    "FilterbankReader": ("io.sigproc", "FilterbankReader"),
+    "FilterbankWriter": ("io.sigproc", "FilterbankWriter"),
+    "write_filterbank": ("io.sigproc", "write_filterbank"),
+    "CandidateStore": ("io.candidates", "CandidateStore"),
+    "fdmt_transform": ("ops.fdmt", "fdmt_transform"),
+    "fdmt_trial_dms": ("ops.fdmt", "fdmt_trial_dms"),
+    "fdmt_tracks": ("ops.fdmt", "fdmt_tracks"),
+    "cert_retention": ("ops.certify", "cert_retention"),
+    "coarse_retention": ("ops.certify", "coarse_retention"),
+    "retention_bound": ("ops.certify", "retention_bound"),
+    "certify_noise_only": ("ops.certify", "certify_noise_only"),
+    "certifiable_snr_floor": ("ops.certify", "certifiable_snr_floor"),
+    "matched_snr_floor": ("ops.certify", "matched_snr_floor"),
+    "expected_noise_max_snr": ("ops.certify", "expected_noise_max_snr"),
+    "cert_slack_for_miss_p": ("ops.certify", "cert_slack_for_miss_p"),
+    "cert_miss_p_at_floor": ("ops.certify", "cert_miss_p_at_floor"),
+    "plane_memmap": ("ops.search", "plane_memmap"),
+    "BudgetAccountant": ("utils.logging_utils", "BudgetAccountant"),
+    "measure_device_rtt": ("utils.logging_utils", "measure_device_rtt"),
+    "FaultPlan": ("faults.inject", "FaultPlan"),
+    "FaultSpec": ("faults.inject", "FaultSpec"),
+    "IntegrityPolicy": ("faults.policy", "IntegrityPolicy"),
+    "audit_run": ("faults.audit", "audit_run"),
+}
+
+#: the JAX package's top-level names the port does not have yet, with the
+#: ROADMAP.md item that holds each
+_NOT_PORTED = {
+    "sharded_dedispersion_search": "queue A, A9 (multi-GPU)",
+    "sharded_fdmt_search": "queue A, A9 (multi-GPU)",
+    "sharded_hybrid_search": "queue A, A9 (multi-GPU)",
+    "make_mesh": "queue A, A9 (multi-GPU)",
+    "ShardedPlane": "queue A, A9 (multi-GPU)",
+    "initialize_distributed": "queue A, A9 (multi-GPU)",
+    "pod_mesh": "queue A, A9 (multi-GPU)",
+    "ring_dedisperse": "queue A, A6 (streaming and beams)",
+}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+
+        module, attr = _LAZY[name]
+        return getattr(importlib.import_module(f".{module}", __name__), attr)
+    if name in _NOT_PORTED:
+        raise AttributeError(f"{name} is not ported yet: ROADMAP.md "
+                             f"{_NOT_PORTED[name]}")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+__all__ = [
+    "__version__",
+    "DM_DELAY_CONST",
+    "DM_SMEARING_CONST",
+    "dedispersion_shifts",
+    "dedispersion_shifts_batch",
+    "delta_delay",
+    "dedispersion_plan",
+    "dm_broadening",
+    "normalize_shifts",
+    "quick_chan_rebin",
+    "quick_resample",
+    "mad",
+    "ref_mad",
+    "h_test",
+    "z_n_test",
+    "digitize",
+    "renormalize_data",
+    "get_noisier_channels",
+    "measure_channel_variability",
+    "fft_zap_time",
+    "zero_dm_filter",
+    "dedisperse",
+    "roll_and_sum",
+    "apply_dm_shifts_to_data",
+    "dedispersion_search",
+    "power_spectrum",
+    "harmonic_sum",
+    "spectral_search",
+    "fold",
+    "epoch_folding_search",
+    "period_search_plane",
+    "simulate_test_data",
+    "simulate_pulsar_data",
+    "ResultTable",
+    "plan_survey",
+    "search_by_chunks",
+] + list(_LAZY)

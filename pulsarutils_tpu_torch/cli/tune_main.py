@@ -1,0 +1,206 @@
+"""Kernel-autotuner CLI: tune / show / clear / verify the tune cache.
+
+The port of the JAX package's ``tools/autotune.py``: the operator's way
+to warm the cache on the card before a survey (the first chunk of a new
+geometry otherwise pays the measurement), and to inspect, prune and
+check a cache file.
+
+    python -m pulsarutils_tpu_torch.cli.tune_main tune --nchan 1024 \
+        --nsamples 262144 --ndm 514 [--device cpu] [--cache FILE]
+    python -m pulsarutils_tpu_torch.cli.tune_main show [--cache FILE]
+    python -m pulsarutils_tpu_torch.cli.tune_main clear [--match S]
+    python -m pulsarutils_tpu_torch.cli.tune_main verify --cache FILE
+
+* ``tune`` — measure one geometry now (floor disabled) and print the
+  decision record as JSON;
+* ``show`` — the per-key decision table of a cache file;
+* ``clear`` — drop entries (all, or ``--match`` substring) after a
+  kernel change that invalidates old measurements;
+* ``verify`` — the schema-version and shape check
+  (:func:`~..tuning.cache.check_artifact`) plus a pass over the stored
+  winners, exit 0 or 1.
+
+The cache is ``--cache``, else ``$PUTPU_TUNE_CACHE``, else the port's
+default (``~/.cache/pulsarutils_tpu_torch/tune_cache.json``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+#: the default geometry: start_freq MHz, bandwidth MHz, tsamp s (the
+#: JAX package's benchmark geometry)
+GEOM = (1200.0, 200.0, 0.0005)
+
+#: every name a resolver of the port stores: the search kernels, the
+#: acceleration backends, and the precision pairs (``"<formulation>+
+#: <strategy>"``, checked apart)
+KNOWN_KERNELS = {"gather", "roll", "pallas", "time_stretch", "fdas"}
+
+
+def _cache(opts):
+    from ..tuning.cache import TuneCache, default_cache_path
+
+    return TuneCache(opts.cache or default_cache_path())
+
+
+def cmd_tune(opts):
+    from ..ops.plan import dedispersion_plan, dmmax_for_trials
+    from ..tuning import autotune
+    from ..tuning.geometry import device_backend, geometry_key
+    from ..utils.device import resolve_device
+
+    dev = resolve_device(opts.device)
+    geom = (opts.start_freq, opts.bandwidth, opts.tsamp)
+    dmmax = (opts.dmmax if opts.dmmax is not None
+             else dmmax_for_trials(opts.dmmin, opts.ndm, *geom))
+    trial_dms = dedispersion_plan(opts.nchan, opts.dmmin, dmmax, *geom)
+    cache = _cache(opts)
+    # a dedicated tuner: floor disabled (an explicit `tune` means
+    # "measure this geometry", whatever its size), caller-chosen reps
+    tuner = autotune.KernelTuner(cache=cache, mode="on", min_elements=0,
+                                 reps=opts.reps,
+                                 probe_trials=opts.probe_trials)
+    if opts.force:
+        cache.clear(match=geometry_key(device_backend(dev), opts.nchan,
+                                       opts.nsamples, len(trial_dms)))
+    prev = autotune.set_tuner(tuner)
+    try:
+        mark = autotune.decision_seq()
+        kernel = autotune.resolve_search_kernel(
+            opts.nchan, opts.nsamples, len(trial_dms), None, False,
+            *geom, trial_dms, device=dev)
+    finally:
+        autotune.set_tuner(prev)
+    decisions = autotune.decisions_since(mark)
+    rec = decisions[-1] if decisions else {"kernel": kernel,
+                                           "source": "cache (prior run)"}
+    print(json.dumps(rec, indent=1))
+    if cache.path:
+        print(f"tune cache -> {cache.path}", file=sys.stderr)
+    elements = opts.nchan * opts.nsamples
+    if elements < autotune.MIN_TUNE_ELEMENTS:
+        # the resolution path floor-gates the disk lookup too: without a
+        # lowered floor this entry is never read — say so
+        print(f"note: {opts.nchan}x{opts.nsamples} = {elements} elements "
+              f"is below the default tune floor "
+              f"({autotune.MIN_TUNE_ELEMENTS}); kernel=\"auto\" will only "
+              f"consult this entry with PUTPU_AUTOTUNE_MIN={elements} (or "
+              f"lower) set", file=sys.stderr)
+    return 0
+
+
+def cmd_show(opts):
+    cache = _cache(opts)
+    entries = cache.entries()
+    if not entries:
+        print(f"(no tuned entries in {cache.path})")
+        return 0
+    wid = max(len(k) for k in entries)
+    print(f"{'geometry key'.ljust(wid)}  kernel  source    measured_s")
+    for key in sorted(entries):
+        e = entries[key]
+        meas = ", ".join(f"{k}={v:.4g}" for k, v in
+                         sorted((e.get("measured_s") or {}).items(),
+                                key=lambda kv: kv[1]))
+        print(f"{key.ljust(wid)}  {e['kernel']:<6}  {e.get('source', '-'):<8}"
+              f"  {meas or '-'}")
+    print(f"{len(entries)} tuned key(s) in {cache.path}", file=sys.stderr)
+    return 0
+
+
+def cmd_clear(opts):
+    cache = _cache(opts)
+    removed = cache.clear(match=opts.match)
+    print(f"removed {removed} entr{'y' if removed == 1 else 'ies'} "
+          f"from {cache.path}")
+    return 0
+
+
+def _known(kernel):
+    """Whether ``kernel`` is a name a resolver of the port stores."""
+    from ..precision import STRATEGIES
+
+    if kernel in KNOWN_KERNELS:
+        return True
+    form, _, pol = str(kernel).partition("+")
+    return form in ("gather", "roll") and pol in STRATEGIES
+
+
+def cmd_verify(opts):
+    from ..tuning.cache import (TUNE_SCHEMA_VERSION, check_artifact,
+                                default_cache_path)
+
+    path = opts.cache or default_cache_path()
+    ok, detail = check_artifact(path, expect_version=opts.expect_version
+                                if opts.expect_version is not None
+                                else TUNE_SCHEMA_VERSION)
+    print(f"{path}: {'ok' if ok else 'FAIL'} — {detail}")
+    if not ok:
+        return 1
+    # beyond the schema check: every stored winner must name a variant
+    # the port can run
+    with open(path, encoding="utf-8") as f:
+        entries = json.load(f)["entries"]
+    bad = {k: e.get("kernel") for k, e in entries.items()
+           if not _known(e.get("kernel"))}
+    if bad:
+        print(f"unknown kernel name(s) in entries: {bad}")
+        return 1
+    return 0
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(
+        description="measure, inspect and check the kernel tune cache")
+    sub = parser.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("tune", help="micro-benchmark one geometry and "
+                                    "persist the winner")
+    p.add_argument("--nchan", type=int, required=True)
+    p.add_argument("--nsamples", type=int, required=True)
+    p.add_argument("--ndm", type=int, default=256,
+                   help="trial count (dmmax derived unless --dmmax)")
+    p.add_argument("--dmmin", type=float, default=300.0)
+    p.add_argument("--dmmax", type=float, default=None)
+    p.add_argument("--start-freq", type=float, default=GEOM[0])
+    p.add_argument("--bandwidth", type=float, default=GEOM[1])
+    p.add_argument("--tsamp", type=float, default=GEOM[2])
+    p.add_argument("--reps", type=int, default=3,
+                   help="timed reps per candidate (median)")
+    p.add_argument("--probe-trials", type=int, default=32)
+    p.add_argument("--force", action="store_true",
+                   help="re-measure even if the key is already tuned")
+    p.add_argument("--device", default="cuda",
+                   help="where to measure: cuda (default) or cpu")
+    p.add_argument("--cache", default=None,
+                   help="cache file (default: $PUTPU_TUNE_CACHE, else "
+                        "the port's user cache)")
+    p.set_defaults(fn=cmd_tune)
+
+    p = sub.add_parser("show", help="print the per-key decision table")
+    p.add_argument("--cache", default=None)
+    p.set_defaults(fn=cmd_show)
+
+    p = sub.add_parser("clear", help="drop tuned entries")
+    p.add_argument("--cache", default=None)
+    p.add_argument("--match", default=None,
+                   help="only keys containing this substring")
+    p.set_defaults(fn=cmd_clear)
+
+    p = sub.add_parser("verify", help="schema- and shape-check a cache "
+                                      "file")
+    p.add_argument("--cache", default=None,
+                   help="cache file (default: $PUTPU_TUNE_CACHE, else the "
+                        "port's user cache)")
+    p.add_argument("--expect-version", type=int, default=None)
+    p.set_defaults(fn=cmd_verify)
+
+    opts = parser.parse_args(argv)
+    return opts.fn(opts)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,5 +1,6 @@
 """Synthetic filterbank data (host numpy, seeded): a single dispersed
-pulse, a periodic pulsar and an accelerated (binary) pulsar.
+pulse, a periodic pulsar and an accelerated (binary) pulsar, and
+:func:`inject_rfi`, which contaminates one with RFI.
 
 The reference fixture (``pulsarutils/simulate.py:6-28``): an impulse at the
 midpoint of every channel, folded-normal noise, then each channel rolled
@@ -106,3 +107,24 @@ def simulate_accel_pulsar_data(freq=60.0, dm=150.0, accel=0.0,
     header = _sigpyproc_style_header(nchan, nsamples, tsamp, start_freq,
                                      bandwidth)
     return array, header
+
+
+def inject_rfi(array, bad_channels=(), bad_channel_scale=10.0,
+               impulse_times=(), impulse_scale=20.0, rng=None):
+    """Contaminate a filterbank with narrowband and impulsive broadband
+    RFI (host numpy, the JAX package's generator calls, so one seed gives
+    the same array).
+
+    ``bad_channels`` get ``|N(0, bad_channel_scale)|`` noise added;
+    ``impulse_times`` (sample indices) get ``impulse_scale`` added across
+    all channels.  Returns a float64 copy.
+    """
+    rng = (rng if isinstance(rng, np.random.Generator)
+           else np.random.default_rng(rng))
+    out = np.array(array, dtype=float, copy=True)
+    nchan, nsamples = out.shape
+    for c in bad_channels:
+        out[c] += np.abs(rng.normal(0, bad_channel_scale, nsamples))
+    for t in impulse_times:
+        out[:, int(t) % nsamples] += impulse_scale
+    return out

@@ -5,7 +5,9 @@ optional ``zero_dm_filter`` and ``fft_zap_time``), with the semantics of
 the reference's ``clean.py:70-111`` as the JAX package runs them on its
 device: float32 values, and the Gaussian and boxcar smoothing as a
 convolution in the Fourier domain at a power-of-two size with the
-``scipy.ndimage`` reflect boundary.
+``scipy.ndimage`` reflect boundary.  Beside them, the reference's two
+channel flaggers of its public API, :func:`get_noisier_channels` and
+:func:`measure_channel_variability` (``clean.py:58-67, 114-133``).
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .robust import mad, median, median_filter_1d
+from .robust import mad, median, median_filter_1d, ref_mad
 
 
 def _as_float(x):
@@ -89,6 +91,35 @@ def _masked_channel_mean(array, good):
     """Per-sample mean over the good channels."""
     ngood = torch.clamp(good.sum(), min=1)
     return torch.where(good[:, None], array, 0.0).sum(dim=0) / ngood
+
+
+def get_noisier_channels(array, medfilt_size=7, nsigma=5.0):
+    """Flag channels whose mean lies above the median-filtered bandpass
+    by ``nsigma`` reference-MADs (reference ``clean.py:58-67``), on the
+    device the data are on.  Returns a bool ``(nchan,)`` tensor."""
+    array = _as_float(array)
+    spec = array.mean(dim=1)
+    smooth = median_filter_1d(spec, medfilt_size)
+    return spec > smooth + nsigma * ref_mad(spec)
+
+
+def measure_channel_variability(array, badchans_mask=None):
+    """Flag channels whose time-std falls outside the robust quartile
+    fences ``[q2 - 2(q2 - q1), q2 + 2(q3 - q2)]`` of the good channels
+    (reference ``clean.py:114-133``), on the device the data are on; the
+    channels already bad stay flagged.  Returns a bool ``(nchan,)``
+    tensor."""
+    array = _as_float(array)
+    bad = _mask_like(badchans_mask, array)
+    spec = torch.std(array, dim=1, correction=0)
+    ordered = torch.sort(torch.where(bad, torch.inf, spec)).values
+    ngood = int((~bad).sum())
+    q1 = ordered[ngood // 4]
+    q2 = ordered[ngood // 2]
+    q3 = ordered[ngood // 4 * 3]
+    lowlim = q2 - 2 * (q2 - q1)
+    hilim = q2 + 2 * (q3 - q2)
+    return (spec < lowlim) | (spec > hilim) | bad
 
 
 def zero_dm_filter(array, badchans_mask=None):

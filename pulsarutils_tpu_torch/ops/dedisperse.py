@@ -17,6 +17,10 @@ Beside it, the JAX package's two portable formulations of the same sweep
 :func:`dedisperse_block` and :func:`dedisperse_block_chunked`, plain
 torch ops as they are XLA programs there.  Under ``f32`` the roll
 formulation's plane equals :func:`dedisperse_plane_plain`'s.
+
+And the reference's host API, in NumPy as the JAX package keeps it:
+:func:`roll_and_sum` and :func:`dedisperse` (one trial); the card's
+sweep is :func:`~.search.dedispersion_search`.
 """
 
 from __future__ import annotations
@@ -25,6 +29,39 @@ import numpy as np
 import torch
 
 from ..precision import cast_operand, neumaier_sum, split_sum, strategy
+from .plan import normalize_shifts
+
+
+def roll_and_sum(array, sum_array, n):
+    """Add ``np.roll(array, n)`` into ``sum_array`` in place and return it
+    (host NumPy; reference ``pulsarutils/dedispersion.py:60-83``, the
+    in-place contract included):
+
+    >>> array = np.arange(10)
+    >>> sum_array = np.zeros(10)
+    >>> bool(np.allclose(roll_and_sum(array, sum_array, 3), np.roll(array, 3)))
+    True
+    >>> sum_array is roll_and_sum(array, sum_array, 3)
+    True
+    """
+    t = len(sum_array)
+    n = int(n) % t
+    # np.roll(array, n)[i] = array[(i - n) mod t]: two slice-adds, no
+    # temporary
+    sum_array[n:] += array[:t - n]
+    sum_array[:n] += array[t - n:]
+    return sum_array
+
+
+def dedisperse(data, shifts):
+    """Dedisperse one ``(nchan, nsamples)`` array at one DM's shifts (host
+    NumPy): ``out[t] = sum_c data[c, (t + shifts[c]) mod T]``, the
+    reference's negate-normalise-roll (``dedispersion.py:93-98``) as one
+    gather and sum."""
+    t = data.shape[1]
+    sh = normalize_shifts(-np.asarray(shifts), t)
+    idx = (np.arange(t)[None, :] - sh[:, None]) % t
+    return np.take_along_axis(np.asarray(data), idx, axis=1).sum(axis=0)
 
 
 def dedisperse_plane_plain(data, offsets):

@@ -573,15 +573,22 @@ def transform_schedule(plan):
     ``("merge", iteration)`` per level, the last two deep levels as one
     ``("merge4", (idx, shift))`` pass when both are deep (the pairing
     condition of the JAX package's transform).  CPU and CUDA tensors run
-    the same schedule."""
+    the same schedule.
+
+    Two bisection knobs, read per call (the JAX package's): the head
+    with ``PUTPU_FDMT_HEAD`` and the pairing with ``PUTPU_FDMT_DEEP_PAIR``
+    (``'0'`` off, ``'1'`` or unset on; :func:`~..utils.knobs.
+    tristate_env`).  Off, the levels run as single-level passes (B2a on
+    the card); every arm gives the same plane bit for bit."""
     iters = list(plan.iterations)
     steps = []
-    head = head_plan(plan)
+    head = head_plan(plan) if _knob_on("PUTPU_FDMT_HEAD") else None
     if head is not None:
         steps.append(("head", head))
         iters = iters[HEAD_LEVELS:]
     pair = None
-    if (len(iters) >= 2 and iters[-1]["shift_high"] is None
+    if (_knob_on("PUTPU_FDMT_DEEP_PAIR") and len(iters) >= 2
+            and iters[-1]["shift_high"] is None
             and iters[-2]["shift_high"] is None):
         pair = compose_iterations(iters[-2], iters[-1])
         iters = iters[:-2]
@@ -589,6 +596,13 @@ def transform_schedule(plan):
     if pair is not None:
         steps.append(("merge4", pair))
     return steps
+
+
+def _knob_on(name):
+    """A kernel-path bisection knob: on unless ``name`` is ``'0'``."""
+    from ..utils.knobs import tristate_env
+
+    return tristate_env(name) is not False
 
 
 def fdmt_transform(data, max_delay, start_freq, bandwidth, min_delay=0):

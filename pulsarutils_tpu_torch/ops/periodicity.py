@@ -264,11 +264,30 @@ def spectral_stacked(series, tsamp, max_harmonics=16, fmin=None,
 
 
 def _spectral_chunk(plane_chunk, tsamp, max_harmonics, fmin, fmax,
-                    policy=None):
-    """Spectral-search one row chunk; a host dict out, one readback.  The
-    card always scores with the harmonic kernel (the JAX package chooses
-    between its kernels with an autotuner the port does not have yet,
-    ROADMAP.md queue A, A8); the CPU with the plain chain."""
+                    kernel="auto", policy=None):
+    """Spectral-search one row chunk; a host dict out, one readback.
+
+    ``kernel`` names the scoring chain as the JAX package does:
+    ``"pallas"`` the harmonic kernel (B6), ``"xla"`` the plain chain, or
+    ``"auto"``, resolved by :func:`~..tuning.autotune.
+    resolve_harmonic_kernel` — B6 on the card and the plain chain on the
+    CPU, the one variant that applies on each.  The chain runs on the
+    chunk's device through :func:`~.harmonic_cuda.score_power`, so a name
+    the device cannot run raises: the plain chain never scores on the
+    card."""
+    plane_chunk = torch.as_tensor(plane_chunk)
+    if kernel == "auto":
+        from ..tuning.autotune import resolve_harmonic_kernel
+
+        rows, t = plane_chunk.shape[-2], plane_chunk.shape[-1]
+        kernel = resolve_harmonic_kernel(
+            rows, t, float(tsamp), max_harmonics=int(max_harmonics),
+            fmin=fmin, fmax=fmax, policy=policy, device=plane_chunk.device)
+    expected = "pallas" if plane_chunk.device.type == "cuda" else "xla"
+    if kernel != expected:
+        raise ValueError(
+            f"kernel={kernel!r} does not run on {plane_chunk.device.type}: "
+            f"its scoring chain there is {expected!r}")
     stacked = to_numpy(spectral_stacked(plane_chunk, tsamp,
                                         max_harmonics=max_harmonics,
                                         fmin=fmin, fmax=fmax, policy=policy))

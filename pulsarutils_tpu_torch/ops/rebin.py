@@ -1,14 +1,34 @@
-"""Rebinning: block-sum down-sampling along the time axis, and the
-fractional stretch of the acceleration search.
+"""Rebinning: block-sum down-sampling along the channel and time axes,
+and the fractional stretch of the acceleration search.
 
-The block sums truncate trailing samples that do not fill a whole block,
-like the reference's ``quick_resample`` (``pulsarutils/dedispersion.py:
-38-57``).
+The block sums truncate trailing elements that do not fill a whole
+block, like the reference's ``quick_chan_rebin`` and ``quick_resample``
+(``pulsarutils/dedispersion.py:15-57``).
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def quick_chan_rebin(counts, factor):
+    """Rebin a ``(nchan, T)`` tensor along the channel (first) axis by an
+    integer ``factor``, on the device it is on (reference
+    ``pulsarutils/dedispersion.py:15-35``).  Trailing channels that do not
+    fill a block are truncated; the dtype is kept, as in the JAX
+    package:
+
+    >>> quick_chan_rebin(torch.ones((5, 3), dtype=torch.float64), 2)
+    tensor([[2., 2., 2.],
+            [2., 2., 2.]], dtype=torch.float64)
+    >>> quick_chan_rebin(torch.arange(8).reshape(4, 2), 2)
+    tensor([[ 2,  4],
+            [10, 12]])
+    """
+    counts = torch.as_tensor(counts)
+    nchan, nbin = counts.shape
+    n = int(nchan // factor)
+    return counts[: n * factor, :].reshape(n, factor, nbin).sum(dim=1)
 
 
 def quick_resample(counts, factor):

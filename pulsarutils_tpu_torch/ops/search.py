@@ -3,16 +3,22 @@
 :func:`dedispersion_search` is the port of the JAX package's search
 façade, with six kernels:
 
-* ``"auto"``/``"pallas"``: the exact direct sweep (the JAX package's
-  ``kernel="pallas"``, which its ``kernel="auto"`` picks on the
-  accelerator): host float64 plan and offsets, the sweep in trial
+* ``"pallas"``: the exact direct sweep (the JAX package's
+  ``kernel="pallas"``): host float64 plan and offsets, the sweep in trial
   superblocks through :func:`~.dedisperse_cuda.dedisperse_plane`, and the
   batched boxcar scorer of the reference
   (``pulsarutils/dedispersion.py:186-201``);
+* ``"auto"``: the measured choice among ``"pallas"``, ``"roll"`` and
+  ``"gather"`` at the search's geometry
+  (:func:`~..tuning.autotune.resolve_search_kernel`; the direct sweep
+  below the tuning floor, with ``PUTPU_AUTOTUNE=off`` and for plane
+  captures);
 * ``"gather"``/``"roll"``: the JAX package's portable formulations of the
   same sweep (:func:`~.dedisperse.dedisperse_block_chunked`), trial block
   by trial block, whose channel sums follow a :mod:`..precision` policy
-  (``precision=``, else ``PUTPU_PRECISION``);
+  (``precision=``, else ``PUTPU_PRECISION``; ``"auto"`` measured by
+  :func:`~..tuning.autotune.resolve_search_policy`), after the memory
+  preflight (:mod:`..resilience.memory_budget`);
 * ``"fdmt"``: the tree transform over every integer band-delay trial
   (:func:`~.fdmt.fdmt_transform`) scored in one pass
   (:func:`~.score_cuda.score_plane`), one host readback;
@@ -290,7 +296,7 @@ def ladder_superblock(ndm):
     superblock's :func:`ladder_blocks` split into ``2**n`` passes, down
     to one block a launch."""
     nblocks = ladder_blocks(ndm)
-    passes = _ladder.direct_plan(nblocks)
+    passes = _ladder.direct_plan("pallas", nblocks)
     if passes <= 1:
         return SUPERBLOCK
     return LADDER_FLOOR_ROWS * -(-nblocks // passes)
@@ -317,7 +323,7 @@ def _search_direct_laddered(data, trial_dms, start_freq, bandwidth,
             raise  # deterministic: never an OOM
         except Exception as exc:
             if not _ladder.is_resource_exhausted(exc) \
-                    or _ladder.direct_maxed(nblocks):
+                    or _ladder.direct_maxed("pallas", nblocks):
                 raise
             _ladder.oom_event("direct_sweep")
             logger.warning("direct sweep out of memory (%r); ladder step "
@@ -408,14 +414,27 @@ def block_offsets(offsets, dm_block):
 
 
 def _search_formulation(data, offsets, capture_plane, formulation, policy,
-                        dm_block, chan_block):
+                        dm_block, chan_block, packed_nbits=0):
     """Dedisperse ``offsets`` ``(ndm, nchan)`` with the gather or roll
     formulation, ``dm_block`` trials at a time (default up to 32), the
     gather in blocks of ``chan_block`` channels (default
     :func:`auto_chan_block`), and score each trial block through
-    :func:`~.score_cuda.score_plane`; one readback at the end.  Each trial
-    block is its own launch already (the OOM ladder's floor), so an
-    out-of-memory error propagates to the chunk loop."""
+    :func:`~.score_cuda.score_plane`.
+
+    First the memory preflight, where the JAX package runs it
+    (:func:`~..resilience.memory_budget.preflight_direct`): where the
+    estimated footprint does not fit the headroom the OOM ladder
+    descends, and the trial blocks run in
+    :func:`~..resilience.ladder.direct_plan` passes, each pass's scores
+    read back before the next (one readback at level 0).  A trial row is
+    an independent sum scored on its own, so every level gives the same
+    table bit for bit.  On the card the sweep's allocator high-water
+    mark is then folded into the model's calibration
+    (:func:`~..resilience.memory_budget.observe`).  Each trial block is
+    its own launch already (the OOM ladder's floor), so an out-of-memory
+    error propagates to the chunk loop.  ``packed_nbits``: the bits a
+    sample of packed input had (the model's operand term)."""
+    from ..resilience import memory_budget as _membudget
     from .dedisperse import dedisperse_block_chunked
     from .score_cuda import score_plane
 
@@ -432,16 +451,35 @@ def _search_formulation(data, offsets, capture_plane, formulation, policy,
         chan_block = auto_chan_block(nchan, nsamples, dm_block)
     blocks = torch.from_numpy(block_offsets(offsets, dm_block)).to(
         data.device)
-    scores, planes = [], []
-    for offs in blocks:
-        plane = dedisperse_block_chunked(data, offs, chan_block, formulation,
-                                         policy)
-        if not plane.is_floating_point():
-            plane = plane.to(torch.float32)  # exact integer sums
-        scores.append(score_plane(plane))
-        if capture_plane:
-            planes.append(plane)
-    fields = unstack_scores(torch.cat(scores, dim=1)[:, :ndm])
+    nblocks = blocks.shape[0]
+    _membudget.preflight_direct(
+        formulation, nchan, nsamples, ndm, dm_block=dm_block,
+        chan_block=chan_block, capture_plane=bool(capture_plane),
+        nblocks=nblocks, packed_nbits=packed_nbits, device=data.device)
+    passes = _ladder.direct_plan(formulation, nblocks)
+    per_pass = -(-nblocks // passes)
+    calibrate = _membudget.allocator_reports_limit(data.device)
+    if calibrate:
+        torch.cuda.reset_peak_memory_stats(data.device)
+    fields, planes = [], []
+    for lo in range(0, nblocks, per_pass):
+        scores = []
+        for offs in blocks[lo:lo + per_pass]:
+            plane = dedisperse_block_chunked(data, offs, chan_block,
+                                             formulation, policy)
+            if not plane.is_floating_point():
+                plane = plane.to(torch.float32)  # exact integer sums
+            scores.append(score_plane(plane))
+            if capture_plane:
+                planes.append(plane)
+        fields.append(to_numpy(torch.cat(scores, dim=1)))
+    if calibrate:
+        _membudget.observe(nchan, nsamples, ndm, _membudget.estimate_direct(
+            nchan, nsamples, ndm, dm_block=dm_block, chan_block=chan_block,
+            formulation=formulation, capture_plane=bool(capture_plane),
+            dm_passes=passes, packed_nbits=packed_nbits)["total"],
+            data.device)
+    fields = unstack_scores(np.concatenate(fields, axis=1)[:, :ndm])
     plane = torch.cat(planes)[:ndm] if capture_plane else None
     return (*fields, plane)
 
@@ -454,8 +492,11 @@ def _sweep_policy(kernel, precision):
     declare float32 and raise ``ValueError`` on any other; the FDMT and
     the hybrid raise on an explicit one, the FDMT ignores the variable
     and the hybrid checks its name (its rescore is the float32 direct
-    sweep).  ``"auto"`` is the static ``f32`` pairing (the autotuner is
-    not ported).  Returns None for ``f32``, else the strategy name."""
+    sweep).  ``"auto"`` is measured at the sweep's geometry for the
+    gather and roll (and for ``kernel="auto"``, should the tuner pick
+    one of them): ``"auto"`` is returned for the caller to resolve;
+    every other kernel takes the static ``f32`` pairing.  Returns None
+    for ``f32``, else the strategy name."""
     from ..precision import engage, resolve_policy, static_policy
 
     if kernel in ("fdmt", "hybrid"):
@@ -467,7 +508,10 @@ def _sweep_policy(kernel, precision):
         if kernel == "hybrid":
             resolve_policy(None)
         return None
-    name = static_policy(resolve_policy(precision))
+    name = resolve_policy(precision)
+    if name == "auto" and kernel in ("gather", "roll", "auto"):
+        return "auto"
+    name = static_policy(name)
     if name != "f32" and kernel not in ("gather", "roll"):
         raise ValueError(
             "precision policies apply to the gather/roll channel "
@@ -896,15 +940,46 @@ def _search_hybrid(data, trial_dms, start_freq, bandwidth, sample_time,
         peaks[blk] = p[:k]
         exact[blk] = True
 
+    rescore_kernel = {}
+
+    def kernel_of_rescore():
+        """The two-stage path's rescore kernel: ONE tuner resolution at
+        the chunk geometry (the whole plan's ``ndm``), shared by every
+        bucket and made at the first rescore (a certified chunk never
+        pays it), as in the JAX package — a bucket-sized key would tune
+        mid-loop, and neighbouring buckets could differ.  The fused seed
+        program's path keeps the direct sweep, as the JAX package's
+        accelerator path keeps its Pallas kernel."""
+        if "k" not in rescore_kernel:
+            kern = "pallas"
+            if not fused_seed:
+                from ..tuning.autotune import resolve_search_kernel
+
+                kern = resolve_search_kernel(
+                    nchan, nsamples, ndm, None, False, start_freq,
+                    bandwidth, sample_time, trial_dms, device=data.device)
+            rescore_kernel["k"] = kern
+        return rescore_kernel["k"]
+
     def rescore(rows):
-        """Exact scores for ``rows``: one direct-sweep launch of the
-        table's rows and one scorer launch per bucket."""
+        """Exact scores for ``rows``: per bucket, one direct-sweep launch
+        of the table's rows and one scorer launch, or the gather or roll
+        formulation's sweep of the bucket's trials where the tuner chose
+        it (:func:`kernel_of_rescore`)."""
         budget_count("rescore_calls")
         budget_count("rescore_rows", len(rows))
+        kern = kernel_of_rescore()
         for blk, padded in iter_rescore_buckets(rows):
             with budget_bucket("search/rescore"):
-                scored = unstack_scores(
-                    score_plane(dedisperse_rows(data, table, padded)))
+                if kern == "pallas":
+                    scored = unstack_scores(
+                        score_plane(dedisperse_rows(data, table, padded)))
+                else:
+                    scored = _search_formulation(
+                        data, offsets_for(trial_dms[padded], nchan,
+                                          start_freq, bandwidth,
+                                          sample_time, nsamples),
+                        False, kern, None, None, None)[:5]
                 budget_count("dispatches")
                 budget_count("readbacks")
             apply(blk, scored)
@@ -950,10 +1025,14 @@ def dedispersion_search(data, dmmin, dmmax, start_freq, bandwidth, sample_time,
     float32 view (the same values).  ``dtype``: the input's dtype, float32
     (None) only, as the JAX package requires of packed input.
 
-    ``kernel``: ``"auto"`` and ``"pallas"`` run the exact direct sweep
-    (the JAX package's names, so its flags carry over); ``"gather"`` and
+    ``kernel``: ``"pallas"`` runs the exact direct sweep (the JAX
+    package's names, so its flags carry over); ``"gather"`` and
     ``"roll"`` the JAX package's portable formulations of it, whose
-    channel sums follow ``precision``; ``"fdmt"`` the tree transform on
+    channel sums follow ``precision``; ``"auto"`` the fastest of the
+    three at this geometry on ``device``, measured once and cached
+    (:func:`~..tuning.autotune.resolve_search_kernel`: the direct sweep
+    below ``PUTPU_AUTOTUNE_MIN`` elements, with ``PUTPU_AUTOTUNE=off``
+    and for plane captures); ``"fdmt"`` the tree transform on
     its own integer band-delay grid (``trial_dms``, if given, only bounds
     the DM range); ``"hybrid"`` the FDMT coarse sweep plus the exact
     rescore of the hit region (exact hits on the plan grid);
@@ -963,8 +1042,10 @@ def dedispersion_search(data, dmmin, dmmax, start_freq, bandwidth, sample_time,
 
     ``precision``: the :mod:`..precision` policy of the gather and roll
     channel sums (``"f32"``, ``"f32_compensated"``, ``"split_f32"``,
-    ``"bf16_operand_f32_accum"``, or ``"auto"``, the static ``f32``
-    pairing); None reads ``PUTPU_PRECISION``, else ``f32``.  A policy
+    ``"bf16_operand_f32_accum"``, or ``"auto"``: for the gather and roll
+    the measured pairing, :func:`~..tuning.autotune.
+    resolve_search_policy`, else ``f32``); None reads
+    ``PUTPU_PRECISION``, else ``f32``.  A policy
     other than ``f32`` raises ``ValueError`` with the direct sweep and
     the FDD (from the argument or the variable) and with the FDMT and the
     hybrid (from the argument; the FDMT ignores the variable, the hybrid
@@ -1046,6 +1127,26 @@ def dedispersion_search(data, dmmin, dmmax, start_freq, bandwidth, sample_time,
             trial_dms = dedispersion_plan(nchan, dmmin, dmmax, start_freq,
                                           bandwidth, sample_time)
     trial_dms = np.asarray(trial_dms, dtype=np.float64)
+    if kernel == "auto":
+        kernel = "pallas"  # an empty plan: nothing to measure
+        if len(trial_dms):
+            from ..tuning.autotune import resolve_search_kernel
+
+            kernel = resolve_search_kernel(
+                nchan, nsamples, len(trial_dms), None, capture_plane,
+                start_freq, bandwidth, sample_time, trial_dms,
+                dm_block=dm_block, chan_block=chan_block, device=dev)
+    if policy == "auto":
+        policy = None
+        if kernel in ("gather", "roll") and len(trial_dms):
+            from ..precision import engage
+            from ..tuning.autotune import resolve_search_policy
+
+            name = resolve_search_policy(
+                kernel, nchan, nsamples, len(trial_dms), start_freq,
+                bandwidth, sample_time, trial_dms, dm_block=dm_block,
+                chan_block=chan_block, device=dev).split("+", 1)[1]
+            policy = None if name == "f32" else engage(name)
 
     if kernel == "fourier":
         from .fourier import search_fourier
@@ -1083,8 +1184,10 @@ def dedispersion_search(data, dmmin, dmmax, start_freq, bandwidth, sample_time,
         offsets = offsets_for(trial_dms, nchan, start_freq, bandwidth,
                               sample_time, nsamples)
         (maxvalues, stds, best_snrs, best_windows, best_peaks,
-         plane) = _search_formulation(data, offsets, capture_plane, kernel,
-                                      policy, dm_block, chan_block)
+         plane) = _search_formulation(
+             data, offsets, capture_plane, kernel, policy, dm_block,
+             chan_block,
+             packed_nbits=packed.nbits if packed is not None else 0)
     else:
         (maxvalues, stds, best_snrs, best_windows, best_peaks,
          plane) = _search_direct_laddered(data, trial_dms, start_freq,

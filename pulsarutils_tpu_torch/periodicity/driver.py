@@ -83,6 +83,28 @@ def _canary_is_recovered(cand, freq, freq_tol):
             or harmonic_ratio(freq, cand["freq"]) > 0)
 
 
+def _resolve_accel_backend(ndm, nout, tsamp, accels, jerks, max_harmonics,
+                           fmin, fmax, dev):
+    """``accel_backend="auto"``: the measured backend of
+    :func:`~..tuning.autotune.resolve_accel_backend` at the plane's
+    geometry (``time_stretch`` below the tuning floor).  On the CPU a
+    failure of the resolution degrades to ``time_stretch``, as in the JAX
+    package; on the card it propagates — it is a kernel of the static
+    path failing, and a fallback would hide it."""
+    from ..tuning.autotune import resolve_accel_backend
+
+    try:
+        return resolve_accel_backend(ndm, nout, tsamp, accels, jerks=jerks,
+                                     max_harmonics=max_harmonics, fmin=fmin,
+                                     fmax=fmax, device=dev)
+    except Exception as exc:
+        if dev.type == "cuda":
+            raise
+        logger.warning("accel backend resolution failed (%r); using "
+                       "time_stretch", exc)
+        return "time_stretch"
+
+
 def _linear_grid(value_max, n):
     """``n`` odd trials over ``[-value_max, value_max]``, always with 0
     (``n <= 1`` or ``value_max <= 0``: the zero trial alone)."""
@@ -100,7 +122,7 @@ def periodicity_search(fname, dmmin=200, dmmax=800, *, accel_max=0.0,
                        budget_bytes=None, snapshot_every=1, kernel="auto",
                        snr_threshold=6.0, output_dir=None, resume=True,
                        canary=False, chunk_cb=None, device="cuda",
-                       health=None, http_port=None, report_out=None,
+                       progress=True, health=None, http_port=None, report_out=None,
                        fence=None, cancel_cb=None, mesh=None,
                        **search_kwargs):
     """Search one filterbank for (accelerated) pulsars at survey scale.
@@ -115,9 +137,10 @@ def periodicity_search(fname, dmmin=200, dmmax=800, *, accel_max=0.0,
        ``device``.  ``accel_backend`` ``"time_stretch"``
        (:func:`~.accel.accel_search`) or ``"fdas"``
        (:func:`~.fdas.fdas_search`, one rfft per DM row and the
-       z/w-response correlation); ``"auto"`` resolves to
-       ``"time_stretch"``, the JAX package's choice below its tuning
-       floor (the measured tuner is not ported);
+       z/w-response correlation); ``"auto"`` the faster of the two at
+       the plane's geometry, measured once and cached
+       (:func:`~..tuning.autotune.resolve_accel_backend`;
+       ``"time_stretch"`` below the tuning floor);
     3. **candidates**: threshold at ``sigma_threshold``, zap / DM
        grouping / harmonic sift, fold the survivors;
     4. **persist**: ``period_cands_<root>_<fingerprint>.npz`` beside the
@@ -126,6 +149,7 @@ def periodicity_search(fname, dmmin=200, dmmax=800, *, accel_max=0.0,
     ``canary=True`` injects a synthetic pulsar into a copy of the plane
     at DM row ``ndm // 3`` and reports its recovery; candidates within
     two trials of that row are excluded from the science list.
+    ``progress`` passes to the chunk loop (a log line every 50 chunks).
     ``health``, ``http_port``, ``report_out``, ``fence``, ``cancel_cb``
     and ``mesh`` are not ported and raise if given.
 
@@ -155,9 +179,6 @@ def periodicity_search(fname, dmmin=200, dmmax=800, *, accel_max=0.0,
     if accel_backend not in ("auto", "time_stretch", "fdas"):
         raise ValueError(f"accel_backend must be 'auto', 'time_stretch' "
                          f"or 'fdas', got {accel_backend!r}")
-    # "auto" is the static choice: the measured tuner is not ported
-    chosen_backend = ("time_stretch" if accel_backend == "auto"
-                      else accel_backend)
     dev = resolve_device(device)
     output_dir = output_dir or os.path.dirname(os.path.abspath(str(fname)))
     extra = {"workload": "periodicity", "accel_max": float(accel_max)}
@@ -200,7 +221,7 @@ def periodicity_search(fname, dmmin=200, dmmax=800, *, accel_max=0.0,
     common = dict(dmmin=dmmin, dmmax=dmmax, kernel=kernel,
                   snr_threshold=snr_threshold, output_dir=output_dir,
                   make_plots=False, fingerprint_extra=extra,
-                  plane_consumer=consumer,
+                  plane_consumer=consumer, progress=progress,
                   device=dev, **search_kwargs)
     hits, store = search_by_chunks(fname, resume=resume, **common)
     if state["since_snap"] or not os.path.exists(snap_path):
@@ -246,6 +267,11 @@ def periodicity_search(fname, dmmin=200, dmmax=800, *, accel_max=0.0,
     jerks_axis = jerks if len(jerks) > 1 else None
     fmin_eff = fmin if fmin is not None else 4.0 / (nout * tsamp_out)
     freq_tol = 1.5 / (nout * tsamp_out)
+    chosen_backend = accel_backend
+    if chosen_backend == "auto":
+        chosen_backend = _resolve_accel_backend(
+            acc.ndm, nout, tsamp_out, accels, jerks_axis, max_harmonics,
+            fmin_eff, fmax, dev)
 
     canary_info = None
     plane_search = acc.plane

@@ -94,6 +94,9 @@ from .spectral_stats import get_bad_chans
 
 logger = logging.getLogger("pulsarutils_tpu_torch")
 
+#: chunks between two ``progress`` log lines (the JAX package's)
+PROGRESS_EVERY = 50
+
 
 def plan_survey(fname, chunk_length=None, new_sample_time=None, tmin=0,
                 dmmin=200, dmmax=800, surelybad=(), *, kernel="auto",
@@ -350,7 +353,7 @@ def _search_with_fallback(array, dmmin, dmmax, start_freq, bandwidth,
                 _ladder.oom_event("chunk_search")
                 step = None
                 if where == "device" and k in ("auto", "pallas") \
-                        and not _ladder.direct_maxed(nblocks):
+                        and not _ladder.direct_maxed("pallas", nblocks):
                     step = "split_dm"
                 elif where == "device" and k == "hybrid" \
                         and not _ladder.unfuse_engaged():
@@ -424,7 +427,7 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
                      health=None, report_out=None, chunks=None,
                      plane_consumer=None, fingerprint_extra=None,
                      lineage=None, push=None, device="cuda",
-                     stage_seconds=None, summary=None):
+                     stage_seconds=None, summary=None, progress=True):
     """Search a filterbank file for dispersed single pulses.
 
     Parameters follow the JAX package's driver (``snr_threshold`` and
@@ -516,7 +519,8 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
       fatal.
 
     Every resumable run ends with :func:`~..faults.audit.audit_run`
-    (logged, never fatal).
+    (logged, never fatal).  ``progress`` logs a line every
+    :data:`PROGRESS_EVERY` chunks searched, as the JAX package does.
 
     A 1, 2 or 4-bit file: one IF is staged as its packed bytes (the
     page-locked buffers hold ``(step, bytes_per_frame)`` uint8), the
@@ -1218,6 +1222,9 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
                 lineage.discard(istart)
             if roofline.enabled():
                 roofline.flush()
+            if progress and nproc % PROGRESS_EVERY == 0:
+                logger.info("processed %d chunks (through sample %d/%d)",
+                            nproc, iend, nsamples)
           drain_persist()
     except BaseException:
         reader_pool.shutdown(wait=False, cancel_futures=True)

@@ -8,7 +8,13 @@
 * :func:`get_bad_chans` — channels above ``medfilt(spec, 11) +
   4 * ref_mad(spec)`` on either spectrum, cached in ``<file>.badchans``
   (reference ``stats.py:63-90``), the format the JAX package reads and
-  writes.
+  writes;
+* the moments as functions (:func:`moment_accumulate`,
+  :func:`moments_to_spectra`), and :func:`spectral_stats_scan`, a loop
+  over blocks already on the device that keeps its accumulator there
+  (the JAX package's ``spectral_stats_scan_jax``).  The bad-channel scan
+  of a file stays the host float64 loop above, as on the JAX package's
+  main path.
 """
 
 from __future__ import annotations
@@ -20,6 +26,49 @@ import torch
 
 from ..io.sigproc import FilterbankReader
 from ..ops.robust import median_filter_1d, ref_mad
+
+
+def moment_accumulate(carry, block):
+    """Fold one ``(nchans, n)`` block into the running ``(sum, sumsq,
+    count)``; ``block`` (an array or a tensor) is cast to the sums'
+    dtype.  A pure function, the JAX package's."""
+    s, sq, n = carry
+    block_f = (block.to(s.dtype) if isinstance(block, torch.Tensor)
+               else block.astype(s.dtype) if hasattr(block, "astype")
+               else block)
+    return (s + block_f.sum(axis=1),
+            sq + (block_f ** 2).sum(axis=1),
+            n + block.shape[1])
+
+
+def moments_to_spectra(s, sq, n):
+    """Running moments -> ``(mean, std)`` spectra, ``std = sqrt(E[x^2] -
+    E[x]^2)`` clipped at 0 (reference ``stats.py:55-57``); arrays or
+    tensors."""
+    mean = s / n
+    var = sq / n - mean ** 2
+    if isinstance(var, torch.Tensor):
+        return mean, torch.sqrt(torch.clamp(var, min=0.0))
+    return mean, np.sqrt(np.maximum(var, 0.0))
+
+
+def spectral_stats_scan(chunks):
+    """Mean and std spectra of ``chunks`` ``(nchunks, nchans, chunk_len)``
+    (a tensor on its device), the accumulator kept there: the JAX
+    package's ``spectral_stats_scan_jax``, in float32 around a
+    per-channel pivot (the first chunk's mean), so the variance does not
+    cancel in ``E[x^2] - E[x]^2`` when the bandpass baseline is large.
+    Returns ``(mean, std)`` float32 tensors on the chunks' device."""
+    chunks = torch.as_tensor(chunks).to(torch.float32)
+    nchans = chunks.shape[1]
+    pivot = chunks[0].mean(dim=1)
+    carry = (torch.zeros(nchans, dtype=torch.float32, device=chunks.device),
+             torch.zeros(nchans, dtype=torch.float32, device=chunks.device),
+             torch.zeros((), dtype=torch.float32, device=chunks.device))
+    for block in chunks:
+        carry = moment_accumulate(carry, block - pivot[:, None])
+    mean, std = moments_to_spectra(*carry)
+    return pivot + mean, std
 
 
 def get_spectral_stats(source, chunksize=10000):

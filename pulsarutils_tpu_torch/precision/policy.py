@@ -25,11 +25,12 @@ Strategies
     sweeps), accumulated in float32.  Error is dominated by the bf16
     half-ulp (2^-8) per operand.
 
-``"auto"`` is accepted by :func:`policy_name`: the JAX package then
-measures the strategies with its autotuner, which the port does not
-have yet; its callers take the static ``f32`` pairing instead
-(:func:`static_policy`, and :func:`strategy`, the one rule the port's
-policy-aware reductions read).
+``"auto"`` is accepted by :func:`policy_name`: the gather and roll
+sweeps then measure the strategies at their geometry
+(:func:`~..tuning.autotune.resolve_search_policy`); every other
+reduction takes the static ``f32`` pairing (:func:`static_policy`, and
+:func:`strategy`, the one rule the port's policy-aware reductions
+read).
 
 :data:`COUNTS` keeps what the JAX package reports through its metrics
 registry: policy resolutions, engagements of a non-plain accumulator and
@@ -209,8 +210,8 @@ def policy_name(policy: Optional[str]) -> str:
 
 def static_policy(policy: Optional[str]) -> str:
     """:func:`policy_name`, with ``"auto"`` taken as the static ``f32``
-    pairing (the JAX package's choice with its autotuner off; the port
-    has no autotuner yet)."""
+    pairing (the JAX package's choice with its autotuner off, and the
+    pairing of every reduction the tuner does not measure)."""
     name = policy_name(policy)
     return "f32" if name == "auto" else name
 

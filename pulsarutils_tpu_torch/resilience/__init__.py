@@ -1,5 +1,6 @@
 """Resource-exhaustion resilience: the OOM degradation ladder
-(:mod:`.ladder`).  The preflight memory budget is not ported yet."""
+(:mod:`.ladder`) and the preflight memory budget
+(:mod:`.memory_budget`)."""
 
 from .ladder import OOMFloorError, is_resource_exhausted  # noqa: F401
 

@@ -9,9 +9,12 @@ the undivided dispatch's table bit for bit:
 step        mechanism                                          surface
 =========== ================================================= ==========
 split_dm    the direct sweep dedisperses its trials in         direct
-            2, 4, ... times smaller superblocks (a trial       sweep
-            row is an independent sum over channels, scored
-            on its own), down to one trial block a launch
+            2, 4, ... times smaller superblocks (a trial       sweep,
+            row is an independent sum over channels, scored    gather,
+            on its own), down to one trial block a launch;     roll
+            the gather and roll sweeps run their trial
+            blocks in 2, 4, ... passes, each pass's scores
+            read back before the next
 unfuse      the hybrid's fused seed program (one chain of      hybrid
             launches, one readback) splits back into its
             coarse sweep and the host-driven rescore (the
@@ -29,7 +32,9 @@ card to the host.
 
 State is one process-global level (device memory is a global resource),
 reset at the start of each ``search_by_chunks`` session: within a run a
-descent is sticky.  Counters (the JAX package's names):
+descent is sticky.  The preflight (:mod:`.memory_budget`) descends the
+same ladder before a gather or roll sweep whose estimated footprint
+does not fit the headroom.  Counters (the JAX package's names):
 ``putpu_oom_events_total`` (by surface), ``putpu_oom_ladder_steps_total``
 (by step) and ``putpu_oom_splits_total`` (by stage).
 """
@@ -43,8 +48,8 @@ import torch
 from ..obs import metrics as _metrics
 
 __all__ = ["OOMFloorError", "is_resource_exhausted", "reset", "level",
-           "descend", "direct_plan", "direct_maxed", "unfuse_engaged",
-           "oom_event", "count_split"]
+           "descend", "direct_plan", "direct_maxed", "direct_step",
+           "unfuse_engaged", "oom_event", "count_split"]
 
 #: message markers of an allocator failure: the XLA status text the JAX
 #: package matches, and the CUDA caching allocator's
@@ -104,25 +109,40 @@ def oom_event(surface):
 
 
 def count_split(stage, n=1):
-    """Count ``n`` splitting decisions (``stage``: ``ladder``, after a
+    """Count ``n`` splitting decisions (``stage``: ``preflight``, planned
+    by :mod:`.memory_budget` before the sweep, or ``ladder``, after a
     caught OOM)."""
     if n > 0:
         _metrics.counter("putpu_oom_splits_total", stage=stage).inc(int(n))
 
 
-def direct_plan(nblocks):
-    """Passes the direct sweep's ``nblocks`` trial blocks are split into
-    at the current level: 1 at level 0, doubling with each descent, at
-    most one block a pass."""
+def direct_plan(formulation, nblocks=None):
+    """Passes a direct sweep's ``nblocks`` trial blocks are split into at
+    the current level: 1 at level 0, doubling with each descent, at most
+    one block a pass.  ``formulation`` is the sweep's (``"pallas"``, the
+    direct sweep's superblocks; ``"gather"``, ``"roll"``), as in the JAX
+    package; each splits the same way.  ``direct_plan(nblocks)`` is the
+    direct sweep's."""
+    if nblocks is None:
+        nblocks = formulation
     lvl = _LEVEL
     if lvl <= 0:
         return 1
     return min(2 ** lvl, max(int(nblocks), 1))
 
 
-def direct_maxed(nblocks):
-    """True when the direct sweep has no smaller dispatch left."""
-    return direct_plan(nblocks) >= max(int(nblocks), 1)
+def direct_maxed(formulation, nblocks=None):
+    """True when the sweep has no smaller dispatch left
+    (:func:`direct_plan`'s arguments)."""
+    if nblocks is None:
+        nblocks = formulation
+    return direct_plan(formulation, nblocks) >= max(int(nblocks), 1)
+
+
+def direct_step(formulation):
+    """The step name the next descent of a ``formulation`` sweep takes."""
+    del formulation
+    return "split_dm"
 
 
 def unfuse_engaged():

@@ -1,0 +1,212 @@
+"""Versioned on-disk tune cache: measured kernel winners per geometry key.
+
+A copy of the JAX package's ``tuning/cache.py`` (same schema, same
+version, same durability rules), with the port's own default path.
+
+One JSON document, keyed by :func:`..tuning.geometry.geometry_key`
+strings::
+
+    {"schema_version": 1,
+     "entries": {"cpu|c256|t65536|d256|float32|m-":
+                     {"kernel": "roll", "source": "measured",
+                      "measured_s": {"roll": 0.012, "gather": 0.171},
+                      "reps": 3, "tuned_at": 1754200000.0}}}
+
+Durability contract (the ledger's torn-file rules):
+
+* writes are atomic (tmp + ``os.replace``) — a crash mid-write leaves
+  the previous cache intact;
+* a torn/corrupt file (parse or shape failure) is backed up to
+  ``<cache>.corrupt`` and a fresh cache starts — worst case the
+  winners are re-measured, which tuning semantics make idempotent.
+  An ``OSError`` on an intact file (permissions, stale mount) leaves
+  the file untouched and starts empty: it must neither trash a cache
+  full of measurements nor fail the search that asked for a kernel;
+* a **schema version mismatch** is not corruption: the file is valid,
+  just written by another release.  Its entries are rejected (stale
+  measurement schemas must never drive kernel selection) and the next
+  :meth:`TuneCache.store` rewrites the file at the current version.
+  :func:`check_artifact` applies the same rule to a committed cache
+  file (``python -m pulsarutils_tpu_torch.cli.tune_main verify``).
+
+The default file is the port's own
+(``~/.cache/pulsarutils_tpu_torch/tune_cache.json``), so winners the
+JAX package measured on the same machine never steer the port;
+``PUTPU_TUNE_CACHE`` overrides it, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import threading
+import time
+
+from ..io.atomic import atomic_write_json
+
+logger = logging.getLogger("pulsarutils_tpu_torch")
+
+#: bump when an entry's meaning changes (measurement discipline, key
+#: axes, winner semantics); the JAX package's value
+TUNE_SCHEMA_VERSION = 1
+
+#: env override for the cache file location
+CACHE_ENV = "PUTPU_TUNE_CACHE"
+
+
+def default_cache_path():
+    """``$PUTPU_TUNE_CACHE``, else
+    ``~/.cache/pulsarutils_tpu_torch/tune_cache.json``."""
+    env = os.environ.get(CACHE_ENV)
+    if env:
+        return env
+    return os.path.join(os.path.expanduser("~"), ".cache",
+                        "pulsarutils_tpu_torch", "tune_cache.json")
+
+
+def check_artifact(path, expect_version=TUNE_SCHEMA_VERSION):
+    """``(ok, detail)`` for a committed tune-cache artifact.
+
+    A missing, unreadable, corrupt or version-mismatched artifact fails
+    the check: a stale committed tune cache would silently pin every
+    future run's kernel choice to measurements whose meaning drifted.
+    """
+    try:
+        with open(path, encoding="utf-8") as f:
+            doc = json.load(f)
+    except FileNotFoundError:
+        return False, (f"tune-cache artifact {path} missing — generate it "
+                       "with `python -m pulsarutils_tpu_torch.cli."
+                       f"tune_main tune --cache {path} ...`")
+    except (OSError, ValueError) as exc:
+        return False, f"tune-cache artifact {path} unreadable: {exc}"
+    if not isinstance(doc, dict) or not isinstance(doc.get("entries"), dict):
+        return False, f"{path} is not a tune cache (no entries map)"
+    version = doc.get("schema_version")
+    if version != expect_version:
+        return False, (f"{path}: schema_version is {version!r}, expected "
+                       f"{expect_version!r} — re-tune and re-commit (the "
+                       "gate must not vouch for measurements whose schema "
+                       "drifted)")
+    return True, f"schema v{version}, {len(doc['entries'])} tuned key(s)"
+
+
+class TuneCache:
+    """Thread-safe persistent winner store.
+
+    ``path=None`` keeps the cache purely in-memory (tests, one-shot
+    probes).  All disk state is (re)read once at construction; writers
+    rewrite the whole document atomically — the cache is small (one
+    JSON object per tuned geometry).
+    """
+
+    def __init__(self, path=None):
+        self.path = path
+        self._lock = threading.Lock()
+        self._entries = {}
+        if path is not None:
+            self._entries = self._load()
+
+    # -- disk ----------------------------------------------------------------
+
+    def _load(self):
+        """Entries from disk, surviving torn files and old schemas."""
+        if not os.path.exists(self.path):
+            return {}
+        try:
+            with open(self.path, encoding="utf-8") as f:
+                doc = json.load(f)
+            if not isinstance(doc, dict) \
+                    or not isinstance(doc.get("entries"), dict):
+                raise ValueError("tune cache is not a "
+                                 "{schema_version, entries} document")
+        except OSError as exc:
+            # an unreadable-but-present file (permissions, stale mount)
+            # is NOT corruption — leave it alone — but it must degrade
+            # to an empty cache, never fail the search that asked for a
+            # kernel (a pre-tuner search never touched this file at all)
+            logger.warning("tune cache %s unreadable (%r): starting with "
+                           "an empty cache (file left untouched)",
+                           self.path, exc)
+            return {}
+        except ValueError as exc:
+            # parse/shape failure == corruption: the ledger's rule
+            backup = self.path + ".corrupt"
+            try:
+                os.replace(self.path, backup)
+            except OSError:
+                backup = "<unremovable>"
+            logger.warning(
+                "torn/corrupt tune cache %s (%r): backed up to %s, "
+                "starting fresh (winners will be re-measured)",
+                self.path, exc, backup)
+            return {}
+        version = doc.get("schema_version")
+        if version != TUNE_SCHEMA_VERSION:
+            # valid file, wrong release: reject the entries, keep the
+            # file (the next store() rewrites it at the current version)
+            logger.warning(
+                "tune cache %s has schema_version %r (expected %r): "
+                "entries rejected, winners will be re-measured",
+                self.path, version, TUNE_SCHEMA_VERSION)
+            return {}
+        return dict(doc["entries"])
+
+    def _write_locked(self):
+        doc = {"schema_version": TUNE_SCHEMA_VERSION,
+               "entries": self._entries}
+        atomic_write_json(self.path, doc, indent=1, sort_keys=True,
+                          trailing_newline=True)
+
+    # -- entries -------------------------------------------------------------
+
+    def lookup(self, key):
+        """The stored entry dict for ``key``, or ``None``."""
+        with self._lock:
+            entry = self._entries.get(key)
+            return dict(entry) if entry else None
+
+    def store(self, key, kernel, measured_s=None, reps=None,
+              source="measured", abandoned=None):
+        """Record (and persist) a winner for ``key``; returns the entry.
+
+        ``abandoned`` names candidates whose ``measured_s`` figure is a
+        single early-abandon rep, not a median of ``reps`` — recorded
+        so a one-rep loser's wall is never mistaken for a disciplined
+        measurement."""
+        entry = {"kernel": str(kernel), "source": source,
+                 "tuned_at": round(time.time(), 3)}
+        if measured_s:
+            entry["measured_s"] = {k: round(float(v), 6)
+                                   for k, v in measured_s.items()}
+        if reps is not None:
+            entry["reps"] = int(reps)
+        if abandoned:
+            entry["abandoned"] = [str(a) for a in abandoned]
+        with self._lock:
+            self._entries[key] = entry
+            if self.path is not None:
+                self._write_locked()
+        return dict(entry)
+
+    def entries(self):
+        """``{key: entry}`` snapshot (copies)."""
+        with self._lock:
+            return {k: dict(v) for k, v in self._entries.items()}
+
+    def clear(self, match=None):
+        """Drop all entries (or those whose key contains ``match``);
+        returns how many were removed.  Persisted immediately."""
+        with self._lock:
+            if match is None:
+                removed = len(self._entries)
+                self._entries = {}
+            else:
+                victims = [k for k in self._entries if match in k]
+                removed = len(victims)
+                for k in victims:
+                    del self._entries[k]
+            if self.path is not None and removed:
+                self._write_locked()
+            return removed

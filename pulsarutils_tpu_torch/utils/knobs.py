@@ -1,0 +1,32 @@
+"""Shared tri-state environment-knob parser.
+
+A copy of the JAX package's ``utils/knobs.py``.  Every bisection knob of
+the port's kernel paths (``PUTPU_FDMT_HEAD``, ``PUTPU_FDMT_DEEP_PAIR``)
+follows the same contract: ``''``/unset means *auto* (the default),
+``'0'`` forces off, ``'1'`` forces on, and anything else WARNS and falls
+back to auto — a silently ignored ``'true'``/``'off'`` would make an A/B
+bisection measure the same program twice.
+"""
+
+from __future__ import annotations
+
+import os
+
+
+def tristate_env(name):
+    """Parse env knob ``name``: True / False / None (auto).
+
+    Warns (and returns None) on any value other than '', '0', '1'.
+    """
+    knob = os.environ.get(name, "")
+    if knob == "0":
+        return False
+    if knob == "1":
+        return True
+    if knob:
+        import warnings
+
+        warnings.warn(
+            f"{name}={knob!r} ignored (expected '0' or '1'); using the "
+            "platform default", stacklevel=3)
+    return None

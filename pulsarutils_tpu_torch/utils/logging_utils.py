@@ -154,12 +154,23 @@ class BudgetAccountant(StageTimer):
         self._retrace_chunks = 0
         self._stream_chunks = 0
         self._truncation_warned = False
+        self._autotune_mark = self._autotune_seq()
+
+    @staticmethod
+    def _autotune_seq():
+        """Current position in the process's autotune decision log (lazy
+        import: the tuning package imports this module)."""
+        from ..tuning.autotune import decision_seq
+
+        return decision_seq()
 
     def begin_stream(self):
         """Mark the start of a run on a reused accountant: retraces are
-        counted from the first chunk of each stream."""
+        counted from the first chunk of each stream, and the record's
+        ``autotune`` list holds the decisions made since."""
         self._stream_chunks = 0
         self._retrace_chunks = 0
+        self._autotune_mark = self._autotune_seq()
 
     # -- per-chunk budget ----------------------------------------------------
 
@@ -314,6 +325,14 @@ class BudgetAccountant(StageTimer):
             out["rtt_s"] = round(self.rtt_s, 6)
             out["trips"] = self.trips()
             out["trips_x_rtt_s"] = round(self.trips() * self.rtt_s, 3)
+        # the kernel tuner's decisions since this run's begin_stream; the
+        # key is absent when nothing resolved this run, as in the JAX
+        # package's record
+        from ..tuning.autotune import decisions_since
+
+        decisions = decisions_since(self._autotune_mark)
+        if decisions:
+            out["autotune"] = decisions
         return out
 
     def footer(self, log=logger):

@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (``pulsarutils_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N] [--quick | --breakdown | --overlap |
-                           --observe | --lowbit | --autotune]
+                           --observe | --lowbit | --autotune | --mesh]
 
 Phases, one JSON line each:
 
@@ -103,8 +103,10 @@ Phases, one JSON line each:
    then the failure drill (``e2e_faults``): on the same file, each
    scenario a FaultPlan armed against a clean run — a transient dispatch
    error (one retry, equal tables), NaNs below the gate's threshold
-   (sanitized, equal files), a hard corruption (quarantined, recorded,
-   not searched on resume), a transient and a persistent persist error
+   (sanitized, equal files) and a hard corruption (quarantined,
+   recorded, not searched on resume), these two on quarter chunks (2^16
+   samples: the noise chunk and the pulse's) against a clean run of that
+   geometry, as the corrupted chunk goes through the host float64 path, a transient and a persistent persist error
    (retried; dead-lettered), a persistent read error (``read_error``,
    the other chunks searched), a ``torch.OutOfMemoryError`` at the
    dispatch (the ladder descends, the tables and files bit for bit the
@@ -168,7 +170,32 @@ Phases, one JSON line each:
    equal; with ``--fft-zap`` the zapped bins equal, the differing codes
    counted); ``period_search`` on a 2-bit copy of the pulsar file (the
    pulsar in every chunk);
-10. the tuner, the knobs, the preflight and the library surface:
+10. the mesh (``parallel/``), on virtual meshes of the one card:
+   ``mesh_sweep`` (the sharded direct sweep of the e2e chunk, 1024 x
+   2^18 and 514 trials, on (1, 1), (4, 1), (2, 2) and (1, 4) meshes:
+   each plane equal to its plain version on the card, plain B1 per shard
+   and the same ascending channel sum, bit for bit, the table to that
+   plane's B4 scores; against the single-device search bit for bit at
+   chan = 1, else the discrete columns equal and S/N within rtol 1e-4,
+   the max difference printed; B1 and B4 launches, ms and peak bytes
+   beside the single device's); ``mesh_fdmt`` (the sharded FDMT and the
+   mesh hybrid, fused and two-stage (the card mesh's default), on
+   bench.py's 1024 x 2^20 data on (4, 1) and (2, 2): each slice's rows
+   against the single-device transform, B3, B2a, B2b launched, the
+   hybrid's best row the single device's, fused == two-stage, the fused
+   round's seed and need rows and its B1 launches no more than the
+   two-stage path's); ``e2e_mesh`` (``search_by_chunks(mesh=
+   (2, 2))`` on the e2e file, direct and hybrid at S/N 8: the
+   single-device runs' hits and ledger, no fallback, no OOM descent; a
+   persistent ``mesh``-site error raises with nothing marked done; the
+   figure's arrays from a ``ShardedPlane`` and its period search);
+   ``mesh_period`` (``ShardedPlane.spectral_scores`` against the
+   single-device spectral search, and the pulsar job on a (2, 2) mesh
+   against the single-device job's best candidate); ``multihost``
+   (``python -m pulsarutils_tpu_torch.parallel.live`` at the e2e chunk's
+   width, 1024 x 2^18 and 514 trials: two gloo ranks on cuda:0 and one
+   NCCL rank, each printing ``MULTIHOST LIVE: OK``);
+11. the tuner, the knobs, the preflight and the library surface:
    ``fdmt_knobs`` (the coarse plane under ``PUTPU_FDMT_HEAD=0`` and
    ``PUTPU_FDMT_DEEP_PAIR=0`` equal to the default's bit for bit at
    1024 x 2^18 and 1024 x 2^20, the launches of B3, B2a and B2b and the
@@ -194,7 +221,8 @@ Phases, one JSON line each:
    warm it first) and prints its tuning seconds (``autotune_cost``);
    launches inside the tuner's measurements are kept apart (the
    ``autotune probe`` paths of the kernels line);
-11. the kernels line (B6 once per policy), then ``{"ok": true,
+12. the kernels line (B6 once per policy; the launches by path include
+   the mesh phases'), then ``{"ok": true,
    "device": {...}}`` last.
 
 Any failed check exits non-zero before the last line.  Without a CUDA
@@ -207,8 +235,9 @@ checkout times that checkout the same way), and the hybrid's.
 ``--overlap`` runs only the build and ``e2e_overlap``, ``--observe`` the
 build, the end-to-end file and ``e2e_observe``, ``--lowbit`` the build
 and ``e2e_lowbit`` (with its own pulsar file), ``--autotune`` the build,
-the end-to-end and pulsar files and the phases of item 10.  None of the
-six prints the last line.
+the end-to-end and pulsar files and the phases of item 11, ``--mesh``
+the build and the phases of item 10 (with the single-device runs they
+compare with).  None of the seven prints the last line.
 """
 
 from __future__ import annotations
@@ -1985,6 +2014,7 @@ def phase_e2e_hybrid(torch, np, workdir, path, chunk_length, nchunks,
              chunks_per_s=nchunks / loop_s, stage_seconds=stages,
              hits_equal_direct=True)
         runs[label] = counts
+    runs["hits"] = hits_of
     return runs
 
 
@@ -2802,32 +2832,51 @@ def phase_e2e_faults(torch, np, workdir, path, chunk_length, nchunks, seed):
           "dispatch_transient: tables or files differ from the clean run")
     report(r)
 
+    # the two scenarios whose corrupted chunk goes through the host
+    # float64 path run on quarter chunks (2^16 samples) of the noise chunk
+    # and the pulse's chunks, against a clean run of that geometry: the
+    # same checks at a quarter of the host work
+    short = dict(chunk_length=E2E_CHUNK // 8 * TSAMP)
+    short_starts = plan_survey(str(path), dmmin=DMMIN, dmmax=DMMAX,
+                               **short)["chunk_starts"]
+    short_noise = short_starts[0]
+    subset = [short_noise] + [s for s in short_starts
+                              if s <= pulse_t < s + E2E_CHUNK // 4]
+    check(len(subset) == 3, f"drill quarter chunks {subset}")
+    clean_short = run("clean_quarter", chunks=subset, **short)
+    check_clean_run(clean_short["summary"], "e2e_faults clean_quarter")
+    check(clean_short["hits"], "e2e_faults clean_quarter: no hit")
+    base_short = _snapshot(np, clean_short["out"])
+    report(clean_short)
+
     # NaNs below the threshold in one chunk: sanitized, equal hits
     r = run("nan_sanitized", [dict(
-        site="corrupt", kind="nan", chunks=(noise_chunk,), frac=0.02)])
+        site="corrupt", kind="nan", chunks=(short_noise,), frac=0.02)],
+        chunks=subset, **short)
     check(r["counters"].get("putpu_chunks_sanitized_total") == 1
           and not r["store"].quarantined_chunks,
           f"nan_sanitized: {r['counters']}")
-    check(_tables_equal(np, r["hits"], clean["hits"])
-          and _snapshot(np, r["out"]) == base,
+    check(_tables_equal(np, r["hits"], clean_short["hits"])
+          and _snapshot(np, r["out"]) == base_short,
           "nan_sanitized: hits or files differ from the clean run")
     report(r)
 
     # a hard corruption: quarantined, recorded; a resumed run searches
     # nothing
     r = run("hard_corrupt", [dict(
-        site="corrupt", kind="nan", chunks=(noise_chunk,), frac=0.9)])
+        site="corrupt", kind="nan", chunks=(short_noise,), frac=0.9)],
+        chunks=subset, **short)
     recs = manifest(r)
     check(r["store"].quarantined_chunks
-          == {str(noise_chunk): "integrity:nan_frac"}
+          == {str(short_noise): "integrity:nan_frac"}
           and [(x["chunk"], x["reason"]) for x in recs]
-          == [(noise_chunk, "integrity:nan_frac")],
+          == [(short_noise, "integrity:nan_frac")],
           f"hard_corrupt: {r['store'].quarantined_chunks}, {recs}")
-    check(_tables_equal(np, r["hits"], clean["hits"]),
+    check(_tables_equal(np, r["hits"], clean_short["hits"]),
           "hard_corrupt: hits differ from the clean run")
     again = run("hard_corrupt_resumed", [dict(
-        site="corrupt", kind="nan", chunks=(noise_chunk,), frac=0.9)],
-        out=r["out"])
+        site="corrupt", kind="nan", chunks=(short_noise,), frac=0.9)],
+        out=r["out"], chunks=subset, **short)
     check(again["summary"]["searched"] == 0 and again["plan"].fired() == 0,
           f"hard_corrupt resume searched {again['summary']['searched']}")
     report(r, manifest=recs)
@@ -4199,6 +4248,553 @@ def phase_surface(torch, np, path):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# the mesh (parallel/): virtual meshes of the one card
+# ---------------------------------------------------------------------------
+
+#: the mesh sweep's virtual meshes of the card, (dm, chan)
+MESH_SHAPES = ((1, 1), (4, 1), (2, 2), (1, 4))
+
+#: the JAX package's tolerance on S/N between its mesh and single-device
+#: sweeps (``tests/test_parallel.py``): a mesh with chan > 1 adds its
+#: channel-shard partials in another association than one sweep does
+MESH_SNR_RTOL = 1e-4
+
+
+def _card_mesh(torch, shape, axes=("dm", "chan")):
+    """A mesh of ``shape`` whose every shard is the card (virtual shards)."""
+    from pulsarutils_tpu_torch.parallel.mesh import make_mesh
+
+    n = 1
+    for s in shape:
+        n *= s
+    return make_mesh(shape, axes, devices=[torch.device("cuda", 0)] * n)
+
+
+def _mesh_plain_plane(torch, data, offsets, shape):
+    """The sharded sweep's plain version on the card: per dm shard, each
+    channel shard's plain B1 on its channel slice, then the same
+    ascending sum of the partials (``parallel/sharded.py:chan_sum``)."""
+    from pulsarutils_tpu_torch.ops.dedisperse import dedisperse_plane_plain
+    from pulsarutils_tpu_torch.parallel.sharded import chan_sum, shard_bounds
+
+    rows = shard_bounds(offsets.shape[0], shape[0])
+    chans = shard_bounds(offsets.shape[1], shape[1])
+    planes = []
+    for lo, hi in rows:
+        if hi > lo:
+            planes.append(chan_sum(
+                [dedisperse_plane_plain(data[c_lo:c_hi],
+                                        offsets[lo:hi, c_lo:c_hi])
+                 for c_lo, c_hi in chans], data.device))
+    return planes
+
+
+def _table_diff(np, ours, ref, floats=("max", "std", "snr")):
+    """Largest relative difference of the float columns, and whether the
+    discrete columns (DM, rebin, peak, argbest) are equal."""
+    discrete = (ours.argbest() == ref.argbest() and all(
+        np.array_equal(np.asarray(ours[c]), np.asarray(ref[c]))
+        for c in ("DM", "rebin", "peak")))
+    rel = max(float(np.max(np.abs(np.asarray(ours[c], np.float64)
+                                  - np.asarray(ref[c], np.float64))
+                           / np.maximum(np.abs(np.asarray(ref[c],
+                                                          np.float64)),
+                                        1e-30))) for c in floats)
+    return discrete, rel
+
+
+def _tables_bitwise(np, ours, ref):
+    return all(np.array_equal(np.asarray(ours[c]), np.asarray(ref[c]))
+               for c in ref.colnames)
+
+
+def phase_mesh_sweep(torch, np, seed):
+    """The sharded direct sweep on virtual meshes of the card at the e2e
+    chunk (1024 x 2^18, the 514-trial DM 300-635 plan): each mesh's plane
+    equal to its plain version on the card (plain B1 per shard, the same
+    ascending channel sum) bit for bit and its table to that plane's B4
+    scores bit for bit; against the single-device search, bit for bit at
+    chan = 1, else the discrete columns equal and S/N within the JAX
+    package's mesh tolerance; B1 and B4 launches, card ms and peak bytes
+    beside the single-device search's."""
+    from pulsarutils_tpu_torch.ops.plan import offsets_for
+    from pulsarutils_tpu_torch.ops.score_cuda import score_plane
+    from pulsarutils_tpu_torch.ops.search import (dedispersion_search,
+                                                  unstack_scores)
+    from pulsarutils_tpu_torch.parallel.sharded import \
+        sharded_dedispersion_search
+    from pulsarutils_tpu_torch.utils.table import ResultTable
+
+    data = _bench_data_on_card(torch, np, E2E_CHUNK, seed).contiguous()
+    dms = e2e_trial_dms()
+    args = (DMMIN, DMMAX, START_FREQ, BANDWIDTH, TSAMP)
+    offsets = offsets_for(dms, NCHAN, START_FREQ, BANDWIDTH, TSAMP,
+                          E2E_CHUNK)
+
+    def single():
+        return dedispersion_search(data, *args, kernel="pallas",
+                                   device="cuda")
+
+    ref, ref_plane = dedispersion_search(data, *args, kernel="pallas",
+                                         capture_plane=True, device="cuda")
+    single_ms, _ = time_ms(torch, single, runs=3)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    single()
+    torch.cuda.synchronize()
+    single_peak = torch.cuda.max_memory_allocated() - base
+    out = {}
+    for shape in MESH_SHAPES:
+        mesh = _card_mesh(torch, shape)
+
+        def sweep():
+            return sharded_dedispersion_search(data, *args, mesh=mesh,
+                                               kernel="pallas")
+
+        reset_counts()
+        table, handle = sharded_dedispersion_search(
+            data, *args, mesh=mesh, kernel="pallas", capture_plane=True,
+            plane_handle=True)
+        counts = read_counts()
+        nshards = sum(1 for p in handle.shards) * shape[1]
+        check(counts["B1"] == nshards and counts["B4"] == len(handle.shards),
+              f"mesh_sweep {shape}: launches {counts}")
+        plain = _mesh_plain_plane(torch, data, offsets, shape)
+        planes_equal = all(torch.equal(a, b)
+                           for a, b in zip(handle.shards, plain))
+        check(planes_equal and len(plain) == len(handle.shards),
+              f"mesh_sweep {shape}: a shard's plane differs from its plain "
+              "version")
+        plain_table = ResultTable(dict(zip(
+            ("DM", "max", "std", "snr", "rebin", "peak"),
+            (dms, *unstack_scores(torch.cat([score_plane(p)
+                                             for p in plain], dim=1))))))
+        check(_tables_bitwise(np, table, plain_table),
+              f"mesh_sweep {shape}: the table differs from the plain "
+              "program's")
+        discrete, rel = _table_diff(np, table, ref)
+        if shape[1] == 1:
+            same_plane = torch.equal(torch.cat(handle.shards), ref_plane)
+            check(same_plane and _tables_bitwise(np, table, ref),
+                  f"mesh_sweep {shape}: not the single-device table bit "
+                  "for bit")
+        check(discrete and rel <= MESH_SNR_RTOL,
+              f"mesh_sweep {shape}: against the single device: discrete "
+              f"{discrete}, max rel diff {rel}")
+        del handle, plain
+        mesh_ms, _ = time_ms(torch, sweep, runs=3)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        sweep()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        out[shape] = counts
+        emit("mesh_sweep", mesh=list(shape), trials=len(dms),
+             chunk=[NCHAN, E2E_CHUNK], launches=counts,
+             plane_equals_plain=True, table_equals_plain=True,
+             single_bitwise=shape[1] == 1, discrete_equal_single=discrete,
+             max_rel_diff_single=rel, rtol=MESH_SNR_RTOL,
+             ms=mesh_ms, single_ms=single_ms, ratio=mesh_ms / single_ms,
+             peak_bytes=peak, single_peak_bytes=single_peak)
+    del data, ref_plane
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_mesh_fdmt(torch, np, seed):
+    """The sharded FDMT and the mesh hybrid (fused and unfused) on the JAX
+    package's benchmark data (1024 x 2^20, bench.py), on (4, 1) and
+    (2, 2) meshes of the card: each slice's rows against the
+    single-device transform (bit for bit, else within rtol/atol 1e-4 and
+    said so), the tables against the single-device FDMT search, the
+    hybrid's best row against the single-device hybrid's, fused ==
+    unfused; B3, B2a, B2b, B1 and B4 launched."""
+    from pulsarutils_tpu_torch.ops.fdmt import (fdmt_plan, fdmt_transform,
+                                                fdmt_trial_dms,
+                                                transform_schedule)
+    from pulsarutils_tpu_torch.ops.plan import (dedispersion_plan,
+                                                dmmax_for_trials)
+    from pulsarutils_tpu_torch.ops.search import dedispersion_search
+    from pulsarutils_tpu_torch.parallel.sharded_fdmt import (
+        sharded_fdmt_search, sharded_hybrid_search, slice_delay_range)
+    from pulsarutils_tpu_torch.tuning.autotune import resolve_mesh_kernel
+    from pulsarutils_tpu_torch.utils.logging_utils import BudgetAccountant
+
+    dmmax = dmmax_for_trials(DMMIN, HYB_NTRIALS, START_FREQ, BANDWIDTH,
+                             TSAMP)
+    args = (DMMIN, dmmax, START_FREQ, BANDWIDTH, TSAMP)
+    data = _bench_data_on_card(torch, np, NSAMPLES, seed).contiguous()
+    plan_dms = np.asarray(dedispersion_plan(NCHAN, *args), dtype=np.float64)
+    _, n_lo, n_hi = fdmt_trial_dms(NCHAN, *args)
+    full = fdmt_transform(data, n_hi, START_FREQ, BANDWIDTH, min_delay=n_lo)
+    ref = dedispersion_search(data, *args, kernel="fdmt", device="cuda")
+    ref_h = dedispersion_search(data, *args, kernel="hybrid", device="cuda")
+
+    def wall(fn, runs=3):
+        times = []
+        for _ in range(runs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t))
+        return statistics.median(times)
+
+    single_ms = wall(lambda: dedispersion_search(
+        data, *args, kernel="fdmt", device="cuda"))
+    single_h_ms = wall(lambda: dedispersion_search(
+        data, *args, kernel="hybrid", device="cuda"))
+    out = {}
+    for shape in ((4, 1), (2, 2)):
+        mesh = _card_mesh(torch, shape)
+        slices = slice_delay_range(n_lo, n_hi, shape[0])
+        kinds = [k for lo, hi in slices for k, _ in transform_schedule(
+            fdmt_plan(NCHAN, START_FREQ, BANDWIDTH, hi, lo))]
+        want = {"B3": kinds.count("head"), "B2a": kinds.count("merge"),
+                "B2b": kinds.count("merge4")}
+        reset_counts()
+        table, handle = sharded_fdmt_search(data, *args, mesh=mesh,
+                                            capture_plane=True)
+        counts = read_counts()
+        check(all(counts[k] == v for k, v in want.items())
+              and counts["B3"] > 0 and counts["B2a"] + counts["B2b"] > 0
+              and counts["B4"] == shape[0],
+              f"mesh_fdmt {shape}: launches {counts}, schedule {want}")
+        bitwise, max_diff = True, 0.0
+        for (lo, hi), rows in zip(slices, handle.shards):
+            part = full[lo - n_lo:hi - n_lo + 1]
+            if not torch.equal(rows, part):
+                bitwise = False
+                max_diff = max(max_diff, float((rows - part).abs().max()))
+                check(torch.allclose(rows, part, rtol=1e-4, atol=1e-4),
+                      f"mesh_fdmt {shape}: slice {lo}-{hi} beyond 1e-4")
+        if bitwise:
+            check(_tables_bitwise(np, table, ref),
+                  f"mesh_fdmt {shape}: equal rows, a different table")
+        else:
+            discrete, rel = _table_diff(np, table, ref)
+            check(discrete and rel <= 1e-4,
+                  f"mesh_fdmt {shape}: table discrete {discrete} rel {rel}")
+        del handle
+        fdmt_ms = wall(lambda: sharded_fdmt_search(data, *args, mesh=mesh))
+        # the mesh key's kernel resolved before the counts: the tuner's
+        # measurement launches belong to no search
+        resolve_mesh_kernel(mesh, NCHAN, NSAMPLES, len(plan_dms),
+                            START_FREQ, BANDWIDTH, TSAMP, plan_dms)
+        runs = {}
+        # fused=None is the card mesh's default: the two-stage composition
+        for fused, label in ((True, "fused"), (None, "unfused")):
+            reset_counts()
+            budget = BudgetAccountant()
+            with budget.chunk(0):
+                t_h = sharded_hybrid_search(data, *args, mesh=mesh,
+                                            fused=fused)
+            hc = read_counts()
+            stage = {k: v for k, v in budget.chunks[0]["counters"].items()
+                     if k.startswith(("fused_", "rescore_", "dispatches",
+                                      "readbacks"))}
+            check(all(hc[k] > 0 for k in ("B1", "B3", "B4"))
+                  and hc["B2a"] + hc["B2b"] > 0,
+                  f"mesh_fdmt {shape} hybrid fused={fused}: launches {hc}")
+            check(("fused_seed_rows" in stage) == (fused is True),
+                  f"mesh_fdmt {shape} hybrid fused={fused}: counters "
+                  f"{stage}")
+            best, rbest = t_h.argbest(), ref_h.argbest()
+            check(best == rbest and bool(t_h["exact"][best]) and all(
+                t_h[c][best] == ref_h[c][best] for c in ("DM", "rebin",
+                                                         "peak")),
+                  f"mesh_fdmt {shape} hybrid fused={fused}: best row "
+                  f"{best} vs the single device's {rbest}")
+            rel = abs(float(t_h["snr"][best]) - float(ref_h["snr"][best])) \
+                / abs(float(ref_h["snr"][best]))
+            check(rel == 0.0 if shape[1] == 1 else rel <= MESH_SNR_RTOL,
+                  f"mesh_fdmt {shape} hybrid: best snr rel diff {rel}")
+            ms = wall(lambda: sharded_hybrid_search(data, *args, mesh=mesh,
+                                                    fused=fused))
+            runs[label] = dict(
+                table=t_h, launches=hc, ms=ms, best_snr_rel_diff=rel,
+                exact_rows=int(np.sum(t_h["exact"])), counters=stage)
+        check(_tables_bitwise(np, runs["fused"]["table"],
+                              runs["unfused"]["table"]),
+              f"mesh_fdmt {shape}: the fused and unfused tables differ")
+        # the fused round rescored what the loop's first round would, so
+        # it launches no more than the two-stage path
+        check(runs["fused"]["launches"]["B1"]
+              <= runs["unfused"]["launches"]["B1"],
+              f"mesh_fdmt {shape}: fused B1 {runs['fused']['launches']} "
+              f"against two-stage {runs['unfused']['launches']}")
+        out[shape] = {k: v["launches"] for k, v in runs.items()}
+        out[shape]["fdmt"] = counts
+        emit("mesh_fdmt", mesh=list(shape), slices=slices,
+             data=[NCHAN, NSAMPLES], launches=counts,
+             slices_bitwise=bitwise, slices_max_abs_diff=max_diff,
+             fdmt_ms=fdmt_ms, single_fdmt_ms=single_ms,
+             hybrid={k: {f: v[f] for f in ("launches", "ms",
+                                          "best_snr_rel_diff",
+                                          "exact_rows", "counters")}
+                     for k, v in runs.items()},
+             single_hybrid_ms=single_h_ms, fused_equals_unfused=True)
+    del data, full
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_e2e_mesh(torch, np, workdir, path, chunk_length, nchunks,
+                   direct_hits, hybrid_hits):
+    """``search_by_chunks(mesh=)`` on the end-to-end file on a (2, 2)
+    mesh of the card, direct and hybrid at S/N 8: the single-device runs'
+    hits (S/N within the mesh tolerance) and ledger ``done``, no fallback,
+    no OOM descent; a persistent ``mesh``-site error raises with nothing
+    marked done; the diagnostic figure's arrays from a ShardedPlane of a
+    hit chunk (the figure itself where matplotlib is installed)."""
+    from pulsarutils_tpu_torch.faults import FaultPlan, FaultSpec
+    from pulsarutils_tpu_torch.io.sigproc import FilterbankReader
+    from pulsarutils_tpu_torch.ops.periodicity import period_search_plane
+    from pulsarutils_tpu_torch.parallel.sharded import \
+        sharded_dedispersion_search
+    from pulsarutils_tpu_torch.pipeline.diagnostics import (figure_arrays,
+                                                            plot_diagnostics)
+    from pulsarutils_tpu_torch.pipeline.pulse_info import PulseInfo
+    from pulsarutils_tpu_torch.pipeline.search_pipeline import (
+        clean_chunk, plan_survey, search_by_chunks)
+
+    mesh = _card_mesh(torch, (2, 2))
+    common = dict(chunk_length=chunk_length, dmmin=DMMIN, dmmax=DMMAX,
+                  snr_threshold=8.0, device="cuda", make_plots=False)
+    starts = plan_survey(str(path), chunk_length=chunk_length, dmmin=DMMIN,
+                         dmmax=DMMAX)["chunk_starts"]
+    runs = {}
+    for label, kernel, ref in (("direct", "auto", direct_hits),
+                               ("hybrid_snr_8", "hybrid", hybrid_hits)):
+        if ref is None:   # --mesh: the single-device run here
+            ref, _ = search_by_chunks(
+                str(path), kernel=kernel,
+                output_dir=str(workdir / f"out_mesh_ref_{label}"), **common)
+        from pulsarutils_tpu_torch.utils.logging_utils import \
+            BudgetAccountant
+
+        stages, summary, budget = {}, {}, BudgetAccountant()
+        reset_counts()
+        t0 = time.perf_counter()
+        hits, store = search_by_chunks(
+            str(path), kernel=kernel, mesh=mesh, stage_seconds=stages,
+            summary=summary, budget=budget,
+            output_dir=str(workdir / f"out_mesh_{label}"), **common)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        check_clean_run(summary, f"e2e_mesh {label}")
+        bad = _hit_mismatch(hits, ref, snr_rtol=MESH_SNR_RTOL)
+        check(bad is None, f"e2e_mesh {label}: hits differ from the "
+              f"single-device run's: {bad}")
+        check(store.done_chunks == starts, f"e2e_mesh {label}: ledger")
+        # the direct run's per-shard kernel is the tuner's (B1 per shard,
+        # or the gather); B4 scores each dm shard
+        check(counts["B4"] >= 2 * nchunks
+              and counts["B1"] in ((0, 4 * nchunks) if kernel == "auto"
+                                   else range(1, 10 ** 6))
+              and (kernel != "hybrid" or counts["B3"] > 0),
+              f"e2e_mesh {label}: launches {counts}")
+        if kernel == "hybrid":
+            # a card mesh's hybrid is the two-stage composition
+            check("search/fused" not in stages
+                  and "search/coarse_readback" in stages,
+                  f"e2e_mesh {label}: stages {sorted(stages)}")
+        loop_s = wall - stages.get("badchans", 0.0)
+        runs[label] = counts
+        emit("e2e_mesh", run=label, mesh=[2, 2], chunks=nchunks,
+             hits=len(hits), launches=counts, wall_s=wall,
+             chunk_loop_s=loop_s, chunks_per_s=nchunks / loop_s,
+             stage_seconds=stages, fallback=summary["fallback"],
+             oom_descents=summary["oom_descents"], hits_equal_single=True,
+             search_s_per_chunk=[
+                 {k: round(v, 4) for k, v in c["buckets"].items()
+                  if k.startswith("search")} for c in budget.chunks],
+             budget_mesh=budget.to_json(max_per_chunk=0).get("mesh"))
+
+    # a persistent mesh-site error: the card never falls back
+    out = workdir / "out_mesh_persistent"
+    plan = FaultPlan([FaultSpec(site="mesh", kind="error", times=None)])
+    error = None
+    with plan.armed():
+        try:
+            search_by_chunks(str(path), mesh=mesh, output_dir=str(out),
+                             **common)
+        except RuntimeError as exc:
+            error = exc
+    check(error is not None and "injected mesh error" in str(error)
+          and plan.fired() == 2
+          and not any(p.name.startswith("progress_")
+                      for p in out.iterdir()),
+          f"e2e_mesh persistent: {error!r}, fired {plan.fired()}")
+    emit("e2e_mesh", run="mesh_persistent", error=repr(error),
+         fired=plan.fired(), marked_done=0)
+
+    # the figure of a hit chunk from the dm-sharded plane, and its
+    # period search, shard by shard
+    hit = max(direct_hits or ref, key=lambda h: h[2].snr)
+    reader = FilterbankReader(str(path))
+    chunk = clean_chunk(reader.read_block_tensor(hit[0], E2E_CHUNK, "cuda"),
+                        torch.zeros(NCHAN, dtype=torch.bool, device="cuda"))
+    reset_counts()
+    table, handle = sharded_dedispersion_search(
+        chunk, DMMIN, DMMAX, START_FREQ, BANDWIDTH, TSAMP, mesh=mesh,
+        capture_plane=True, plane_handle=True)
+    info = PulseInfo(allprofs=chunk, start_freq=START_FREQ,
+                     bandwidth=BANDWIDTH, nbin=E2E_CHUNK, nchan=NCHAN,
+                     pulse_freq=1.0 / (E2E_CHUNK * TSAMP))
+    t0 = time.perf_counter()
+    arrays = figure_arrays(info, table, handle)
+    fig_s = time.perf_counter() - t0
+    check(arrays["plane"].shape[0] == table.nrows
+          and np.isfinite(arrays["plane"]).all()
+          and np.isfinite(arrays["h"]).all()
+          and arrays["h"].shape == (table.nrows,),
+          "e2e_mesh figure arrays from the ShardedPlane")
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        figure = "skipped (no matplotlib)"
+        print("plots: skipped (no matplotlib)", flush=True)
+    else:
+        figure = plot_diagnostics(info, table, handle,
+                                  outname=str(workdir / "mesh_figure.jpg"))
+    pres = period_search_plane(handle, TSAMP,
+                               fmin=4.0 / (E2E_CHUNK * TSAMP), refine_top=1)
+    figure_counts = read_counts()
+    check(figure_counts["B6"] > 0, f"e2e_mesh: {figure_counts}")
+    emit("e2e_mesh", run="figure_from_sharded_plane", chunk=hit[0],
+         images={k: list(arrays[k].shape) for k in ("raw", "dedisp",
+                                                    "plane")},
+         plane_factor=arrays["plane_factor"], figure=str(figure),
+         seconds=fig_s, period_best_sigma=float(pres["best_sigma"]),
+         launches=figure_counts)
+    runs["figure_and_period_search"] = figure_counts
+    del chunk, handle
+    torch.cuda.empty_cache()
+    return runs
+
+
+def phase_mesh_period(torch, np, workdir, period):
+    """The periodicity workload on a (2, 2) mesh of the card: the pulsar
+    file's job (the single-device job's settings, the DM rows and trials
+    split over the mesh) against the single-device job's best candidate,
+    and ``ShardedPlane.spectral_scores`` (B6 per shard) of the pulse
+    file's chunk plane on a (4, 1) mesh against the single-device
+    spectral search of the same plane."""
+    from pulsarutils_tpu_torch.io.sigproc import FilterbankReader
+    from pulsarutils_tpu_torch.ops.periodicity import _spectral_chunk
+    from pulsarutils_tpu_torch.ops.search import dedispersion_search
+    from pulsarutils_tpu_torch.parallel.sharded import \
+        sharded_dedispersion_search
+    from pulsarutils_tpu_torch.periodicity.driver import periodicity_search
+    from pulsarutils_tpu_torch.pipeline.search_pipeline import clean_chunk
+
+    path = workdir / "pulsar.fil"
+    reader = FilterbankReader(str(path))
+    chunk = clean_chunk(reader.read_block_tensor(0, E2E_CHUNK, "cuda"),
+                        torch.zeros(NCHAN, dtype=torch.bool, device="cuda"))
+    args = (DMMIN, DMMAX, START_FREQ, BANDWIDTH, TSAMP)
+    _, plane = dedispersion_search(chunk, *args, capture_plane=True,
+                                   kernel="pallas", device="cuda")
+    fmin = 4.0 / (E2E_CHUNK * TSAMP)
+    want = _spectral_chunk(plane, TSAMP, 16, fmin, None)
+    reset_counts()
+    _, handle = sharded_dedispersion_search(
+        chunk, *args, mesh=_card_mesh(torch, (4, 1)), kernel="pallas",
+        capture_plane=True, plane_handle=True)
+    got = handle.spectral_scores(TSAMP, fmin=fmin)
+    spec_counts = read_counts()
+    # the same plane rows (chan = 1), transformed in other batches: rows
+    # whose best cell is the same hold the same sigma within 1e-5, and the
+    # pulsar's row (the best) is one of them
+    same = (got["freq"] == want["freq"]) & (got["nharm"] == want["nharm"])
+    rel = float(np.max(np.abs(got["sigma"][same] - want["sigma"][same])
+                       / np.maximum(np.abs(want["sigma"][same]), 1e-30)))
+    best = int(np.argmax(want["sigma"]))
+    check(spec_counts["B6"] > 0 and same[best]
+          and int(np.argmax(got["sigma"])) == best
+          and same.mean() >= 0.99 and rel <= 1e-5,
+          f"mesh_period spectral: B6 {spec_counts['B6']}, "
+          f"{int(same.sum())}/{len(same)} rows alike, sigma rel {rel}")
+    del chunk, plane, handle
+    torch.cuda.empty_cache()
+
+    stages, summary = {}, {}
+    reset_counts()
+    t0 = time.perf_counter()
+    res = periodicity_search(
+        str(path), DMMIN, DMMAX, accel_max=1000.0, n_accel=5, canary=True,
+        output_dir=str(workdir / "out_puperiod_mesh"), device="cuda",
+        chunk_length=E2E_CHUNK // 2 * TSAMP, snr_threshold=8.0,
+        mesh=_card_mesh(torch, (2, 2)), stage_seconds=stages,
+        summary=summary)
+    wall = time.perf_counter() - t0
+    job = read_counts()
+    check_clean_run(summary, "mesh_period job")
+    best, ref = res["candidates"][0], period["job"]["candidates"][0]
+    keys = ("dm", "accel", "freq_bin", "nharm")
+    check(all(best[k] == ref[k] for k in keys)
+          and res["canary"]["recovered"],
+          f"mesh_period job: best {[best[k] for k in keys]} vs the single "
+          f"device's {[ref[k] for k in keys]}, canary {res['canary']}")
+    check(job["B6"] > 0 and job["B1"] > 0, f"mesh_period job: {job}")
+    emit("mesh_period", spectral_mesh=[4, 1],
+         spectral_rows_alike=int(same.sum()), spectral_rows=len(same),
+         spectral_sigma_max_rel_diff=rel, spectral_launches=spec_counts,
+         job_mesh=[2, 2], best={k: best[k] for k in keys + ("sigma",)},
+         single_best_sigma=ref["sigma"],
+         sigma_rel_diff=abs(best["sigma"] - ref["sigma"]) / ref["sigma"],
+         canary=res["canary"], launches=job, wall_s=wall,
+         trial_sweep_s=res["seconds"]["trials"],
+         single_trial_sweep_s=period["trial_sweep_s"], stage_seconds=stages)
+    return {"spectral": spec_counts, "job": job}
+
+
+#: the multi-process checks: (label, arguments of parallel.live, seconds)
+#: both at the end-to-end chunk's width (1024 x 2^18, DM 300-635: 514
+#: trials, the pulse at DM 400)
+MULTIHOST_CHUNK = ["--nchan", str(NCHAN), "--nsamples", str(E2E_CHUNK),
+                   "--dmmin", str(DMMIN), "--dmmax", str(DMMAX),
+                   "--dm", str(E2E_DM)]
+MULTIHOST_RUNS = (
+    ("gloo_2_ranks", ["--nproc", "2", "--backend", "gloo", "--device",
+                      "cuda:0", "--local", "2", "--chan", "2",
+                      *MULTIHOST_CHUNK], 300),
+    ("nccl_1_rank", ["--nproc", "1", "--backend", "nccl", "--device",
+                     "cuda:0", "--local", "4", "--chan", "2",
+                     *MULTIHOST_CHUNK], 300),
+)
+
+
+def phase_multihost():
+    """``python -m pulsarutils_tpu_torch.parallel.live`` on the card at the
+    e2e chunk's width: two gloo ranks each driving two virtual shards of
+    cuda:0 (dm across the ranks, chan within), and one NCCL rank; each
+    must print ``MULTIHOST LIVE: OK`` (every rank's sharded sweep, FDMT
+    and hybrid tables, two-stage and fused, equal the single-process
+    tables of the same mesh, bit for bit)."""
+    for label, extra, limit in MULTIHOST_RUNS:
+        t0 = time.perf_counter()
+        try:
+            proc = subprocess.run(
+                [sys.executable, "-m", "pulsarutils_tpu_torch.parallel.live",
+                 "--timeout", str(limit - 30), *extra],
+                capture_output=True, text=True, timeout=limit, cwd=str(REPO),
+                env={k: v for k, v in os.environ.items()
+                     if k != "PUTPU_LIVE_RANK"})
+        except subprocess.TimeoutExpired as exc:
+            raise CheckFailed(f"multihost {label}: timed out") from exc
+        seconds = time.perf_counter() - t0
+        lines = proc.stdout.strip().splitlines()
+        check(proc.returncode == 0 and "MULTIHOST LIVE: OK" in proc.stdout,
+              f"multihost {label}: rc {proc.returncode}: "
+              f"{proc.stdout[-1500:]} {proc.stderr[-1500:]}")
+        emit("multihost", run=label, args=extra, seconds=seconds,
+             result=lines[-1], ranks=[ln for ln in lines
+                                      if ln.startswith("rank ")])
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4217,7 +4813,10 @@ def main(argv=None):
                         help="build and run e2e_lowbit only")
     parser.add_argument("--autotune", action="store_true",
                         help="build, the end-to-end and pulsar files and "
-                             "this slice's phases only")
+                             "the tuner's phases only")
+    parser.add_argument("--mesh", action="store_true",
+                        help="build and the mesh phases only (mesh_sweep, "
+                             "mesh_fdmt, e2e_mesh, mesh_period, multihost)")
     opts = parser.parse_args(argv)
 
     import numpy as np
@@ -4295,6 +4894,23 @@ def main(argv=None):
                 period = phase_e2e_period(torch, np, workdir, opts.seed)
             phase_autotune_accel(torch, np, workdir, period)
             return 0
+        if opts.mesh:
+            phase_mesh_sweep(torch, np, opts.seed)
+            phase_mesh_fdmt(torch, np, opts.seed)
+            shutil.rmtree(workdir, ignore_errors=True)
+            workdir.mkdir(parents=True)
+            path = workdir / "e2e.fil"
+            _write_e2e_file(np, path, opts.seed)
+            with cold_tuner("e2e_mesh", warm=True):
+                phase_e2e_mesh(torch, np, workdir, path,
+                               E2E_CHUNK // 2 * TSAMP, 4, None, None)
+            path.unlink()
+            with cold_tuner("e2e_period", warm=True):
+                period = phase_e2e_period(torch, np, workdir, opts.seed)
+            with cold_tuner("mesh_period"):
+                phase_mesh_period(torch, np, workdir, period)
+            phase_multihost()
+            return 0
         head, records, head_data = phase_kernels(torch, np, opts.seed,
                                                  opts.quick)
         fdmt_head, fdmt_records, coarse = phase_fdmt(
@@ -4314,6 +4930,8 @@ def main(argv=None):
         breakdown = phase_sweep_breakdown(torch, np, opts.seed)
         kernel_breakdown = phase_kernel_breakdown(torch, np, opts.seed)
         knobs, knob_paths = phase_fdmt_knobs(torch, np, opts.seed)
+        mesh_sweep = phase_mesh_sweep(torch, np, opts.seed)
+        mesh_fdmt = phase_mesh_fdmt(torch, np, opts.seed)
         shutil.rmtree(workdir, ignore_errors=True)
         workdir.mkdir(parents=True)
         with cold_tuner("e2e_search", warm=True):
@@ -4324,6 +4942,10 @@ def main(argv=None):
         with cold_tuner("e2e_hybrid", warm=True):
             hybrid = phase_e2e_hybrid(torch, np, workdir, path,
                                       chunk_length, nchunks, hits)
+        with cold_tuner("e2e_mesh", warm=True):
+            e2e_mesh = phase_e2e_mesh(torch, np, workdir, path,
+                                      chunk_length, nchunks, hits,
+                                      hybrid["hits"]["snr_8"])
         with cold_tuner("e2e_fourier"):
             fourier = phase_e2e_fourier(torch, np, workdir, path,
                                         chunk_length, nchunks)
@@ -4344,12 +4966,15 @@ def main(argv=None):
         with cold_tuner("e2e_fdas"):
             fdas = phase_e2e_fdas(torch, np, workdir, opts.seed, period)
         accel = phase_autotune_accel(torch, np, workdir, period)
+        with cold_tuner("mesh_period"):
+            mesh_period = phase_mesh_period(torch, np, workdir, period)
         with cold_tuner("e2e_lowbit", warm=True):
             lowbit = phase_e2e_lowbit(torch, np, workdir, opts.seed,
                                       pulsar=workdir / "pulsar.fil")
         (workdir / "pulsar.fil").unlink()
         with cold_tuner("e2e_overlap", warm=True):
             overlap = phase_e2e_overlap(torch, np, workdir, opts.seed)
+        phase_multihost()
     except CheckFailed as exc:
         print(f"chip_smoke: check failed: {exc}", file=sys.stderr)
         return 1
@@ -4382,6 +5007,19 @@ def main(argv=None):
                     tuned["off"],
                 "periodicity job, the tuner's backend named "
                 "(autotune_accel)": accel["named_job"],
+                **{f"sharded sweep on a {s[0]}x{s[1]} mesh (mesh_sweep)": v
+                   for s, v in mesh_sweep.items()},
+                **{f"sharded FDMT on a {s[0]}x{s[1]} mesh (mesh_fdmt)":
+                   v["fdmt"] for s, v in mesh_fdmt.items()},
+                **{f"mesh hybrid {k} on a {s[0]}x{s[1]} mesh (mesh_fdmt)":
+                   v[k] for s, v in mesh_fdmt.items()
+                   for k in ("fused", "unfused")},
+                **{f"search_by_chunks on a 2x2 mesh, {k} (e2e_mesh)": v
+                   for k, v in e2e_mesh.items()},
+                "ShardedPlane.spectral_scores (mesh_period)":
+                    mesh_period["spectral"],
+                "periodicity job on a 2x2 mesh (mesh_period)":
+                    mesh_period["job"],
                 **{f"autotune probe ({k})": v for k, v in PROBES.items()},
                 **knob_paths, **precision["runs"], **lowbit["launches"]}
     shape = {"nchan": NCHAN, "nsamples": NSAMPLES}

@@ -16,8 +16,8 @@ for the CPU (``device="cpu"``), and raise when no card is present.
 
 The top level exports the JAX package's public names: the reference's
 library surface eagerly, the pipeline, I/O and accounting layers lazily
-(:data:`_LAZY`).  The multi-device names are not ported yet
-(:data:`_NOT_PORTED`).
+(:data:`_LAZY`), the multi-device searches among them.  The streaming
+ring sweep is not ported yet (:data:`_NOT_PORTED`).
 """
 
 from .version import __version__
@@ -122,18 +122,20 @@ _LAZY = {
     "FaultSpec": ("faults.inject", "FaultSpec"),
     "IntegrityPolicy": ("faults.policy", "IntegrityPolicy"),
     "audit_run": ("faults.audit", "audit_run"),
+    "sharded_dedispersion_search": ("parallel.sharded",
+                                    "sharded_dedispersion_search"),
+    "sharded_fdmt_search": ("parallel.sharded_fdmt", "sharded_fdmt_search"),
+    "sharded_hybrid_search": ("parallel.sharded_fdmt",
+                              "sharded_hybrid_search"),
+    "make_mesh": ("parallel.mesh", "make_mesh"),
+    "ShardedPlane": ("parallel.sharded_plane", "ShardedPlane"),
+    "initialize_distributed": ("parallel.multihost", "initialize"),
+    "pod_mesh": ("parallel.multihost", "pod_mesh"),
 }
 
 #: the JAX package's top-level names the port does not have yet, with the
 #: ROADMAP.md item that holds each
 _NOT_PORTED = {
-    "sharded_dedispersion_search": "queue A, A9 (multi-GPU)",
-    "sharded_fdmt_search": "queue A, A9 (multi-GPU)",
-    "sharded_hybrid_search": "queue A, A9 (multi-GPU)",
-    "make_mesh": "queue A, A9 (multi-GPU)",
-    "ShardedPlane": "queue A, A9 (multi-GPU)",
-    "initialize_distributed": "queue A, A9 (multi-GPU)",
-    "pod_mesh": "queue A, A9 (multi-GPU)",
     "ring_dedisperse": "queue A, A6 (streaming and beams)",
 }
 

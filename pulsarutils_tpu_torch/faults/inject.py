@@ -19,6 +19,8 @@ site         seam                                      kinds
                                                        ``impulse``
 ``dispatch`` the per-chunk device search               ``error``, ``hang``,
                                                        ``oom``
+``mesh``     the sharded route inside the dispatch     ``error``, ``hang``,
+             (and the mesh hybrid's fused round)       ``oom``
 ``host``     the host (CPU) fallback rung of the       ``oom``
              chunk search
 ``persist``  ``CandidateStore.save_candidate``         ``error``

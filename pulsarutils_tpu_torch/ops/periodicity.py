@@ -409,15 +409,26 @@ def period_search_plane(plane, tsamp, max_harmonics=16, fmin=None, fmax=None,
     (host arrays) plus ``best_dm_index``, ``best_freq``, ``best_h``,
     ``best_m``, ``best_sigma`` (from the H tail ``P(>H) ~ exp(-0.4 H)``)
     and ``best_profile``.
+
+    ``plane`` may also be a dm-sharded :class:`~..parallel.sharded_plane.
+    ShardedPlane` (the mesh route): stage 1 then runs shard by shard on
+    the devices (its ``spectral_scores``) and stage 2 reads its refine
+    rows back one at a time, as in the JAX package.
     """
-    plane = torch.as_tensor(plane)
-    ndm, t = plane.shape
-    if row_chunk is None:
-        row_chunk = max(16, (1 << 27) // max(1, t))
-    chunks = [_spectral_chunk(plane[lo:lo + row_chunk], tsamp,
-                              max_harmonics, fmin, fmax)
-              for lo in range(0, ndm, row_chunk)]
-    spec = {k: np.concatenate([c[k] for c in chunks]) for k in chunks[0]}
+    if hasattr(plane, "spectral_scores"):
+        ndm, t = plane.shape
+        spec = plane.spectral_scores(tsamp, max_harmonics=max_harmonics,
+                                     fmin=fmin, fmax=fmax)
+    else:
+        plane = torch.as_tensor(plane)
+        ndm, t = plane.shape
+        if row_chunk is None:
+            row_chunk = max(16, (1 << 27) // max(1, t))
+        chunks = [_spectral_chunk(plane[lo:lo + row_chunk], tsamp,
+                                  max_harmonics, fmin, fmax)
+                  for lo in range(0, ndm, row_chunk)]
+        spec = {k: np.concatenate([c[k] for c in chunks])
+                for k in chunks[0]}
 
     order = np.argsort(spec["log_sf"])
     best = {}

@@ -12,7 +12,10 @@ search (rfft, then the harmonic kernel on the card).
 On the device :func:`accel_search` loops over the trials, keeps the
 ``(ntrials, 5, ndm)`` score pack on the device, runs one top-k (stable
 descending sigma: ties to the lower ``(accel, dm)`` flat index, the JAX
-package's rule) and reads back once.
+package's rule) and reads back once.  With a ``mesh`` the DM rows are
+split over its ``dm`` axis and the trials over its ``chan`` axis
+(:func:`mesh_trial_sweep`); each shard runs the same per-trial body, so
+the score pack, and the table, are the single device's.
 """
 
 from __future__ import annotations
@@ -27,8 +30,8 @@ from ..ops.rebin import stretch_resample
 from ..utils.device import resolve_device, to_numpy
 
 __all__ = ["C_M_S", "accel_grid", "accel_search", "fractional_resample",
-           "jerk_grid", "stretch_index_table", "topk_table",
-           "trial_product"]
+           "jerk_grid", "mesh_trial_sweep", "stretch_index_table",
+           "topk_table", "trial_product"]
 
 #: speed of light (m/s) — acceleration trials are in m/s^2
 C_M_S = 299792458.0
@@ -156,15 +159,51 @@ def _result_table(cells, flat_idx, ndm, accels, tsamp, nsamples,
     }
 
 
+def mesh_trial_sweep(plane, mesh, ntrials, prepare, score):
+    """The ``(ntrials, 5, ndm)`` float32 score pack of a trial sweep laid
+    over ``mesh`` (the JAX package's sharded accel and FDAS programs): DM
+    rows split over the ``dm`` axis, trials over the ``chan`` axis, each
+    shard's rows on its device (a view where it is the plane's), and each
+    shard running ``score(prepare(rows), trial)`` -> ``(5, rows)`` for
+    its trials, ``prepare`` once a shard.  The pack is assembled on the
+    mesh's first device.  The mesh is one process's."""
+    from ..parallel.sharded import (Placement, dm_chan_axes, norm_device,
+                                    shard_bounds, to_device)
+
+    dm_chan_axes(mesh)
+    if mesh.process_count > 1:
+        raise ValueError("the periodicity trial sweep runs on a "
+                         "single-process mesh")
+    home = norm_device(mesh.home)
+    grid = mesh.grid()
+    ndm = plane.shape[0]
+    placement = Placement(plane)
+    stacked = torch.empty((ntrials, 5, ndm), dtype=torch.float32,
+                          device=home)
+    for i, (lo, hi) in enumerate(shard_bounds(ndm, grid.shape[0])):
+        if hi <= lo:
+            continue
+        for j, (t0, t1) in enumerate(shard_bounds(ntrials, grid.shape[1])):
+            if t1 <= t0:
+                continue
+            ctx = prepare(placement.slice(grid[i, j], lo, hi))
+            for a in range(t0, t1):
+                stacked[a, :, lo:hi] = to_device(score(ctx, a), home)
+    return stacked
+
+
 def accel_search(plane, tsamp, accels, *, jerks=None, max_harmonics=16,
-                 fmin=None, fmax=None, topk=32, device="cuda"):
+                 fmin=None, fmax=None, topk=32, device="cuda", mesh=None):
     """Search the accumulated plane ``(ndm, T)`` over the (DM, accel[,
     jerk]) grid (``jerks`` swept as the accel-major product,
     :func:`trial_product`).  Returns the top-``topk`` candidate table as
     a dict of aligned host arrays: ``dm_index, accel_index, accel,
     jerk_index, jerk, freq, freq_bin, power, nharm, log_sf, sigma``,
     sorted by descending sigma.  ``device`` is where the trials run
-    (``"cuda"`` by default, raising without a card)."""
+    (``"cuda"`` by default, raising without a card); ``mesh`` (a
+    :class:`~..parallel.mesh.Mesh` of ``device``'s kind) splits the DM
+    rows over its ``dm`` axis and the trials over its ``chan`` axis
+    (:func:`mesh_trial_sweep`)."""
     dev = resolve_device(device)
     plane = torch.as_tensor(plane).to(device=dev, dtype=torch.float32)
     ndm, nsamples = plane.shape
@@ -175,12 +214,20 @@ def accel_search(plane, tsamp, accels, *, jerks=None, max_harmonics=16,
     ntrials = len(t_accels)
     lo = None if fmin is None else float(fmin)
     hi = None if fmax is None else float(fmax)
+
+    def score(rows, a):
+        return spectral_stacked(stretch_resample(rows, idx_table[a]), tsamp,
+                                max_harmonics=max_harmonics, fmin=lo, fmax=hi)
+
+    if mesh is not None:
+        stacked = mesh_trial_sweep(plane, mesh, ntrials, lambda rows: rows,
+                                   score)
+        return topk_table(stacked, topk, accels, tsamp, nsamples,
+                          jerks=jerks)
     stacked = torch.empty((ntrials, 5, ndm), dtype=torch.float32,
                           device=dev)
     for a in range(ntrials):
-        stacked[a] = spectral_stacked(stretch_resample(plane, idx_table[a]),
-                                      tsamp, max_harmonics=max_harmonics,
-                                      fmin=lo, fmax=hi)
+        stacked[a] = score(plane, a)
     return topk_table(stacked, topk, accels, tsamp, nsamples, jerks=jerks)
 
 

@@ -135,8 +135,9 @@ class DMTimeAccumulator:
             / len(self.chunk_starts)
 
     def consume(self, istart, plane, table=None):
-        """Fold one chunk's dedispersed plane (a tensor on any device, or
-        an array) into the observation plane; returns False for a chunk
+        """Fold one chunk's dedispersed plane (a tensor on any device, an
+        array, or a mesh run's :class:`~..parallel.sharded_plane.
+        ShardedPlane`, read back whole) into the observation plane; returns False for a chunk
         start already consumed.  ``table`` pins the DM grid on the first
         call and is checked on every later one."""
         istart = int(istart)
@@ -154,6 +155,8 @@ class DMTimeAccumulator:
                 raise ValueError(
                     "chunk trial-DM grid drifted mid-observation — all "
                     "accumulated chunks must share one grid")
+        if hasattr(plane, "to_host"):   # a mesh run's ShardedPlane handle
+            plane = plane.to_host()
         plane = np.asarray(to_numpy(plane), dtype=np.float32)
         if plane.shape[0] != self.ndm:
             raise ValueError(f"chunk plane has {plane.shape[0]} DM rows, "

@@ -49,7 +49,6 @@ _NOT_PORTED = {
     "report_out": "queue A, A15 (periodicity service hooks)",
     "fence": "queue A, A15 (periodicity service hooks)",
     "cancel_cb": "queue A, A15 (periodicity service hooks)",
-    "mesh": "queue A, A9 (multi-GPU)",
 }
 
 #: periodic-canary shape: a Gaussian pulse train of this duty cycle at
@@ -84,7 +83,7 @@ def _canary_is_recovered(cand, freq, freq_tol):
 
 
 def _resolve_accel_backend(ndm, nout, tsamp, accels, jerks, max_harmonics,
-                           fmin, fmax, dev):
+                           fmin, fmax, dev, mesh=None):
     """``accel_backend="auto"``: the measured backend of
     :func:`~..tuning.autotune.resolve_accel_backend` at the plane's
     geometry (``time_stretch`` below the tuning floor).  On the CPU a
@@ -96,7 +95,7 @@ def _resolve_accel_backend(ndm, nout, tsamp, accels, jerks, max_harmonics,
     try:
         return resolve_accel_backend(ndm, nout, tsamp, accels, jerks=jerks,
                                      max_harmonics=max_harmonics, fmin=fmin,
-                                     fmax=fmax, device=dev)
+                                     fmax=fmax, device=dev, mesh=mesh)
     except Exception as exc:
         if dev.type == "cuda":
             raise
@@ -150,8 +149,12 @@ def periodicity_search(fname, dmmin=200, dmmax=800, *, accel_max=0.0,
     at DM row ``ndm // 3`` and reports its recovery; candidates within
     two trials of that row are excluded from the science list.
     ``progress`` passes to the chunk loop (a log line every 50 chunks).
-    ``health``, ``http_port``, ``report_out``, ``fence``, ``cancel_cb``
-    and ``mesh`` are not ported and raise if given.
+    ``mesh`` (a :class:`~..parallel.mesh.Mesh` of ``device``'s kind)
+    runs the single-pulse leg on the mesh route of ``search_by_chunks``
+    (its fingerprint holds the mesh shape) and the trial sweep with the
+    DM rows on its ``dm`` axis and the trials on its ``chan`` axis, as in
+    the JAX package.  ``health``, ``http_port``, ``report_out``,
+    ``fence`` and ``cancel_cb`` are not ported and raise if given.
 
     Returns a dict: ``complete``, ``candidates``, ``sift``, ``table``
     (the raw top-k), ``accumulator``, ``accels``, ``jerks``,
@@ -164,7 +167,7 @@ def periodicity_search(fname, dmmin=200, dmmax=800, *, accel_max=0.0,
 
     given = {"health": health, "http_port": http_port,
              "report_out": report_out, "fence": fence,
-             "cancel_cb": cancel_cb, "mesh": mesh}
+             "cancel_cb": cancel_cb}
     for name, value in given.items():
         if value is not None:
             raise NotImplementedError(
@@ -188,7 +191,7 @@ def periodicity_search(fname, dmmin=200, dmmax=800, *, accel_max=0.0,
                if k in search_kwargs}
     sp = plan_survey(fname, dmmin=dmmin, dmmax=dmmax, kernel=kernel,
                      snr_threshold=snr_threshold, fingerprint_extra=extra,
-                     **plan_kw)
+                     mesh=mesh, **plan_kw)
     header = sp["reader"].header
     trial_dms = dedispersion_plan(header["nchans"], dmmin, dmmax,
                                   header["fbottom"], header["bandwidth"],
@@ -222,7 +225,7 @@ def periodicity_search(fname, dmmin=200, dmmax=800, *, accel_max=0.0,
                   snr_threshold=snr_threshold, output_dir=output_dir,
                   make_plots=False, fingerprint_extra=extra,
                   plane_consumer=consumer, progress=progress,
-                  device=dev, **search_kwargs)
+                  device=dev, mesh=mesh, **search_kwargs)
     hits, store = search_by_chunks(fname, resume=resume, **common)
     if state["since_snap"] or not os.path.exists(snap_path):
         acc.save(snap_path)
@@ -271,7 +274,7 @@ def periodicity_search(fname, dmmin=200, dmmax=800, *, accel_max=0.0,
     if chosen_backend == "auto":
         chosen_backend = _resolve_accel_backend(
             acc.ndm, nout, tsamp_out, accels, jerks_axis, max_harmonics,
-            fmin_eff, fmax, dev)
+            fmin_eff, fmax, dev, mesh=mesh)
 
     canary_info = None
     plane_search = acc.plane
@@ -284,7 +287,7 @@ def periodicity_search(fname, dmmin=200, dmmax=800, *, accel_max=0.0,
     t0 = time.perf_counter()
     table = search_fn(plane_search, tsamp_out, accels, jerks=jerks_axis,
                       max_harmonics=max_harmonics, fmin=fmin_eff,
-                      fmax=fmax, topk=topk, device=dev)
+                      fmax=fmax, topk=topk, device=dev, mesh=mesh)
     trial_s = time.perf_counter() - t0
     logger.info("periodicity trial sweep: %d DM x %d accel%s trials in "
                 "%.2fs [%s]", acc.ndm, len(accels),

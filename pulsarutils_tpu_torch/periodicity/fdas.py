@@ -98,7 +98,7 @@ def correlate(spec_t, filt, gidx, tidx):
 
 
 def fdas_search(plane, tsamp, accels, *, jerks=None, max_harmonics=16,
-                fmin=None, fmax=None, topk=32, device="cuda"):
+                fmin=None, fmax=None, topk=32, device="cuda", mesh=None):
     """Fourier-domain search of the plane ``(ndm, T)`` over the (DM,
     accel[, jerk]) grid: :func:`.accel.accel_search`'s trial order,
     top-k rule and table (a dict of aligned host arrays ``dm_index,
@@ -112,7 +112,10 @@ def fdas_search(plane, tsamp, accels, *, jerks=None, max_harmonics=16,
     kernel on the card); the ``(ntrials, 5, ndm)`` scores stay on the
     device until the top-k's one readback.  Counts its templates and
     cells in ``putpu_fdas_bank_entries_total`` and
-    ``putpu_fdas_trials_total``."""
+    ``putpu_fdas_trials_total``.  ``mesh`` (a :class:`~..parallel.mesh.
+    Mesh` of ``device``'s kind) splits the DM rows over its ``dm`` axis
+    and the trials over its ``chan`` axis, each shard transforming its
+    rows once (:func:`~.accel.mesh_trial_sweep`)."""
     dev = resolve_device(device)
     plane = torch.as_tensor(plane).to(device=dev, dtype=torch.float32)
     ndm, nsamples = plane.shape
@@ -131,20 +134,38 @@ def fdas_search(plane, tsamp, accels, *, jerks=None, max_harmonics=16,
         int(tables["bank"].shape[0]))
     metrics.counter("putpu_fdas_trials_total").inc(int(ntrials) * int(ndm))
 
-    spec_t = torch.fft.rfft(plane, dim=-1)[:, :nbins_c].T.contiguous()
-    filt = torch.from_numpy(tables["bank"]).to(device=dev,
-                                               dtype=torch.complex64)
-    gidx = torch.from_numpy(tables["gidx"]).to(dev)
-    tidx = torch.from_numpy(tables["tidx"]).to(dev)
-    stacked = torch.empty((ntrials, 5, ndm), dtype=torch.float32,
-                          device=dev)
-    for a in range(ntrials):
+    banks = {}
+
+    def prepare(rows):
+        """A shard's rows transformed once, with the bank on its device."""
+        d = rows.device
+        if str(d) not in banks:
+            banks[str(d)] = tuple(
+                torch.from_numpy(tables[k]).to(d) for k in ("gidx", "tidx")
+            ) + (torch.from_numpy(tables["bank"]).to(
+                device=d, dtype=torch.complex64),)
+        spec = torch.fft.rfft(rows, dim=-1)[:, :nbins_c].T.contiguous()
+        return (spec,) + banks[str(d)]
+
+    def score(ctx, a):
+        spec_t, gidx, tidx, filt = ctx
         y = correlate(spec_t, filt, gidx[a], tidx[a])
         power = (y.abs() ** 2).T.contiguous()
+        del y
         power[:, 0] = 0.0
         res = score_power(power, nsamples, tsamp,
                           max_harmonics=max_harmonics, fmin=lo, fmax=hi)
-        stacked[a] = torch.stack([res[k].to(torch.float32)
-                                  for k in _SPEC_KEYS])
-        del y, power
+        return torch.stack([res[k].to(torch.float32) for k in _SPEC_KEYS])
+
+    if mesh is not None:
+        from .accel import mesh_trial_sweep
+
+        stacked = mesh_trial_sweep(plane, mesh, ntrials, prepare, score)
+        return topk_table(stacked, topk, accels, tsamp, nsamples,
+                          jerks=jerks)
+    ctx = prepare(plane)
+    stacked = torch.empty((ntrials, 5, ndm), dtype=torch.float32,
+                          device=dev)
+    for a in range(ntrials):
+        stacked[a] = score(ctx, a)
     return topk_table(stacked, topk, accels, tsamp, nsamples, jerks=jerks)

@@ -65,7 +65,11 @@ def figure_arrays(info, table, plane, waterfall=None):
     """The figure's host arrays, computed on the data's device: the raw
     and dedispersed images and light curves decimated by the best row's
     boxcar, the plane's image and its rows' H values.  ``waterfall``
-    (default ``info.allprofs``) is the cleaned ``(nchan, T)`` chunk."""
+    (default ``info.allprofs``) is the cleaned ``(nchan, T)`` chunk.
+    ``plane`` may be a :class:`~..parallel.sharded_plane.ShardedPlane`:
+    its H curve is then per shard and its image is its shards' block
+    sums by the least factor that fits :data:`MAX_IMAGE_COLUMNS` (the
+    JAX package's mesh figure sums to at most 2048 columns)."""
     array = torch.as_tensor(info.allprofs if waterfall is None
                             else waterfall)
     sample_time = 1.0 / info.pulse_freq / info.nbin
@@ -77,13 +81,23 @@ def figure_arrays(info, table, plane, waterfall=None):
     array_r = quick_resample(array, window)
     dedisp_r = quick_resample(apply_dm_shifts_to_data(array, shifts),
                               window)
-    plane_r = quick_resample(torch.as_tensor(plane), window)
-    h_values, _ = plane_h_test(plane_r)
     out = {"window": window, "sample_time": sample_time,
            "lc_raw": to_numpy(array_r.mean(0)),
-           "lc_dedisp": to_numpy(dedisp_r.mean(0)), "h": h_values}
-    for name, img in (("raw", array_r), ("dedisp", dedisp_r),
-                      ("plane", plane_r)):
+           "lc_dedisp": to_numpy(dedisp_r.mean(0))}
+    images = [("raw", array_r), ("dedisp", dedisp_r)]
+    if hasattr(plane, "h_curve"):
+        # the mesh route: a dm-sharded plane on its devices
+        # (:class:`~..parallel.sharded_plane.ShardedPlane`); the H curve
+        # and the plane image are its shard-local products, the whole
+        # plane is never gathered
+        out["h"], _ = plane.h_curve(window)
+        out["plane"], out["plane_factor"] = plane.decimated(
+            MAX_IMAGE_COLUMNS)
+    else:
+        plane_r = quick_resample(torch.as_tensor(plane), window)
+        out["h"], _ = plane_h_test(plane_r)
+        images.append(("plane", plane_r))
+    for name, img in images:
         out[name], out[name + "_factor"] = _image(img, window)
     return out
 

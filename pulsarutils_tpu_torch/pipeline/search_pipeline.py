@@ -103,7 +103,7 @@ def plan_survey(fname, chunk_length=None, new_sample_time=None, tmin=0,
                 snr_threshold=6.0, fft_zap=False, cut_outliers=False,
                 zero_dm=False, exact_floor="auto", period_search=False,
                 period_sigma_threshold=8.0, fingerprint_extra=None,
-                quarantine_policy="sanitize"):
+                quarantine_policy="sanitize", mesh=None):
     """Resolve a survey's geometry, threshold and resume fingerprint
     without searching anything.
 
@@ -124,7 +124,8 @@ def plan_survey(fname, chunk_length=None, new_sample_time=None, tmin=0,
     fields the JAX package hashes, with ``backend="torch"``: the two
     packages never share a ledger.  A ``quarantine_policy`` other than
     the default ``"sanitize"`` enters it (its ledger is not
-    interchangeable with the default's on data the gate flags).
+    interchangeable with the default's on data the gate flags), and so
+    does a ``mesh``'s shape, as in the JAX package.
     ``fingerprint_extra`` (a flat JSON-safe dict) is merged into it last,
     so another workload over the same file (the periodicity driver) keeps
     a ledger of its own; None leaves the fingerprint as it was.
@@ -192,6 +193,7 @@ def plan_survey(fname, chunk_length=None, new_sample_time=None, tmin=0,
         kernel=kernel, snr_threshold=snr_threshold, fft_zap=fft_zap,
         cut_outliers=cut_outliers,
         **({"zero_dm": True} if zero_dm else {}),
+        **({"mesh": list(mesh.shape.values())} if mesh is not None else {}),
         **({"quarantine_policy": str(quarantine_policy)}
            if quarantine_policy != "sanitize" else {}),
         surelybad=sorted(int(c) for c in surelybad),
@@ -257,7 +259,8 @@ class _Stages:
 
 def _search_with_fallback(array, dmmin, dmmax, start_freq, bandwidth,
                           eff_tsamp, *, device, kernel, capture_plane, state,
-                          ndm, snr_floor=None, chunk=None, policy=None):
+                          ndm, snr_floor=None, chunk=None, policy=None,
+                          mesh=None):
     """One chunk's search with failure containment (the JAX package's
     policy, without its fallback from the card):
 
@@ -288,6 +291,18 @@ def _search_with_fallback(array, dmmin, dmmax, start_freq, bandwidth,
       an out-of-memory error there, or at the card's floor, raises
       :class:`~..resilience.ladder.OOMFloorError`, which the driver
       quarantines as ``oom_floor``.
+
+    ``mesh`` routes the chunk through the sharded searches (the
+    ``"mesh"`` fault site fires first): ``kernel="hybrid"`` ->
+    :func:`~..parallel.sharded_fdmt.sharded_hybrid_search`, ``"fdmt"``
+    -> :func:`~..parallel.sharded_fdmt.sharded_fdmt_search`, anything
+    else the sharded direct sweep (``"pallas"`` and ``"gather"`` as
+    named, ``"auto"`` otherwise), whose captured plane stays on the
+    devices as a :class:`~..parallel.sharded_plane.ShardedPlane`.  The
+    mesh has no smaller dispatch: an out-of-memory error unfuses the
+    hybrid once, else it is the floor (the host path on a CPU mesh,
+    ``oom_floor`` on the card); as everywhere, a card run never falls
+    back to the CPU.
     """
     policy = policy if policy is not None else DispatchPolicy()
     where0 = "host" if state.get("host") else "device"
@@ -305,6 +320,11 @@ def _search_with_fallback(array, dmmin, dmmax, start_freq, bandwidth,
             fault_inject.fire("dispatch", chunk=chunk, device=str(device))
         else:
             fault_inject.fire("host", chunk=chunk)
+        if mesh is not None and where == "device":
+            return _search_mesh(array, dmmin, dmmax, start_freq, bandwidth,
+                                eff_tsamp, mesh=mesh, kernel=k,
+                                capture_plane=capture_plane,
+                                snr_floor=snr_floor, chunk=chunk)
         return dedispersion_search(
             array, dmmin, dmmax, start_freq, bandwidth, eff_tsamp, kernel=k,
             capture_plane=capture_plane,
@@ -353,6 +373,7 @@ def _search_with_fallback(array, dmmin, dmmax, start_freq, bandwidth,
                 _ladder.oom_event("chunk_search")
                 step = None
                 if where == "device" and k in ("auto", "pallas") \
+                        and mesh is None \
                         and not _ladder.direct_maxed("pallas", nblocks):
                     step = "split_dm"
                 elif where == "device" and k == "hybrid" \
@@ -382,6 +403,29 @@ def _search_with_fallback(array, dmmin, dmmax, start_freq, bandwidth,
                                where, exc, nxt[0], nxt[1])
             i += 1
     raise last
+
+
+def _search_mesh(array, dmmin, dmmax, start_freq, bandwidth, eff_tsamp, *,
+                 mesh, kernel, capture_plane, snr_floor, chunk):
+    """One chunk's search on ``mesh`` (:func:`_search_with_fallback`'s
+    mesh route, after the ``"mesh"`` fault site)."""
+    from ..parallel.sharded import MESH_KERNELS, sharded_dedispersion_search
+    from ..parallel.sharded_fdmt import (sharded_fdmt_search,
+                                         sharded_hybrid_search)
+
+    fault_inject.fire("mesh", chunk=chunk)
+    if kernel == "hybrid":
+        return sharded_hybrid_search(
+            array, dmmin, dmmax, start_freq, bandwidth, eff_tsamp, mesh=mesh,
+            snr_floor=snr_floor, capture_plane=capture_plane)
+    if kernel == "fdmt":
+        return sharded_fdmt_search(
+            array, dmmin, dmmax, start_freq, bandwidth, eff_tsamp, mesh=mesh,
+            capture_plane=capture_plane)
+    return sharded_dedispersion_search(
+        array, dmmin, dmmax, start_freq, bandwidth, eff_tsamp, mesh=mesh,
+        capture_plane=capture_plane, plane_handle=True,
+        kernel=kernel if kernel in MESH_KERNELS else "auto")
 
 
 class _ReadFailure:
@@ -427,7 +471,8 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
                      health=None, report_out=None, chunks=None,
                      plane_consumer=None, fingerprint_extra=None,
                      lineage=None, push=None, device="cuda",
-                     stage_seconds=None, summary=None, progress=True):
+                     stage_seconds=None, summary=None, progress=True,
+                     mesh=None):
     """Search a filterbank file for dispersed single pulses.
 
     Parameters follow the JAX package's driver (``snr_threshold`` and
@@ -546,10 +591,33 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
     done with a reason), ``fallback`` (None, or, on ``device="cpu"``,
     where the run fell back to and at which chunk) and ``oom_descents``.
 
+    ``mesh`` (a :class:`~..parallel.mesh.Mesh` on ``device``'s kind of
+    device) searches every chunk with the sharded searches
+    (:func:`_search_with_fallback`); one process drives the mesh, so the
+    reader thread, the persist worker and the ledger are the
+    single-device loop's.  The mesh's shape enters the fingerprint and
+    the ``BUDGET_JSON`` record.  A captured plane stays on the devices,
+    dm-sharded: the period search and the figure read shard-local
+    products of it (:mod:`..parallel.sharded_plane`).  A mesh without
+    the axes its kernel needs raises before any file is read (``"dm"``
+    for ``kernel="fdmt"``, ``"dm"`` and ``"chan"`` otherwise).
+
     Returns ``(hits, store)``: ``hits`` is a list of ``(istart, iend,
     PulseInfo, ResultTable)`` — with ``resume``, including hits persisted
     by earlier sessions of the same configuration.
     """
+    if mesh is not None:
+        # fail fast: a missing axis would otherwise surface inside the
+        # first chunk's search, where it reads as a device fault
+        needed = {"dm"} if kernel == "fdmt" else {"dm", "chan"}
+        if not needed <= set(mesh.shape):
+            raise ValueError(
+                f"mesh axes {tuple(mesh.shape)} must include "
+                f"{sorted(needed)} for kernel={kernel!r} (build one with "
+                "make_mesh((d, c), ('dm', 'chan')))")
+        if torch.device(mesh.home).type != torch.device(device).type:
+            raise ValueError(f"mesh devices {mesh!r} are not of "
+                             f"device={str(device)!r}")
     integrity = resolve_integrity_policy(quarantine_policy)
     dispatch_policy = DispatchPolicy(timeout_s=dispatch_timeout,
                                      retries=dispatch_retries,
@@ -570,6 +638,8 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
             make_plots = False
     timer = budget if budget is not None else BudgetAccountant()
     timer.begin_stream()
+    timer.mesh_shape = (list(mesh.shape.values()) if mesh is not None
+                        else None)
     stages = _Stages(dev, timer, sync=(stage_seconds is not None
                                        or budget is not None
                                        or is_tracing()))
@@ -589,7 +659,7 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
                      period_search=period_search,
                      period_sigma_threshold=period_sigma_threshold,
                      fingerprint_extra=fingerprint_extra,
-                     quarantine_policy=quarantine_policy)
+                     quarantine_policy=quarantine_policy, mesh=mesh)
     reader = sp["reader"]
     snr_threshold = sp["snr_threshold"]
     root = sp["root"]
@@ -1049,7 +1119,7 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
                     start_freq, bandwidth, eff_tsamp, device=dev,
                     kernel=kernel, capture_plane=capture, state=state,
                     ndm=ndm, snr_floor=sp["search_snr_floor"], chunk=istart,
-                    policy=dispatch_policy)
+                    policy=dispatch_policy, mesh=mesh)
             except _ladder.OOMFloorError as exc:
                 obs_metrics.counter("putpu_oom_floor_total").inc()
                 nproc += 1
@@ -1309,7 +1379,9 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
                       "chunks_processed": nproc, "hits": len(hits),
                       "certified": ncertified, "backend": "torch",
                       "device": str(dev), "kernel": kernel,
-                      "snr_threshold": snr_threshold},
+                      "snr_threshold": snr_threshold,
+                      **({"mesh": timer.mesh_shape} if mesh is not None
+                         else {})},
                 budget=timer.to_json(max_per_chunk=0),
                 roofline=roofline.table(),
                 health=health.snapshot() if health is not None else None,

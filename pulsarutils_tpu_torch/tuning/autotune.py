@@ -62,9 +62,10 @@ from .geometry import device_backend, dtype_name, geometry_key
 logger = logging.getLogger("pulsarutils_tpu_torch")
 
 __all__ = ["KernelTuner", "get_tuner", "set_tuner", "autotune_mode",
-           "static_search_kernel", "hits_match", "harmonic_packs_match",
+           "static_search_kernel", "static_mesh_kernel", "hits_match", "harmonic_packs_match",
            "accel_tables_match", "measure_kernel_wall", "synthetic_chunk",
            "synthetic_accel_plane", "resolve_search_kernel",
+           "resolve_mesh_kernel",
            "resolve_accel_backend", "resolve_search_policy",
            "resolve_harmonic_kernel", "decision_seq", "decisions_since",
            "reset_decisions", "ABANDON_FACTOR", "ACCEL_SIGMA_RTOL",
@@ -102,6 +103,13 @@ def static_search_kernel(f32=True):
     version, whose tables equal the roll formulation's).  A
     non-float32 sweep is the gather's."""
     return "pallas" if f32 else "gather"
+
+
+def static_mesh_kernel(all_cuda, f32=True):
+    """The per-shard kernel of the sharded paths without measuring: the
+    direct sweep (B1) on all-CUDA float32 meshes, the gather elsewhere —
+    the JAX package's rule with the card where it says all-TPU."""
+    return "pallas" if (all_cuda and f32) else "gather"
 
 
 # ---------------------------------------------------------------------------
@@ -342,7 +350,8 @@ class KernelTuner:
     # -- resolution ----------------------------------------------------------
 
     def resolve(self, *, backend, nchan, nsamples, ndm, dtype, candidates,
-                static, runner_factory=None, equiv=None, sync=None):
+                static, runner_factory=None, equiv=None, sync=None,
+                mesh_shape=None):
         """One kernel name for this geometry.
 
         ``candidates`` is the constraint-filtered variant list (static
@@ -352,8 +361,9 @@ class KernelTuner:
         overrides the equivalence check (``equiv(ref_scores,
         cand_scores) -> bool``; default :func:`hits_match`).  ``sync``
         fences each run of the default measurer
-        (:func:`measure_kernel_wall`).  Under a ``"gpu"`` backend an
-        error of the static candidate propagates (module docstring).
+        (:func:`measure_kernel_wall`).  ``mesh_shape`` (the sharded
+        paths') joins the key.  Under a ``"gpu"`` backend an error of
+        the static candidate propagates (module docstring).
         """
         from ..obs import metrics as _metrics
 
@@ -361,7 +371,8 @@ class KernelTuner:
         if mode == "off" or static not in candidates:
             # the escape hatch: zero side effects, the static path
             return static
-        key = geometry_key(backend, nchan, nsamples, ndm, dtype)
+        key = geometry_key(backend, nchan, nsamples, ndm, dtype,
+                           mesh_shape=mesh_shape)
         with self._lock:
             hit = self._resolved.get(key)
         if hit is not None:
@@ -618,6 +629,49 @@ def resolve_search_kernel(nchan, nsamples, ndm, dtype, capture_plane,
         sync=_device_sync(device))
 
 
+def resolve_mesh_kernel(mesh, nchan, nsamples, ndm, start_freq, bandwidth,
+                        sample_time, trial_dms, dtype=None):
+    """The per-shard sweep and rescore kernel of the sharded paths.
+
+    The mesh shape joins the key (a ``(8,1)`` slice-heavy layout and a
+    ``(2,4)`` channel-split one stress different kernels).  Candidates:
+    ``"pallas"`` (B1 per shard; all-CUDA float32 meshes, the static
+    choice there, :func:`static_mesh_kernel`) and ``"gather"``.  A CPU
+    mesh has the gather alone (its roll-accumulate form inside the
+    shard), so it resolves statically at no cost, as the JAX package's
+    off-TPU meshes do.  The key's backend is ``"gpu"`` on the card,
+    ``"cpu-mesh"`` elsewhere.
+    """
+    f32 = dtype_name(dtype) == "float32"
+    all_cuda = mesh.all_cuda
+    static = static_mesh_kernel(all_cuda, f32)
+    candidates = [static] + ["gather"] if static == "pallas" else [static]
+    mesh_shape = tuple(int(v) for v in mesh.shape.values())
+    home = mesh.home
+
+    def runner_factory():
+        from ..parallel.sharded import sharded_dedispersion_search
+
+        sub_dms = _probe_grid(trial_dms, get_tuner().probe_trials)
+        data = _probe_chunk(nchan, nsamples, sub_dms, start_freq, bandwidth,
+                            sample_time, home)
+
+        def make(kern):
+            def run():
+                return _score_columns(sharded_dedispersion_search(
+                    data, None, None, start_freq, bandwidth, sample_time,
+                    mesh=mesh, trial_dms=sub_dms, kernel=kern))
+            return run
+
+        return {k: make(k) for k in candidates}
+
+    return get_tuner().resolve(
+        backend="gpu" if all_cuda else "cpu-mesh", nchan=nchan,
+        nsamples=nsamples, ndm=ndm, dtype=dtype_name(None if f32 else dtype),
+        candidates=candidates, static=static, runner_factory=runner_factory,
+        sync=_device_sync(home), mesh_shape=mesh_shape)
+
+
 # ---------------------------------------------------------------------------
 # the periodicity accel-backend contender pair (time_stretch vs fdas)
 # ---------------------------------------------------------------------------
@@ -694,7 +748,7 @@ def synthetic_accel_plane(ndm, nsamples, tsamp, accel, jerk=0.0,
 
 def resolve_accel_backend(ndm, nsamples, tsamp, accels, jerks=None,
                           max_harmonics=16, fmin=None, fmax=None,
-                          device="cpu"):
+                          device="cpu", mesh=None):
     """``accel_backend="auto"`` resolution of the periodicity sweep on
     ``device``.
 
@@ -704,7 +758,8 @@ def resolve_accel_backend(ndm, nsamples, tsamp, accels, jerks=None,
     the card.  Measured over :func:`synthetic_accel_plane` (uploaded
     once) on the trial grid sliced evenly to the probe size, gated by
     :func:`accel_tables_match`.  The key maps ``nchan=ndm`` and
-    ``ndm=ntrials`` under a ``"-accel"`` backend suffix, as in the JAX
+    ``ndm=ntrials`` under a ``"-accel"`` backend suffix, and a
+    ``mesh``'s shape (each candidate then runs on it), as in the JAX
     package.
     """
     import torch
@@ -730,7 +785,7 @@ def resolve_accel_backend(ndm, nsamples, tsamp, accels, jerks=None,
             ndm, nsamples, tsamp, inj_a, jerk=inj_j)).to(
                 device=device, dtype=torch.float32)
         kw = dict(jerks=sub_jerks, max_harmonics=max_harmonics,
-                  fmin=fmin, fmax=fmax, topk=8, device=device)
+                  fmin=fmin, fmax=fmax, topk=8, device=device, mesh=mesh)
 
         def make(search):
             def run():
@@ -746,7 +801,9 @@ def resolve_accel_backend(ndm, nsamples, tsamp, accels, jerks=None,
         nsamples=int(nsamples), ndm=ntrials, dtype=dtype_name(None),
         candidates=candidates, static=static,
         runner_factory=runner_factory, equiv=accel_tables_match,
-        sync=_device_sync(device))
+        sync=_device_sync(device),
+        mesh_shape=(tuple(int(v) for v in mesh.shape.values())
+                    if mesh is not None else None))
 
 
 # ---------------------------------------------------------------------------

@@ -146,6 +146,8 @@ class BudgetAccountant(StageTimer):
     def __init__(self, rtt_s=None):
         super().__init__()
         self.rtt_s = rtt_s
+        #: the mesh shape of a sharded run (None on one device)
+        self.mesh_shape = None
         self.chunks = []
         self.async_totals = {}
         self.counters_total = {}
@@ -310,6 +312,8 @@ class BudgetAccountant(StageTimer):
                           else self.chunks[:max_per_chunk // 2]
                           + self.chunks[nchunks - max_per_chunk // 2:]),
         }
+        if self.mesh_shape:
+            out["mesh"] = list(self.mesh_shape)
         if nchunks > max_per_chunk:
             out["per_chunk_truncated"] = True
             out["truncated_chunks"] = nchunks - 2 * (max_per_chunk // 2)

@@ -751,13 +751,17 @@ def test_periodicity_driver_matches_jax(pulsar_file, tmp_path):
 
 
 def test_periodicity_driver_refuses_what_is_not_ported(pulsar_file):
-    # fdas is ported (tests/test_torch_fdas.py); an unknown backend and
-    # the mesh are refused
+    # fdas and the mesh are ported (tests/test_torch_fdas.py,
+    # tests/test_torch_mesh_period.py); an unknown backend, and a mesh
+    # without the axes the chunk search needs, are refused
+    from pulsarutils_tpu_torch.parallel.mesh import make_mesh
+
     with pytest.raises(ValueError, match="accel_backend"):
         periodicity_search(pulsar_file, accel_backend="stretch",
                            device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
-        periodicity_search(pulsar_file, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="must include"):
+        periodicity_search(pulsar_file, device="cpu", mesh=make_mesh(
+            (2,), ("dm",), devices=[torch.device("cpu")] * 2))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         periodicity_search(pulsar_file, http_port=0, device="cpu")
     with pytest.raises(ValueError, match="owned"):

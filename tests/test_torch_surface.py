@@ -211,14 +211,14 @@ def test_spectral_stats_scan_equals_jax(baseline):
 def test_top_level_names_equal_jax():
     ours = set(P.__all__)
     theirs = set(J.__all__)
-    # plan_survey is the port's own export; the multi-device names wait
-    # for their slices
+    # plan_survey is the port's own export; the streaming ring sweep
+    # waits for its slice
     assert (ours - {"plan_survey"}) | set(P._NOT_PORTED) == theirs
     assert not ours & set(P._NOT_PORTED)
     for name in P.__all__:
         assert getattr(P, name) is not None, name
-    with pytest.raises(AttributeError, match="A9"):
-        P.make_mesh  # noqa: B018
+    with pytest.raises(AttributeError, match="A6"):
+        P.ring_dedisperse  # noqa: B018
     assert P.__version__ == J.__version__
 
 

@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port (``pulsarutils_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N] [--quick | --breakdown | --overlap |
-                           --observe | --lowbit | --autotune | --mesh]
+                           --observe | --lowbit | --autotune | --mesh |
+                           --beams]
 
 Phases, one JSON line each:
 
@@ -221,8 +222,28 @@ Phases, one JSON line each:
    warm it first) and prints its tuning seconds (``autotune_cost``);
    launches inside the tuner's measurements are kept apart (the
    ``autotune probe`` paths of the kernels line);
-12. the kernels line (B6 once per policy; the launches by path include
-   the mesh phases'), then ``{"ok": true,
+12. streaming and batched beams: ``ring`` (after ``mesh_fdmt``:
+   ``ring_dedisperse`` on virtual ``("time",)`` meshes of the card, the
+   e2e chunk's 1024 x 2^18 with 64 trials of its plan on 4 shards, one
+   hop, and 1024 x 4096 on 8 shards, two hops: bit for bit with
+   ``ring_plain``, within rtol 1e-4 and atol 1e-3 of B1's plane; ms and
+   peak bytes); ``e2e_stream`` (after ``e2e_mesh``: the e2e file's
+   chunks read and cleaned on the card by a generator through
+   ``stream_search``, direct and hybrid at S/N 8, every hit chunk's
+   table bit for bit ``search_by_chunks``'; on a (2, 2) mesh; with the
+   canary in every chunk; ``skip_failed`` under a persistent dispatch
+   error on one chunk; a 2-bit packed chunk against its host unpack);
+   ``e2e_beams`` (after ``e2e_overlap``: four beam files of the e2e
+   geometry, a DM 400 pulse in beam 1 alone and one in all four beams,
+   through ``multibeam_search`` batched and beam by beam after the cold
+   ``|b4`` tuning: tables, ledgers and candidate files bit for bit, B4
+   272 launches an arm, 4/4 against 16/16 dispatches and readbacks, the
+   sift confirming the first pulse and vetoing the second; an injected
+   ``beams`` OOM (``halve_batch``, the same tables); 2-bit copies on 2
+   chunks, ``packed="device"`` against ``"host"`` byte for byte, the
+   upload ratio 16);
+13. the kernels line (B6 once per policy; the launches by path include
+   the mesh, stream and beam phases'), then ``{"ok": true,
    "device": {...}}`` last.
 
 Any failed check exits non-zero before the last line.  Without a CUDA
@@ -237,7 +258,8 @@ build, the end-to-end file and ``e2e_observe``, ``--lowbit`` the build
 and ``e2e_lowbit`` (with its own pulsar file), ``--autotune`` the build,
 the end-to-end and pulsar files and the phases of item 11, ``--mesh``
 the build and the phases of item 10 (with the single-device runs they
-compare with).  None of the seven prints the last line.
+compare with), ``--beams`` the build, the end-to-end file and the
+phases of item 12.  None of the eight prints the last line.
 """
 
 from __future__ import annotations
@@ -1358,6 +1380,10 @@ def e2e_trial_dms():
                              TSAMP)
 
 
+#: the cache the ``warm`` phases share (a file under :data:`TUNE_ROOT`)
+WARM_CACHE = "warm_phases_tune_cache.json"
+
+
 @contextlib.contextmanager
 def cold_tuner(label, warm=False):
     """One phase's tuning state: ``PUTPU_TUNE_CACHE`` in a fresh
@@ -1365,8 +1391,14 @@ def cold_tuner(label, warm=False):
     this script, reads an earlier one's winners) and a fresh counting
     process tuner.  ``warm`` resolves the end-to-end chunk's search kernel
     first (what ``cli.tune_main tune`` does before a survey), so the
-    phase's timed loops hold no measurement.  On exit the phase's probe
-    launches go to :data:`PROBES` and its tuning seconds are printed."""
+    phase's timed loops hold no measurement.  The ``warm`` phases share
+    their winners: each starts from a copy of the cache the earlier ones
+    left (:data:`WARM_CACHE`) and leaves its own there, so a key is
+    measured once a run (the e2e key by the first, the (2, 2) mesh key by
+    ``e2e_mesh``, ...), as ``tune_main tune`` leaves a cache; the
+    ``autotune`` phases measure their keys cold on their own.  On exit
+    the phase's probe launches go to :data:`PROBES` and its tuning
+    seconds are printed."""
     from pulsarutils_tpu_torch.tuning import autotune
     from pulsarutils_tpu_torch.tuning.cache import TuneCache
 
@@ -1375,6 +1407,9 @@ def cold_tuner(label, warm=False):
     tmp.mkdir(parents=True)
     prev_env = os.environ.get("PUTPU_TUNE_CACHE")
     os.environ["PUTPU_TUNE_CACHE"] = str(tmp / "tune_cache.json")
+    warmed = TUNE_ROOT / WARM_CACHE
+    if warm and warmed.is_file():
+        shutil.copyfile(warmed, tmp / "tune_cache.json")
     tuner = _counting_tuner(TuneCache(str(tmp / "tune_cache.json")))
     prev = autotune.set_tuner(tuner)
     try:
@@ -1385,6 +1420,8 @@ def cold_tuner(label, warm=False):
                 BANDWIDTH, TSAMP, dms, device="cuda")
         yield tuner
     finally:
+        if warm and (tmp / "tune_cache.json").is_file():
+            shutil.copyfile(tmp / "tune_cache.json", warmed)
         autotune.set_tuner(prev)
         if prev_env is None:
             os.environ.pop("PUTPU_TUNE_CACHE", None)
@@ -4770,29 +4807,493 @@ MULTIHOST_RUNS = (
 def phase_multihost():
     """``python -m pulsarutils_tpu_torch.parallel.live`` on the card at the
     e2e chunk's width: two gloo ranks each driving two virtual shards of
-    cuda:0 (dm across the ranks, chan within), and one NCCL rank; each
-    must print ``MULTIHOST LIVE: OK`` (every rank's sharded sweep, FDMT
-    and hybrid tables, two-stage and fused, equal the single-process
-    tables of the same mesh, bit for bit)."""
-    for label, extra, limit in MULTIHOST_RUNS:
-        t0 = time.perf_counter()
-        try:
-            proc = subprocess.run(
+    cuda:0 (dm across the ranks, chan within), and one NCCL rank, the two
+    runs started together (each its own processes and ports); each must
+    print ``MULTIHOST LIVE: OK`` (every rank's sharded sweep, FDMT and
+    hybrid tables, two-stage and fused, equal the single-process tables
+    of the same mesh, bit for bit).  Every process started is stopped."""
+    env = {k: v for k, v in os.environ.items() if k != "PUTPU_LIVE_RANK"}
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        for label, extra, limit in MULTIHOST_RUNS:
+            procs.append((label, extra, limit, subprocess.Popen(
                 [sys.executable, "-m", "pulsarutils_tpu_torch.parallel.live",
                  "--timeout", str(limit - 30), *extra],
-                capture_output=True, text=True, timeout=limit, cwd=str(REPO),
-                env={k: v for k, v in os.environ.items()
-                     if k != "PUTPU_LIVE_RANK"})
-        except subprocess.TimeoutExpired as exc:
-            raise CheckFailed(f"multihost {label}: timed out") from exc
-        seconds = time.perf_counter() - t0
-        lines = proc.stdout.strip().splitlines()
-        check(proc.returncode == 0 and "MULTIHOST LIVE: OK" in proc.stdout,
-              f"multihost {label}: rc {proc.returncode}: "
-              f"{proc.stdout[-1500:]} {proc.stderr[-1500:]}")
-        emit("multihost", run=label, args=extra, seconds=seconds,
-             result=lines[-1], ranks=[ln for ln in lines
-                                      if ln.startswith("rank ")])
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                cwd=str(REPO), env=env)))
+        for label, extra, limit, proc in procs:
+            try:
+                out, err = proc.communicate(
+                    timeout=max(limit - (time.perf_counter() - t0), 1))
+            except subprocess.TimeoutExpired as exc:
+                raise CheckFailed(f"multihost {label}: timed out") from exc
+            seconds = time.perf_counter() - t0
+            lines = out.strip().splitlines()
+            check(proc.returncode == 0 and "MULTIHOST LIVE: OK" in out,
+                  f"multihost {label}: rc {proc.returncode}: "
+                  f"{out[-1500:]} {err[-1500:]}")
+            emit("multihost", run=label, args=extra,
+                 seconds_since_both_started=seconds, result=lines[-1],
+                 ranks=[ln for ln in lines if ln.startswith("rank ")])
+    finally:
+        for *_, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+# ---------------------------------------------------------------------------
+# Streaming and batched beams (A6): e2e_beams, e2e_stream, ring
+# ---------------------------------------------------------------------------
+
+#: e2e_beams: beams of the end-to-end geometry; beam 1 alone holds a DM 400
+#: pulse mid-block BEAM_PULSE_BLOCK (sample 327,680), every beam one mid-
+#: block BEAM_RFI_BLOCK (sample 589,824): the sift confirms the first and
+#: vetoes the second
+BEAM_COUNT = 4
+BEAM_PULSE_BEAM = 1
+BEAM_PULSE_BLOCK = 2
+BEAM_RFI_BLOCK = 4
+
+#: the ring phase's trials: evenly spaced over the end-to-end plan, its
+#: first and last (DM 635, the widest span) among them
+RING_TRIALS = 64
+
+
+def _write_beam_files(torch, np, workdir, seed, nbits=8, nblocks=5):
+    """The beams' filterbanks (``nbeams`` and ``ibeam`` in their headers),
+    written block by block from the card: 8 bits as
+    :func:`_write_block_file` draws them (``|N(0, 8)|`` + 20, a 12 impulse
+    a channel); 2 bits ``N(1.5, 0.6)`` codes with a 1.5 impulse a channel,
+    rounded and packed on the card by the writer (``encode_frames``).
+    Each beam its own generator; the pulses are dispersed at DM 400."""
+    from pulsarutils_tpu_torch.io.sigproc import (FilterbankWriter,
+                                                  header_from_simulated)
+    from pulsarutils_tpu_torch.ops.plan import dedispersion_shifts
+
+    block = E2E_CHUNK // 2
+    sim = {"nchans": NCHAN, "bandwidth": BANDWIDTH, "fbottom": START_FREQ,
+           "tsamp": TSAMP}
+    shifts = np.rint(dedispersion_shifts(NCHAN, E2E_DM, START_FREQ,
+                                         BANDWIDTH, TSAMP)).astype(np.int64)
+    idx = ((torch.arange(block, device="cuda")[None, :]
+            - torch.from_numpy(shifts).cuda()[:, None]) % block)
+    paths = []
+    for b in range(BEAM_COUNT):
+        header = {"nchans": NCHAN, "nbits": nbits, "nifs": 1, "tstart": 0.0,
+                  "source_name": f"chip_smoke_beam{b}", "machine_id": 0,
+                  "telescope_id": 0, "data_type": 1, "nbeams": BEAM_COUNT,
+                  "ibeam": b, **header_from_simulated(sim, descending=True)}
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(1000 * seed + 17 + b)
+        path = workdir / f"beam{b}_{nbits}bit.fil"
+        with FilterbankWriter(str(path), header) as writer:
+            for k in range(nblocks):
+                x = torch.randn((NCHAN, block), generator=gen, device="cuda")
+                pulse = (k == BEAM_RFI_BLOCK
+                         or (b == BEAM_PULSE_BEAM and k == BEAM_PULSE_BLOCK))
+                if nbits == 8:
+                    x *= 8.0
+                    if pulse:
+                        x[:, block // 2] += 12.0
+                    x = torch.gather(x.abs_(), 1, idx) + 20.0
+                else:
+                    x = x * 0.6 + 1.5
+                    if pulse:
+                        x[:, block // 2] += 1.5
+                    x = torch.gather(x, 1, idx)
+                writer.write_frames(writer.encode_frames(x.flip(0).T))
+                del x
+        paths.append(path)
+    torch.cuda.empty_cache()
+    return paths
+
+
+def _counter_value(name, **labels):
+    from pulsarutils_tpu_torch.obs import metrics
+
+    return metrics.REGISTRY.counter(name, **labels).value
+
+
+def _oom_events():
+    from pulsarutils_tpu_torch.obs import metrics
+
+    return sum(m.get("value", 0) for m in metrics.REGISTRY.snapshot()
+               if m.get("name") == "putpu_oom_events_total")
+
+
+def _beam_tables_equal(np, ours, ref):
+    """Two multibeam results with equal per-beam tables, bit for bit."""
+    for a, b in zip(ours["beams"], ref["beams"]):
+        if [s for s, _ in a["tables"]] != [s for s, _ in b["tables"]]:
+            return False
+        if not all(_tables_bitwise(np, t1, t2)
+                   for (_, t1), (_, t2) in zip(a["tables"], b["tables"])):
+            return False
+    return True
+
+
+def phase_e2e_beams(torch, np, workdir, seed):
+    """Four beams of the end-to-end geometry through ``multibeam_search``
+    on the card, batched and beam by beam: the tables, ledgers and
+    candidate files bit for bit, 1 dispatch and 1 readback an epoch
+    against 4 and 4, B4 once a trial block of every beam-chunk, the
+    coincidence sift confirming the one-beam pulse and vetoing the
+    all-beam one; the cold ``|b4`` tuning timed once before the arms;
+    2-bit copies on 2 chunks, ``packed="device"`` against ``"host"``,
+    byte for byte, with the upload ratio (both arms decode with the same
+    torch function, on the card and on the host: ``e2e_lowbit_unpack``
+    holds it against the NumPy decode); an injected ``beams`` OOM on
+    the 2-bit copies' first epoch (the ``halve_batch`` rung, the same
+    tables)."""
+    from pulsarutils_tpu_torch.beams import multibeam_search
+    from pulsarutils_tpu_torch.faults import FaultPlan, FaultSpec
+    from pulsarutils_tpu_torch.ops.search import auto_chan_block
+    from pulsarutils_tpu_torch.resilience import ladder
+    from pulsarutils_tpu_torch.tuning import autotune
+    from pulsarutils_tpu_torch.tuning.geometry import geometry_key
+    from pulsarutils_tpu_torch.utils.logging_utils import BudgetAccountant
+
+    t0 = time.perf_counter()
+    paths = _write_beam_files(torch, np, workdir, seed)
+    emit("e2e_beams_files", beams=BEAM_COUNT, nchan=NCHAN,
+         nsamples=E2E_NSAMPLES, nbits=8,
+         bytes=sum(p.stat().st_size for p in paths),
+         seconds=time.perf_counter() - t0)
+    dms = e2e_trial_dms()
+    ndm = len(dms)
+    nblocks = -(-ndm // 32)
+    chunk_length = E2E_CHUNK // 2 * TSAMP
+
+    # the cold batch-keyed tuning, once; the arms below run warm
+    reset_counts()
+    t0 = time.perf_counter()
+    kernel = autotune.resolve_batched_kernel(
+        NCHAN, E2E_CHUNK, ndm, BEAM_COUNT, START_FREQ, BANDWIDTH, TSAMP,
+        dms, dm_block=32, chan_block=auto_chan_block(NCHAN, E2E_CHUNK, 32),
+        device="cuda")
+    tune_s = time.perf_counter() - t0
+    key = geometry_key("gpu", NCHAN, E2E_CHUNK, ndm, batch=BEAM_COUNT)
+    check(key.endswith(f"|b{BEAM_COUNT}") and kernel in ("roll", "gather"),
+          f"e2e_beams tuning: {key} -> {kernel}")
+    emit("e2e_beams_tuning", key=key, kernel=kernel, seconds=tune_s,
+         probe_launches=read_probe_counts())
+
+    def arm(label, out, main=True, **kw):
+        acc = BudgetAccountant()
+        uploaded = _counter_value("putpu_bytes_uploaded_total")
+        oom0 = _oom_events()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = multibeam_search(
+            [str(p) for p in kw.pop("paths", paths)], DMMIN, DMMAX,
+            snr_threshold=8.0, chunk_length=chunk_length,
+            output_dir=str(workdir / out), budget=acc, keep_tables=True,
+            device="cuda", **kw)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        if main:
+            check(ladder.level() == 0 and _oom_events() == oom0,
+                  f"e2e_beams {label}: an OOM descent on a main run")
+        record = acc.to_json(max_per_chunk=0)
+        rec = {"wall_s": wall, "epochs": len(acc.chunks),
+               "dispatches": acc.counters_total.get("dispatches", 0),
+               "readbacks": acc.counters_total.get("readbacks", 0),
+               "buckets_s": record["buckets_s"],
+               "bytes_uploaded": _counter_value(
+                   "putpu_bytes_uploaded_total") - uploaded,
+               "peak_device_bytes": torch.cuda.max_memory_allocated(),
+               "launches": counts}
+        emit("e2e_beams", run=label, kernel=kernel,
+             hits={b["beam"]: len(b["hits"]) for b in res["beams"]},
+             **rec)
+        return res, rec
+
+    batched, brec = arm("batched", "beams_batched", batched=True)
+    sequential, srec = arm("sequential", "beams_sequential", batched=False)
+    nchunks = brec["epochs"]
+    check(nchunks == 4, f"e2e_beams: {nchunks} epochs")
+    for label, rec, trips in (("batched", brec, nchunks),
+                              ("sequential", srec, BEAM_COUNT * nchunks)):
+        check(rec["launches"]["B4"] == BEAM_COUNT * nchunks * nblocks
+              and rec["launches"]["B1"] == 0,
+              f"e2e_beams {label}: launches {rec['launches']}, predicted "
+              f"B4 {BEAM_COUNT * nchunks * nblocks}")
+        check(rec["dispatches"] == trips and rec["readbacks"] == trips,
+              f"e2e_beams {label}: {rec['dispatches']} dispatches, "
+              f"{rec['readbacks']} readbacks for {nchunks} epochs")
+    # each arm uploads every beam-chunk once, one beam's operand on the
+    # card at a time
+    check(brec["bytes_uploaded"] == srec["bytes_uploaded"]
+          == BEAM_COUNT * nchunks * NCHAN * E2E_CHUNK * 4
+          and brec["peak_device_bytes"]
+          <= 1.25 * srec["peak_device_bytes"],
+          f"e2e_beams: uploads {brec['bytes_uploaded']} batched, "
+          f"{srec['bytes_uploaded']} beam by beam; peak "
+          f"{brec['peak_device_bytes']} batched, "
+          f"{srec['peak_device_bytes']} beam by beam")
+    check(_beam_tables_equal(np, batched, sequential),
+          "e2e_beams: batched tables differ from the sequential ones")
+    check(_snapshot(np, workdir / "beams_batched")
+          == _snapshot(np, workdir / "beams_sequential"),
+          "e2e_beams: ledgers or candidate files differ")
+    groups = batched["coincidence"]["groups"]
+    confirmed = [g for g in groups if g["verdict"] == "confirmed"
+                 and g["beams"] == [BEAM_PULSE_BEAM]]
+    vetoed = [g for g in groups if g["verdict"] == "rfi"
+              and g["n_beams"] == BEAM_COUNT]
+    pulse_t = (BEAM_PULSE_BLOCK * E2E_CHUNK // 2 + E2E_CHUNK // 4) * TSAMP
+    rfi_t = (BEAM_RFI_BLOCK * E2E_CHUNK // 2 + E2E_CHUNK // 4) * TSAMP
+    spacing = float(dms[1] - dms[0])
+    check(any(abs(g["time"] - pulse_t) < 1.0
+              and abs(g["dm"] - E2E_DM) <= 2 * spacing for g in confirmed),
+          f"e2e_beams: the one-beam pulse was not confirmed: {groups}")
+    check(any(abs(g["time"] - rfi_t) < 1.0 for g in vetoed),
+          f"e2e_beams: the all-beam pulse was not vetoed: {groups}")
+    emit("e2e_beams_coincidence", stats=batched["coincidence"]["stats"],
+         groups=[{k: g[k] for k in ("verdict", "beams", "n_members",
+                                    "time", "dm", "snr")}
+                 for g in groups],
+         batched_search_over_sequential=(brec["buckets_s"]["search"]
+                                         / srec["buckets_s"]["search"]),
+         tables_equal=True, files_equal=True)
+
+    # 2-bit copies on 2 chunks: device unpack against host unpack
+    t0 = time.perf_counter()
+    packed_paths = _write_beam_files(torch, np, workdir, seed, nbits=2,
+                                     nblocks=3)
+    write_s = time.perf_counter() - t0
+    dev, drec = arm("packed_device", "beams_packed_device",
+                    paths=packed_paths, packed="device")
+    host, hrec2 = arm("packed_host", "beams_packed_host",
+                      paths=packed_paths, packed="host")
+    check(drec["epochs"] == 2 and drec["launches"]["B4"]
+          == BEAM_COUNT * 2 * nblocks == hrec2["launches"]["B4"],
+          f"e2e_beams packed: {drec['launches']}, {hrec2['launches']}")
+    check(_beam_tables_equal(np, dev, host)
+          and _snapshot(np, workdir / "beams_packed_device")
+          == _snapshot(np, workdir / "beams_packed_host"),
+          "e2e_beams packed: device and host arms differ")
+    check(any(b["hits"] for b in dev["beams"]),
+          "e2e_beams packed: no hit on the 2-bit pulse")
+    ratio = hrec2["bytes_uploaded"] / drec["bytes_uploaded"]
+    check(ratio == 16, f"e2e_beams packed: upload ratio {ratio}")
+    emit("e2e_beams_packed", nbits=2, chunks=2, write_s=write_s,
+         upload_ratio_host_over_device=ratio, tables_equal=True,
+         files_equal=True)
+
+    # the halve_batch rung on the first epoch of the packed device arm
+    plan = FaultPlan([FaultSpec(site="beams", kind="oom", times=1)])
+    steps = _counter_value("putpu_oom_ladder_steps_total", step="halve_batch")
+    with plan.armed():
+        halved, hrec = arm("halve_batch", "beams_halved", main=False,
+                           paths=packed_paths, packed="device",
+                           max_chunks=1, resume=False)
+    check(plan.fired() == 1 and _counter_value(
+        "putpu_oom_ladder_steps_total", step="halve_batch") == steps + 1
+          and hrec["dispatches"] == 2
+          and hrec["launches"]["B4"] == BEAM_COUNT * nblocks,
+          f"e2e_beams halve_batch: fired {plan.fired()}, {hrec}")
+    for a, b in zip(halved["beams"], dev["beams"]):
+        check(_tables_bitwise(np, a["tables"][0][1], b["tables"][0][1]),
+              f"e2e_beams halve_batch: beam {a['beam']} table differs")
+    ladder.reset()
+    for p in paths + packed_paths:
+        p.unlink()
+    return {"multibeam batched (e2e_beams)": brec["launches"],
+            "multibeam beam by beam (e2e_beams)": srec["launches"],
+            "multibeam halve_batch rung, 2-bit, 1 epoch (e2e_beams)":
+                hrec["launches"],
+            "multibeam 2-bit packed=device (e2e_beams)": drec["launches"],
+            "multibeam 2-bit packed=host (e2e_beams)": hrec2["launches"]}
+
+
+def phase_e2e_stream(torch, np, workdir, path, chunk_length, seed):
+    """``stream_search`` over the end-to-end file's cleaned chunks, made
+    on the card by a generator (the bad-channel mask, the read and the
+    clean of the chunk loop), direct and hybrid at S/N 8: every hit
+    chunk's table equal bit for bit to ``search_by_chunks``' on the same
+    file, the same hits.  Then on a (2, 2) mesh of the card (the direct
+    run's hits, S/N within the mesh tolerance), with the canary in every
+    chunk (the science hits unchanged), with a persistent dispatch error
+    on one chunk under ``skip_failed`` (the other chunks' tables the
+    direct run's), and a 2-bit packed chunk against its host unpack
+    (bit for bit; the host unpack is the same torch decode run on the
+    host, which ``e2e_lowbit_unpack`` holds against the NumPy decode)."""
+    from pulsarutils_tpu_torch.faults import FaultPlan, FaultSpec
+    from pulsarutils_tpu_torch.io.lowbit import PackedFrames, pack_codes
+    from pulsarutils_tpu_torch.io.sigproc import FilterbankReader
+    from pulsarutils_tpu_torch.obs.canary import CanaryController
+    from pulsarutils_tpu_torch.parallel.stream import stream_search
+    from pulsarutils_tpu_torch.pipeline.search_pipeline import (
+        clean_chunk, plan_survey, search_by_chunks)
+    from pulsarutils_tpu_torch.pipeline.spectral_stats import get_bad_chans
+    from pulsarutils_tpu_torch.utils.logging_utils import BudgetAccountant
+
+    reader = FilterbankReader(str(path))
+    starts = plan_survey(str(path), chunk_length=chunk_length, dmmin=DMMIN,
+                         dmmax=DMMAX)["chunk_starts"]
+    mask = get_bad_chans(str(path))
+    if reader.band_descending:
+        mask = mask[::-1]
+    mask = torch.as_tensor(mask.copy()).cuda()
+    geom = (DMMIN, DMMAX, START_FREQ, BANDWIDTH, TSAMP)
+
+    def producer(pulled):
+        for s in starts:
+            pulled.append(s)
+            yield s, clean_chunk(reader.read_block_tensor(s, E2E_CHUNK,
+                                                          "cuda"), mask)
+
+    launches, out = {}, {}
+
+    def run(label, **kw):
+        acc, pulled = BudgetAccountant(), []
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        results, hits = stream_search(producer(pulled), *geom,
+                                      snr_threshold=8.0, device="cuda",
+                                      budget=acc, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        launches[f"stream_search {label} (e2e_stream)"] = counts
+        emit("e2e_stream", run=label, chunks=len(results), hits=len(hits),
+             launches=counts, wall_s=wall,
+             buckets_s=acc.to_json(max_per_chunk=0)["buckets_s"],
+             search_s_per_chunk=[c["buckets"].get("search")
+                                 for c in acc.chunks])
+        return results, hits
+
+    for label, kernel in (("direct", "pallas"), ("hybrid", "hybrid")):
+        ref, _ = search_by_chunks(
+            str(path), chunk_length=chunk_length, dmmin=DMMIN, dmmax=DMMAX,
+            snr_threshold=8.0, kernel=kernel, device="cuda",
+            make_plots=False, output_dir=str(workdir / f"stream_ref_{label}"))
+        results, hits = run(label, kernel=kernel)
+        check([s for s, _ in results] == starts,
+              f"e2e_stream {label}: chunks {[s for s, _ in results]}")
+        check([h[0] for h in hits] == [h[0] for h in ref] and ref,
+              f"e2e_stream {label}: hits {[h[0] for h in hits]} vs "
+              f"{[h[0] for h in ref]}")
+        tables = dict(results)
+        for lo, _, _, rtable in ref:
+            check(_tables_bitwise(np, tables[lo], rtable),
+                  f"e2e_stream {label}: chunk {lo}'s table differs from "
+                  "search_by_chunks'")
+        out[label] = (results, hits)
+    direct_results, direct_hits = out["direct"]
+
+    _, mesh_hits = run("direct on a 2x2 mesh", mesh=_card_mesh(torch,
+                                                               (2, 2)))
+    check([h[0] for h in mesh_hits] == [h[0] for h in direct_hits]
+          and all(a[2]["DM"] == b[2]["DM"] and a[2]["rebin"] == b[2]["rebin"]
+                  and abs(a[2]["snr"] - b[2]["snr"])
+                  <= MESH_SNR_RTOL * abs(b[2]["snr"])
+                  for a, b in zip(mesh_hits, direct_hits)),
+          "e2e_stream mesh: hits differ from one device's")
+
+    canary = CanaryController(rate=1.0, seed=seed)
+    _, canary_hits = run("direct, canary in every chunk", kernel="pallas",
+                         canary=canary)
+    summary = canary.summary()
+    check([h[0] for h in canary_hits] == [h[0] for h in direct_hits]
+          and summary["injected"] == len(starts)
+          and summary["recovered"] == len(starts),
+          f"e2e_stream canary: hits {[h[0] for h in canary_hits]}, "
+          f"{summary}")
+
+    plan = FaultPlan([FaultSpec(site="dispatch", chunks=(starts[1],),
+                                times=None)])
+    with plan.armed():
+        kept, _ = run("direct, skip_failed with one failing chunk",
+                      kernel="pallas", skip_failed=True)
+    ref_tables = dict(direct_results)
+    check([s for s, _ in kept] == [s for s in starts if s != starts[1]]
+          and all(_tables_bitwise(np, t, ref_tables[s]) for s, t in kept),
+          f"e2e_stream skip_failed: {[s for s, _ in kept]}")
+
+    # a 2-bit packed chunk, drawn and packed on the card
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 99)
+    codes = (torch.randn((E2E_CHUNK, NCHAN), generator=gen, device="cuda")
+             * 0.6 + 1.5).round_().clamp_(0, 3).to(torch.uint8)
+    frames = pack_codes(codes, 2).cpu().numpy()
+    packed = PackedFrames(frames, 2, NCHAN, band_descending=True)
+    uploaded = _counter_value("putpu_bytes_uploaded_total")
+    (_, t_packed), = stream_search([(0, packed)], *geom, device="cuda",
+                                   kernel="pallas")[0]
+    mid = _counter_value("putpu_bytes_uploaded_total")
+    (_, t_host), = stream_search([(0, packed.to_host())], *geom,
+                                 device="cuda", kernel="pallas")[0]
+    ratio = (_counter_value("putpu_bytes_uploaded_total") - mid) \
+        / (mid - uploaded)
+    check(_tables_bitwise(np, t_packed, t_host) and ratio == 16,
+          f"e2e_stream packed: tables equal "
+          f"{_tables_bitwise(np, t_packed, t_host)}, ratio {ratio}")
+    emit("e2e_stream_packed", nbits=2, upload_ratio_host_over_packed=ratio,
+         tables_equal=True)
+    return launches
+
+
+def phase_ring(torch, np, seed):
+    """``ring_dedisperse`` on virtual ``("time",)`` meshes of the card:
+    the end-to-end chunk (1024 x 2^18, 64 trials of the end-to-end plan,
+    4 shards: one hop) and a multi-hop case (1024 x 4096, 8 shards);
+    bit for bit with its plain program (``ring_plain``), within rtol 1e-4
+    and atol 1e-3 of B1's plane of the same trials; ms and peak bytes."""
+    from pulsarutils_tpu_torch.ops.dedisperse_cuda import dedisperse_plane
+    from pulsarutils_tpu_torch.ops.plan import offsets_for
+    from pulsarutils_tpu_torch.parallel.stream import (_ring_geometry,
+                                                       ring_dedisperse,
+                                                       ring_plain)
+
+    all_dms = e2e_trial_dms()
+    dms = all_dms[np.unique(np.linspace(0, len(all_dms) - 1,
+                                        RING_TRIALS).round().astype(int))]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 4242)
+    out = {}
+    for label, nsamples, shards in (("e2e_chunk", E2E_CHUNK, 4),
+                                    ("multi_hop", 4096, 8)):
+        data = torch.randn((NCHAN, nsamples), generator=gen, device="cuda")
+        mesh = _card_mesh(torch, (shards,), ("time",))
+        _, t_loc, hops, _ = _ring_geometry(NCHAN, nsamples, shards, dms,
+                                           START_FREQ, BANDWIDTH, TSAMP)
+        geom = (dms, START_FREQ, BANDWIDTH, TSAMP)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ring = ring_dedisperse(data, *geom, mesh)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        ms, _ = time_ms(torch, lambda: ring_dedisperse(data, *geom, mesh),
+                        runs=2)
+        plain = ring_plain(data, *geom, shards)
+        plain_ms, _ = time_ms(torch, lambda: ring_plain(data, *geom, shards),
+                              runs=2)
+        b1 = dedisperse_plane(data, offsets_for(dms, NCHAN, START_FREQ,
+                                                BANDWIDTH, TSAMP, nsamples))
+        diff = float((ring - b1).abs().max())
+        check(torch.equal(ring, plain),
+              f"ring {label}: differs from its plain program")
+        check(torch.allclose(ring, b1, rtol=1e-4, atol=1e-3),
+              f"ring {label}: max |diff| {diff} from B1's plane")
+        check(hops == (1 if label == "e2e_chunk" else 2),
+              f"ring {label}: {hops} hops")
+        emit("ring", case=label, nchan=NCHAN, nsamples=nsamples,
+             shards=shards, t_loc=t_loc, trials=len(dms), hops=hops,
+             plain_equal=True, b1_max_abs_diff=diff,
+             b1_bitwise=bool(torch.equal(ring, b1)), ms=ms,
+             plain_ms=plain_ms, peak_device_bytes=peak)
+        out[label] = ms
+        del data, ring, plain, b1
+    torch.cuda.empty_cache()
+    return out
 
 
 def main(argv=None):
@@ -4817,6 +5318,10 @@ def main(argv=None):
     parser.add_argument("--mesh", action="store_true",
                         help="build and the mesh phases only (mesh_sweep, "
                              "mesh_fdmt, e2e_mesh, mesh_period, multihost)")
+    parser.add_argument("--beams", action="store_true",
+                        help="build, the end-to-end file and the streaming "
+                             "and beam phases only (e2e_stream, e2e_beams, "
+                             "ring)")
     opts = parser.parse_args(argv)
 
     import numpy as np
@@ -4894,6 +5399,19 @@ def main(argv=None):
                 period = phase_e2e_period(torch, np, workdir, opts.seed)
             phase_autotune_accel(torch, np, workdir, period)
             return 0
+        if opts.beams:
+            shutil.rmtree(workdir, ignore_errors=True)
+            workdir.mkdir(parents=True)
+            path = workdir / "e2e.fil"
+            _write_e2e_file(np, path, opts.seed)
+            with cold_tuner("e2e_stream", warm=True):
+                phase_e2e_stream(torch, np, workdir, path,
+                                 E2E_CHUNK // 2 * TSAMP, opts.seed)
+            path.unlink()
+            with cold_tuner("e2e_beams"):
+                phase_e2e_beams(torch, np, workdir, opts.seed)
+            phase_ring(torch, np, opts.seed)
+            return 0
         if opts.mesh:
             phase_mesh_sweep(torch, np, opts.seed)
             phase_mesh_fdmt(torch, np, opts.seed)
@@ -4932,6 +5450,7 @@ def main(argv=None):
         knobs, knob_paths = phase_fdmt_knobs(torch, np, opts.seed)
         mesh_sweep = phase_mesh_sweep(torch, np, opts.seed)
         mesh_fdmt = phase_mesh_fdmt(torch, np, opts.seed)
+        phase_ring(torch, np, opts.seed)
         shutil.rmtree(workdir, ignore_errors=True)
         workdir.mkdir(parents=True)
         with cold_tuner("e2e_search", warm=True):
@@ -4946,6 +5465,9 @@ def main(argv=None):
             e2e_mesh = phase_e2e_mesh(torch, np, workdir, path,
                                       chunk_length, nchunks, hits,
                                       hybrid["hits"]["snr_8"])
+        with cold_tuner("e2e_stream", warm=True):
+            stream = phase_e2e_stream(torch, np, workdir, path,
+                                      chunk_length, opts.seed)
         with cold_tuner("e2e_fourier"):
             fourier = phase_e2e_fourier(torch, np, workdir, path,
                                         chunk_length, nchunks)
@@ -4974,6 +5496,8 @@ def main(argv=None):
         (workdir / "pulsar.fil").unlink()
         with cold_tuner("e2e_overlap", warm=True):
             overlap = phase_e2e_overlap(torch, np, workdir, opts.seed)
+        with cold_tuner("e2e_beams"):
+            beams = phase_e2e_beams(torch, np, workdir, opts.seed)
         phase_multihost()
     except CheckFailed as exc:
         print(f"chip_smoke: check failed: {exc}", file=sys.stderr)
@@ -5021,7 +5545,8 @@ def main(argv=None):
                 "periodicity job on a 2x2 mesh (mesh_period)":
                     mesh_period["job"],
                 **{f"autotune probe ({k})": v for k, v in PROBES.items()},
-                **knob_paths, **precision["runs"], **lowbit["launches"]}
+                **knob_paths, **precision["runs"], **lowbit["launches"],
+                **stream, **beams}
     shape = {"nchan": NCHAN, "nsamples": NSAMPLES}
 
     def levels(kind):

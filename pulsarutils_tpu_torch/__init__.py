@@ -16,8 +16,8 @@ for the CPU (``device="cpu"``), and raise when no card is present.
 
 The top level exports the JAX package's public names: the reference's
 library surface eagerly, the pipeline, I/O and accounting layers lazily
-(:data:`_LAZY`), the multi-device searches among them.  The streaming
-ring sweep is not ported yet (:data:`_NOT_PORTED`).
+(:data:`_LAZY`), the multi-device searches, the streaming search and
+the time-sharded ring sweep among them.
 """
 
 from .version import __version__
@@ -88,8 +88,7 @@ def test(extra_args=None):
 
 
 #: lazy re-exports of the pipeline, I/O and accounting layers (keeps a
-#: bare ``import pulsarutils_tpu_torch`` light), the JAX package's table
-#: less the names in :data:`_NOT_PORTED`
+#: bare ``import pulsarutils_tpu_torch`` light): the JAX package's table
 _LAZY = {
     "cleanup_data": ("pipeline.cleanup", "cleanup_data"),
     "get_bad_chans": ("pipeline.spectral_stats", "get_bad_chans"),
@@ -131,13 +130,12 @@ _LAZY = {
     "ShardedPlane": ("parallel.sharded_plane", "ShardedPlane"),
     "initialize_distributed": ("parallel.multihost", "initialize"),
     "pod_mesh": ("parallel.multihost", "pod_mesh"),
+    "ring_dedisperse": ("parallel.stream", "ring_dedisperse"),
 }
 
 #: the JAX package's top-level names the port does not have yet, with the
-#: ROADMAP.md item that holds each
-_NOT_PORTED = {
-    "ring_dedisperse": "queue A, A6 (streaming and beams)",
-}
+#: ROADMAP.md item that holds each (none since the ring sweep, A6)
+_NOT_PORTED = {}
 
 
 def __getattr__(name):

@@ -21,6 +21,8 @@ site         seam                                      kinds
                                                        ``oom``
 ``mesh``     the sharded route inside the dispatch     ``error``, ``hang``,
              (and the mesh hybrid's fused round)       ``oom``
+``beams``    ``BeamBatcher.search``, before the        ``error``, ``oom``
+             batched dispatch (``chunk=None``)
 ``host``     the host (CPU) fallback rung of the       ``oom``
              chunk search
 ``persist``  ``CandidateStore.save_candidate``         ``error``

@@ -8,12 +8,13 @@ decodes of the same bytes, equal value for value:
   :func:`unpack`; :func:`pack_numpy`, :func:`pack`: ``np.rint``, then
   clip to ``0 .. 2^nbits - 1``), the JAX package's host decode and
   encode: the sampled statistics of the reader thread
-  (:func:`sample_codes`) and :meth:`PackedFrames.to_host`;
+  (:func:`sample_codes`);
 * torch shift and mask on the frames' device (:func:`unpack_codes`,
   :func:`device_unpack_block`; :func:`pack_codes` the other way): the
   chunk loop uploads the packed bytes, ``nbits / 32`` of the float32
-  block's, and unpacks them on the card; the reader's host blocks, the
-  writer and ``PUclean`` decode and encode with the same functions
+  block's, and unpacks them on the card; the reader's host blocks,
+  :meth:`PackedFrames.to_host`, the writer and ``PUclean`` decode and
+  encode with the same functions
   (:meth:`~.sigproc.FilterbankReader.frame_values`,
   :meth:`~.sigproc.FilterbankWriter.encode_frames`).
 
@@ -195,10 +196,9 @@ class PackedFrames:
 
     def to_host(self):
         """The host decode: the float32 ``(nchan, nsamps)`` ascending
-        block."""
-        per_frame = self.frames.shape[1] * _PER_BYTE[self.nbits]
-        block = unpack(self.frames, self.nbits).reshape(
-            self.nsamps, per_frame)[:, :self.nchan].T
-        if self.band_descending:
-            block = block[::-1]
-        return np.ascontiguousarray(block)
+        block (:func:`device_unpack_block` on the host: the transpose
+        runs on the one-byte codes, on the host's threads)."""
+        frames = torch.from_numpy(np.require(self.frames,
+                                             requirements=["C", "W"]))
+        return device_unpack_block(frames, self.nbits, self.nchan,
+                                   self.band_descending).numpy()

@@ -53,7 +53,7 @@ import numpy as np
 from ..utils.logging_utils import logger
 from . import metrics as _metrics
 
-__all__ = ["CanaryController", "inject_tensor"]
+__all__ = ["CanaryController", "inject_tensor", "science_hit"]
 
 #: S/N-recovery-ratio histogram edges (measured / target)
 _RATIO_EDGES = (0.25, 0.5, 0.75, 0.9, 1.1, 1.5, 2.0)
@@ -493,3 +493,47 @@ def inject_tensor(block, bump):
     block[rows, cols] = (block[rows, cols].to(torch.float64)
                          + amps).to(block.dtype)
     return block
+
+
+def science_hit(canary, observed, istart, table, snr_threshold, where):
+    """The hit decision of every driver once ``canary`` has observed
+    chunk ``istart``'s ``table`` (``observed``: the result of
+    :meth:`CanaryController.observe`, None without a canary or an
+    injection), by the containment rules above.  Returns ``(is_hit,
+    science table, best row, promoted row index or None)``:
+
+    * a best row over the threshold that is the canary tags the chunk;
+      the strongest unlit row is promoted if it still clears the
+      threshold (its table without the canary-lit rows, counted as
+      ``putpu_canary_promoted_hits_total``), else the chunk is no hit;
+    * a real best row beside a recovered canary is a hit whose table
+      holds the canary-lit rows (``putpu_canary_contaminated_tables_total``).
+
+    ``where`` names the chunk in the log lines."""
+    best = table.best_row()
+    is_hit = bool(best["snr"] > snr_threshold)
+    if not is_hit or observed is None:
+        return is_hit, table, best, None
+    if observed["best_is_canary"]:
+        canary.tag_hit(istart)
+        idx = observed["science_idx"]
+        if idx is None or not observed["science_snr"] > float(snr_threshold):
+            return False, table, best, None
+        keep = ~observed["canary_rows"]
+        sci_table = type(table)({name: table[name][keep]
+                                 for name in table.colnames},
+                                meta=table.meta)
+        best = {name: table[name][idx] for name in table.colnames}
+        _metrics.counter("putpu_canary_promoted_hits_total").inc()
+        logger.info(
+            "%s: canary outranked a genuine pulse — promoted the science "
+            "best row (DM=%.2f snr=%.2f), canary rows dropped from its "
+            "table", where, float(best["DM"]), float(best["snr"]))
+        return True, sci_table, best, int(idx)
+    if observed["recovered"]:
+        _metrics.counter("putpu_canary_contaminated_tables_total").inc()
+        logger.info(
+            "%s: real hit alongside a recovered canary — trial rows near "
+            "DM %.1f in its table include synthetic signal", where,
+            canary.dm)
+    return True, table, best, None

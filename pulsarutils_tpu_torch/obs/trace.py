@@ -187,6 +187,17 @@ def pop_track(token):
     _TRACK.reset(token)
 
 
+@contextlib.contextmanager
+def set_track(name):
+    """Route spans in this context onto the named track (:func:`push_track`
+    and :func:`pop_track` around the block)."""
+    token = push_track(name)
+    try:
+        yield
+    finally:
+        pop_track(token)
+
+
 def _jsonable(v):
     if isinstance(v, (str, int, float, bool)) or v is None:
         return v

@@ -413,6 +413,31 @@ def block_offsets(offsets, dm_block):
     return offsets.reshape(-1, dm_block, nchan)
 
 
+def formulation_scores(data, blocks, chan_block, formulation, policy,
+                       planes=None):
+    """Dedisperse each trial block of ``blocks`` ``(nblocks, dm_block,
+    nchan)`` (offsets on ``data``'s device) with the gather or roll
+    formulation and score it through :func:`~.score_cuda.score_plane`
+    (B4 on the card).  Returns the ``(5, nblocks * dm_block)`` float64
+    scores, left on the device; ``planes`` (a list) collects each
+    block's plane.  Integer sums of packed codes are scored as their
+    float32 view (the same values).  The body of a gather or roll sweep,
+    and of every beam of a batch (:mod:`..beams.batcher`)."""
+    from .dedisperse import dedisperse_block_chunked
+    from .score_cuda import score_plane
+
+    scores = []
+    for offs in blocks:
+        plane = dedisperse_block_chunked(data, offs, chan_block,
+                                         formulation, policy)
+        if not plane.is_floating_point():
+            plane = plane.to(torch.float32)  # exact integer sums
+        scores.append(score_plane(plane))
+        if planes is not None:
+            planes.append(plane)
+    return torch.cat(scores, dim=1)
+
+
 def _search_formulation(data, offsets, capture_plane, formulation, policy,
                         dm_block, chan_block, packed_nbits=0):
     """Dedisperse ``offsets`` ``(ndm, nchan)`` with the gather or roll
@@ -435,8 +460,6 @@ def _search_formulation(data, offsets, capture_plane, formulation, policy,
     error propagates to the chunk loop.  ``packed_nbits``: the bits a
     sample of packed input had (the model's operand term)."""
     from ..resilience import memory_budget as _membudget
-    from .dedisperse import dedisperse_block_chunked
-    from .score_cuda import score_plane
 
     ndm = offsets.shape[0]
     nchan, nsamples = data.shape
@@ -463,16 +486,9 @@ def _search_formulation(data, offsets, capture_plane, formulation, policy,
         torch.cuda.reset_peak_memory_stats(data.device)
     fields, planes = [], []
     for lo in range(0, nblocks, per_pass):
-        scores = []
-        for offs in blocks[lo:lo + per_pass]:
-            plane = dedisperse_block_chunked(data, offs, chan_block,
-                                             formulation, policy)
-            if not plane.is_floating_point():
-                plane = plane.to(torch.float32)  # exact integer sums
-            scores.append(score_plane(plane))
-            if capture_plane:
-                planes.append(plane)
-        fields.append(to_numpy(torch.cat(scores, dim=1)))
+        fields.append(to_numpy(formulation_scores(
+            data, blocks[lo:lo + per_pass], chan_block, formulation, policy,
+            planes if capture_plane else None)))
     if calibrate:
         _membudget.observe(nchan, nsamples, ndm, _membudget.estimate_direct(
             nchan, nsamples, ndm, dm_block=dm_block, chan_block=chan_block,

@@ -67,7 +67,7 @@ from ..io.sigproc import FilterbankReader
 from ..obs import memory as obs_memory
 from ..obs import metrics as obs_metrics
 from ..obs import roofline
-from ..obs.canary import CanaryController, inject_tensor
+from ..obs.canary import CanaryController, inject_tensor, science_hit
 from ..obs.capacity import EwmaThroughput
 from ..obs.health import HealthEngine
 from ..obs.lineage import LineageRecorder
@@ -88,7 +88,6 @@ from ..utils.device import resolve_device, to_numpy
 from ..utils.logging_utils import BudgetAccountant, measure_device_rtt
 from ..utils.nvcc import KernelBuildError
 from ..utils.staging import FrameStaging
-from ..utils.table import ResultTable
 from .pulse_info import PulseInfo
 from .spectral_stats import get_bad_chans
 
@@ -1147,45 +1146,12 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
                     ncand_above = max(
                         ncand_above - canary_obs["n_above_near"], 0)
 
-            best = table.best_row()
-            is_hit = bool(best["snr"] > snr_threshold)
             # what persist, sift and lineage see, and the plane row of the
             # dedispersed profile: they move only when a canary tops the
             # chunk and a genuine weaker pulse is promoted in its place
-            sci_table = table
-            best_plane_idx = None
-            if is_hit and canary_obs is not None \
-                    and canary_obs["best_is_canary"]:
-                canary.tag_hit(istart)
-                sci_idx = canary_obs["science_idx"]
-                sci_snr = canary_obs["science_snr"]
-                if sci_idx is not None and sci_snr > float(snr_threshold):
-                    keep = ~canary_obs["canary_rows"]
-                    sci_table = ResultTable(
-                        {name: table[name][keep]
-                         for name in table.colnames}, meta=table.meta)
-                    best = {name: table[name][sci_idx]
-                            for name in table.colnames}
-                    best_plane_idx = int(sci_idx)
-                    obs_metrics.counter(
-                        "putpu_canary_promoted_hits_total").inc()
-                    logger.info(
-                        "chunk %d-%d: canary outranked a genuine pulse "
-                        "— promoted the science best row (DM=%.2f "
-                        "snr=%.2f), canary rows dropped from the "
-                        "persisted table", istart, iend,
-                        float(best["DM"]), float(best["snr"]))
-                else:
-                    is_hit = False
-            elif is_hit and canary_obs is not None \
-                    and canary_obs["recovered"]:
-                obs_metrics.counter(
-                    "putpu_canary_contaminated_tables_total").inc()
-                logger.info(
-                    "chunk %d-%d: real hit persisted alongside a "
-                    "recovered canary — trial rows near DM %.1f in the "
-                    "persisted table include synthetic signal", istart,
-                    iend, canary.dm)
+            is_hit, sci_table, best, best_plane_idx = science_hit(
+                canary, canary_obs, istart, table, snr_threshold,
+                f"chunk {istart}-{iend}")
             if table.meta.get("certified"):
                 # the noise certificate: no detection above the floor, no
                 # exact rescore paid (is_hit is False by construction)

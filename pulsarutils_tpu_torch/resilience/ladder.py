@@ -20,15 +20,18 @@ unfuse      the hybrid's fused seed program (one chain of      hybrid
             coarse sweep and the host-driven rescore (the
             two-stage path); its best row, rebin, peak and
             hits are the fused run's
+halve_batch an N-beam batch re-dispatches as two half-batches  beams
+            (each beam runs the same per-beam body whatever
+            the batch width, so every beam's table is the
+            unsplit batch's bit for bit); a single beam has
+            nothing to split and its error propagates
 floor       nothing smaller is left: on ``device="cpu"`` the   chunk
             host path (``kernel="auto"``) is tried once; an    loop
             out-of-memory error there, or at the card's
             floor, quarantines the chunk as ``oom_floor``
 =========== ================================================= ==========
 
-The JAX package's ``halve_batch`` rung has nothing to split in the port
-(beam batching is not ported), and the port never falls back from the
-card to the host.
+The port never falls back from the card to the host.
 
 State is one process-global level (device memory is a global resource),
 reset at the start of each ``search_by_chunks`` session: within a run a
@@ -49,7 +52,10 @@ from ..obs import metrics as _metrics
 
 __all__ = ["OOMFloorError", "is_resource_exhausted", "reset", "level",
            "descend", "direct_plan", "direct_maxed", "direct_step",
-           "unfuse_engaged", "oom_event", "count_split"]
+           "unfuse_engaged", "oom_event", "count_split", "STEPS"]
+
+#: the rungs of the table above, in descent order
+STEPS = ("split_dm", "unfuse", "halve_batch", "floor")
 
 #: message markers of an allocator failure: the XLA status text the JAX
 #: package matches, and the CUDA caching allocator's

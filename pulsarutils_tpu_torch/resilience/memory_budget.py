@@ -34,7 +34,8 @@ import threading
 
 __all__ = ["MEM_LIMIT_ENV", "SAFETY_FRACTION", "device_budget_bytes",
            "allocator_reports_limit", "headroom_bytes", "estimate_direct",
-           "estimate_chunk_bytes", "preflight_direct", "observe",
+           "estimate_chunk_bytes", "max_beam_batch", "preflight_direct",
+           "observe",
            "calibration_path", "calibration_offset", "calibrated",
            "record_calibration"]
 
@@ -175,6 +176,30 @@ def estimate_chunk_bytes(nchan, nsamples_searched, ndm, device=None, **kw):
     est = estimate_direct(nchan, nsamples_searched, ndm, **kw)["total"]
     return calibrated(_direct_key(nchan, nsamples_searched, ndm, device),
                       est)
+
+
+def max_beam_batch(nchan, nsamples, ndm, *, dm_block=None, chan_block=None,
+                   formulation="gather", packed_nbits=0, budget=None,
+                   device=None):
+    """Largest beam-batch width the budget admits (``None`` = unknown
+    budget, no cap).  The batch axis multiplies the operand term only
+    (the per-beam bodies run one after another, so one beam's workspace
+    is live at a time); the batch is capped so the estimate fits
+    :data:`SAFETY_FRACTION` of ``budget`` (default: the headroom of
+    ``device``).  This is the JAX package's estimate of a stacked
+    operand; the port's batcher holds one beam's operand at a time, so
+    the cap is conservative there."""
+    if budget is None:
+        budget = headroom_bytes(device)
+    if budget is None:
+        return None
+    one = estimate_direct(nchan, nsamples, ndm, dm_block=dm_block,
+                          chan_block=chan_block, formulation=formulation,
+                          packed_nbits=packed_nbits, batch=1)
+    fixed = one["workspace"] + one["scoring"] + one["outputs"]
+    per_beam = max(one["operand"], 1)
+    usable = SAFETY_FRACTION * budget - fixed
+    return max(int(usable // per_beam), 1)
 
 
 # -- preflight ---------------------------------------------------------------

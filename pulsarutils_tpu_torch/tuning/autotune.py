@@ -65,7 +65,7 @@ __all__ = ["KernelTuner", "get_tuner", "set_tuner", "autotune_mode",
            "static_search_kernel", "static_mesh_kernel", "hits_match", "harmonic_packs_match",
            "accel_tables_match", "measure_kernel_wall", "synthetic_chunk",
            "synthetic_accel_plane", "resolve_search_kernel",
-           "resolve_mesh_kernel",
+           "resolve_mesh_kernel", "resolve_batched_kernel",
            "resolve_accel_backend", "resolve_search_policy",
            "resolve_harmonic_kernel", "decision_seq", "decisions_since",
            "reset_decisions", "ABANDON_FACTOR", "ACCEL_SIGMA_RTOL",
@@ -351,7 +351,7 @@ class KernelTuner:
 
     def resolve(self, *, backend, nchan, nsamples, ndm, dtype, candidates,
                 static, runner_factory=None, equiv=None, sync=None,
-                mesh_shape=None):
+                mesh_shape=None, batch=1):
         """One kernel name for this geometry.
 
         ``candidates`` is the constraint-filtered variant list (static
@@ -362,7 +362,7 @@ class KernelTuner:
         cand_scores) -> bool``; default :func:`hits_match`).  ``sync``
         fences each run of the default measurer
         (:func:`measure_kernel_wall`).  ``mesh_shape`` (the sharded
-        paths') joins the key.  Under a ``"gpu"`` backend an error of
+        paths') and ``batch`` (the beam batcher's width) join the key.  Under a ``"gpu"`` backend an error of
         the static candidate propagates (module docstring).
         """
         from ..obs import metrics as _metrics
@@ -372,7 +372,7 @@ class KernelTuner:
             # the escape hatch: zero side effects, the static path
             return static
         key = geometry_key(backend, nchan, nsamples, ndm, dtype,
-                           mesh_shape=mesh_shape)
+                           mesh_shape=mesh_shape, batch=batch)
         with self._lock:
             hit = self._resolved.get(key)
         if hit is not None:
@@ -670,6 +670,42 @@ def resolve_mesh_kernel(mesh, nchan, nsamples, ndm, start_freq, bandwidth,
         nsamples=nsamples, ndm=ndm, dtype=dtype_name(None if f32 else dtype),
         candidates=candidates, static=static, runner_factory=runner_factory,
         sync=_device_sync(home), mesh_shape=mesh_shape)
+
+
+def resolve_batched_kernel(nchan, nsamples, ndm, batch, start_freq,
+                           bandwidth, sample_time, trial_dms, dm_block=None,
+                           chan_block=None, device="cpu"):
+    """``kernel=None`` resolution of the beam batcher on ``device``.
+
+    The batcher (:mod:`..beams.batcher`) runs one per-beam body for every
+    beam of a batch, so its candidates are the formulations that body
+    holds: ``"roll"`` and ``"gather"``, each trial block scored by B4.
+    The static choice is the JAX package's: the roll on the CPU, the
+    gather on the card.  The key carries the batch width (``|b<N>``), so
+    a batched winner never answers a single-beam key; the measurement
+    runs the real batched search over a synthetic beam stack
+    (:func:`~..beams.batcher.batched_probe_runners`) and checks beam 0's
+    scores against the static formulation's.  ``dm_block`` and
+    ``chan_block`` are the batcher's own blocking.
+    """
+    backend = device_backend(device)
+    static = "roll" if backend == "cpu" else "gather"
+    candidates = [static] + [k for k in ("roll", "gather") if k != static]
+
+    def runner_factory():
+        from ..beams.batcher import batched_probe_runners
+
+        sub_dms = _probe_grid(trial_dms, get_tuner().probe_trials)
+        return batched_probe_runners(candidates, nchan, nsamples, batch,
+                                     sub_dms, start_freq, bandwidth,
+                                     sample_time, dm_block=dm_block,
+                                     chan_block=chan_block, device=device)
+
+    return get_tuner().resolve(
+        backend=backend, nchan=nchan, nsamples=nsamples, ndm=ndm,
+        dtype=dtype_name(None), candidates=candidates, static=static,
+        runner_factory=runner_factory, sync=_device_sync(device),
+        batch=max(int(batch), 1))
 
 
 # ---------------------------------------------------------------------------

@@ -25,6 +25,15 @@ def resolve_device(device="cuda"):
     return dev
 
 
+def on_device(tensor, device):
+    """Whether ``tensor`` lies on ``device`` (``cuda`` with no index: the
+    current card)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return tensor.device == dev
+
+
 def to_numpy(x):
     """A host numpy array from a tensor (any device) or array-like."""
     if isinstance(x, torch.Tensor):

@@ -209,16 +209,18 @@ def test_spectral_stats_scan_equals_jax(baseline):
 # -- the top level -----------------------------------------------------------
 
 def test_top_level_names_equal_jax():
+    from pulsarutils_tpu_torch.parallel.stream import ring_dedisperse
+
     ours = set(P.__all__)
     theirs = set(J.__all__)
-    # plan_survey is the port's own export; the streaming ring sweep
-    # waits for its slice
-    assert (ours - {"plan_survey"}) | set(P._NOT_PORTED) == theirs
-    assert not ours & set(P._NOT_PORTED)
+    # plan_survey is the port's own export; every JAX name is ported
+    assert ours - {"plan_survey"} == theirs
+    assert P._NOT_PORTED == {}
     for name in P.__all__:
         assert getattr(P, name) is not None, name
-    with pytest.raises(AttributeError, match="A6"):
-        P.ring_dedisperse  # noqa: B018
+    assert P.ring_dedisperse is ring_dedisperse
+    with pytest.raises(AttributeError, match="no attribute"):
+        P.no_such_name  # noqa: B018
     assert P.__version__ == J.__version__
 
 

@@ -10,16 +10,16 @@
   pulsarutils_tpu_torch.cli.beams_main``;
 * :mod:`.coincidence`: the cross-beam anti-coincidence sift (a pulse at
   one (DM, time) in all or most beams is RFI, in 1-2 adjacent beams a
-  detection).
-
-The JAX package's job service (``beams/service.py``, ``SurveyService``)
-belongs to ROADMAP.md queue A, A10; importing
-:mod:`.service` raises until then.
+  detection);
+* :mod:`.service`: :class:`~.service.SurveyService`, the job queue
+  behind the ``/jobs`` HTTP API (:mod:`..obs.server`), which co-batches
+  same-geometry jobs as the beams of one batched run.
 """
 
 from .batcher import BeamBatcher, BeamGeometryError
 from .coincidence import coincidence_sift
 from .multibeam import multibeam_search
+from .service import SurveyService
 
 __all__ = ["BeamBatcher", "BeamGeometryError", "coincidence_sift",
-           "multibeam_search"]
+           "multibeam_search", "SurveyService"]

@@ -4,13 +4,19 @@
         [--dmmin 300] [--dmmax 400] [--snr-threshold 6] [--output-dir D]
         [--max-chunks N] [--no-resume] [--sequential] [--canary-rate R]
         [--veto-frac 0.7] [--max-real-beams 2] [--device cuda|cpu]
+    python -m pulsarutils_tpu_torch.cli.beams_main --serve --http-port P
+        [--http-host 127.0.0.1] [--output-dir D] [--device cuda|cpu]
+        [FILE.fil ...]
 
 Searches the files as the beams of one batched survey
 (:func:`~..beams.multibeam.multibeam_search`), logs each beam's hits and
-the coincidence verdicts and prints ``{"coincidence": stats}``.  Every
-flag of the JAX package's CLI, plus ``--device``; its service mode
-(``--serve``, ``--http-port``, ``--http-host``) belongs to ROADMAP.md
-queue A, A10, and raises.
+the coincidence verdicts and prints ``{"coincidence": stats}``.  With
+``--serve`` it runs the job service instead
+(:class:`~..beams.service.SurveyService` behind ``POST /jobs``,
+``GET /jobs[/<id>]`` and ``POST /jobs/<id>/cancel`` on ``--http-port``,
+``0`` for an ephemeral port, logged), each file given submitted as a
+job, until interrupted.  Every flag of the JAX package's CLI, plus
+``--device`` (the card by default; it raises without one).
 """
 
 from __future__ import annotations
@@ -21,9 +27,6 @@ import logging
 import os
 
 logger = logging.getLogger("pulsarutils_tpu_torch")
-
-#: the service mode's ROADMAP.md item
-_SERVE_NOT_PORTED = "queue A, A10 (service layers)"
 
 
 def build_parser():
@@ -52,10 +55,11 @@ def build_parser():
                         help="max adjacent beams a confirmed candidate may "
                              "span")
     parser.add_argument("--serve", action="store_true",
-                        help="the job service (not ported: "
-                             f"ROADMAP.md {_SERVE_NOT_PORTED})")
+                        help="run the job service (POST /jobs) instead of "
+                             "one direct survey")
     parser.add_argument("--http-port", type=int, default=None,
-                        help="the job service's port (with --serve)")
+                        help="the job service's port (with --serve; 0 = "
+                             "ephemeral, logged)")
     parser.add_argument("--http-host", default="127.0.0.1")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu")
@@ -88,17 +92,48 @@ def _run_direct(opts):
     return 0
 
 
+def _run_service(opts):
+    import time
+
+    from ..beams.service import SurveyService
+    from ..obs.server import start_obs_server
+
+    if opts.http_port is None:
+        logger.error("--serve needs --http-port (0 = ephemeral)")
+        return 2
+    out = opts.output_dir or os.getcwd()
+    service = SurveyService(out, resume=not opts.no_resume,
+                            device=opts.device)
+    server = start_obs_server(opts.http_port, host=opts.http_host,
+                              service=service)
+    logger.info("job service on http://%s:%d — POST /jobs to submit",
+                opts.http_host, server.port)
+    try:
+        for fname in opts.fnames:
+            job_id = service.submit({"fname": fname, "dmmin": opts.dmmin,
+                                     "dmmax": opts.dmmax,
+                                     "snr_threshold": opts.snr_threshold,
+                                     "max_chunks": opts.max_chunks})
+            logger.info("submitted %s as %s", fname, job_id)
+        while True:
+            time.sleep(1.0)
+    except KeyboardInterrupt:
+        logger.info("shutting down job service")
+    finally:
+        server.close()
+        service.close()
+    return 0
+
+
 def main(args=None):
     parser = build_parser()
     opts = parser.parse_args(args)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(message)s")
+    if not opts.serve and not opts.fnames:
+        parser.error("give at least one filterbank (or --serve)")
     if opts.serve:
-        raise NotImplementedError(
-            "PUmultibeam --serve (the job service) is not ported yet: "
-            f"ROADMAP.md {_SERVE_NOT_PORTED}")
-    if not opts.fnames:
-        parser.error("give at least one filterbank")
+        return _run_service(opts)
     return _run_direct(opts)
 
 

@@ -1,0 +1,243 @@
+"""``PUingest`` of the port: the live feed's command line.
+
+    python -m pulsarutils_tpu_torch.cli.ingest_main feed FILE.fil
+        [--host H] [--port P] [--udp] [--out PACKETS.bin]
+        [--samples-per-packet 256] [--pace S] [--packed]
+        [--max-samples N]
+    python -m pulsarutils_tpu_torch.cli.ingest_main listen --like FILE.fil
+        [--port 0] [--udp] [--step 8192] [--dmmin 300] [--dmmax 400]
+        [--kernel auto|pallas|gather|fdmt|hybrid|fourier]
+        [--idle-timeout S] [--summary-out PATH] [--device cuda|cpu]
+
+* ``feed`` packetises a SIGPROC filterbank into the version-1 wire
+  format (:mod:`..io.packets`) and sends it over TCP or UDP, or writes
+  the packet stream to ``--out`` (replayable with ``nc``).
+* ``listen`` binds a socket source, assembles the packets into
+  fixed-geometry chunks (:class:`~..ingest.assembler.ChunkAssembler`)
+  and runs :func:`~..parallel.stream.stream_search` on them as they
+  arrive, on the card unless ``--device cpu``; it raises without a card
+  (nothing falls back to the host).  It exits 1 if any sample is
+  unaccounted for.
+
+The JAX package's flags, except ``--backend jax|numpy``, which is
+``--device cuda|cpu`` here.  A loopback pair (``listen`` in one shell,
+``feed`` in another) reproduces the disk stream's tables bit for bit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+
+import numpy as np
+
+from ..utils.logging_utils import logger
+
+
+def build_parser():
+    parser = argparse.ArgumentParser(
+        description="Live ingest frontend: packetize filterbank data "
+                    "over a socket (feed) or search a live packet "
+                    "stream (listen)")
+    sub = parser.add_subparsers(dest="mode", required=True)
+
+    feed = sub.add_parser(
+        "feed", help="packetize a filterbank file to a socket or file")
+    feed.add_argument("fname", help="input SIGPROC filterbank file")
+    feed.add_argument("--host", default="127.0.0.1")
+    feed.add_argument("--port", type=int, default=56700)
+    feed.add_argument("--udp", action="store_true",
+                      help="send datagrams instead of a TCP stream")
+    feed.add_argument("--out", default=None, metavar="PACKETS.bin",
+                      help="write the encoded packet stream to a file "
+                           "instead of a socket (replay with nc)")
+    feed.add_argument("--samples-per-packet", type=int, default=256)
+    feed.add_argument("--pace", type=float, default=0.0, metavar="S",
+                      help="sleep this long between packets (0 = "
+                           "as fast as the socket takes them)")
+    feed.add_argument("--packed", action="store_true",
+                      help="ship the file's packed low-bit frames "
+                           "verbatim (1/2/4-bit files only): ingest "
+                           "bandwidth is bytes, the device unpacks")
+    feed.add_argument("--max-samples", type=int, default=None,
+                      help="stop after this many time samples")
+
+    listen = sub.add_parser(
+        "listen", help="assemble + search a live packet stream")
+    listen.add_argument("--like", default=None, metavar="FILE.fil",
+                        help="take geometry (nchan, band, tsamp, "
+                             "nbits) from this filterbank header")
+    listen.add_argument("--nchan", type=int, default=None)
+    listen.add_argument("--fbottom", type=float, default=None,
+                        help="bottom of the band (MHz)")
+    listen.add_argument("--bandwidth", type=float, default=None,
+                        help="total bandwidth (MHz)")
+    listen.add_argument("--tsamp", type=float, default=None,
+                        help="sample time (s)")
+    listen.add_argument("--nbits", type=int, default=0,
+                        choices=(0, 1, 2, 4),
+                        help="payload depth (0 = float32 frames)")
+    listen.add_argument("--band-descending", action="store_true")
+    listen.add_argument("--host", default="127.0.0.1")
+    listen.add_argument("--port", type=int, default=56700,
+                        help="bind port (0 = ephemeral, logged)")
+    listen.add_argument("--udp", action="store_true")
+    listen.add_argument("--step", type=int, default=8192,
+                        help="chunk length in samples")
+    listen.add_argument("--reorder-window", type=int, default=1024,
+                        help="straggler tolerance in samples")
+    listen.add_argument("--shed-chunks", type=int, default=8,
+                        help="ready-queue bound before drop-oldest "
+                             "load shedding")
+    listen.add_argument("--quarantine-policy", default="sanitize",
+                        choices=("sanitize", "strict", "off"))
+    listen.add_argument("--output-dir", default=None,
+                        help="directory for the quarantine manifest "
+                             "(feed_gap / shed_overrun records)")
+    listen.add_argument("--dmmin", type=float, default=300.0)
+    listen.add_argument("--dmmax", type=float, default=400.0)
+    listen.add_argument("--snr-threshold", type=float, default=6.0)
+    listen.add_argument("--device", default="cuda",
+                        help="cuda (default; raises without a card) or "
+                             "cpu; the JAX package's --backend")
+    listen.add_argument("--kernel",
+                        choices=("auto", "pallas", "gather", "fdmt",
+                                 "hybrid", "fourier"),
+                        default="auto")
+    listen.add_argument("--max-chunks", type=int, default=None,
+                        help="stop after searching this many chunks")
+    listen.add_argument("--idle-timeout", type=float, default=None,
+                        metavar="S",
+                        help="end the session after the feed has been "
+                             "quiet this long (default: listen "
+                             "forever)")
+    listen.add_argument("--summary-out", default=None, metavar="PATH",
+                        help="write the ingest session summary "
+                             "(packets, ledger, unaccounted) as JSON")
+    return parser
+
+
+def _run_feed(opts):
+    from ..io.packets import packetize_array
+    from ..io.sigproc import FilterbankReader
+    from ..ingest import feed_file, feed_tcp, feed_udp
+
+    reader = FilterbankReader(opts.fname)
+    nsamps = reader.nsamples
+    if opts.max_samples is not None:
+        nsamps = min(nsamps, opts.max_samples)
+    if opts.packed:
+        raw = reader.read_block_packed(0, nsamps)
+        encoded = packetize_array(
+            raw, samples_per_packet=opts.samples_per_packet,
+            nbits=reader.nbits, nchan=reader.nchans,
+            band_descending=reader.band_descending)
+    else:
+        block = reader.read_block(0, nsamps).astype(np.float32)
+        encoded = packetize_array(
+            block, samples_per_packet=opts.samples_per_packet,
+            band_descending=reader.band_descending)
+    if opts.out:
+        n = feed_file(opts.out, encoded)
+        logger.info("%s: %d packets (%d samples) -> %s",
+                    opts.fname, n, nsamps, opts.out)
+    elif opts.udp:
+        n = feed_udp(opts.host, opts.port, encoded, pace_s=opts.pace)
+        logger.info("%s: %d packets -> udp://%s:%d",
+                    opts.fname, n, opts.host, opts.port)
+    else:
+        n = feed_tcp(opts.host, opts.port, encoded, pace_s=opts.pace)
+        logger.info("%s: %d packets -> tcp://%s:%d",
+                    opts.fname, n, opts.host, opts.port)
+    return 0
+
+
+def _listen_geometry(opts):
+    if opts.like:
+        from ..io.sigproc import FilterbankReader
+
+        reader = FilterbankReader(opts.like)
+        h = reader.header
+        nbits = reader.nbits if reader.nbits in (1, 2, 4) else 0
+        return (reader.nchans, h["fbottom"], h["bandwidth"], h["tsamp"],
+                nbits if opts.nbits == 0 else opts.nbits,
+                reader.band_descending)
+    missing = [flag for flag, val in
+               (("--nchan", opts.nchan), ("--fbottom", opts.fbottom),
+                ("--bandwidth", opts.bandwidth), ("--tsamp", opts.tsamp))
+               if val is None]
+    if missing:
+        raise SystemExit(
+            f"listen needs --like FILE or all of: {' '.join(missing)}")
+    return (opts.nchan, opts.fbottom, opts.bandwidth, opts.tsamp,
+            opts.nbits, opts.band_descending)
+
+
+def _run_listen(opts):
+    from ..faults.policy import QuarantineManifest
+    from ..ingest import ChunkAssembler, TCPSource, UDPSource
+    from ..obs.health import HealthEngine
+    from ..parallel.stream import stream_search
+    from ..utils.device import resolve_device
+
+    # no card: raise before a socket is bound
+    resolve_device(opts.device)
+    nchan, fbottom, bandwidth, tsamp, nbits, descending = \
+        _listen_geometry(opts)
+    manifest = (QuarantineManifest(opts.output_dir, "ingest")
+                if opts.output_dir else None)
+    health = HealthEngine()
+    asm = ChunkAssembler(
+        nchan=nchan, step=opts.step, nbits=nbits,
+        band_descending=descending,
+        reorder_window=opts.reorder_window,
+        policy=opts.quarantine_policy, shed=opts.shed_chunks,
+        manifest=manifest, health=health)
+    source_cls = UDPSource if opts.udp else TCPSource
+    source = source_cls(asm, host=opts.host, port=opts.port,
+                        idle_timeout_s=opts.idle_timeout)
+
+    def chunks():
+        for i, (istart, chunk) in enumerate(asm.chunks()):
+            if opts.max_chunks is not None and i >= opts.max_chunks:
+                return
+            yield istart, chunk
+
+    with source:
+        logger.info("listening on %s://%s:%d (nchan=%d step=%d "
+                    "nbits=%d)", "udp" if opts.udp else "tcp",
+                    source.host, source.port, nchan, opts.step, nbits)
+        results, hits = stream_search(
+            chunks(), opts.dmmin, opts.dmmax, fbottom, bandwidth,
+            tsamp, device=opts.device, kernel=opts.kernel,
+            snr_threshold=opts.snr_threshold, health=health)
+    summary = asm.summary()
+    logger.info("feed drained: %d chunks searched, %d hits; ledger %s",
+                len(results), len(hits), summary["ledger"])
+    for istart, _table, best in hits:
+        logger.info("  chunk %d: DM=%.2f snr=%.2f peak=%d", istart,
+                    float(best["DM"]), float(best["snr"]),
+                    int(best["peak"]))
+    if summary["ledger"]["unaccounted"]:
+        logger.error("%d samples unaccounted for — ledger/manifest "
+                     "accounting is broken, please report",
+                     summary["ledger"]["unaccounted"])
+    if opts.summary_out:
+        with open(opts.summary_out, "w") as fh:
+            json.dump(summary, fh, indent=2, sort_keys=True)
+        logger.info("ingest summary -> %s", opts.summary_out)
+    return 0 if not summary["ledger"]["unaccounted"] else 1
+
+
+def main(args=None):
+    opts = build_parser().parse_args(args)
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(levelname)s %(message)s")
+    if opts.mode == "feed":
+        return _run_feed(opts)
+    return _run_listen(opts)
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

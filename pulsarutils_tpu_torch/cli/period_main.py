@@ -75,6 +75,11 @@ def build_parser():
                         help="inject the synthetic periodic canary and "
                              "report its recall")
     parser.add_argument("--chunk-length", type=float, default=None)
+    parser.add_argument("--http-port", type=int, default=None,
+                        help="live /metrics /healthz /progress surface")
+    parser.add_argument("--report-out", default=None,
+                        help="write the survey report (markdown + HTML) "
+                             "with the Periodicity section")
     parser.add_argument("--json", action="store_true",
                         help="print the candidate table as JSON lines")
     parser.add_argument("--device", default="cuda",
@@ -103,9 +108,10 @@ def main(argv=None):
         sigma_threshold=opts.sigma_threshold, topk=opts.topk,
         max_harmonics=opts.max_harmonics, fmin=opts.fmin, fmax=opts.fmax,
         nbin=opts.nbin, zap_path=opts.zap, rebin=rebin,
-        snapshot_every=opts.snapshot_every, snr_threshold=snr, output_dir=opts.output_dir,
-        resume=not opts.no_resume, canary=opts.canary, device=opts.device,
-        **kwargs)
+        snapshot_every=opts.snapshot_every, snr_threshold=snr,
+        output_dir=opts.output_dir, resume=not opts.no_resume,
+        canary=opts.canary, http_port=opts.http_port,
+        report_out=opts.report_out, device=opts.device, **kwargs)
     if not res["complete"]:
         logger.warning("job incomplete — re-run the same command to resume "
                        "from the snapshot")

@@ -26,6 +26,11 @@ site         seam                                      kinds
 ``host``     the host (CPU) fallback rung of the       ``oom``
              chunk search
 ``persist``  ``CandidateStore.save_candidate``         ``error``
+``ingest``   the live feed's send path, per packet     ``drop``, ``reorder``,
+             (``chunks`` selects packet ``seq``s)      ``duplicate``,
+                                                       ``corrupt``,
+                                                       ``disconnect``,
+                                                       ``burst``
 ============ ========================================= =====================
 
 ``kind="oom"`` raises a real ``torch.OutOfMemoryError`` (the type the
@@ -78,6 +83,12 @@ _SITE_DEFAULT_EXC = {"read": "OSError", "persist": "OSError"}
 
 CORRUPT_KINDS = ("nan", "inf", "dead_channels", "zero_run", "saturate",
                  "impulse")
+
+#: feed-chaos kinds of the ``ingest`` site, applied per packet by
+#: :func:`~..ingest.source.feed_packets` (the ``chunks`` selector
+#: matches the packet ``seq``)
+_INGEST_KINDS = ("drop", "reorder", "duplicate", "corrupt",
+                 "disconnect", "burst")
 
 
 def _resource_exhausted_exc(site, chunk):
@@ -170,6 +181,20 @@ class FaultPlan:
             exc_cls = _EXC_TYPES.get(exc_name, RuntimeError)
             raise exc_cls(f"FAULTPLAN: injected {site} {spec.kind} "
                           f"(chunk={chunk})")
+
+    def ingest_action(self, site, seq=None):
+        """First matching feed-chaos action for one packet, ``(kind,
+        seconds, frac)``, or ``None``; the spec's ``chunks`` selector
+        matches the packet ``seq``."""
+        for spec in self.specs:
+            if spec.kind not in _INGEST_KINDS or spec.site != site:
+                continue
+            if not spec.matches(site, seq):
+                continue
+            if not self._claim(spec):
+                continue
+            return spec.kind, spec.seconds, spec.frac
+        return None
 
     def truncated_length(self, site, chunk, n):
         """Shortened read length for matching ``truncate`` specs."""
@@ -329,3 +354,8 @@ def wants_corrupt(site, chunk):
 def truncated_length(site, chunk, n):
     plan = _plan()
     return n if plan is None else plan.truncated_length(site, chunk, n)
+
+
+def ingest_action(site, seq=None):
+    plan = _plan()
+    return None if plan is None else plan.ingest_action(site, seq=seq)

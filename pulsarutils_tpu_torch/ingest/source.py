@@ -1,0 +1,357 @@
+"""Socket sources and local feeders of the live feed.
+
+Receive side: :class:`TCPSource` (a listening server; a real backend
+pushes, and so does ``nc host port < packets.bin``) and
+:class:`UDPSource` (one datagram a packet).  Each runs a daemon reader
+thread that decodes the wire format of :mod:`..io.packets` and pushes
+into a :class:`~.assembler.ChunkAssembler`.  A dropped TCP connection is
+accepted again (up to ``max_reconnects``, counted into the assembler's
+health conditions), decode and CRC failures are counted and skipped
+(their samples become gaps), and :meth:`_SourceBase.close` drains: the
+socket closes, the reader joins within a bounded timeout and the
+assembler is flushed so the consumer's iterator ends.  The reader threads
+are host code and make no CUDA call.
+
+Send side: :func:`feed_tcp`, :func:`feed_udp` and :func:`feed_file`
+stream a list of encoded packets (``PUingest feed``, the tests,
+``chip_smoke.py``).  The ``ingest`` fault site fires here per packet:
+``drop`` loses it, ``reorder`` swaps it with its successor,
+``duplicate`` sends it twice, ``corrupt`` flips payload bytes (the
+receiver's CRC rejects it: a gap, never poisoned data), ``disconnect``
+tears the TCP connection down and connects again, ``burst`` switches
+pacing off so the feed outruns the search.
+"""
+
+from __future__ import annotations
+
+import logging
+import socket
+import threading
+import time
+
+from ..faults import inject as fault_inject
+from ..io import packets as wire
+
+__all__ = ["TCPSource", "UDPSource", "feed_packets", "feed_tcp",
+           "feed_udp", "feed_file"]
+
+logger = logging.getLogger("pulsarutils_tpu_torch.ingest")
+
+_POLL_S = 0.2
+
+
+class _SourceBase:
+    """The reader thread's lifecycle: ``start()`` spawns the daemon
+    loop, ``close()`` stops it within a bounded join.
+
+    ``idle_timeout_s`` (optional) ends the session from the *feed*
+    side: once at least one packet has arrived, a quiet wire for that
+    long stops the reader and flushes the assembler, so a blocking
+    consumer (``PUingest listen``) terminates
+    without an operator ``close()``.  ``None`` (default) listens
+    forever — the service posture."""
+
+    def __init__(self, assembler, idle_timeout_s=None):
+        self.assembler = assembler
+        self.idle_timeout_s = (None if idle_timeout_s is None
+                               else float(idle_timeout_s))
+        self._stop = threading.Event()
+        self._thread = None
+        self._last_activity = None
+
+    def _touch(self):
+        self._last_activity = time.monotonic()
+
+    def _idle_expired(self):
+        return (self.idle_timeout_s is not None
+                and self._last_activity is not None
+                and time.monotonic() - self._last_activity
+                > self.idle_timeout_s)
+
+    def start(self):
+        # the idle clock runs from session start, not first packet: a
+        # feed that never connects is the quietest feed there is, and
+        # a listener with idle_timeout_s set must not wait forever
+        self._touch()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="putpu-ingest-reader")
+        self._thread.start()
+        return self
+
+    def __enter__(self):
+        return self.start()
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def wait(self, timeout_s=None):
+        """Block until the reader thread exits on its own (idle
+        timeout / reconnect budget).  Returns True when it has; use
+        before :meth:`close` to guarantee every byte already on the
+        wire is assembled rather than dropped by the shutdown."""
+        if self._thread is None:
+            return True
+        self._thread.join(timeout_s)
+        return not self._thread.is_alive()
+
+    def close(self, timeout_s=5.0, *, flush=True):
+        """Stop the reader (bounded), then flush the assembler so the
+        consumer's chunk iterator terminates."""
+        self._stop.set()
+        self._shutdown_sockets()
+        if self._thread is not None:
+            self._thread.join(timeout_s)
+        self.assembler.close(flush=flush)
+
+    def _shutdown_sockets(self):  # pragma: no cover - overridden
+        pass
+
+
+class TCPSource(_SourceBase):
+    """Listen on ``(host, port)``; accept one pushing connection at a
+    time, re-accepting after a disconnect up to ``max_reconnects``
+    times with ``backoff_s`` between accept failures."""
+
+    def __init__(self, assembler, *, host="127.0.0.1", port=0,
+                 max_reconnects=8, backoff_s=0.05, idle_timeout_s=None):
+        super().__init__(assembler, idle_timeout_s)
+        self.max_reconnects = int(max_reconnects)
+        self.backoff_s = float(backoff_s)
+        self._listener = socket.socket(socket.AF_INET,
+                                       socket.SOCK_STREAM)
+        self._listener.setsockopt(socket.SOL_SOCKET,
+                                  socket.SO_REUSEADDR, 1)
+        self._listener.bind((host, int(port)))
+        self._listener.listen(1)
+        self._listener.settimeout(_POLL_S)
+        self.host, self.port = self._listener.getsockname()[:2]
+        self._conn = None
+
+    def _shutdown_sockets(self):
+        try:
+            self._listener.close()
+        except OSError:
+            pass
+        conn = self._conn
+        if conn is not None:
+            try:
+                conn.close()
+            except OSError:
+                pass
+
+    def _run(self):
+        accepted = 0
+        while not self._stop.is_set():
+            try:
+                conn, addr = self._listener.accept()
+            except socket.timeout:
+                if self._idle_expired():
+                    logger.info("ingest: feed idle for %.1fs; "
+                                "draining", self.idle_timeout_s)
+                    break
+                continue
+            except OSError:
+                break
+            accepted += 1
+            if accepted > 1:
+                # a re-accepted connection IS the recovery event
+                self.assembler.note_disconnect()
+            logger.info("ingest: connection %d from %s", accepted, addr)
+            conn.settimeout(_POLL_S)
+            self._conn = conn
+            try:
+                self._read_connection(conn)
+            finally:
+                self._conn = None
+                self._touch()
+                try:
+                    conn.close()
+                except OSError:
+                    pass
+            if accepted > self.max_reconnects:
+                logger.error(
+                    "ingest: reconnect budget (%d) exhausted; "
+                    "stopping the reader", self.max_reconnects)
+                break
+            time.sleep(self.backoff_s)
+        if not self._stop.is_set():
+            # natural reader exit (idle feed / reconnect budget): flush
+            # so a blocked consumer's iterator terminates
+            self.assembler.close(flush=True)
+
+    def _read_connection(self, conn):
+        def recv(n):
+            while not self._stop.is_set():
+                try:
+                    data = conn.recv(n)
+                    if data:
+                        self._touch()
+                    return data
+                except socket.timeout:
+                    if self._idle_expired():
+                        return b""  # quiet open connection: drain
+                    continue
+                except OSError:
+                    return b""
+            return b""
+
+        def corrupt(exc):
+            # length framing survives a CRC hit: skip the packet (its
+            # samples surface as a gap), keep the connection
+            logger.warning("ingest: %s", exc)
+            self.assembler.note_invalid()
+
+        try:
+            for pkt in wire.read_packet_stream(recv, on_corrupt=corrupt):
+                self.assembler.push(pkt)
+                if self._stop.is_set():
+                    return
+        except wire.PacketError as exc:
+            logger.warning("ingest: torn stream: %s", exc)
+            self.assembler.note_invalid()
+
+
+class UDPSource(_SourceBase):
+    """Bind ``(host, port)``; one datagram = one packet.  Datagram
+    transports lose/reorder/duplicate on their own — the assembler's
+    whole job — so there is no connection state to rebuild."""
+
+    MAX_DGRAM = 65536
+
+    def __init__(self, assembler, *, host="127.0.0.1", port=0,
+                 idle_timeout_s=None):
+        super().__init__(assembler, idle_timeout_s)
+        self._sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        self._sock.bind((host, int(port)))
+        self._sock.settimeout(_POLL_S)
+        self.host, self.port = self._sock.getsockname()[:2]
+
+    def _shutdown_sockets(self):
+        try:
+            self._sock.close()
+        except OSError:
+            pass
+
+    def _run(self):
+        while not self._stop.is_set():
+            try:
+                dgram, _addr = self._sock.recvfrom(self.MAX_DGRAM)
+            except socket.timeout:
+                if self._idle_expired():
+                    logger.info("ingest: feed idle for %.1fs; "
+                                "draining", self.idle_timeout_s)
+                    break
+                continue
+            except OSError:
+                break
+            self._touch()
+            try:
+                pkt, _ = wire.decode_packet(dgram)
+            except wire.PacketError as exc:
+                logger.warning("ingest: bad datagram: %s", exc)
+                self.assembler.note_invalid()
+                continue
+            self.assembler.push(pkt)
+        if not self._stop.is_set():
+            self.assembler.close(flush=True)
+
+
+# -- send side ---------------------------------------------------------------
+
+def feed_packets(encoded, send, *, pace_s=0.0, reconnect=None):
+    """Drive ``send(bytes)`` with an encoded-packet list, applying the
+    ``ingest`` fault site per packet (seq = list index).  ``reconnect``
+    (when given) is called on an injected ``disconnect`` and must
+    return a fresh ``send`` callable.  Returns the number of packets
+    actually sent.
+    """
+    sent = 0
+    paced = pace_s
+    pending = list(encoded)
+    i = 0
+    while i < len(pending):
+        buf = pending[i]
+        action = fault_inject.ingest_action("ingest", seq=i)
+        kind = action[0] if action else None
+        if kind == "drop":
+            i += 1
+            continue
+        if kind == "burst":
+            paced = 0.0
+        if kind == "reorder" and i + 1 < len(pending):
+            pending[i], pending[i + 1] = pending[i + 1], pending[i]
+            buf = pending[i]
+        if kind == "corrupt":
+            body = bytearray(buf)
+            # flip payload bytes only: the header still parses, the
+            # CRC rejects the payload, the receiver counts + gaps
+            for off in range(wire.HEADER_SIZE,
+                             min(len(body), wire.HEADER_SIZE + 16)):
+                body[off] ^= 0xFF
+            buf = bytes(body)
+        if kind == "disconnect" and reconnect is not None:
+            send = reconnect()
+        send(buf)
+        sent += 1
+        if kind == "duplicate":
+            send(buf)
+            sent += 1
+        if paced:
+            time.sleep(paced)
+        i += 1
+    return sent
+
+
+def feed_tcp(host, port, encoded, *, pace_s=0.0, connect_timeout=5.0):
+    """Stream encoded packets to a listening :class:`TCPSource`;
+    an injected ``disconnect`` tears the connection and reconnects.
+
+    ``connect_timeout`` bounds the connection only: once connected, a
+    send waits while the receiver drains (TCP backpressure).  The JAX
+    feeder keeps the timeout on every send, so a receiver busy for longer
+    (cutting a 1 GB chunk) broke the feed mid-stream."""
+    state = {"sock": None}
+
+    def connect():
+        if state["sock"] is not None:
+            try:
+                state["sock"].close()
+            except OSError:
+                pass
+        sock = socket.create_connection((host, int(port)),
+                                        timeout=connect_timeout)
+        sock.settimeout(None)
+        state["sock"] = sock
+        return sock.sendall
+
+    send = connect()
+    try:
+        return feed_packets(encoded, send, pace_s=pace_s,
+                            reconnect=connect)
+    finally:
+        try:
+            state["sock"].close()
+        except OSError:
+            pass
+
+
+def feed_udp(host, port, encoded, *, pace_s=0.0):
+    """Send encoded packets as datagrams to a :class:`UDPSource`."""
+    sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    addr = (host, int(port))
+    try:
+        return feed_packets(
+            encoded, lambda buf: sock.sendto(buf, addr), pace_s=pace_s)
+    finally:
+        sock.close()
+
+
+def feed_file(path, encoded):
+    """Write the packet stream to a flat file — the netcat quickstart's
+    counterpart (``nc host port < packets.bin``)."""
+    n = 0
+    with open(path, "wb") as f:
+        for buf in encoded:
+            f.write(buf)
+            n += 1
+    return n

@@ -55,6 +55,10 @@ class CandidateStore:
             self._ledger_path = os.path.join(
                 self.directory, f"progress_{fingerprint}.json")
             self._ledger = self._load_ledger()
+        #: ``(size, mtime_ns)`` of this store's last ledger write: while
+        #: the file still matches it nobody else wrote, and
+        #: :meth:`_merge_from_disk` skips the read
+        self._last_write_stat = None
 
     def _load_ledger(self):
         """Load the ledger; a torn or corrupt file (a parse or shape
@@ -93,7 +97,12 @@ class CandidateStore:
         again on resume, the reason kept for the audit.  The ``done`` list
         stays sorted; the ``quarantined`` map (keys sorted numerically)
         appears only once a reason is recorded, so a clean run's ledger
-        has no such key."""
+        has no such key.
+
+        Each write first unions the ledger on disk into this one
+        (:meth:`_merge_from_disk`): two stores sharing a fingerprint (two
+        service jobs over one file and physics) each keep the other's
+        chunks, and the sorted union is the bytes a serial run writes."""
         if self.fingerprint is None:
             return
         quarantined = self._ledger.get("quarantined", {})
@@ -105,6 +114,7 @@ class CandidateStore:
         if reason is not None:
             self._ledger.setdefault("quarantined", {})[str(istart)] = \
                 str(reason)
+        self._merge_from_disk()
         self._ledger["done"].sort()
         if "quarantined" in self._ledger:
             q = self._ledger["quarantined"]
@@ -115,6 +125,42 @@ class CandidateStore:
                     q, key=lambda k: (0, int(k), "") if
                     str(k).lstrip("-").isdigit() else (1, 0, str(k)))}
         atomic_write_json(self._ledger_path, self._ledger)
+        try:
+            st = os.stat(self._ledger_path)
+            self._last_write_stat = (st.st_size, st.st_mtime_ns)
+        except OSError:
+            self._last_write_stat = None
+
+    def _merge_from_disk(self):
+        """Union the ledger on disk into the one in memory (chunks are
+        only ever added, so the last writer loses nothing).
+
+        A torn or unreadable file is not merged (memory wins; recovery
+        is :meth:`_load_ledger`'s).  While the file's ``(size,
+        mtime_ns)`` still match this store's last write, nobody else
+        wrote and the read is skipped: a single-process run pays one
+        ``stat`` a chunk."""
+        try:
+            if self._last_write_stat is not None:
+                st = os.stat(self._ledger_path)
+                if (st.st_size, st.st_mtime_ns) == self._last_write_stat:
+                    return
+            with open(self._ledger_path) as f:
+                disk = json.load(f)
+        except (OSError, ValueError):
+            return
+        if not isinstance(disk, dict):
+            return
+        done = disk.get("done")
+        if isinstance(done, list):
+            have = set(self._ledger["done"])
+            self._ledger["done"].extend(
+                c for c in done if isinstance(c, int) and c not in have)
+        quarantined = disk.get("quarantined")
+        if isinstance(quarantined, dict):
+            mine = self._ledger.setdefault("quarantined", {})
+            for key, val in quarantined.items():
+                mine.setdefault(key, val)
 
     @property
     def done_chunks(self):

@@ -12,13 +12,17 @@ locks and nothing else from the chunk loop:
 * ``/progress`` and ``/status`` — chunks done and total, ETA, hits,
   certified and quarantined chunks and the live canary summary;
 * ``GET /subscribers`` and ``POST /subscribe`` — the alert broker's
-  webhook list, and a webhook registered while the run goes on.
+  webhook list, and a webhook registered while the run goes on;
+* with a :class:`~..beams.service.SurveyService` wired (``service=``),
+  the job API: ``POST /jobs`` (201 and ``{"job_id"}``, 400 and
+  ``{"error"}`` on a bad spec), ``GET /jobs`` and ``/jobs/<id>``,
+  ``POST /jobs/<id>/cancel``; 404 without a service.
 
 :func:`start_obs_server` starts it (``port=0`` binds an ephemeral port),
 the handle's ``close()`` stops it.  A bind failure propagates (an
 operator who asked for the surface must not fly blind); a request never
-raises into the search.  The JAX package's job and fleet endpoints come
-with the port's service layers.
+raises into the search.  The JAX package's fleet endpoints (``/fleet``,
+``/metrics/history``, ``/alerts``) come with the fleet.
 """
 
 from __future__ import annotations
@@ -65,6 +69,8 @@ class _Handler(BaseHTTPRequestHandler):
             elif path in ("/progress", "/status"):
                 self._send(200, json.dumps(srv.progress_snapshot(),
                                            indent=1), "application/json")
+            elif path == "/jobs" or path.startswith("/jobs/"):
+                self._get_jobs(srv, path)
             elif path == "/subscribers":
                 if srv.push is None:
                     self._send(404, "no alert broker wired\n", "text/plain")
@@ -76,7 +82,7 @@ class _Handler(BaseHTTPRequestHandler):
             elif path == "/":
                 self._send(200, "pulsarutils_tpu_torch live search "
                            "surface: /metrics /healthz /progress /status "
-                           "/subscribers\n", "text/plain")
+                           "/jobs /subscribers\n", "text/plain")
             else:
                 self._send(404, "not found\n", "text/plain")
         except Exception as exc:  # noqa: BLE001 — never kills the search
@@ -85,25 +91,70 @@ class _Handler(BaseHTTPRequestHandler):
             except Exception:  # noqa: BLE001
                 pass
 
+    def _get_jobs(self, srv, path):
+        """GET /jobs (every job's document, newest first) and
+        /jobs/<id> (one)."""
+        if srv.service is None:
+            self._send(404, "no job service wired (start the server "
+                       "with service=SurveyService(...))\n", "text/plain")
+            return
+        if path == "/jobs":
+            self._send(200, json.dumps({"jobs": srv.service.jobs()},
+                                       indent=1), "application/json")
+            return
+        doc = srv.service.get(path[len("/jobs/"):])
+        if doc is None:
+            self._send(404, "unknown job\n", "text/plain")
+        else:
+            self._send(200, json.dumps(doc, indent=1), "application/json")
+
+    def _read_body(self):
+        n = int(self.headers.get("Content-Length") or 0)
+        return json.loads(self.rfile.read(n).decode() or "{}")
+
     def do_POST(self):  # noqa: N802 — http.server API
         """``POST /subscribe`` with ``{"url", "name", "min_snr",
         "min_dm", "max_dm"}``: 201 and the subscriber's doc, 400 on a bad
-        spec."""
+        spec.  With a job service: ``POST /jobs`` with ``{"fname",
+        "dmmin", "dmmax", ...}`` (201 and ``{"job_id"}``, 400 and
+        ``{"error"}``) and ``POST /jobs/<id>/cancel`` (the job's
+        document)."""
         srv = self.server.obs  # type: ignore[attr-defined]
         try:
             path = self.path.split("?", 1)[0].rstrip("/") or "/"
-            if path != "/subscribe" or srv.push is None:
-                self._send(404, "not found\n", "text/plain")
+            if path == "/subscribe":
+                if srv.push is None:
+                    self._send(404, "not found\n", "text/plain")
+                    return
+                try:
+                    doc = srv.push.subscribe(self._read_body())
+                except ValueError as exc:
+                    self._send(400, json.dumps({"error": str(exc)}),
+                               "application/json")
+                    return
+                self._send(201, json.dumps(doc), "application/json")
                 return
-            n = int(self.headers.get("Content-Length") or 0)
-            try:
-                doc = srv.push.subscribe(
-                    json.loads(self.rfile.read(n).decode() or "{}"))
-            except ValueError as exc:
-                self._send(400, json.dumps({"error": str(exc)}),
+            if srv.service is None:
+                self._send(404, "no job service wired\n", "text/plain")
+                return
+            if path == "/jobs":
+                try:
+                    job_id = srv.service.submit(self._read_body())
+                except ValueError as exc:
+                    self._send(400, json.dumps({"error": str(exc)}),
+                               "application/json")
+                    return
+                self._send(201, json.dumps({"job_id": job_id}),
                            "application/json")
-                return
-            self._send(201, json.dumps(doc), "application/json")
+            elif path.startswith("/jobs/") and path.endswith("/cancel"):
+                doc = srv.service.cancel(path[len("/jobs/"):-len("/cancel")])
+                if doc is None:
+                    self._send(404, "unknown job\n", "text/plain")
+                else:
+                    self._send(200, json.dumps(doc, indent=1),
+                               "application/json")
+            else:
+                self._send(404, "not found\n", "text/plain")
         except Exception as exc:  # noqa: BLE001 — never kills the search
             try:
                 self._send(500, f"internal error: {exc!r}\n", "text/plain")
@@ -117,13 +168,16 @@ class ObsServer:
     ``health`` is a :class:`~.health.HealthEngine` (or ``None``: then
     ``/healthz`` answers ``OK`` with a note); ``progress_fn`` a zero-arg
     callable returning the ``/progress`` dict; ``push`` an
-    :class:`~.push.AlertBroker` (or ``None``).
+    :class:`~.push.AlertBroker` (or ``None``); ``service`` a
+    :class:`~..beams.service.SurveyService` (or ``None``: the ``/jobs``
+    routes answer 404).
     """
 
     def __init__(self, port=0, health=None, progress_fn=None,
-                 host="127.0.0.1", push=None):
+                 host="127.0.0.1", push=None, service=None):
         self.health = health
         self.push = push
+        self.service = service
         self.progress_fn = progress_fn
         self._httpd = ThreadingHTTPServer((host, int(port)), _Handler)
         self._httpd.daemon_threads = True
@@ -169,10 +223,12 @@ class ObsServer:
 
 
 def start_obs_server(port, health=None, progress_fn=None,
-                     host="127.0.0.1", push=None):
+                     host="127.0.0.1", push=None, service=None):
     """Start the live surface; returns the :class:`ObsServer` (its
     ``port`` is the bound port: pass ``port=0`` for an ephemeral one).
     ``host`` is the bind address: the loopback default keeps the surface
-    on the machine; ``"0.0.0.0"`` opens it to a remote scrape."""
+    on the machine; ``"0.0.0.0"`` opens it to a remote scrape.
+    ``service`` (a :class:`~..beams.service.SurveyService`) adds the job
+    API under ``/jobs``."""
     return ObsServer(port=port, health=health, progress_fn=progress_fn,
-                     host=host, push=push)
+                     host=host, push=push, service=service)

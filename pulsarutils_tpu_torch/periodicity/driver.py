@@ -14,6 +14,12 @@ partial plane beside it.  A chunk the ledger marks done but the snapshot
 lost is re-searched after the streaming pass, so accumulation never
 holes silently.  A failure of the device trial search raises: there is
 no host fallback.
+
+The service hooks of the JAX driver: ``health`` (fed by the chunk loop
+and the periodic canary), ``http_port`` (the live surface of the
+accumulation), ``report_out`` (the report's Periodicity section) and
+``cancel_cb`` (a cancelled job reports ``complete: False`` and resumes
+from its ledger); the job service (:mod:`..beams.service`) drives them.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import time
 
 import numpy as np
 
+from ..obs import metrics as _metrics
 from ..utils.device import resolve_device
 from .accel import accel_grid, accel_search, jerk_grid
 from .accumulate import DMTimeAccumulator
@@ -44,11 +51,7 @@ _PLAN_KEYS = ("chunk_length", "new_sample_time", "tmin", "surelybad",
 #: options of the JAX package's driver that are not ported, with the
 #: ROADMAP.md item (its stable A-label) that holds each
 _NOT_PORTED = {
-    "health": "queue A, A15 (periodicity service hooks)",
-    "http_port": "queue A, A15 (periodicity service hooks)",
-    "report_out": "queue A, A15 (periodicity service hooks)",
-    "fence": "queue A, A15 (periodicity service hooks)",
-    "cancel_cb": "queue A, A15 (periodicity service hooks)",
+    "fence": "queue A, A10b (the fleet: the lease's epoch fence)",
 }
 
 #: periodic-canary shape: a Gaussian pulse train of this duty cycle at
@@ -121,8 +124,9 @@ def periodicity_search(fname, dmmin=200, dmmax=800, *, accel_max=0.0,
                        budget_bytes=None, snapshot_every=1, kernel="auto",
                        snr_threshold=6.0, output_dir=None, resume=True,
                        canary=False, chunk_cb=None, device="cuda",
-                       progress=True, health=None, http_port=None, report_out=None,
-                       fence=None, cancel_cb=None, mesh=None,
+                       progress=True, health=None, http_port=None,
+                       report_out=None, fence=None, cancel_cb=None,
+                       mesh=None,
                        **search_kwargs):
     """Search one filterbank for (accelerated) pulsars at survey scale.
 
@@ -153,8 +157,16 @@ def periodicity_search(fname, dmmin=200, dmmax=800, *, accel_max=0.0,
     runs the single-pulse leg on the mesh route of ``search_by_chunks``
     (its fingerprint holds the mesh shape) and the trial sweep with the
     DM rows on its ``dm`` axis and the trials on its ``chan`` axis, as in
-    the JAX package.  ``health``, ``http_port``, ``report_out``,
-    ``fence`` and ``cancel_cb`` are not ported and raise if given.
+    the JAX package.
+
+    Service hooks, as in the JAX package: ``health`` (a
+    :class:`~..obs.health.HealthEngine`) gets the chunk loop's updates
+    and the canary's recall; ``http_port`` serves the live surface while
+    the chunks accumulate; ``report_out`` writes the survey report with
+    its Periodicity section; ``cancel_cb`` (zero-arg callable) is checked
+    before each chunk, and a cancelled run returns ``complete: False``
+    (the chunks done stay in the ledger and the snapshot, so a rerun
+    resumes).  ``fence`` belongs to the fleet and raises if given.
 
     Returns a dict: ``complete``, ``candidates``, ``sift``, ``table``
     (the raw top-k), ``accumulator``, ``accels``, ``jerks``,
@@ -165,14 +177,9 @@ def periodicity_search(fname, dmmin=200, dmmax=800, *, accel_max=0.0,
     from ..ops.plan import dedispersion_plan
     from ..pipeline.search_pipeline import plan_survey, search_by_chunks
 
-    given = {"health": health, "http_port": http_port,
-             "report_out": report_out, "fence": fence,
-             "cancel_cb": cancel_cb}
-    for name, value in given.items():
-        if value is not None:
-            raise NotImplementedError(
-                f"{name} is not ported yet: ROADMAP.md "
-                f"{_NOT_PORTED[name]}")
+    if fence is not None:
+        raise NotImplementedError(
+            f"fence is not ported yet: ROADMAP.md {_NOT_PORTED['fence']}")
     for k in ("period_search", "period_sigma_threshold", "make_plots",
               "plane_consumer", "fingerprint_extra"):
         if k in search_kwargs:
@@ -226,7 +233,9 @@ def periodicity_search(fname, dmmin=200, dmmax=800, *, accel_max=0.0,
                   make_plots=False, fingerprint_extra=extra,
                   plane_consumer=consumer, progress=progress,
                   device=dev, mesh=mesh, **search_kwargs)
-    hits, store = search_by_chunks(fname, resume=resume, **common)
+    hits, store = search_by_chunks(fname, resume=resume, health=health,
+                                   http_port=http_port,
+                                   cancel_cb=cancel_cb, **common)
     if state["since_snap"] or not os.path.exists(snap_path):
         acc.save(snap_path)
         state["since_snap"] = 0
@@ -235,7 +244,8 @@ def periodicity_search(fname, dmmin=200, dmmax=800, *, accel_max=0.0,
     # them as zeros instead of re-searching them forever
     quarantined = {int(c) for c in store.quarantined_chunks}
     missing = set(acc.chunk_starts) - acc.seen - quarantined
-    if missing:
+    cancelled = cancel_cb is not None and cancel_cb()
+    if missing and not cancelled:
         # ledger-done chunks whose planes never reached the snapshot:
         # re-search exactly those, ledger-less
         logger.warning(
@@ -289,12 +299,15 @@ def periodicity_search(fname, dmmin=200, dmmax=800, *, accel_max=0.0,
                       max_harmonics=max_harmonics, fmin=fmin_eff,
                       fmax=fmax, topk=topk, device=dev, mesh=mesh)
     trial_s = time.perf_counter() - t0
+    _metrics.counter("putpu_period_trials_total").inc(
+        int(acc.ndm * len(accels) * len(jerks)))
     logger.info("periodicity trial sweep: %d DM x %d accel%s trials in "
                 "%.2fs [%s]", acc.ndm, len(accels),
                 f" x {len(jerks)} jerk" if len(jerks) > 1 else "", trial_s,
                 chosen_backend)
 
     raw = candidate_list(table, acc.trial_dms, sigma_threshold)
+    _metrics.counter("putpu_period_candidates_total").inc(len(raw))
     if canary_info is not None:
         on_row = [c for c in raw
                   if abs(c["dm_index"] - canary_info["dm_index"]) <= 2]
@@ -304,6 +317,11 @@ def periodicity_search(fname, dmmin=200, dmmax=800, *, accel_max=0.0,
         canary_info["recovered"] = bool(matched)
         canary_info["best_sigma"] = max(
             (c["sigma"] for c in matched), default=0.0)
+        recall = 1.0 if matched else 0.0
+        _metrics.gauge("putpu_period_canary_recall").set(recall)
+        if health is not None:
+            health.update("periodicity", canary={"injected": 1,
+                                                 "window_recall": recall})
         if not matched:
             logger.error(
                 "PERIODIC CANARY MISSED: injected pulsar at DM row %d, "
@@ -334,6 +352,7 @@ def periodicity_search(fname, dmmin=200, dmmax=800, *, accel_max=0.0,
     cands_path = os.path.join(
         output_dir, f"period_cands_{sp['root']}_{sp['fingerprint']}.npz")
     save_candidates(cands_path, kept, meta=meta)
+    _metrics.counter("putpu_period_jobs_total").inc()
 
     summary = {
         "n_dm": acc.ndm, "n_accel": len(accels), "n_jerk": len(jerks),
@@ -357,6 +376,26 @@ def periodicity_search(fname, dmmin=200, dmmax=800, *, accel_max=0.0,
     else:
         logger.info("periodicity: no candidates above sigma %.1f",
                     float(sigma_threshold))
+
+    if report_out:
+        from ..obs import report as obs_report
+
+        try:  # observability must never take down the job
+            obs_report.write_report(
+                str(report_out),
+                meta={"root": sp["root"], "workload": "periodicity",
+                      "fname": os.path.abspath(str(fname)),
+                      "fingerprint": sp["fingerprint"]},
+                periodicity=dict(summary, candidates=[
+                    {k: c.get(k) for k in ("dm", "accel", "jerk", "freq",
+                                           "freq_refined", "sigma",
+                                           "nharm", "h", "m")}
+                    for c in kept]),
+                health=health.snapshot() if health is not None else None,
+                metrics=_metrics.REGISTRY.snapshot())
+        except Exception as exc:  # noqa: BLE001 — never fatal
+            logger.warning("periodicity report failed (%r); job result "
+                           "is unaffected", exc)
 
     return {"complete": True, "candidates": kept, "sift": sift_stats,
             "table": table, "accumulator": acc, "accels": accels,

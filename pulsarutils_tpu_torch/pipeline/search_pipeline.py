@@ -468,10 +468,10 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
                      persist_retries=2, persist_backoff=0.05,
                      http_port=None, http_host="127.0.0.1", canary=None,
                      health=None, report_out=None, chunks=None,
-                     plane_consumer=None, fingerprint_extra=None,
-                     lineage=None, push=None, device="cuda",
-                     stage_seconds=None, summary=None, progress=True,
-                     mesh=None):
+                     cancel_cb=None, plane_consumer=None,
+                     fingerprint_extra=None, lineage=None, push=None,
+                     device="cuda", stage_seconds=None, summary=None,
+                     progress=True, mesh=None):
     """Search a filterbank file for dispersed single pulses.
 
     Parameters follow the JAX package's driver (``snr_threshold`` and
@@ -480,7 +480,11 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
     raising without a card; ``"cpu"`` on request).  ``max_chunks`` stops
     after that many chunks (the rest stay un-marked for a resumed run);
     ``chunks``, a list of chunk starts, searches only those (starts not
-    in the plan are ignored).
+    in the plan are ignored).  ``cancel_cb``, a zero-arg callable, is
+    checked before each chunk: once it returns True nothing further
+    starts (the chunk in flight and its persist drain complete, the rest
+    stay un-marked for a resumed session), as in the JAX package; the job
+    service's cancel reaches the loop here.
 
     ``make_plots``: ``"hits"`` (the default) renders the diagnostic
     figure (:mod:`.diagnostics`) of every hit to
@@ -1071,6 +1075,13 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
     try:
         next_read = submit_read(0)
         for ichunk, istart in enumerate(todo):
+          if cancel_cb is not None and cancel_cb():
+              # graceful drain: finished chunks are persisted and marked,
+              # the rest stay un-marked for the next session
+              logger.info("search cancelled before chunk %d: %d of %d "
+                          "chunks left for a resumed session", istart,
+                          len(todo) - ichunk, len(todo))
+              break
           with timer.chunk(istart):
             t_chunk = time.perf_counter()
             iend = istart + chunk_size(istart)

@@ -375,7 +375,7 @@ class KernelTuner:
                            mesh_shape=mesh_shape, batch=batch)
         with self._lock:
             hit = self._resolved.get(key)
-        if hit is not None:
+        if hit is not None and hit in candidates:
             _metrics.counter("putpu_autotune_cache_hits_total").inc()
             return hit
         # the floor gates the DISK lookup too, not just measurement:
@@ -387,6 +387,13 @@ class KernelTuner:
             _metrics.counter("putpu_autotune_cache_hits_total").inc()
             return self._decide(key, entry["kernel"], "cache", static,
                                 measured_s=entry.get("measured_s"))
+        if hit is not None or entry is not None:
+            # the key's winner is another resolver's, outside these
+            # candidates: the beam batcher's single-beam key is the
+            # single-chunk search's (``batch=1`` adds no suffix).  This
+            # call runs its static choice and records nothing, so the
+            # search's decision stands in memory and on disk.
+            return static
         _metrics.counter("putpu_autotune_cache_misses_total").inc()
 
         if len(candidates) < 2:

@@ -23,7 +23,8 @@ JAX package's, on the CPU.
 * ``coincidence_sift``: the JAX test's cases and random candidate lists
   (hypothesis) give the JAX groups and verdicts;
 * the ``PUmultibeam`` twin prints the JAX CLI's coincidence line;
-  ``--serve`` and ``beams.service`` raise, citing A10.
+  ``--serve`` without a port exits 2 as the JAX CLI does, and the
+  service raises without a card.
 """
 import json
 import os
@@ -726,9 +727,19 @@ def test_cli_prints_the_jax_coincidence_line(beam_files, tmp_path, capsys):
 
 
 def test_cli_serve_and_service_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="A10"):
-        tcli.main(["--serve", "--http-port", "0"])
+    # --serve and beams.service are ported (tests/test_torch_service.py):
+    # without --http-port the service refuses as the JAX CLI does (exit
+    # 2), and without a card it raises before binding anything
+    assert tcli.main(["--serve", "--output-dir", str(tmp_path)]) == 2
+    assert jcli.main(["--serve", "--output-dir", str(tmp_path)]) == 2
     with pytest.raises(SystemExit):
         tcli.main([])
-    with pytest.raises(ImportError, match="A10"):
-        import pulsarutils_tpu_torch.beams.service  # noqa: F401
+    from pulsarutils_tpu_torch.beams.service import SurveyService
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tcli.main(["--serve", "--http-port", "0", "--output-dir",
+                   str(tmp_path)])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SurveyService(str(tmp_path))

@@ -762,8 +762,10 @@ def test_periodicity_driver_refuses_what_is_not_ported(pulsar_file):
     with pytest.raises(ValueError, match="must include"):
         periodicity_search(pulsar_file, device="cpu", mesh=make_mesh(
             (2,), ("dm",), devices=[torch.device("cpu")] * 2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        periodicity_search(pulsar_file, http_port=0, device="cpu")
+    # the service hooks are ported (tests/test_torch_service.py); the
+    # fleet's epoch fence is not
+    with pytest.raises(NotImplementedError, match="A10b"):
+        periodicity_search(pulsar_file, fence=1, device="cpu")
     with pytest.raises(ValueError, match="owned"):
         periodicity_search(pulsar_file, period_search=True, device="cpu")
 

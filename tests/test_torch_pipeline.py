@@ -200,6 +200,15 @@ def _port_sources():
     return files + [REPO / "chip_smoke.py"]
 
 
+def test_port_sources_cover_the_live_feed_and_the_service():
+    walked = {str(p.relative_to(REPO)) for p in _port_sources()}
+    for name in ("ingest/__init__.py", "ingest/assembler.py",
+                 "ingest/source.py", "io/packets.py",
+                 "resilience/shedding.py", "beams/service.py",
+                 "cli/ingest_main.py"):
+        assert f"pulsarutils_tpu_torch/{name}" in walked, name
+
+
 def _forbidden(module):
     return (module == "jax" or module.startswith("jax.")
             or module == "pulsarutils_tpu"

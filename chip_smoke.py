@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N] [--quick | --breakdown | --overlap |
                            --observe | --lowbit | --autotune | --mesh |
-                           --beams | --service]
+                           --beams | --service | --fleet]
 
 Phases, one JSON line each:
 
@@ -240,9 +240,10 @@ Phases, one JSON line each:
    tables, ledgers and candidate files bit for bit, B4
    136 launches an arm, 2/2 against 8/8 dispatches and readbacks, the
    sift confirming the first pulse and vetoing the second; an injected
-   ``beams`` OOM (``halve_batch``, the same tables); 2-bit copies on 1
-   chunk (depth cut from 2), ``packed="device"`` against ``"host"`` byte
-   for byte, the upload ratio 16);
+   ``beams`` OOM (``halve_batch``, the same tables); 2-bit copies of 2
+   beams on 1 chunk (depth cut from 4 beams and 2 chunks),
+   ``packed="device"`` against ``"host"`` byte for byte, the upload
+   ratio 16);
 13. the live feed and the job service (A10a, A15): ``e2e_ingest`` (after
    ``e2e_observe``: ``PUingest listen --like`` the e2e file and ``PUingest
    feed`` as two processes, float32 frames over TCP at the full width,
@@ -263,9 +264,22 @@ Phases, one JSON line each:
    dispatches and readbacks, launches, the per-job counters).  The
    children run the package's CLIs unchanged (:func:`cli_child` wraps
    the drivers to count launches and keep tables);
-14. the kernels line (B6 once per policy; the launches by path include
-   the mesh, stream, beam, ingest and service phases'), then ``{"ok":
-   true, "device": {...}}`` last.
+14. the fleet (A10b): ``e2e_fleet`` (after ``e2e_service``):
+   ``fleet_main coordinator`` (no card visible to it) and two
+   ``fleet_main worker --device cuda`` processes, each fenced to half
+   the card by ``PUTPU_MEM_LIMIT``, over the e2e file, the coordinator
+   SIGKILLed after a chunk and relaunched with ``--recover`` on its
+   port (ledger and candidates ``e2e_search``'s byte for byte); a worker
+   SIGKILLed holding a hybrid lease and the survey finished by an
+   in-process card worker (``e2e_hybrid``'s S/N 8 bytes); a partitioned
+   zombie's write refused by the epoch fence and its completion stale;
+   a periodicity unit on the pulsar file (``e2e_puperiod``'s
+   candidates, B6 as often); the survey wall, seconds a unit, round
+   trips, recovery seconds, journal records, capacity advice, budgets
+   and launches of each run;
+15. the kernels line (B6 once per policy; the launches by path include
+   the mesh, stream, beam, ingest, service and fleet phases'), then
+   ``{"ok": true, "device": {...}}`` last.
 
 Any failed check exits non-zero before the last line.  Without a CUDA
 device, or without the package beside this script, it exits non-zero
@@ -282,8 +296,9 @@ the build and the phases of item 10 (with the single-device runs they
 compare with), ``--beams`` the build, the end-to-end file and the
 phases of item 12, ``--service`` the build, the end-to-end and pulsar
 files and the phases of item 13 (with ``e2e_period``, which
-``e2e_service`` compares with).  None of the nine prints the last
-line.
+``e2e_service`` compares with), ``--fleet`` the build, the end-to-end
+and pulsar files and ``e2e_period`` and ``e2e_fleet`` (the references of
+runs A and B made in the phase).  None of the ten prints the last line.
 """
 
 from __future__ import annotations
@@ -485,7 +500,8 @@ def _sweep_case(torch, name, data, offsets, *, timed=True,
     if timed:
         record["kernel_ms"], record["kernel_runs_ms"] = time_ms(torch, kernel)
         record["plain_ms"], record["plain_runs_ms"] = time_ms(
-            torch, plain, runs=PLAIN_RUNS)
+            torch, plain, runs=PLAIN_RUNS,
+            warm_up=False)
         record["bound_share"] = bound / record["kernel_ms"]
     del got, want
     torch.cuda.empty_cache()
@@ -691,7 +707,8 @@ def _fdmt_case(torch, name, data, max_delay, min_delay, *, f0=START_FREQ,
                                                                     kernel)
             record["wrapper_ms"], _ = time_ms(torch, wrapper)
             record["plain_ms"], record["plain_runs_ms"] = time_ms(
-                torch, plain, runs=PLAIN_RUNS)
+                torch, plain, runs=PLAIN_RUNS,
+                warm_up=False)
             record["bound_share"] = bound / record["kernel_ms"]
             if kind == "head":
                 record["per_level_b2a_ms"], _ = time_ms(torch, per_level)
@@ -932,7 +949,8 @@ def _fdd_kernel_case(torch, name, spec, anchor, step, superblock,
     if timed:
         record["kernel_ms"], record["kernel_runs_ms"] = time_ms(torch, kernel)
         record["plain_ms"], record["plain_runs_ms"] = time_ms(
-            torch, plain, runs=PLAIN_RUNS)
+            torch, plain, runs=PLAIN_RUNS,
+            warm_up=False)
         record["bound_share"] = bound / record["kernel_ms"]
         record["bound_with_phasors_share"] = bound_ph / record["kernel_ms"]
     del got, want
@@ -4965,7 +4983,7 @@ RING_TRIALS = 64
 
 
 def _write_beam_files(torch, np, workdir, seed, nbits=8,
-                      nblocks=BEAM_BLOCKS):
+                      nblocks=BEAM_BLOCKS, nbeams=BEAM_COUNT):
     """The beams' filterbanks (``nbeams`` and ``ibeam`` in their headers),
     written block by block from the card: 8 bits as
     :func:`_write_block_file` draws them (``|N(0, 8)|`` + 20, a 12 impulse
@@ -4984,7 +5002,7 @@ def _write_beam_files(torch, np, workdir, seed, nbits=8,
     idx = ((torch.arange(block, device="cuda")[None, :]
             - torch.from_numpy(shifts).cuda()[:, None]) % block)
     paths = []
-    for b in range(BEAM_COUNT):
+    for b in range(nbeams):
         header = {"nchans": NCHAN, "nbits": nbits, "nifs": 1, "tstart": 0.0,
                   "source_name": f"chip_smoke_beam{b}", "machine_id": 0,
                   "telescope_id": 0, "data_type": 1, "nbeams": BEAM_COUNT,
@@ -5045,7 +5063,8 @@ def phase_e2e_beams(torch, np, workdir, seed):
     against 4 and 4, B4 once a trial block of every beam-chunk, the
     coincidence sift confirming the one-beam pulse and vetoing the
     all-beam one; the cold ``|b4`` tuning timed once before the arms;
-    2-bit copies on 1 chunk, ``packed="device"`` against ``"host"``,
+    2-bit copies of 2 beams on 1 chunk, ``packed="device"`` against
+    ``"host"``,
     byte for byte, with the upload ratio (both arms decode with the same
     torch function, on the card and on the host: ``e2e_lowbit_unpack``
     holds it against the NumPy decode); an injected ``beams`` OOM on
@@ -5165,18 +5184,18 @@ def phase_e2e_beams(torch, np, workdir, seed):
                                          / srec["buckets_s"]["search"]),
          tables_equal=True, files_equal=True)
 
-    # 2-bit copies on 1 chunk (depth cut from 2): device unpack against
-    # host unpack
+    # 2-bit copies of 2 beams on 1 chunk (depth cut from 4 beams and 2
+    # chunks): device unpack against host unpack
     t0 = time.perf_counter()
     packed_paths = _write_beam_files(torch, np, workdir, seed, nbits=2,
-                                     nblocks=2)
+                                     nblocks=2, nbeams=2)
     write_s = time.perf_counter() - t0
     dev, drec = arm("packed_device", "beams_packed_device",
                     paths=packed_paths, packed="device")
     host, hrec2 = arm("packed_host", "beams_packed_host",
                       paths=packed_paths, packed="host")
     check(drec["epochs"] == 1 and drec["launches"]["B4"]
-          == BEAM_COUNT * nblocks == hrec2["launches"]["B4"],
+          == len(packed_paths) * nblocks == hrec2["launches"]["B4"],
           f"e2e_beams packed: {drec['launches']}, {hrec2['launches']}")
     check(_beam_tables_equal(np, dev, host)
           and _snapshot(np, workdir / "beams_packed_device")
@@ -5190,8 +5209,8 @@ def phase_e2e_beams(torch, np, workdir, seed):
          upload_ratio_host_over_device=ratio, tables_equal=True,
          files_equal=True)
 
-    # the halve_batch rung on the first epoch of two of the packed device
-    # arm's beams (depth cut from four)
+    # the halve_batch rung on the first epoch of the packed device arm's
+    # two beams (depth cut from four)
     plan = FaultPlan([FaultSpec(site="beams", kind="oom", times=1)])
     steps = _counter_value("putpu_oom_ladder_steps_total", step="halve_batch")
     with plan.armed():
@@ -5421,10 +5440,12 @@ def cli_child(argv):
     under a counting tuner (the tune cache of ``$PUTPU_TUNE_CACHE``) and
     write ``OUT.json``: its exit code and wall seconds, the launches of
     every kernel outside the tuner's measurements, and one record a call
-    of ``stream_search``, ``multibeam_search`` and ``periodicity_search``
-    (its launches, seconds and budget; a stream's chunk digests, hits and
-    tables, the tables as ``table_<istart>.npz`` in the directory
-    ``OUT``); the live feed's wire times from ``ChunkAssembler.push``.
+    of ``stream_search``, ``multibeam_search``, ``periodicity_search``
+    and ``search_by_chunks`` (the fleet worker's entry point; not the
+    calls the periodicity job makes): its launches, seconds and budget; a
+    search's leased chunks, fence, hits and ledger; a stream's chunk
+    digests, hits and tables, the tables as ``table_<istart>.npz`` in the
+    directory ``OUT``; the live feed's wire times from ``ChunkAssembler.push``.
     The CLI runs unchanged: the calls are wrapped, not replaced."""
     import importlib
 
@@ -5435,6 +5456,7 @@ def cli_child(argv):
     from pulsarutils_tpu_torch.ingest import assembler
     from pulsarutils_tpu_torch.parallel import stream
     from pulsarutils_tpu_torch.periodicity import driver
+    from pulsarutils_tpu_torch.pipeline import search_pipeline
     from pulsarutils_tpu_torch.tuning import autotune
     from pulsarutils_tpu_torch.tuning.cache import TuneCache
     from pulsarutils_tpu_torch.utils.logging_utils import BudgetAccountant
@@ -5447,9 +5469,21 @@ def cli_child(argv):
     reset_counts()
     calls = []
     wire = {"first": None, "last": None, "packets": 0, "bytes": 0}
+    #: recorded calls in progress: a search_by_chunks inside another
+    #: recorded call (the periodicity job's) is that call's, not a record
+    depth = [0]
 
     def recorded(name, fn):
         def wrapper(*a, **kw):
+            if name == "search_by_chunks" and depth[0]:
+                return fn(*a, **kw)
+            depth[0] += 1
+            try:
+                return record(*a, **kw)
+            finally:
+                depth[0] -= 1
+
+        def record(*a, **kw):
             rec = {"call": name}
             acc = None
             if name != "periodicity_search" and kw.get("budget") is None:
@@ -5482,6 +5516,13 @@ def cli_child(argv):
                            hits=[int(h[0]) for h in hits])
                 for s, table in results:
                     table.to_npz(str(tables_dir / f"table_{int(s)}.npz"))
+            elif name == "search_by_chunks":
+                hits, store = result
+                rec.update(fname=str(a[0]), chunks=kw.get("chunks"),
+                           fence=kw.get("fence"),
+                           hits=[int(h[0]) for h in hits],
+                           done=store.done_chunks,
+                           fenced_rejects=store.fenced_rejects)
             elif name == "multibeam_search":
                 rec["fnames"] = [str(f) for f in a[0]]
                 rec["beams"] = [{"chunks_done": b["chunks_done"],
@@ -5500,6 +5541,8 @@ def cli_child(argv):
                                           multibeam.multibeam_search)
     driver.periodicity_search = recorded("periodicity_search",
                                          driver.periodicity_search)
+    search_pipeline.search_by_chunks = recorded(
+        "search_by_chunks", search_pipeline.search_by_chunks)
     real_push = assembler.ChunkAssembler.push
 
     def push(self, packet):
@@ -6243,6 +6286,431 @@ def phase_e2e_service(torch, np, workdir, path, pulsar, period):
             "job service job cancelled and resumed (e2e_service)": both}
 
 
+# ---------------------------------------------------------------------------
+# The fleet (A10b): e2e_fleet
+# ---------------------------------------------------------------------------
+
+#: the in-process coordinators' lease TTL (run B's victim is stolen by
+#: expiry or, sooner, by its failed /healthz probes)
+FLEET_LEASE_TTL_S = 4.0
+
+FLEET_MODULE = "pulsarutils_tpu_torch.cli.fleet_main"
+
+
+def _free_port():
+    """A port free now on the loopback (bind 0, read it, close): the
+    coordinator's two runs share it, so its workers find the second."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _get_doc(base, path):
+    """The JSON document at ``base + path``, or None while nothing
+    answers there."""
+    try:
+        status, doc = _http("GET", base, path, timeout=5.0)
+    except OSError:
+        return None
+    return doc if status == 200 else None
+
+
+def _wait_doc(base, path, cond, timeout, what):
+    """Poll ``path`` until ``cond(doc)``; returns the document."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        doc = _get_doc(base, path)
+        if doc is not None and cond(doc):
+            return doc
+        time.sleep(0.05)
+    raise CheckFailed(f"e2e_fleet: {what} not seen in {timeout} s")
+
+
+def _timed_worker(worker):
+    """Wrap an in-process worker: the wall of each wire message by name
+    (``timing["rtt_ms"]``) and the time each unit started
+    (``timing["units"]``, ``(perf_counter, unit, chunks)``)."""
+    timing = {"rtt_ms": {}, "units": []}
+    post, run_unit = worker._post, worker._run_unit
+
+    def timed_post(path, doc, **kw):
+        t0 = time.perf_counter()
+        try:
+            return post(path, doc, **kw)
+        finally:
+            timing["rtt_ms"].setdefault(path.rsplit("/", 1)[-1], []).append(
+                1e3 * (time.perf_counter() - t0))
+
+    def timed_unit(lease):
+        timing["units"].append((time.perf_counter(), lease["unit"],
+                                list(lease["chunks"])))
+        return run_unit(lease)
+
+    worker._post, worker._run_unit = timed_post, timed_unit
+    return timing
+
+
+def _median_ms(rtt):
+    return {k: round(statistics.median(v), 3) for k, v in rtt.items()}
+
+
+def phase_e2e_fleet(torch, np, workdir, path, pulsar, period, refs=None):
+    """The fleet (``fleet/``, ``cli/fleet_main.py``) on the card, the
+    e2e file (4 chunks of 2^18, DM 300-635, S/N 8) and the pulsar file:
+
+    * run A, the real CLIs and a coordinator crash: ``fleet_main
+      coordinator`` as a process with no card visible
+      (``CUDA_VISIBLE_DEVICES=""``: it makes no CUDA call), ``--capacity
+      --slo --report-out``, one chunk a unit, and two ``fleet_main worker
+      --device cuda`` children (:func:`cli_child`), each with
+      ``PUTPU_MEM_LIMIT`` at half the card; once a chunk is done the
+      coordinator is SIGKILLed and relaunched with ``--recover`` on its
+      port: the journal replayed, both workers re-registered, the survey
+      finished, the ledger and candidate files the single-process run's
+      byte for byte (member by member), B1 and B4 8 launches each plus 2
+      for every chunk searched twice, the report's "Capacity & scaling";
+    * run B, a worker killed holding a lease: an in-process coordinator
+      with a lease TTL of 4 s, a victim child hung at the ``fleet`` fault
+      site and SIGKILLed once it holds a lease, an in-process
+      ``FleetWorker(device="cuda")`` finishing the survey; the lease's
+      config is ``kernel="hybrid"`` at S/N 8 (B3, B2a, B2b, B1, B4): the
+      outputs the single-process hybrid run's byte for byte;
+    * run C, a partitioned zombie (host and one store): a lease at epoch
+      e expires, the new owner writes at e+1, the zombie's late candidate
+      write through ``CandidateStore(fence=e)`` is refused and its
+      ``complete`` is stale;
+    * run D, a periodicity unit: ``workload="periodicity"`` on the pulsar
+      file with ``e2e_puperiod``'s accelerations, an in-process card
+      worker: the candidates file of ``e2e_puperiod``'s name (its
+      fingerprint), written through the fence, its candidates the job's
+      outside the canary's rows, B6 as many launches as the job's.
+
+    ``refs``: the single-process output directories of the same configs
+    (``direct``: ``e2e_search``'s, ``hybrid``: ``e2e_hybrid``'s S/N 8
+    run), else made here.  Prints the survey wall, seconds per unit, the
+    wire's round trips, the seconds from each kill to the rescue, the
+    journal's records, the capacity state and advice, each worker's
+    budget and the launches of every run."""
+    import re
+    import signal
+
+    from pulsarutils_tpu_torch.faults import FaultPlan, FaultSpec
+    from pulsarutils_tpu_torch.faults import inject as fault_inject
+    from pulsarutils_tpu_torch.fleet.coordinator import FleetCoordinator
+    from pulsarutils_tpu_torch.fleet.worker import FleetWorker
+    from pulsarutils_tpu_torch.io.candidates import CandidateStore
+    from pulsarutils_tpu_torch.periodicity.candidates import load_candidates
+    from pulsarutils_tpu_torch.pipeline.search_pipeline import \
+        search_by_chunks
+
+    chunk_length = E2E_CHUNK // 2 * TSAMP
+    # spelled as the CLI parses --dmmin 300 --dmmax 635 --snr-threshold 8
+    physics = dict(dmmin=DMMIN, dmmax=DMMAX, chunk_length=chunk_length,
+                   snr_threshold=8.0)
+    nchunks = 4
+    refs = dict(refs or {})
+    ref_s = {}
+    for label, extra in (("direct", {}), ("hybrid", {"kernel": "hybrid"})):
+        if refs.get(label) is not None:
+            continue
+        refs[label] = workdir / f"fleet_ref_{label}"
+        summary = {}
+        t0 = time.perf_counter()
+        search_by_chunks(str(path), output_dir=str(refs[label]),
+                         device="cuda", make_plots=False, summary=summary,
+                         **extra, **physics)
+        ref_s[label] = time.perf_counter() - t0
+        check_clean_run(summary, f"e2e_fleet reference {label}")
+    # this process's plan is read now, before any child's environment
+    fault_inject.active()
+    share = int(torch.cuda.mem_get_info()[1]) // 2
+
+    # -- run A: the CLIs, a coordinator SIGKILLed and recovered -------------
+    port = _free_port()
+    base = f"http://127.0.0.1:{port}"
+    out_a = workdir / "fleet_a"
+    report = workdir / "fleet_report"
+    cmd = [sys.executable, "-m", FLEET_MODULE, "coordinator",
+           "--output-dir", str(out_a), "--http-port", str(port),
+           "--dmmin", "300", "--dmmax", "635",
+           "--chunk-length", repr(chunk_length), "--snr-threshold", "8",
+           "--chunks-per-unit", "1", "--lease-ttl", "60",
+           "--probe-interval", "0.5", "--capacity", "--slo",
+           "--report-out", str(report), "--exit-when-done"]
+    logs = [workdir / "fleet_coordinator.log",
+            workdir / "fleet_coordinator_recovered.log"]
+    coord_env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+
+    def coordinator_child(args, log):
+        with open(log, "w") as fh:
+            proc = subprocess.Popen(cmd + args, cwd=str(REPO), env=coord_env,
+                                    stdout=fh, stderr=subprocess.STDOUT,
+                                    text=True)
+        _CHILDREN.append(proc)
+        return proc
+
+    def tails():
+        return "".join(f"\n--- {p.name}:\n{p.read_text()[-2500:]}"
+                       for p in [*logs, *(workdir / f"fleet_worker{i}.log"
+                                          for i in range(2))]
+                       if p.is_file())
+
+    try:
+        t_a = time.perf_counter()
+        coord = coordinator_child([str(path)], logs[0])
+        _wait_for_line(coord, logs[0], r"fleet coordinator on http://", 120)
+        workers = []
+        # stable worker ids: a recovered coordinator mints its ids
+        # afresh, so a worker still on its pre-crash "w1" could alias
+        # the first worker that re-registered
+        for i in range(2):
+            with env_set(PUTPU_MEM_LIMIT=share):
+                workers.append(_start_child(
+                    workdir, f"fleet_worker{i}", FLEET_MODULE,
+                    ["worker", "--coordinator", base, "--device", "cuda",
+                     "--worker-id", f"card{i}", "--max-idle", "30"]))
+        budgets = {w["worker"]: w["mem_budget_bytes"] for w in _wait_doc(
+            base, "/fleet/workers", lambda d: len(d["workers"]) == 2, 180,
+            "two registered workers")["workers"]}
+        _wait_doc(base, "/fleet/progress", lambda d: d["chunks_done"] >= 1,
+                  300, "a chunk done")
+        journal = out_a / "fleet_journal.jsonl"
+        coord.send_signal(signal.SIGKILL)
+        coord.wait(timeout=30)
+        t_kill = time.perf_counter()
+        written = len(journal.read_text().splitlines())
+        coord2 = coordinator_child(["--recover"], logs[1])
+        t_relaunch = time.perf_counter()
+        _wait_doc(base, "/fleet/progress",
+                  lambda d: d["stats"]["granted"] >= 1, 180,
+                  "a grant by the recovered coordinator")
+        t_grant = time.perf_counter()
+        try:
+            rc = coord2.wait(timeout=600)
+        except subprocess.TimeoutExpired:
+            raise CheckFailed("e2e_fleet: the recovered coordinator did not "
+                              f"finish: {logs[1].read_text()[-3000:]}") from None
+        wall_a = time.perf_counter() - t_a
+        check(rc == 0, f"e2e_fleet: recovered coordinator rc {rc}: "
+              f"{logs[1].read_text()[-3000:]}")
+        for proc, _, log in workers:
+            # a worker idle-polling the exited coordinator drains on SIGINT
+            try:
+                proc.wait(timeout=40)
+            except subprocess.TimeoutExpired:
+                _stop_child(proc, sig="SIGINT", timeout=60)
+            check(proc.returncode == 0, f"{log.name}: rc {proc.returncode}: "
+                  f"{log.read_text()[-3000:]}")
+        text = logs[1].read_text()
+        replayed = re.search(r"recovered from journal — (\d+) record\(s\) "
+                             r"replayed", text)
+        check(replayed is not None, f"e2e_fleet: no journal replay: {text[-3000:]}")
+        summary = json.loads([ln for ln in text.splitlines()
+                              if ln.startswith('{"fleet"')][-1])["fleet"]
+        check(summary["survey_done"] and summary["chunks_done"] == nchunks,
+              f"e2e_fleet run A: {summary}")
+        for _, _, log in workers:
+            check("re-registering" in log.read_text(),
+                  f"e2e_fleet: {log.name} did not re-register")
+        snap, ref = _snapshot(np, out_a), _snapshot(np, refs["direct"])
+        check(ref and snap == ref, "e2e_fleet run A: ledger or candidates "
+              f"differ from the single-process run's: {sorted(snap)} "
+              f"vs {sorted(ref)}")
+        child = [json.loads(out.read_text()) for _, out, _ in workers]
+        calls = [c for doc in child for c in doc["calls"]
+                 if c["call"] == "search_by_chunks"]
+        searched = {}
+        for c in calls:
+            if c["launches"]["B1"]:
+                for chunk in c["chunks"]:
+                    searched[chunk] = searched.get(chunk, 0) + 1
+        again = sorted(c for c, n in searched.items() if n > 1)
+        counts_a = _sum_counts(*[doc["counts"] for doc in child])
+        check(len(searched) == nchunks
+              and counts_a["B1"] == 2 * (nchunks + len(again))
+              and counts_a["B4"] == counts_a["B1"],
+              f"e2e_fleet run A launches {counts_a}, searched {searched}")
+        md = Path(str(report) + ".md").read_text()
+        check("## Capacity & scaling" in md, "e2e_fleet: no capacity section")
+        capacity = summary.get("capacity") or {}
+        unit_s = [round(c["seconds"], 3) for c in calls]
+        emit("e2e_fleet_run_a", workers=2, units=nchunks,
+             survey_wall_s=wall_a, unit_s=unit_s,
+             chunks_per_s=nchunks / wall_a, budgets=budgets,
+             kill_to_relaunch_s=t_relaunch - t_kill,
+             relaunch_to_first_grant_s=t_grant - t_relaunch,
+             journal_written=written, journal_replayed=int(replayed.group(1)),
+             re_searched=again, launches=counts_a, probe=[d["probe"]
+                                                           for d in child],
+             capacity={"state": capacity.get("state"),
+                       "advice": capacity.get("advice"),
+                       "throughput": capacity.get("throughput")},
+             stats=summary["stats"], bytes_equal=True,
+             reference_s=ref_s.get("direct"))
+    except CheckFailed as exc:
+        raise CheckFailed(f"{exc}{tails()}") from None
+
+    # -- run B: a worker SIGKILLed while it holds a lease; hybrid -----------
+    out_b = workdir / "fleet_b"
+    coordinator = FleetCoordinator(str(out_b), lease_ttl_s=FLEET_LEASE_TTL_S,
+                                   probe_interval_s=0.25, chunks_per_unit=2)
+    server = None
+    try:
+        from pulsarutils_tpu_torch.obs.server import start_obs_server
+
+        server = start_obs_server(0, fleet=coordinator)
+        base_b = f"http://127.0.0.1:{server.port}"
+        coordinator.add_survey([str(path)], kernel="hybrid", **physics)
+        hang = FaultPlan([FaultSpec(site="fleet", kind="hang",
+                                    seconds=600.0, times=1)]).to_json()
+        with env_set(PUTPU_FAULT_PLAN=hang, PUTPU_MEM_LIMIT=share):
+            victim, _, vlog = _start_child(
+                workdir, "fleet_victim", FLEET_MODULE,
+                ["worker", "--coordinator", base_b, "--device", "cuda",
+                 "--worker-id", "victim", "--max-idle", "60"])
+        deadline = time.monotonic() + 180
+        while not coordinator.leases_doc()["leases"]:
+            check(time.monotonic() < deadline and victim.poll() is None,
+                  f"e2e_fleet: the victim held no lease: "
+                  f"{vlog.read_text()[-3000:]}")
+            time.sleep(0.05)
+        (held,) = coordinator.leases_doc()["leases"]
+        victim.send_signal(signal.SIGKILL)
+        victim.wait(timeout=30)
+        t_kill_b = time.perf_counter()
+        rescuer = FleetWorker(base_b, http_port=None, device="cuda")
+        timing_b = _timed_worker(rescuer)
+        reset_counts()
+        rescuer.run(max_idle_s=60.0)
+        counts_b = read_counts()
+        check(coordinator.survey_done, "e2e_fleet run B: survey not done")
+        stats_b = coordinator.progress_doc()["stats"]
+    finally:
+        if server is not None:
+            server.close()
+        coordinator.close()
+    check(stats_b["expired"] + stats_b["revoked"] >= 1,
+          f"e2e_fleet run B: nothing stolen: {stats_b}")
+    snap, ref = _snapshot(np, out_b), _snapshot(np, refs["hybrid"])
+    check(ref and snap == ref, "e2e_fleet run B: outputs differ from the "
+          "single-process hybrid run's")
+    check(all(counts_b[k] > 0 for k in ("B1", "B2a", "B2b", "B3", "B4"))
+          and counts_b["B3"] == nchunks,
+          f"e2e_fleet run B launches {counts_b}")
+    stolen = [t for t, unit, _ in timing_b["units"] if unit == held["unit"]]
+    emit("e2e_fleet_run_b", kernel="hybrid", lease_ttl_s=FLEET_LEASE_TTL_S,
+         victim_unit=held["unit"], stats=stats_b,
+         kill_to_first_lease_s=timing_b["units"][0][0] - t_kill_b,
+         kill_to_steal_s=stolen[0] - t_kill_b if stolen else None,
+         rtt_ms=_median_ms(timing_b["rtt_ms"]), launches=counts_b,
+         bytes_equal=True, reference_s=ref_s.get("hybrid"))
+
+    # -- run C: a partitioned zombie, fenced --------------------------------
+    out_c = workdir / "fleet_c"
+    fenced0 = _counter_value("putpu_fleet_fenced_writes_total")
+    stale0 = _counter_value("putpu_fleet_stale_epoch_rejected_total")
+    with FleetCoordinator(str(out_c), auto_sweep=False,
+                          lease_ttl_s=5.0) as c:
+        c.add_survey([str(path)], **physics)
+        fp = c.progress_doc()["files"][0]["fingerprint"]
+        zombie = c.register({})["worker"]
+        owner = c.register({})["worker"]
+        zl = c.lease({"worker": zombie, "max_units": 1})["leases"][0]
+        c.sweep(now=time.monotonic() + 10.0)
+        ol = c.lease({"worker": owner, "max_units": 1})["leases"][0]
+        check(ol["unit"] == zl["unit"] and ol["epoch"] == zl["epoch"] + 1,
+              f"e2e_fleet run C: {zl} then {ol}")
+        root, istart, iend = next(CandidateStore(str(out_a)).candidates())
+        info, table = CandidateStore(str(out_a)).load_candidate(
+            root, istart, iend)
+        CandidateStore(str(out_c), fp, fence=ol["epoch"]).save_candidate(
+            root, istart, iend, info, table)
+        owned = _snapshot(np, out_c)      # the new owner's npz pair
+        late = CandidateStore(str(out_c), fp, fence=zl["epoch"])
+        late.save_candidate(root, istart, iend, info, table.__class__(
+            {k: np.asarray(table[k])[::-1] for k in table.colnames}))
+        store = CandidateStore(str(out_c), fp)
+        for chunk in ol["chunks"]:
+            store.mark_done(chunk)
+        done = c.complete({"worker": owner, "lease": ol["lease"],
+                           "unit": ol["unit"], "error": None,
+                           "epoch": ol["epoch"]})
+        stale = c.complete({"worker": zombie, "lease": zl["lease"],
+                            "unit": zl["unit"], "error": None,
+                            "epoch": zl["epoch"]})
+    fenced = _counter_value("putpu_fleet_fenced_writes_total") - fenced0
+    stale_n = _counter_value("putpu_fleet_stale_epoch_rejected_total") \
+        - stale0
+    npz = {k: v for k, v in _snapshot(np, out_c).items()
+           if k.endswith(".npz")}
+    check(late.fenced_rejects == 1 and fenced == 1 and npz and npz == owned,
+          f"e2e_fleet run C: the zombie's write was not refused "
+          f"({late.fenced_rejects}, {fenced})")
+    check(done["unit_done"] and stale.get("stale") is True and stale_n == 1,
+          f"e2e_fleet run C: {done}, {stale}, {stale_n}")
+    emit("e2e_fleet_zombie", epochs=[zl["epoch"], ol["epoch"]],
+         fenced_writes=fenced, stale_epochs=stale_n, artifact=f"{root}_"
+         f"{istart}-{iend}", owner_bytes_kept=True)
+
+    # -- run D: a periodicity unit ------------------------------------------
+    out_d = workdir / "fleet_d"
+    job = period["job"]
+    coordinator = FleetCoordinator(str(out_d), lease_ttl_s=120.0,
+                                   probe_interval_s=0.5)
+    server = None
+    try:
+        server = start_obs_server(0, fleet=coordinator)
+        coordinator.add_survey([str(pulsar)], workload="periodicity",
+                               accel_max=1000.0, n_accel=5, **physics)
+        fp_d = coordinator.progress_doc()["files"][0]["fingerprint"]
+        worker = FleetWorker(f"http://127.0.0.1:{server.port}",
+                             http_port=None, device="cuda")
+        timing_d = _timed_worker(worker)
+        reset_counts()
+        t0 = time.perf_counter()
+        worker.run(max_idle_s=60.0)
+        wall_d = time.perf_counter() - t0
+        counts_d = read_counts()
+        check(coordinator.survey_done and worker.units_done == 1,
+              f"e2e_fleet run D: {coordinator.progress_doc()}")
+    finally:
+        if server is not None:
+            server.close()
+        coordinator.close()
+    name = os.path.basename(job["candidates_path"])
+    check(fp_d == job["fingerprint"] and (out_d / name).is_file(),
+          f"e2e_fleet run D: {fp_d} vs {job['fingerprint']}, {name}")
+    fence = json.loads((out_d / f"fence_{fp_d}.json").read_text())
+    check(fence["epochs"].get(name) == 1, f"e2e_fleet run D fence {fence}")
+    cands, _ = load_candidates(str(out_d / name))
+    c_row = job["canary"]["dm_index"]
+    mine = [c for c in cands if abs(c["dm_index"] - c_row) > 2]
+    check([(c["dm"], c["accel"], c["freq_bin"], c["nharm"]) for c in mine]
+          == [(c["dm"], c["accel"], c["freq_bin"], c["nharm"])
+              for c in job["candidates"]]
+          and all(abs(c["sigma"] - r["sigma"]) <= 1e-5 * abs(r["sigma"])
+                  for c, r in zip(mine, job["candidates"])),
+          "e2e_fleet run D: candidates differ from e2e_puperiod's")
+    check(counts_d["B6"] == period["periodicity_search"]["B6"]
+          and counts_d["B1"] > 0,
+          f"e2e_fleet run D launches {counts_d} vs "
+          f"{period['periodicity_search']}")
+    emit("e2e_fleet_period", wall_s=wall_d, fingerprint=fp_d,
+         candidates=len(cands), kept_outside_canary=len(mine),
+         rtt_ms=_median_ms(timing_d["rtt_ms"]), launches=counts_d,
+         fenced_at_epoch=1, candidates_equal=True)
+    for d in ("fleet_a", "fleet_b", "fleet_c", "fleet_d", "fleet_ref_direct",
+              "fleet_ref_hybrid"):
+        shutil.rmtree(workdir / d, ignore_errors=True)
+    return {"fleet: 2 worker processes, coordinator recovered "
+            "(e2e_fleet run A)": counts_a,
+            "fleet: hybrid, a worker killed holding a lease "
+            "(e2e_fleet run B)": counts_b,
+            "fleet: periodicity unit (e2e_fleet run D)": counts_d}
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -6269,6 +6737,9 @@ def main(argv=None):
                         help="build, the end-to-end file and the streaming "
                              "and beam phases only (e2e_stream, e2e_beams, "
                              "ring)")
+    parser.add_argument("--fleet", action="store_true",
+                        help="build, the end-to-end and pulsar files, "
+                             "e2e_period and e2e_fleet only")
     parser.add_argument("--service", action="store_true",
                         help="build, the end-to-end and pulsar files and "
                              "the live feed and job service phases only "
@@ -6376,6 +6847,19 @@ def main(argv=None):
                 phase_e2e_service(torch, np, workdir, path,
                                   workdir / "pulsar.fil", period)
             return 0
+        if opts.fleet:
+            shutil.rmtree(workdir, ignore_errors=True)
+            workdir.mkdir(parents=True)
+            written = _join_data_writer(
+                _start_data_writer(workdir, opts.seed), workdir)
+            path = workdir / "e2e.fil"
+            with cold_tuner("e2e_period", warm=True):
+                period = phase_e2e_period(torch, np, workdir, opts.seed,
+                                          written_s=written["pulsar_s"])
+            with cold_tuner("e2e_fleet", warm=True):
+                phase_e2e_fleet(torch, np, workdir, path,
+                                workdir / "pulsar.fil", period)
+            return 0
         if opts.mesh:
             phase_mesh_sweep(torch, np, opts.seed)
             phase_mesh_fdmt(torch, np, opts.seed)
@@ -6389,7 +6873,7 @@ def main(argv=None):
             path.unlink()
             with cold_tuner("e2e_period", warm=True):
                 period = phase_e2e_period(torch, np, workdir, opts.seed)
-            with cold_tuner("mesh_period"):
+            with cold_tuner("mesh_period", warm=True):
                 phase_mesh_period(torch, np, workdir, period)
             phase_multihost()
             return 0
@@ -6459,11 +6943,16 @@ def main(argv=None):
         with cold_tuner("e2e_fdas"):
             fdas = phase_e2e_fdas(torch, np, workdir, opts.seed, period)
         accel = phase_autotune_accel(torch, np, workdir, period)
-        with cold_tuner("mesh_period"):
+        with cold_tuner("mesh_period", warm=True):
             mesh_period = phase_mesh_period(torch, np, workdir, period)
         with cold_tuner("e2e_service", warm=True):
             service = phase_e2e_service(torch, np, workdir, path,
                                         workdir / "pulsar.fil", period)
+        with cold_tuner("e2e_fleet", warm=True):
+            fleet = phase_e2e_fleet(
+                torch, np, workdir, path, workdir / "pulsar.fil", period,
+                refs={"direct": workdir / "out",
+                      "hybrid": workdir / "out_hybrid_snr_8"})
         path.unlink()
         with cold_tuner("e2e_lowbit", warm=True):
             lowbit = phase_e2e_lowbit(torch, np, workdir, opts.seed,
@@ -6525,7 +7014,7 @@ def main(argv=None):
                     mesh_period["job"],
                 **{f"autotune probe ({k})": v for k, v in PROBES.items()},
                 **knob_paths, **precision["runs"], **lowbit["launches"],
-                **stream, **beams, **ingest, **service}
+                **stream, **beams, **ingest, **service, **fleet}
     shape = {"nchan": NCHAN, "nsamples": NSAMPLES}
 
     def levels(kind):

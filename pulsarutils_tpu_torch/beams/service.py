@@ -95,8 +95,9 @@ def validate_spec(spec):
     ``ValueError`` on a bad one (the HTTP layer maps that to a 400).
 
     ONE set of submission rules, the JAX package's, shared with the
-    fleet coordinator's job handoff (the fleet is not ported yet): a
-    spec either deployment accepts is valid in the other.
+    fleet coordinator's job handoff
+    (:meth:`~..fleet.coordinator.FleetCoordinator.add_job`): a spec
+    either deployment accepts is valid in the other.
 
     ``workload`` selects the job type: ``"single_pulse"`` (default — the
     batched multibeam run) or ``"periodicity"`` (the full-observation

@@ -1,0 +1,322 @@
+"""The port's ``PUfleet``: run either role of the survey fleet.
+
+Coordinator (shards files, serves the wire protocol and the ``/fleet/``
+routes, steals work from sick workers, exits when the survey is done
+with ``--exit-when-done``; a host process, it makes no CUDA call)::
+
+    python -m pulsarutils_tpu_torch.cli.fleet_main coordinator \
+        obs1.fil obs2.fil --output-dir out --http-port 8900 \
+        --dmmin 100 --dmmax 200
+
+Worker (leases units, searches them on its device, reports completions;
+SIGTERM/SIGINT drain gracefully)::
+
+    python -m pulsarutils_tpu_torch.cli.fleet_main worker \
+        --coordinator http://cohost:8900 --http-port 0 [--device cpu]
+
+The two roles share ``--output-dir`` through a common filesystem: the
+per-file resume ledgers there are the fleet's completion record.  The
+JAX package's flags; ``worker`` adds ``--device cuda|cpu`` (``cuda`` by
+default, raising without a card, as ``PUingest listen`` does).  A
+coordinator restarted with ``--recover`` must listen on the port its
+workers know: give both runs one fixed ``--http-port``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import os
+import sys
+import time
+
+from ..utils.logging_utils import logger
+
+
+def build_parser():
+    parser = argparse.ArgumentParser(
+        prog="PUfleet",
+        description="Coordinator/worker fleet for horizontally scaled "
+                    "surveys (lease-based work-stealing over the "
+                    "exact-resume ledger).")
+    sub = parser.add_subparsers(dest="role", required=True)
+
+    coord = sub.add_parser("coordinator",
+                           help="shard files into leased units and "
+                                "serve the fleet protocol")
+    coord.add_argument("fnames", nargs="*",
+                       help="filterbank files to shard across the fleet "
+                            "(optional with --recover: the journal "
+                            "already names the crashed run's files)")
+    coord.add_argument("--recover", action="store_true",
+                       help="restart a crashed coordinator: replay "
+                            "fleet_journal.jsonl from --output-dir, "
+                            "re-derive outstanding units from the "
+                            "ledgers, re-steal in-flight leases under "
+                            "a bumped epoch, and keep serving — "
+                            "workers re-register automatically")
+    coord.add_argument("--output-dir", required=True,
+                       help="shared directory for ledgers + candidates "
+                            "(every worker must see the same files)")
+    coord.add_argument("--http-port", type=int, required=True,
+                       help="coordinator surface port (0 = ephemeral, "
+                            "printed at startup)")
+    coord.add_argument("--http-host", default="127.0.0.1",
+                       help="bind address; 0.0.0.0 exposes the "
+                            "coordinator to remote workers")
+    coord.add_argument("--dmmin", type=float, default=300.0)
+    coord.add_argument("--dmmax", type=float, default=400.0)
+    coord.add_argument("--snr-threshold", default=None,
+                       help="number, 'auto' or 'certifiable' "
+                            "(driver default when omitted)")
+    coord.add_argument("--kernel", default=None)
+    coord.add_argument("--chunk-length", type=float, default=None)
+    coord.add_argument("--lease-ttl", type=float, default=60.0,
+                       help="seconds a silent worker keeps a lease")
+    coord.add_argument("--chunks-per-unit", type=int, default=1)
+    coord.add_argument("--probe-interval", type=float, default=2.0,
+                       help="seconds between /healthz probe sweeps")
+    coord.add_argument("--no-resume", action="store_true",
+                       help="shard every chunk even when ledgers "
+                            "already mark some done")
+    coord.add_argument("--report-out", default=None,
+                       help="write the end-of-run survey report (with "
+                            "the fleet section) to this base path")
+    coord.add_argument("--exit-when-done", action="store_true",
+                       help="exit once every unit is resolved (default: "
+                            "keep serving so more surveys can be added)")
+    coord.add_argument("--trace-out", default=None,
+                       help="write ONE merged Perfetto trace: the "
+                            "coordinator's spans plus every traced "
+                            "worker's, clock-skew corrected (workers "
+                            "must run with --trace-out or in-process "
+                            "trace=True to contribute)")
+    coord.add_argument("--history-interval", type=float, default=None,
+                       metavar="S",
+                       help="sample the coordinator registry into the "
+                            "/metrics/history ring every S seconds")
+    coord.add_argument("--slo", action="store_true",
+                       help="arm the default SLO set (dispatch success, "
+                            "chunk-wall p95, canary recall, lease "
+                            "success) with burn-rate alerting: /alerts "
+                            "endpoint + ALERTS_JSON footer (implies "
+                            "--history-interval 5 when unset)")
+    coord.add_argument("--capacity", action="store_true",
+                       help="arm fleet capacity observability: "
+                            "saturation detection over queue-depth + "
+                            "utilization trends, backlog-drain ETA and "
+                            "scaling advice at /fleet/capacity, plus "
+                            "the fleet_saturated health condition when "
+                            "--slo is also armed.  Byte-inert: science "
+                            "outputs are identical either way")
+
+    work = sub.add_parser("worker",
+                          help="lease and search units from a "
+                               "coordinator")
+    work.add_argument("--coordinator", required=True,
+                      help="coordinator base URL, e.g. "
+                           "http://cohost:8900")
+    work.add_argument("--http-port", type=int, default=0,
+                      help="this worker's live surface port (0 = "
+                           "ephemeral; the coordinator probes its "
+                           "/healthz for lease gating)")
+    work.add_argument("--http-host", default="127.0.0.1")
+    work.add_argument("--worker-id", default=None,
+                      help="stable id (default: coordinator-assigned)")
+    work.add_argument("--max-units", type=int, default=1,
+                      help="units per lease request")
+    work.add_argument("--max-idle", type=float, default=None,
+                      help="exit after this many seconds with nothing "
+                           "to lease (default: poll forever)")
+    work.add_argument("--trace-out", default=None,
+                      help="arm span tracing: unit spans bind each "
+                           "lease's trace_id, drain to the coordinator "
+                           "per completion, AND export this worker's "
+                           "own trace JSON here at exit (mergeable "
+                           "post-hoc with obs.collector."
+                           "merge_trace_files)")
+    work.add_argument("--history-interval", type=float, default=None,
+                      metavar="S",
+                      help="sample this worker's registry every S "
+                           "seconds; serves /metrics/history, which "
+                           "the coordinator scrapes for fleet trends")
+    work.add_argument("--lineage", action="store_true",
+                      help="stamp every hit this worker persists with "
+                           "a candidate lineage record (stage "
+                           "timestamps + the lease's trace id) beside "
+                           "the candidate npz pair.  Worker-local: "
+                           "never part of the lease config, so the "
+                           "ledger fingerprint is unchanged")
+    work.add_argument("--push-webhook", action="append", default=None,
+                      metavar="URL",
+                      help="POST every detection this worker makes to "
+                           "this webhook URL (repeatable).  Bounded "
+                           "background delivery — a dead webhook never "
+                           "stalls the unit loop; delivery counters "
+                           "ride each completion to the coordinator's "
+                           "/fleet/metrics")
+    work.add_argument("--push-dead-letter", default=None, metavar="PATH",
+                      help="journal undeliverable alerts to this JSONL "
+                           "file (default: drop with a counter)")
+    work.add_argument("--device", default="cuda",
+                      help="cuda (default; raises without a card) or "
+                           "cpu: where this worker's units run (never a "
+                           "lease key)")
+    return parser
+
+
+def _run_coordinator(opts):
+    from ..fleet.coordinator import FleetCoordinator
+    from ..obs import trace as obs_trace
+    from ..obs.server import start_obs_server
+
+    config = {"dmmin": opts.dmmin, "dmmax": opts.dmmax}
+    if opts.snr_threshold is not None:
+        try:
+            config["snr_threshold"] = float(opts.snr_threshold)
+        except ValueError:
+            config["snr_threshold"] = opts.snr_threshold
+    if opts.kernel is not None:
+        config["kernel"] = opts.kernel
+    if opts.chunk_length is not None:
+        config["chunk_length"] = opts.chunk_length
+
+    # distributed observability, armed only on request
+    collector = tracer = sampler = engine = health = None
+    if opts.trace_out:
+        from ..obs.collector import TraceCollector
+
+        collector = TraceCollector()
+        tracer = obs_trace.start_tracing()
+    history_interval = opts.history_interval
+    if opts.slo and history_interval is None:
+        history_interval = 5.0
+    if history_interval is not None:
+        from ..obs.timeseries import TimeSeriesSampler
+
+        if opts.slo:
+            from ..obs.health import HealthEngine
+            from ..obs.slo import SLOEngine
+
+            # burn alerts FEED the coordinator's health verdict: a
+            # paged SLO turns /healthz CRITICAL, so dumb probes act on
+            # budget burn with zero parsing (the documented contract)
+            health = HealthEngine()
+            engine = SLOEngine(health=health)
+            sampler = TimeSeriesSampler(
+                interval_s=history_interval,
+                on_sample=lambda _p: engine.evaluate(sampler))
+        else:
+            sampler = TimeSeriesSampler(interval_s=history_interval)
+        sampler.start()
+
+    kwargs = dict(lease_ttl_s=opts.lease_ttl,
+                  chunks_per_unit=opts.chunks_per_unit,
+                  probe_interval_s=opts.probe_interval,
+                  resume=not opts.no_resume, collector=collector,
+                  capacity=opts.capacity, health=health)
+    if opts.recover:
+        # crash restart: journal replay + ledger re-derive;
+        # files the journal already names must not be re-sharded
+        coordinator = FleetCoordinator.recover(opts.output_dir, **kwargs)
+        known = {f["fname"] for f in
+                 coordinator.progress_doc()["files"]}
+        fnames = [f for f in opts.fnames
+                  if os.path.abspath(str(f)) not in known]
+        if len(fnames) < len(opts.fnames):
+            logger.info("fleet: %d file(s) already recovered from the "
+                        "journal, not re-sharding them",
+                        len(opts.fnames) - len(fnames))
+    else:
+        if not opts.fnames:
+            raise SystemExit("PUfleet coordinator: provide filterbank "
+                             "files to shard (or --recover)")
+        coordinator = FleetCoordinator(opts.output_dir, **kwargs)
+        fnames = opts.fnames
+    server = start_obs_server(opts.http_port, host=opts.http_host,
+                              fleet=coordinator, timeseries=sampler,
+                              slo=engine, health=health)
+    logger.info("fleet coordinator on http://%s:%d — workers: "
+                "PUfleet worker --coordinator http://%s:%d",
+                opts.http_host, server.port, opts.http_host, server.port)
+    if fnames:
+        coordinator.add_survey(fnames, **config)
+    try:
+        while True:
+            time.sleep(1.0)
+            if opts.exit_when_done and coordinator.survey_done:
+                logger.info("fleet: survey complete")
+                break
+    except KeyboardInterrupt:
+        logger.info("fleet coordinator shutting down")
+    finally:
+        summary = coordinator.summary()
+        server.close()
+        coordinator.close()
+        if sampler is not None:
+            sampler.stop()
+        if engine is not None:
+            if sampler is not None:
+                engine.evaluate(sampler)
+            engine.footer()
+        if collector is not None:
+            obs_trace.stop_tracing()
+            collector.ingest_tracer("coordinator", tracer)
+            collector.export(opts.trace_out)
+    print(json.dumps({"fleet": summary}))
+    if opts.report_out:
+        from ..obs import metrics as obs_metrics
+        from ..obs.report import write_report
+
+        write_report(opts.report_out,
+                     meta={"root": "fleet",
+                           "files": len(opts.fnames),
+                           "output_dir": os.path.abspath(opts.output_dir)},
+                     fleet=summary,
+                     slo=engine.to_json() if engine is not None else None,
+                     capacity=summary.get("capacity"),
+                     metrics=obs_metrics.REGISTRY.snapshot())
+        logger.info("fleet report -> %s.md", opts.report_out)
+    return 0 if summary["survey_done"] else 1
+
+
+def _run_worker(opts):
+    from ..fleet.worker import FleetWorker
+    from ..utils.device import resolve_device
+
+    resolve_device(opts.device)
+    worker = FleetWorker(opts.coordinator, worker_id=opts.worker_id,
+                         http_port=opts.http_port,
+                         http_host=opts.http_host,
+                         max_units=opts.max_units,
+                         trace=bool(opts.trace_out),
+                         history_interval_s=opts.history_interval,
+                         lineage=opts.lineage,
+                         push=(list(opts.push_webhook)
+                               if opts.push_webhook else None),
+                         push_dead_letter_path=opts.push_dead_letter,
+                         device=opts.device)
+    worker.install_signal_handlers()
+    units = worker.run(max_idle_s=opts.max_idle)
+    if opts.trace_out and worker.tracer is not None:
+        worker.tracer.export(
+            opts.trace_out,
+            extra_meta={"clock_offset_s": worker.clock_offset_s})
+    print(json.dumps({"worker": worker.worker_id, "units_done": units,
+                      "drained": worker.drained,
+                      "clock_offset_s": round(worker.clock_offset_s, 6)}))
+    return 0
+
+
+def main(argv=None):
+    opts = build_parser().parse_args(argv)
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(levelname)s %(message)s")
+    if opts.role == "coordinator":
+        return _run_coordinator(opts)
+    return _run_worker(opts)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

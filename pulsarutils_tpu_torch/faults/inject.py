@@ -4,8 +4,9 @@ A :class:`FaultPlan` is a list of :class:`FaultSpec` records, each naming
 a **site** (the seam it fires at), a failure **kind**, the chunk starts it
 applies to and a firing budget (``times``).  The instrumented code calls
 the module-level hooks (:func:`fire`, :func:`corrupt`,
-:func:`truncated_length`); with no plan armed every hook is one
-module-global ``None`` check and the production path is unchanged.
+:func:`truncated_length`, :func:`wire_action`, :func:`ingest_action`);
+with no plan armed every hook is one module-global ``None`` check and
+the production path is unchanged.
 
 ============ ========================================= =====================
 site         seam                                      kinds
@@ -26,6 +27,20 @@ site         seam                                      kinds
 ``host``     the host (CPU) fallback rung of the       ``oom``
              chunk search
 ``persist``  ``CandidateStore.save_candidate``         ``error``
+``fleet``    ``FleetWorker._run_unit``, before a        ``error``, ``hang``
+             leased unit's search (``chunk`` = its
+             first chunk)
+``period``   the periodicity job's trial sweep, on     ``error``, ``hang``,
+             its device; a raise propagates (no host   ``oom``
+             path in the port)
+``wire``     the fleet's wire client                   ``drop``, ``delay``,
+             (``protocol.post_json_retry``), per       ``duplicate``
+             message: ``drop`` raises a transport
+             error before sending, ``delay`` sleeps
+             ``seconds`` first, ``duplicate`` sends it
+             twice; ``msg`` restricts a spec to one
+             message (``register``, ``lease``,
+             ``complete``, ``release``)
 ``ingest``   the live feed's send path, per packet     ``drop``, ``reorder``,
              (``chunks`` selects packet ``seq``s)      ``duplicate``,
                                                        ``corrupt``,
@@ -84,6 +99,9 @@ _SITE_DEFAULT_EXC = {"read": "OSError", "persist": "OSError"}
 CORRUPT_KINDS = ("nan", "inf", "dead_channels", "zero_run", "saturate",
                  "impulse")
 
+#: partition-chaos kinds of the ``wire`` site
+_WIRE_KINDS = ("drop", "delay", "duplicate")
+
 #: feed-chaos kinds of the ``ingest`` site, applied per packet by
 #: :func:`~..ingest.source.feed_packets` (the ``chunks`` selector
 #: matches the packet ``seq``)
@@ -116,6 +134,7 @@ class FaultSpec:
     seed: int = 0                   # corruption rng seed (mixed w/ chunk)
     exc: str | None = None          # exception class name for kind=error
     amp: float = 20.0               # impulse amplitude, in block stds
+    msg: str | None = None          # wire-message selector; None = all
     fired: int = dataclasses.field(default=0, init=False)
 
     def matches(self, site, chunk):
@@ -135,6 +154,8 @@ class FaultSpec:
             d["exc"] = self.exc
         if self.amp != 20.0:
             d["amp"] = self.amp
+        if self.msg is not None:
+            d["msg"] = self.msg
         return d
 
 
@@ -181,6 +202,20 @@ class FaultPlan:
             exc_cls = _EXC_TYPES.get(exc_name, RuntimeError)
             raise exc_cls(f"FAULTPLAN: injected {site} {spec.kind} "
                           f"(chunk={chunk})")
+
+    def wire_action(self, site, msg=None):
+        """First matching wire-chaos action, ``(kind, seconds)``, or
+        ``None``; a spec's ``msg`` restricts it to one message name."""
+        for spec in self.specs:
+            if spec.kind not in _WIRE_KINDS or spec.site != site:
+                continue
+            if spec.msg is not None and msg is not None \
+                    and spec.msg != msg:
+                continue
+            if not self._claim(spec):
+                continue
+            return spec.kind, spec.seconds
+        return None
 
     def ingest_action(self, site, seq=None):
         """First matching feed-chaos action for one packet, ``(kind,
@@ -354,6 +389,11 @@ def wants_corrupt(site, chunk):
 def truncated_length(site, chunk, n):
     plan = _plan()
     return n if plan is None else plan.truncated_length(site, chunk, n)
+
+
+def wire_action(site, msg=None):
+    plan = _plan()
+    return None if plan is None else plan.wire_action(site, msg=msg)
 
 
 def ingest_action(site, seq=None):

@@ -33,11 +33,11 @@ PERSIST_DEAD_LETTER = "persist_dead_letter"
 OOM_FLOOR = "oom_floor"
 
 #: live-feed packet loss left the chunk's missing fraction above the
-#: integrity policy's zero rail (the live feed is not ported yet)
+#: integrity policy's zero rail
 FEED_GAP = "feed_gap"
 
 #: ingest outran search and the admission-control seam dropped this
-#: (oldest) assembled chunk whole (the live feed is not ported yet)
+#: (oldest) assembled chunk whole
 SHED_OVERRUN = "shed_overrun"
 
 #: reason -> one-line meaning.  ``integrity:`` is a prefix entry:

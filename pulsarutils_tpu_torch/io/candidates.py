@@ -3,22 +3,29 @@
 Candidates are npz records (:class:`..pipeline.pulse_info.PulseInfo` plus
 the chunk's full result table) named ``{root}_{istart}-{iend}``; a
 ``progress_<fingerprint>.json`` ledger records every processed chunk (hit
-or not), so a restarted search skips exactly the work already done.  The
-file formats are the JAX package's.
+or not), so a restarted search skips exactly the work already done.  A
+fleet worker's store carries its lease's epoch (``fence=``): its artifact
+writes go through :meth:`CandidateStore.fenced_write`, which refuses to
+overwrite what a session of a higher epoch wrote.  The file formats, the
+fence map ``fence_<fingerprint>.json`` and its lock file included, are
+the JAX package's.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import json
 import logging
 import os
+import time
 
 import numpy as np
 import torch
 
 from ..faults import inject as fault_inject
+from ..obs import metrics as _metrics
 from ..ops.plan import delta_delay
 from ..ops.rebin import quick_resample
 from ..pipeline.pulse_info import PulseInfo
@@ -38,16 +45,30 @@ def config_fingerprint(**kwargs):
 
 class CandidateStore:
     """``fingerprint=None`` disables the resume ledger: every chunk reports
-    not-done and nothing is recorded."""
+    not-done and nothing is recorded.
+
+    ``fence`` is a fleet lease's epoch, the fencing token: with it (and a
+    fingerprint) every artifact write consults ``fence_<fingerprint>.json``
+    and is refused when another session stamped that artifact with a
+    higher epoch, so a partitioned worker whose lease was stolen cannot
+    overwrite the new owner's output.  ``fence=None`` reads and writes no
+    fence file."""
 
     #: persisted-waterfall element budget: above it the store keeps a
     #: window around the pulse instead of the whole chunk
     WATERFALL_BUDGET = 1 << 22
 
-    def __init__(self, directory, fingerprint=None):
+    def __init__(self, directory, fingerprint=None, fence=None):
         self.directory = str(directory)
         os.makedirs(self.directory, exist_ok=True)
         self.fingerprint = fingerprint
+        self.fence = int(fence) if fence is not None else None
+        self._fence_path = (
+            os.path.join(self.directory, f"fence_{fingerprint}.json")
+            if self.fence is not None and fingerprint is not None
+            else None)
+        #: artifact writes this session refused under the fence
+        self.fenced_rejects = 0
         if fingerprint is None:
             self._ledger_path = None
             self._ledger = {"fingerprint": None, "done": []}
@@ -178,18 +199,122 @@ class CandidateStore:
     def save_candidate(self, root, istart, iend, info, table):
         fault_inject.fire("persist", chunk=istart)
         base = self._base(root, istart, iend)
-        self.trim_waterfall(info, table).save(base + ".info.npz")
-        table.to_npz(base + ".table.npz")
+
+        def write():
+            self.trim_waterfall(info, table).save(base + ".info.npz")
+            table.to_npz(base + ".table.npz")
+
+        self.fenced_write(base, write)
         return base
 
     def save_lineage(self, root, istart, iend, doc):
         """Write a candidate's lineage doc beside its npz pair,
         ``{base}.lineage.json`` (atomic; indented and key-sorted as the
-        JAX package writes it).  Only called when lineage is armed."""
-        path = self._base(root, istart, iend) + ".lineage.json"
-        atomic_write_json(path, doc, indent=2, sort_keys=True,
-                          trailing_newline=True)
-        return path
+        JAX package writes it), under the same fence as the pair.  Only
+        called when lineage is armed."""
+        base = self._base(root, istart, iend)
+
+        def write():
+            atomic_write_json(base + ".lineage.json", doc, indent=2,
+                              sort_keys=True, trailing_newline=True)
+
+        self.fenced_write(base, write)
+        return base + ".lineage.json"
+
+    # -- the artifact fence --------------------------------------------------
+
+    def fenced_write(self, path, write_fn):
+        """Run ``write_fn()``, which writes the artifact at ``path``, under
+        the epoch fence; returns True when it ran.
+
+        An unfenced store just runs it.  A fenced one holds a
+        cross-process lock file around check, write and stamp, so a
+        zombie cannot pass the check before the new owner stamps and
+        land its bytes after, and two stamps cannot lose the higher
+        epoch."""
+        if self._fence_path is None:
+            write_fn()
+            return True
+        with self._fence_lock():
+            if not self._fence_admits(path):
+                return False
+            write_fn()
+            self._fence_stamp(path)
+        return True
+
+    @contextlib.contextmanager
+    def _fence_lock(self, timeout_s=30.0):
+        """An ``O_EXCL`` lock file beside the fence map (the primitive
+        that works on the fleet's shared filesystems).  A lock held past
+        ``timeout_s`` is taken as abandoned (its holder killed mid-write)
+        and broken with a warning."""
+        lock_path = self._fence_path + ".lock"
+        deadline = time.monotonic() + timeout_s
+        fd = None
+        while fd is None:
+            try:
+                fd = os.open(lock_path,
+                             os.O_CREAT | os.O_EXCL | os.O_WRONLY)
+            except FileExistsError:
+                if time.monotonic() >= deadline:
+                    logger.warning(
+                        "breaking abandoned fence lock %s (held past "
+                        "%.0fs)", lock_path, timeout_s)
+                    try:
+                        os.unlink(lock_path)
+                    except OSError:
+                        pass
+                    deadline = time.monotonic() + timeout_s
+                else:
+                    time.sleep(0.05)
+        try:
+            yield
+        finally:
+            os.close(fd)
+            try:
+                os.unlink(lock_path)
+            except OSError:
+                pass
+
+    def _read_fence(self):
+        """``{artifact base name: epoch}`` from disk; an unreadable or
+        torn map reads as nothing stamped (the worst case is an allowed
+        write of the same bytes, never a lost artifact)."""
+        try:
+            with open(self._fence_path) as f:
+                doc = json.load(f)
+        except (OSError, ValueError):
+            return {}
+        epochs = doc.get("epochs") if isinstance(doc, dict) else None
+        if not isinstance(epochs, dict):
+            return {}
+        return {str(k): int(v) for k, v in epochs.items()
+                if isinstance(v, int)}
+
+    def _fence_admits(self, base):
+        """False when another session stamped ``base`` with a higher
+        epoch: this session's lease was stolen and the new owner wrote."""
+        name = os.path.basename(base)
+        stamped = self._read_fence().get(name)
+        if stamped is not None and stamped > self.fence:
+            self.fenced_rejects += 1
+            _metrics.counter("putpu_fleet_fenced_writes_total").inc()
+            logger.warning(
+                "fenced write rejected: %s is stamped epoch %d, this "
+                "session holds epoch %d (lease stolen; the new owner's "
+                "artifact stands)", name, stamped, self.fence)
+            return False
+        return True
+
+    def _fence_stamp(self, base):
+        """Record this session's epoch for ``base``, keeping the larger
+        of the two per artifact (the caller holds the lock)."""
+        name = os.path.basename(base)
+        epochs = self._read_fence()
+        epochs[name] = max(epochs.get(name, 0), self.fence)
+        atomic_write_json(self._fence_path,
+                          {"schema_version": 1,
+                           "epochs": dict(sorted(epochs.items()))})
 
     def trim_waterfall(self, info, table):
         """Bound the persisted record: full chunk in, pulse cutout out.

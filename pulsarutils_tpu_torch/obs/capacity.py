@@ -1,13 +1,91 @@
-"""Chunk throughput for the live ETA: an EWMA of chunks per second.
+"""Fleet capacity observability: utilization, saturation, scaling advice.
 
-The part of the JAX package's capacity module the single-process chunk
-loop uses (``/progress``'s ETA); the fleet's utilization, saturation and
-scaling advice come with the port's fleet.
+The port of the JAX package's module (pure accounting over injected
+clocks and values: no threads, no IO, no torch):
+
+* :class:`UtilizationAccountant` turns a worker's wall clocks (search
+  wall against lease-poll wall, and the chunk-span seconds the budget
+  layer measures) into the ``putpu_worker_busy_fraction`` and
+  ``putpu_worker_duty_cycle`` gauges each ``complete`` carries to the
+  coordinator;
+* :class:`SaturationDetector` folds the queue-depth trend and the
+  fleet's utilization into ``healthy``, ``worker-bound``, ``starved`` or
+  ``draining``, with hysteresis, so the ``fleet_saturated`` health
+  condition does not flap per sweep;
+* :class:`CapacityModel` keeps an EWMA of each worker's chunks/s
+  (:class:`EwmaThroughput`, also the single-process loop's live ETA),
+  prices the backlog's drain ETA and emits a :class:`ScalingAdvice`
+  (desired workers, direction, reason, confidence), served at
+  ``GET /fleet/capacity``.
+
+None of it touches science bytes: a capacity-off fleet run writes the
+same files as a capacity-on one.
 """
 
 from __future__ import annotations
 
-__all__ = ["EwmaThroughput"]
+import math
+import time
+
+__all__ = ["CapacityModel", "EwmaThroughput", "SaturationDetector",
+           "ScalingAdvice", "UtilizationAccountant"]
+
+
+class UtilizationAccountant:
+    """Busy/idle wall bookkeeping for one worker.
+
+    ``note_busy``/``note_idle`` accumulate seconds the caller measured
+    around its unit runs and lease-poll waits; ``note_device`` adds the
+    device-facing seconds inside the busy wall (the per-chunk span sum
+    the budget accountant already produces).  The two derived fractions:
+
+    * :meth:`busy_fraction` — search wall / (search + lease-poll wall),
+      the fleet-scaling signal ("is this worker starved for work?");
+    * :meth:`duty_cycle` — device-span seconds / busy wall, clamped to
+      [0, 1] ("of the time this worker was searching, how much was the
+      dispatch→ready pipeline vs per-unit overhead?").  NOTE: in-process
+      multi-worker harnesses share one chunk-wall histogram, so their
+      duty cycles are a per-process approximation; one worker per
+      process (the deployment shape) measures exactly.
+    """
+
+    def __init__(self):
+        self.busy_s = 0.0
+        self.idle_s = 0.0
+        self.device_s = 0.0
+
+    def note_busy(self, dt):
+        self.busy_s += max(0.0, float(dt))
+
+    def note_idle(self, dt):
+        self.idle_s += max(0.0, float(dt))
+
+    def note_device(self, dt):
+        self.device_s += max(0.0, float(dt))
+
+    def busy_fraction(self):
+        """``None`` until any wall has been observed — no evidence must
+        mean no verdict, not a fake 0.0 that reads as "fully idle"."""
+        total = self.busy_s + self.idle_s
+        if total <= 0.0:
+            return None
+        return self.busy_s / total
+
+    def duty_cycle(self):
+        if self.busy_s <= 0.0:
+            return None
+        return min(1.0, self.device_s / self.busy_s)
+
+    def doc(self):
+        return {"busy_s": round(self.busy_s, 4),
+                "idle_s": round(self.idle_s, 4),
+                "device_s": round(self.device_s, 4),
+                "busy_fraction": _rnd(self.busy_fraction()),
+                "duty_cycle": _rnd(self.duty_cycle())}
+
+
+def _rnd(v, nd=4):
+    return None if v is None else round(v, nd)
 
 
 class EwmaThroughput:
@@ -43,3 +121,210 @@ class EwmaThroughput:
         if self.rate is None or self.rate <= 0.0:
             return None
         return float(remaining) / self.rate
+
+
+class SaturationDetector:
+    """Queue-depth trend + fleet utilization -> one of four states.
+
+    * ``worker-bound`` — the backlog is growing while the workers are
+      busy: more workers would help (the "saturated" case);
+    * ``starved`` — the queue is empty and the workers are mostly idle:
+      there are more workers than work;
+    * ``draining`` — the control plane is winding down (survey done or
+      an explicit drain): neither verdict applies;
+    * ``healthy`` — everything else.
+
+    Hysteresis both ways: a non-healthy classification needs
+    ``confirm`` consecutive observations to take effect, and once taken
+    it needs ``decay`` consecutive healthy observations to clear — so
+    one noisy sweep neither raises nor resolves the ``fleet_saturated``
+    health condition.
+    """
+
+    STATES = ("healthy", "worker-bound", "starved", "draining")
+
+    def __init__(self, window=8, high_util=0.75, low_util=0.25,
+                 confirm=2, decay=3):
+        self.window = int(window)
+        self.high_util = float(high_util)
+        self.low_util = float(low_util)
+        self.confirm = int(confirm)
+        self.decay = int(decay)
+        self.state = "healthy"
+        self._depths = []          # ring of recent queue depths
+        self._streak = ("healthy", 0)   # (candidate state, run length)
+        self.transitions = []      # [(t, from, to)] for the report/tests
+
+    def _classify(self, depth, utilization, draining):
+        if draining:
+            return "draining"
+        rising = (len(self._depths) >= 2
+                  and self._depths[-1] > self._depths[0]
+                  and depth > 0)
+        busy = utilization is None or utilization >= self.high_util
+        if rising and busy:
+            return "worker-bound"
+        if depth == 0 and utilization is not None \
+                and utilization <= self.low_util:
+            return "starved"
+        return "healthy"
+
+    def observe(self, depth, utilization, *, draining=False, now=None):
+        """Fold one sweep's (queue depth, fleet utilization) sample;
+        returns the (possibly unchanged) state.  ``utilization`` is the
+        mean busy fraction over alive workers, ``None`` until any
+        worker has reported one."""
+        t = time.time() if now is None else float(now)
+        self._depths.append(int(depth))
+        del self._depths[:-self.window]
+        cand = self._classify(int(depth), utilization, draining)
+        prev_cand, run = self._streak
+        run = run + 1 if cand == prev_cand else 1
+        self._streak = (cand, run)
+        needed = self.decay if (self.state != "healthy"
+                                and cand == "healthy") else self.confirm
+        if cand != self.state and run >= needed:
+            self.transitions.append((round(t, 3), self.state, cand))
+            self.state = cand
+        return self.state
+
+    def doc(self):
+        return {"state": self.state,
+                "queue_depths": list(self._depths),
+                "transitions": [{"t": t, "from": a, "to": b}
+                                for t, a, b in self.transitions]}
+
+
+class ScalingAdvice:
+    """One autoscaler input record: how many workers this fleet wants.
+
+    ``direction`` is ``"up"``/``"down"``/``"hold"``; ``confidence``
+    grows with the number of throughput observations behind the EWMA
+    (0 = pure guess, 1 = well-evidenced).  The record is advice, not an
+    action — the future autoscaler PR consumes it.
+    """
+
+    __slots__ = ("desired_workers", "direction", "reason", "confidence")
+
+    def __init__(self, desired_workers, direction, reason, confidence):
+        self.desired_workers = int(desired_workers)
+        self.direction = direction
+        self.reason = reason
+        self.confidence = float(confidence)
+
+    def doc(self):
+        return {"desired_workers": self.desired_workers,
+                "direction": self.direction,
+                "reason": self.reason,
+                "confidence": round(self.confidence, 2)}
+
+
+class CapacityModel:
+    """Per-worker EWMA throughput -> backlog-drain ETA -> scaling advice.
+
+    ``note_unit`` is fed from the coordinator's ``complete`` handler
+    (worker id, chunks in the unit, the worker-reported unit wall);
+    ``advise`` turns the current backlog + worker count + detector
+    state into a :class:`ScalingAdvice`.  ``target_drain_s`` is the
+    service objective the sizing aims at: enough workers that the
+    current backlog drains within that window at the measured
+    per-worker rate.
+    """
+
+    def __init__(self, alpha=0.3, target_drain_s=300.0, max_workers=None):
+        self.alpha = float(alpha)
+        self.target_drain_s = float(target_drain_s)
+        self.max_workers = max_workers
+        self._per_worker = {}      # worker id -> EwmaThroughput
+
+    def note_unit(self, worker, chunks, wall_s):
+        tp = self._per_worker.get(worker)
+        if tp is None:
+            tp = self._per_worker[worker] = EwmaThroughput(self.alpha)
+        tp.note(chunks, wall_s)
+
+    def observations(self):
+        return sum(tp.n for tp in self._per_worker.values())
+
+    def worker_rate(self):
+        """Mean EWMA chunks/s over workers with evidence (``None``
+        without any)."""
+        rates = [tp.rate for tp in self._per_worker.values()
+                 if tp.rate is not None]
+        if not rates:
+            return None
+        return sum(rates) / len(rates)
+
+    def fleet_rate(self, n_workers=None):
+        """Aggregate chunks/s: mean per-worker rate x the current
+        worker count (the observed set when ``n_workers`` is None)."""
+        rate = self.worker_rate()
+        if rate is None:
+            return None
+        n = len(self._per_worker) if n_workers is None else int(n_workers)
+        return rate * max(n, 0)
+
+    def eta_s(self, backlog_chunks, n_workers=None):
+        """Seconds to drain ``backlog_chunks`` at the fleet rate."""
+        fleet = self.fleet_rate(n_workers)
+        if fleet is None or fleet <= 0.0:
+            return None
+        return float(backlog_chunks) / fleet
+
+    def _needed_workers(self, backlog_chunks):
+        rate = self.worker_rate()
+        if rate is None or rate <= 0.0:
+            return None
+        need = math.ceil(backlog_chunks / (rate * self.target_drain_s))
+        if self.max_workers is not None:
+            need = min(need, int(self.max_workers))
+        return need
+
+    def advise(self, backlog_chunks, n_workers, state):
+        """The :class:`ScalingAdvice` for the current snapshot."""
+        n_workers = int(n_workers)
+        confidence = min(1.0, self.observations() / 8.0)
+        if state == "draining":
+            return ScalingAdvice(
+                n_workers, "hold",
+                "fleet draining: scaling decisions deferred", confidence)
+        needed = self._needed_workers(backlog_chunks)
+        if needed is None:
+            return ScalingAdvice(
+                max(n_workers, 1), "hold",
+                "no throughput observations yet: advice withheld", 0.0)
+        if state == "starved":
+            desired = max(1, needed)
+            if desired < n_workers:
+                return ScalingAdvice(
+                    desired, "down",
+                    f"queue empty, workers idle: {n_workers} workers "
+                    f"for a backlog needing {desired}", confidence)
+            return ScalingAdvice(n_workers, "hold",
+                                 "starved but already at the floor",
+                                 confidence)
+        if state == "worker-bound":
+            desired = max(n_workers + 1, needed)
+            if self.max_workers is not None:
+                desired = min(desired, int(self.max_workers))
+            if desired > n_workers:
+                return ScalingAdvice(
+                    desired, "up",
+                    f"backlog growing with workers busy: "
+                    f"{backlog_chunks} chunks need {desired} workers to "
+                    f"drain within {self.target_drain_s:g}s", confidence)
+            return ScalingAdvice(n_workers, "hold",
+                                 "worker-bound but at the max-workers "
+                                 "cap", confidence)
+        return ScalingAdvice(
+            n_workers, "hold",
+            f"healthy: backlog {backlog_chunks} drains at the current "
+            "rate", confidence)
+
+    def doc(self):
+        return {"per_worker_rate": {
+                    w: {"rate": _rnd(tp.rate, 6), "n": tp.n}
+                    for w, tp in sorted(self._per_worker.items())},
+                "mean_worker_rate": _rnd(self.worker_rate(), 6),
+                "observations": self.observations(),
+                "target_drain_s": self.target_drain_s}

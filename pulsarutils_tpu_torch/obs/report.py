@@ -74,9 +74,10 @@ def build_report(*, meta=None, budget=None, roofline=None, health=None,
     delivery table; ``ingest``: ``ChunkAssembler.summary()`` — the
     "Ingest" feed/loss/shed accounting section; ``capacity``:
     ``FleetCoordinator.capacity_doc()`` — the "Capacity & scaling"
-    saturation/advice section.  The port's driver has no multi-beam,
-    fleet, periodicity, SLO, ingest or capacity section yet: those
-    render their "no data" text.
+    saturation/advice section.  The port's fleet coordinator
+    (``cli/fleet_main.py --report-out``) fills the fleet, SLO and
+    capacity sections; a section nobody passed renders its "no data"
+    text.
     """
     rec = {
         "generated": time.strftime("%Y-%m-%d %H:%M:%S"),

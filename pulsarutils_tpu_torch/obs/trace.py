@@ -16,7 +16,9 @@ another thread (a persist task submitted by the loop and finished by the
 persist worker), gets an **async span** (:func:`begin_span` ->
 ``handle.end()``).  A **trace context** (a ``trace_id`` and the parent
 span id, :func:`trace_context`) is stamped onto every span recorded
-while it is bound.
+while it is bound; an in-process fleet worker records onto a tracer of
+its own (:func:`push_tracer`), which :mod:`.collector` merges with the
+coordinator's on one timeline.
 
 :func:`trace_session` drives ``torch.profiler`` beside the span tracer,
 so one flag writes the span JSON and the device trace (the CUDA kernels
@@ -45,6 +47,13 @@ logger = logging.getLogger("pulsarutils_tpu_torch")
 #: the process-wide active tracer (None = tracing off); a bare global so
 #: that hot paths read it cheaply
 _TRACER = None
+
+#: this context's tracer, overriding the process-wide one: an in-process
+#: fleet worker pushes its own (:func:`push_tracer`) so the spans recorded
+#: on its thread, the driver's included, are drained under its identity.
+#: Threads the worker starts do not inherit it; their async spans carry
+#: the tracer captured at ``begin``.
+_TRACER_VAR = contextvars.ContextVar("putpu_tracer", default=None)
 
 #: ``torch.profiler.record_function`` while a device trace runs, else
 #: None: synchronous spans then also annotate the profiler's timeline
@@ -83,6 +92,17 @@ def current_trace_context():
     return _TRACE_CTX.get()
 
 
+def push_tracer(tracer):
+    """Install ``tracer`` as this context's tracer, over the process-wide
+    one of :func:`start_tracing`; pair with :func:`pop_tracer`.  N
+    in-process fleet workers each trace under their own identity."""
+    return _TRACER_VAR.set(tracer)
+
+
+def pop_tracer(token):
+    _TRACER_VAR.reset(token)
+
+
 class Span:
     """One timed interval; ``dur`` is set by :func:`close_span`."""
 
@@ -114,7 +134,7 @@ def close_span(s, track=None):
     if s._range is not None:
         s._range.__exit__(None, None, None)
         s._range = None
-    tr = _TRACER
+    tr = _TRACER_VAR.get() or _TRACER
     if tr is not None:
         tr.complete(s, track)
     return s
@@ -171,7 +191,7 @@ class AsyncSpan:
 def begin_span(name, track=None, **attrs):
     """Open an async span on the active tracer; a no-op handle when
     tracing is off (callers ``end()`` it blindly)."""
-    tr = _TRACER
+    tr = _TRACER_VAR.get() or _TRACER
     if tr is None:
         return _NULL_ASYNC
     return AsyncSpan(name, attrs or None, track or _TRACK.get(), tr)
@@ -275,6 +295,20 @@ class Tracer:
         with self._lock:
             self._closed = True
 
+    def events_since(self, mark=0):
+        """``(events, new_mark)``: the span events recorded from index
+        ``mark`` on, and the cursor for the next call.  A fleet worker's
+        ``complete`` ships only the events since its previous one; the
+        whole list stays for an end-of-run :meth:`export`."""
+        with self._lock:
+            return list(self._events[mark:]), len(self._events)
+
+    def tracks(self):
+        """``{track name: tid}`` (sent beside drained events so the
+        collector can name the worker's rows)."""
+        with self._lock:
+            return dict(self._tracks)
+
     def to_chrome(self):
         """The Chrome trace-event dict: metadata and recorded events, and
         the ``putpu`` envelope with the wall-clock anchor."""
@@ -291,9 +325,14 @@ class Tracer:
         return {"traceEvents": meta + events, "displayTimeUnit": "ms",
                 "putpu": {"epoch_unix": self.epoch_unix}}
 
-    def export(self, path):
-        """Write the trace JSON; returns the number of span events."""
+    def export(self, path, extra_meta=None):
+        """Write the trace JSON; returns the number of span events.
+        ``extra_meta`` merges into the ``putpu`` envelope (a fleet worker
+        records its measured ``clock_offset_s`` there, for
+        :func:`~.collector.merge_trace_files`)."""
         doc = self.to_chrome()
+        if extra_meta:
+            doc["putpu"].update(extra_meta)
         with open(path, "w") as f:
             json.dump(doc, f)
         n = sum(ev.get("ph") in ("X", "b") for ev in doc["traceEvents"])
@@ -321,8 +360,14 @@ def stop_tracing():
     return tracer
 
 
+def active_tracer():
+    """This context's tracer: the :func:`push_tracer` override when one
+    is bound, else the process-wide tracer."""
+    return _TRACER_VAR.get() or _TRACER
+
+
 def is_tracing():
-    return _TRACER is not None
+    return (_TRACER_VAR.get() or _TRACER) is not None
 
 
 #: the device trace's file name inside its directory

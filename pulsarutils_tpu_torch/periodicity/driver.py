@@ -12,14 +12,16 @@ Resume: the chunk ledger records completion under a periodicity
 fingerprint (``fingerprint_extra``), and the accumulator snapshots its
 partial plane beside it.  A chunk the ledger marks done but the snapshot
 lost is re-searched after the streaming pass, so accumulation never
-holes silently.  A failure of the device trial search raises: there is
-no host fallback.
+holes silently.  A failure of the device trial search raises (the
+``period`` fault site is there): there is no host fallback.
 
 The service hooks of the JAX driver: ``health`` (fed by the chunk loop
 and the periodic canary), ``http_port`` (the live surface of the
-accumulation), ``report_out`` (the report's Periodicity section) and
+accumulation), ``report_out`` (the report's Periodicity section),
 ``cancel_cb`` (a cancelled job reports ``complete: False`` and resumes
-from its ledger); the job service (:mod:`..beams.service`) drives them.
+from its ledger) and ``fence`` (a fleet lease's epoch); the job service
+(:mod:`..beams.service`) and the fleet worker (:mod:`..fleet.worker`)
+drive them.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import time
 
 import numpy as np
 
+from ..faults import inject as fault_inject
 from ..obs import metrics as _metrics
 from ..utils.device import resolve_device
 from .accel import accel_grid, accel_search, jerk_grid
@@ -47,12 +50,6 @@ __all__ = ["periodicity_search"]
 #: shapes the session, not the plan or the fingerprint)
 _PLAN_KEYS = ("chunk_length", "new_sample_time", "tmin", "surelybad",
               "fft_zap", "cut_outliers", "zero_dm", "exact_floor")
-
-#: options of the JAX package's driver that are not ported, with the
-#: ROADMAP.md item (its stable A-label) that holds each
-_NOT_PORTED = {
-    "fence": "queue A, A10b (the fleet: the lease's epoch fence)",
-}
 
 #: periodic-canary shape: a Gaussian pulse train of this duty cycle at
 #: this fraction of the spectral band, on this DM-row fraction
@@ -166,7 +163,15 @@ def periodicity_search(fname, dmmin=200, dmmax=800, *, accel_max=0.0,
     its Periodicity section; ``cancel_cb`` (zero-arg callable) is checked
     before each chunk, and a cancelled run returns ``complete: False``
     (the chunks done stay in the ledger and the snapshot, so a rerun
-    resumes).  ``fence`` belongs to the fleet and raises if given.
+    resumes).  ``fence``, a fleet lease's epoch, fences the chunk loop's
+    candidate writes and the candidates npz
+    (:meth:`~..io.candidates.CandidateStore.fenced_write`): a session
+    whose lease was stolen does not overwrite the new owner's file.
+
+    The trial sweep is the ``period`` fault site
+    (:mod:`..faults.inject`).  On the card a failure there propagates:
+    the job fails (a fleet unit is requeued) and nothing is retried on
+    the host, where the JAX package falls back to NumPy.
 
     Returns a dict: ``complete``, ``candidates``, ``sift``, ``table``
     (the raw top-k), ``accumulator``, ``accels``, ``jerks``,
@@ -177,9 +182,6 @@ def periodicity_search(fname, dmmin=200, dmmax=800, *, accel_max=0.0,
     from ..ops.plan import dedispersion_plan
     from ..pipeline.search_pipeline import plan_survey, search_by_chunks
 
-    if fence is not None:
-        raise NotImplementedError(
-            f"fence is not ported yet: ROADMAP.md {_NOT_PORTED['fence']}")
     for k in ("period_search", "period_sigma_threshold", "make_plots",
               "plane_consumer", "fingerprint_extra"):
         if k in search_kwargs:
@@ -235,7 +237,8 @@ def periodicity_search(fname, dmmin=200, dmmax=800, *, accel_max=0.0,
                   device=dev, mesh=mesh, **search_kwargs)
     hits, store = search_by_chunks(fname, resume=resume, health=health,
                                    http_port=http_port,
-                                   cancel_cb=cancel_cb, **common)
+                                   cancel_cb=cancel_cb, fence=fence,
+                                   **common)
     if state["since_snap"] or not os.path.exists(snap_path):
         acc.save(snap_path)
         state["since_snap"] = 0
@@ -295,6 +298,7 @@ def periodicity_search(fname, dmmin=200, dmmax=800, *, accel_max=0.0,
 
     search_fn = fdas_search if chosen_backend == "fdas" else accel_search
     t0 = time.perf_counter()
+    fault_inject.fire("period")
     table = search_fn(plane_search, tsamp_out, accels, jerks=jerks_axis,
                       max_harmonics=max_harmonics, fmin=fmin_eff,
                       fmax=fmax, topk=topk, device=dev, mesh=mesh)
@@ -351,7 +355,12 @@ def periodicity_search(fname, dmmin=200, dmmax=800, *, accel_max=0.0,
             "canary": canary_info}
     cands_path = os.path.join(
         output_dir, f"period_cands_{sp['root']}_{sp['fingerprint']}.npz")
-    save_candidates(cands_path, kept, meta=meta)
+    if not store.fenced_write(
+            cands_path, lambda: save_candidates(cands_path, kept, meta=meta)):
+        logger.warning(
+            "periodicity candidates write fenced off: %s is stamped "
+            "with a higher lease epoch (this session's lease was stolen; "
+            "the new owner's file stands)", cands_path)
     _metrics.counter("putpu_period_jobs_total").inc()
 
     summary = {

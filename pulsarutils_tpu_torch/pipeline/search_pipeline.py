@@ -469,8 +469,8 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
                      http_port=None, http_host="127.0.0.1", canary=None,
                      health=None, report_out=None, chunks=None,
                      cancel_cb=None, plane_consumer=None,
-                     fingerprint_extra=None, lineage=None, push=None,
-                     device="cuda", stage_seconds=None, summary=None,
+                     fingerprint_extra=None, fence=None, lineage=None,
+                     push=None, device="cuda", stage_seconds=None, summary=None,
                      progress=True, mesh=None):
     """Search a filterbank file for dispersed single pulses.
 
@@ -506,7 +506,10 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
     plane, table)`` callable, receives every searched chunk's plane
     before the chunk is marked done (a crash in between re-delivers the
     chunk on resume; consumers de-duplicate by ``istart``).
-    ``fingerprint_extra`` goes to :func:`plan_survey`.
+    ``fingerprint_extra`` goes to :func:`plan_survey`.  ``fence``, a fleet
+    lease's epoch, goes to the :class:`~..io.candidates.CandidateStore`:
+    a candidate write is refused where a session of a higher epoch (the
+    lease's new owner) already wrote; ``None`` touches no fence file.
 
     The loop's knobs, with the JAX package's names and defaults; on
     clean input the defaults give the serial loop's hits, candidates and
@@ -678,7 +681,7 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
     ndm = len(dedispersion_plan(header["nchans"], dmmin, dmmax, start_freq,
                                 bandwidth, eff_tsamp))
     fingerprint = sp["fingerprint"] if resume else None
-    store = CandidateStore(output_dir, fingerprint)
+    store = CandidateStore(output_dir, fingerprint, fence=fence)
     manifest = QuarantineManifest(output_dir, fingerprint)
     capture = (bool(make_plots) or bool(period_search)
                or plane_consumer is not None)

@@ -762,10 +762,12 @@ def test_periodicity_driver_refuses_what_is_not_ported(pulsar_file):
     with pytest.raises(ValueError, match="must include"):
         periodicity_search(pulsar_file, device="cpu", mesh=make_mesh(
             (2,), ("dm",), devices=[torch.device("cpu")] * 2))
-    # the service hooks are ported (tests/test_torch_service.py); the
-    # fleet's epoch fence is not
-    with pytest.raises(NotImplementedError, match="A10b"):
-        periodicity_search(pulsar_file, fence=1, device="cpu")
+    # the service hooks are ported (tests/test_torch_service.py), and so
+    # is the fleet's epoch fence (tests/test_torch_fleet_recovery.py): a
+    # fenced call is refused only for what the driver owns
+    with pytest.raises(ValueError, match="owned"):
+        periodicity_search(pulsar_file, fence=1, period_search=True,
+                           device="cpu")
     with pytest.raises(ValueError, match="owned"):
         periodicity_search(pulsar_file, period_search=True, device="cpu")
 

@@ -209,6 +209,16 @@ def test_port_sources_cover_the_live_feed_and_the_service():
         assert f"pulsarutils_tpu_torch/{name}" in walked, name
 
 
+def test_port_sources_cover_the_fleet():
+    walked = {str(p.relative_to(REPO)) for p in _port_sources()}
+    for name in ("fleet/__init__.py", "fleet/protocol.py",
+                 "fleet/journal.py", "fleet/coordinator.py",
+                 "fleet/worker.py", "cli/fleet_main.py",
+                 "obs/collector.py", "obs/slo.py", "obs/timeseries.py",
+                 "obs/capacity.py"):
+        assert f"pulsarutils_tpu_torch/{name}" in walked, name
+
+
 def _forbidden(module):
     return (module == "jax" or module.startswith("jax.")
             or module == "pulsarutils_tpu"

@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--seed N] [--quick | --breakdown | --overlap |
                            --observe | --lowbit | --autotune | --mesh |
-                           --beams | --service | --fleet]
+                           --beams | --service | --fleet |
+                           --host-stages]
 
 Phases, one JSON line each:
 
@@ -144,18 +145,26 @@ Phases, one JSON line each:
    the span trace and the ``torch.profiler`` device trace with roofline
    accounting, a ``.prom`` metrics file, the HTTP surface on an
    ephemeral port scraped from a thread during the loop, the canary in
-   every chunk, lineage, push to a webhook served by this script): the
+   every chunk, lineage, push to a webhook served by this script, then
+   ``sift_hits`` of its hits as the CLI does): the
    hits equal the plain run's (snr within 1e-2: the canary's bump moves
    the chunk's statistics), the ledger bytes equal, B1 and B4 as many
    launches, canary recall 1.0, ``/healthz`` answered, the Prometheus
-   text parsed, one JPEG a hit (or ``plots: skipped (no matplotlib)``),
+   text parsed (the ``putpu_sift_*`` series in it), one JPEG a hit (or
+   ``plots: skipped (no matplotlib)``),
    ``BUDGET_JSON`` logged, both device traces written and holding CUDA
    events in the loop; it prints the three loops' seconds, seconds a
    plot, the budget's unattributed share and the card's busy share over
    each traced loop from its device trace;
-9. the low-bit files (``e2e_lowbit``): the device unpack at 1024 x 2^18,
+9. the low-bit files (``e2e_lowbit``): the native host decode
+   (``native/unpack.cpp``, built by ``io/lowbit.py``; a card machine
+   without it fails the phase) at 1024 x 2^18, 1, 2 and 4 bits, equal to
+   the numpy decode and timed against it (the encode too at 2 bits);
+   the device unpack at 1024 x 2^18,
    1, 2 and 4 bits in both band orders, equal to the host decode bit for
-   bit and timed against its byte bound; the end-to-end geometry at 2
+   bit and timed against its byte bound; the host decode's share, and
+   its native calls, of the 2-bit file's bandpass scan, a 2-IF 2-bit
+   host read and ``PUclean --device cpu``; the end-to-end geometry at 2
    bits (the DM 400 pulse quantised, 168 MB) and an 8-bit twin holding
    the same codes, searched direct at S/N 8 in the order packed, twin,
    twin, packed: equal hits, tables and ledgers, B1 and B4 as often as on
@@ -277,7 +286,11 @@ Phases, one JSON line each:
    candidates, B6 as often); the survey wall, seconds a unit, round
    trips, recovery seconds, journal records, capacity advice, budgets
    and launches of each run;
-15. the kernels line (B6 once per policy; the launches by path include
+15. ``static`` (after the build, host only): the port's lint
+   (``cli.lint_main``) over the checkout exits 0, and the port's perf
+   gate (``cli.gate_main``) passes ``BENCH_GATE_cpu.jsonl`` against
+   itself, under this machine's Python and torch;
+16. the kernels line (B6 once per policy; the launches by path include
    the mesh, stream, beam, ingest, service and fleet phases'), then
    ``{"ok": true, "device": {...}}`` last.
 
@@ -298,7 +311,10 @@ phases of item 12, ``--service`` the build, the end-to-end and pulsar
 files and the phases of item 13 (with ``e2e_period``, which
 ``e2e_service`` compares with), ``--fleet`` the build, the end-to-end
 and pulsar files and ``e2e_period`` and ``e2e_fleet`` (the references of
-runs A and B made in the phase).  None of the ten prints the last line.
+runs A and B made in the phase), ``--host-stages`` no build, only the
+host stages of the 2-bit file timed whole (``host_stages``: a copy of
+this script beside another checkout times that checkout the same way).
+None of the eleven prints the last line.
 """
 
 from __future__ import annotations
@@ -437,6 +453,40 @@ def phase_build():
              library=path.name, seconds=round(seconds, 3),
              ptxas=resources)
     emit("build_total", seconds=round(time.perf_counter() - t0, 3))
+
+
+def phase_static():
+    """The port's lint over this checkout and its perf gate on the
+    committed gate baseline against itself, through the CLIs' entry
+    points in this process (host only): both must return 0."""
+    import io
+
+    from pulsarutils_tpu_torch.cli import gate_main, lint_main
+
+    out = {}
+    report = REPO / "pulsarutils_tpu_torch" / "_build" / "lint_report.json"
+    for label, cli, args in (
+            ("lint", lint_main, [str(REPO / "pulsarutils_tpu_torch"),
+                                 "--out", str(report)]),
+            ("gate", gate_main, [
+                "--snapshot", str(REPO / "BENCH_GATE_cpu.jsonl"),
+                "--lint-report", str(report)])):
+        text = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            rc = cli.main(args)
+        out[f"{label}_s"] = time.perf_counter() - t0
+        tail = text.getvalue().strip().splitlines()[-1:] or [""]
+        check(rc == 0, f"static {label}: returned {rc}: "
+              f"{text.getvalue()[-3000:]}")
+        out[label] = tail[0]
+    check(out["gate"] == "gate: PASS", f"static gate: {out['gate']}")
+    doc = json.loads(report.read_text())
+    report.unlink()
+    emit("static", lint_files=doc["files"], lint_new=doc["new"],
+         lint_waived=doc["waived"], lint_checkers=doc["checkers"],
+         python=sys.version.split()[0], **out)
+    return out
 
 
 def _sweep_case(torch, name, data, offsets, *, timed=True,
@@ -2049,6 +2099,7 @@ def phase_e2e_hybrid(torch, np, workdir, path, chunk_length, nchunks,
                                     ("certifiable", "certifiable", False)):
         stages, summary = {}, {}
         reset_counts()
+        _reset_headroom_gauge()
         t0 = time.perf_counter()
         with (unfuse.armed() if label == "snr_8_unfused"
               else contextlib.nullcontext()):
@@ -2064,6 +2115,8 @@ def phase_e2e_hybrid(torch, np, workdir, path, chunk_length, nchunks,
                   and summary.get("oom_descents") == 1
                   and summary.get("quarantined") == 0,
                   f"{label}: {summary}")
+            check(_headroom_gauge() > 0,
+                  f"{label}: {HEADROOM_GAUGE} = {_headroom_gauge()}")
             # the rung's contract: the same hits, best rows and rows
             # exact in both runs
             bad = _hit_mismatch(hits, hits_of["snr_8"])
@@ -2109,6 +2162,7 @@ def phase_e2e_hybrid(torch, np, workdir, path, chunk_length, nchunks,
              snr_floor=summary["snr_floor"], chunks=nchunks,
              certified_chunks=summary["certified"], hits=len(hits),
              fused=fused, oom_descents=summary.get("oom_descents"),
+             headroom_at_failure_bytes=_headroom_gauge(),
              launches=counts,
              launches_per_chunk={k: v / nchunks for k, v in counts.items()},
              wall_s=wall, chunk_loop_s=loop_s,
@@ -2439,6 +2493,7 @@ def phase_e2e_period(torch, np, workdir, seed, written_s=None):
 
     # 2. the full-observation job with a small acceleration grid
     stages, summary = {}, {}
+    before = _counter_deltas(None)
     reset_counts()
     t0 = time.perf_counter()
     res = periodicity_search(
@@ -2459,12 +2514,26 @@ def phase_e2e_period(torch, np, workdir, seed, written_s=None):
     check(res["canary"]["recovered"], f"canary missed: {res['canary']}")
     check(job["B6"] >= len(res["accels"]) and job["B1"] > 0,
           f"periodicity job launches {job}")
+    series = {k: v for k, v in _counter_deltas(before).items()
+              if k.startswith(("putpu_period_chunks_accumulated",
+                               "putpu_period_snapshot_writes",
+                               "putpu_period_sift_rejected",
+                               "putpu_period_folds"))}
+    rejected = sum(v for k, v in series.items()
+                   if k.startswith("putpu_period_sift_rejected"))
+    check(series.get("putpu_period_chunks_accumulated_total")
+          == len(acc.chunk_starts)
+          and series.get("putpu_period_snapshot_writes_total", 0) > 0
+          and series.get("putpu_period_folds_total", 0) > 0
+          and rejected == sum(res["sift"]["rejected"].values()),
+          f"e2e_puperiod: period series {series}, sift {res['sift']}")
     emit("e2e_puperiod", chunks=len(acc.chunk_starts), ndm=acc.ndm,
          nout=acc.nout, rebin=acc.rebin, t_obs_s=t_obs,
          accels=[float(a) for a in res["accels"]],
          best={k: best[k] for k in ("dm", "accel", "freq", "freq_bin",
                                     "nharm", "sigma", "h", "m")},
          kept=len(res["candidates"]), sift=res["sift"],
+         period_series=series,
          canary=res["canary"], launches=job, wall_s=wall,
          trial_sweep_s=res["seconds"]["trials"],
          fold_s=res["seconds"]["fold"], stage_seconds=stages)
@@ -2904,6 +2973,23 @@ def _counter_deltas(before):
             if v != before.get(k, 0)}
 
 
+HEADROOM_GAUGE = "putpu_oom_headroom_at_failure_bytes"
+
+
+def _reset_headroom_gauge():
+    """Mark the OOM headroom gauge unset (-1), so a run that catches an
+    OOM shows it set again."""
+    from pulsarutils_tpu_torch.obs.metrics import REGISTRY
+
+    REGISTRY.gauge(HEADROOM_GAUGE).set(-1)
+
+
+def _headroom_gauge():
+    from pulsarutils_tpu_torch.obs.metrics import REGISTRY
+
+    return REGISTRY.gauge(HEADROOM_GAUGE).value
+
+
 def phase_e2e_faults(torch, np, workdir, path, chunk_length, nchunks, seed):
     """The failure drill on the card: each scenario arms a FaultPlan and
     checks its outcome against a clean run of the same file."""
@@ -3066,17 +3152,20 @@ def phase_e2e_faults(torch, np, workdir, path, chunk_length, nchunks, seed):
 
     # torch.OutOfMemoryError at the dispatch seam: the ladder descends and
     # the tables are the undisturbed run's bit for bit
+    _reset_headroom_gauge()
     r = run("oom_dispatch", [dict(site="dispatch", kind="oom",
                                         chunks=(hit_chunks[0],))])
     check(r["summary"]["oom_descents"] >= 1
           and r["summary"]["fallback"] is None,
           f"oom_dispatch: {r['summary']}")
+    headroom = _headroom_gauge()
+    check(headroom > 0, f"oom_dispatch: {HEADROOM_GAUGE} = {headroom}")
     check(_tables_equal(np, r["hits"], clean["hits"])
           and _snapshot(np, r["out"]) == base,
           "oom_dispatch: tables or files differ from the clean run")
     check(r["launches"]["B1"] > 2 * nchunks,
           f"oom_dispatch: {r['launches']} (smaller superblocks)")
-    report(r)
+    report(r, headroom_at_failure_bytes=headroom)
 
     # a 5 s hang under a 1 s deadline: the chunk moves on within the bound
     r = run("dispatch_hang", [dict(
@@ -3099,8 +3188,11 @@ def phase_e2e_faults(torch, np, workdir, path, chunk_length, nchunks, seed):
     # superblocks, with the clean run's tables
     floor_descents = (ladder_blocks(clean["hits"][0][3].nrows)
                       - 1).bit_length()
+    _reset_headroom_gauge()
     r = run("oom_floor", [dict(site="dispatch", kind="oom",
                                chunks=(noise_chunk,), times=None)])
+    check(_headroom_gauge() > 0,
+          f"oom_floor: {HEADROOM_GAUGE} = {_headroom_gauge()}")
     check(r["store"].quarantined_chunks == {str(noise_chunk): "oom_floor"}
           and r["counters"].get("putpu_oom_floor_total") == 1
           and r["summary"]["oom_descents"] == floor_descents
@@ -3110,7 +3202,8 @@ def phase_e2e_faults(torch, np, workdir, path, chunk_length, nchunks, seed):
           f"{r['counters']}")
     check(_tables_equal(np, r["hits"], clean["hits"]),
           "oom_floor: the other chunks' hits differ from the clean run")
-    report(r, manifest=manifest(r))
+    report(r, manifest=manifest(r),
+           headroom_at_failure_bytes=_headroom_gauge())
 
     # a persistent dispatch fault: on the card the error propagates after
     # its one retry; nothing falls back to the host, nothing is marked
@@ -3327,6 +3420,7 @@ def phase_e2e_observe(torch, np, workdir, path, chunk_length, nchunks):
     from pulsarutils_tpu_torch.obs import metrics as obs_metrics
     from pulsarutils_tpu_torch.obs import roofline, trace
     from pulsarutils_tpu_torch.obs.canary import CanaryController
+    from pulsarutils_tpu_torch.pipeline.sift import sift_hits
     from pulsarutils_tpu_torch.pipeline.search_pipeline import \
         search_by_chunks
 
@@ -3427,6 +3521,9 @@ def phase_e2e_observe(torch, np, workdir, path, chunk_length, nchunks):
                 stop.set()
                 scraper.join()
             counts = read_counts()
+            # the CLI's sift of the hits, counted into the registry
+            sift0 = parse_prometheus(obs_metrics.REGISTRY.prometheus_text())
+            sifted = sift_hits(hits)
         prom_path = workdir / "observe_metrics.prom"
         obs_metrics.REGISTRY.write_prometheus(str(prom_path))
     finally:
@@ -3473,6 +3570,19 @@ def phase_e2e_observe(torch, np, workdir, path, chunk_length, nchunks):
               f"e2e_observe: {name} missing from the .prom file")
     check(prom[("putpu_canary_recovered_total", "")] >= nchunks,
           "e2e_observe: canary recoveries missing from the .prom file")
+    sift_delta = {k: v - sift0.get(k, 0.0) for k, v in prom.items()
+                  if k[0].startswith("putpu_sift")}
+    for name, want in (("putpu_sift_candidates_in_total", len(hits)),
+                       ("putpu_sift_candidates_kept_total", len(sifted)),
+                       ("putpu_sift_snr_count", len(sifted)),
+                       ("putpu_sift_dm_count", len(sifted))):
+        check(sift_delta.get((name, "")) == want,
+              f"e2e_observe: {name} moved by {sift_delta.get((name, ''))}, "
+              f"not {want}: {sift_delta}")
+    check(any(k[0] == "putpu_sift_rejected_total" for k in sift_delta)
+          and any(k[0] == "putpu_sift_snr_bucket" for k in sift_delta),
+          f"e2e_observe: sift series missing from the .prom file: "
+          f"{sorted(sift_delta)}")
     budget = log.lines("BUDGET_JSON")
     check(len(budget) == 1, "e2e_observe: no BUDGET_JSON line")
     budget = json.loads(budget[0])
@@ -3525,7 +3635,7 @@ def phase_e2e_observe(torch, np, workdir, path, chunk_length, nchunks):
          figure_arrays=figure,
          canary=recall, healthz_scrapes=len(health),
          metrics_scrapes=len(live), alerts=len(received),
-         lineage_docs=len(lineage),
+         lineage_docs=len(lineage), sifted=len(sifted),
          roofline=[{k: r[k] for k in ("kernel", "calls", "wall_s",
                                       "frac_of_ideal")}
                    for r in roofline.table()],
@@ -3696,6 +3806,127 @@ def _unpack_case(torch, np, nbits):
     return out
 
 
+def _native_case(torch, np, nbits):
+    """The native host decode at 1024 x 2^18 against the numpy decode
+    and against the torch shift-and-mask on host tensors (the port's
+    host decode before the native one): the values bit for bit, one
+    timed run of each; at 2 bits the encode too, back to the same
+    bytes."""
+    from pulsarutils_tpu_torch.io import lowbit
+
+    frames = np.random.default_rng(nbits).integers(
+        0, 256, (E2E_CHUNK, NCHAN * nbits // 8), dtype=np.uint8)
+    calls = lowbit.native_calls
+    t0 = time.perf_counter()
+    native = lowbit.unpack(frames, nbits)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = lowbit.unpack_numpy(frames, nbits)
+    numpy_s = time.perf_counter() - t0
+    check(lowbit.native_calls == calls + 1, "native decode: not called")
+    check(np.array_equal(native, ref), f"native {nbits}-bit decode: not "
+          "the numpy decode")
+    del ref
+    t0 = time.perf_counter()
+    host = lowbit.unpack_codes(torch.from_numpy(frames), nbits).to(
+        torch.float32)
+    torch_s = time.perf_counter() - t0
+    check(np.array_equal(host.numpy().ravel(), native),
+          f"torch {nbits}-bit host decode: not the native decode")
+    out = {"native_ms": 1e3 * native_s, "numpy_ms": 1e3 * numpy_s,
+           "torch_host_ms": 1e3 * torch_s, "speedup": numpy_s / native_s}
+    if nbits == 2:
+        t0 = time.perf_counter()
+        packed = lowbit.pack(native, nbits)
+        pack_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        packed_np = lowbit.pack_numpy(native, nbits)
+        pack_numpy_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        packed_t = lowbit.pack_codes(host.round().clamp_(0, 3).to(
+            torch.uint8), nbits)
+        pack_torch_s = time.perf_counter() - t0
+        check(np.array_equal(packed, frames.ravel())
+              and np.array_equal(packed_np, packed)
+              and np.array_equal(packed_t.numpy().ravel(), packed),
+              "2-bit encode: not the frames' bytes")
+        out.update(pack_native_ms=1e3 * pack_s,
+                   pack_numpy_ms=1e3 * pack_numpy_s,
+                   pack_torch_host_ms=1e3 * pack_torch_s)
+    emit("e2e_lowbit_native", nbits=nbits, nchan=NCHAN, nsamples=E2E_CHUNK,
+         packed_bytes=frames.nbytes, equal_numpy=True, runs=1, **out)
+    return out
+
+
+@contextlib.contextmanager
+def _host_decode_timer():
+    """The seconds and calls of the host decode and encode
+    (``lowbit.unpack``, ``lowbit.pack``) inside the block, and the
+    native calls among them (``native_calls``, filled on exit)."""
+    from pulsarutils_tpu_torch.io import lowbit
+
+    spent = {"unpack_s": 0.0, "unpack_calls": 0, "pack_s": 0.0,
+             "pack_calls": 0}
+    real = {"unpack": lowbit.unpack, "pack": lowbit.pack}
+
+    def timed(name):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return real[name](*args, **kwargs)
+            finally:
+                spent[f"{name}_s"] += time.perf_counter() - t0
+                spent[f"{name}_calls"] += 1
+        return run
+
+    calls = lowbit.native_calls
+    lowbit.unpack, lowbit.pack = timed("unpack"), timed("pack")
+    try:
+        yield spent
+    finally:
+        lowbit.unpack, lowbit.pack = real["unpack"], real["pack"]
+        spent["native_calls"] = lowbit.native_calls - calls
+
+
+def _decode_share(label, spent, seconds):
+    """The record of a host stage of ``seconds`` whose decode took
+    ``spent``; the native decode must have run in it."""
+    check(spent["native_calls"] > 0 and spent["unpack_calls"] > 0,
+          f"{label}: the native decode did not run: {spent}")
+    return {"seconds": seconds, **spent,
+            "decode_share": spent["unpack_s"] / seconds,
+            "encode_share": spent["pack_s"] / seconds}
+
+
+def _multi_if_read(np, workdir):
+    """A 2-IF 2-bit file of 1024 channels x 2^16 samples (random codes)
+    read on the host (``read_block``, the IFs summed): its decode's
+    share."""
+    from pulsarutils_tpu_torch.io.sigproc import (FilterbankReader,
+                                                  FilterbankWriter)
+
+    path = workdir / "multi_if_2bit.fil"
+    nsamps = E2E_CHUNK // 4
+    header = {"nchans": NCHAN, "nbits": 2, "nifs": 2, "tsamp": TSAMP,
+              "fch1": START_FREQ + BANDWIDTH, "foff": -BANDWIDTH / NCHAN,
+              "tstart": 60000.0}
+    frames = np.random.default_rng(7).integers(
+        0, 256, (nsamps, 2 * NCHAN * 2 // 8), dtype=np.uint8)
+    with FilterbankWriter(str(path), header) as w:
+        w.write_frames(frames)
+    reader = FilterbankReader(str(path))
+    with _host_decode_timer() as spent:
+        t0 = time.perf_counter()
+        block = reader.read_block(0, nsamps)
+        seconds = time.perf_counter() - t0
+    check(block.shape == (NCHAN, nsamps) and 0 <= block.min()
+          and block.max() <= 6, f"multi-IF read: {block.shape}")
+    del block
+    path.unlink()
+    return {"nifs": 2, "nchan": NCHAN, "nsamples": nsamps,
+            **_decode_share("multi-IF host read", spent, seconds)}
+
+
 def _write_pulsar_2bit(torch, np, src, dst):
     """The 2-bit copy of the pulsar file: its 8-bit values cut at
     :data:`PSR_2BIT_EDGES`, block by block on the card, and packed
@@ -3715,10 +3946,76 @@ def _write_pulsar_2bit(torch, np, src, dst):
             w.write_frames(w.encode_frames(codes.T))
 
 
+def phase_host_stages(torch, np, workdir, seed, repeats=2):
+    """The host stages the native decode serves, timed whole, each
+    ``repeats`` times: the bandpass scan of the 2-bit file of
+    ``e2e_lowbit`` (``get_bad_chans``, its cache removed before each),
+    ``PUclean --device cpu`` on it, and the host read of a 2-IF 2-bit
+    file of 1024 x 2^16 random codes.  It calls only entry points every
+    checkout of the port has: a copy of this script beside a checkout
+    without the native decode times that checkout's torch host decode
+    the same way, and ``PUTPU_NO_NATIVE=1`` times the numpy one."""
+    import logging
+
+    from pulsarutils_tpu_torch.cli import clean_main
+    from pulsarutils_tpu_torch.io import lowbit
+    from pulsarutils_tpu_torch.io.sigproc import (FilterbankReader,
+                                                  FilterbankWriter)
+    from pulsarutils_tpu_torch.pipeline.spectral_stats import get_bad_chans
+
+    path, twin = workdir / "lb2.fil", workdir / "lb2_8.fil"
+    _write_lowbit_pair(torch, np, path, twin, 2, LOWBIT_BLOCKS[2], seed + 22)
+    twin.unlink()
+    multi = workdir / "multi_if_2bit.fil"
+    nsamps = E2E_CHUNK // 4
+    header = {"nchans": NCHAN, "nbits": 2, "nifs": 2, "tsamp": TSAMP,
+              "fch1": START_FREQ + BANDWIDTH, "foff": -BANDWIDTH / NCHAN,
+              "tstart": 60000.0}
+    with FilterbankWriter(str(multi), header) as w:
+        w.write_frames(np.random.default_rng(7).integers(
+            0, 256, (nsamps, 2 * NCHAN * 2 // 8), dtype=np.uint8))
+    native = getattr(lowbit, "native_available", lambda: False)()
+    calls = getattr(lowbit, "native_calls", 0)
+    runs = []
+    root = logging.getLogger()
+    saved = root.handlers[:], root.level
+    try:
+        for _ in range(repeats):
+            Path(f"{path}.badchans").unlink(missing_ok=True)
+            t0 = time.perf_counter()
+            get_bad_chans(str(path))
+            scan_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            rc = clean_main.main([str(path), "-o",
+                                  str(workdir / "clean_host.fil"),
+                                  "--device", "cpu"])
+            clean_s = time.perf_counter() - t0
+            check(rc == 0, f"PUclean --device cpu returned {rc}")
+            t0 = time.perf_counter()
+            block = FilterbankReader(str(multi)).read_block(0, nsamps)
+            read_s = time.perf_counter() - t0
+            check(block.shape == (NCHAN, nsamps),
+                  f"multi-IF read: {block.shape}")
+            del block
+            runs.append({"bandpass_scan_s": scan_s, "clean_cpu_s": clean_s,
+                         "multi_if_read_s": read_s})
+    finally:
+        root.handlers[:] = saved[0]
+        root.setLevel(saved[1])
+    for p in (path, multi, workdir / "clean_host.fil"):
+        p.unlink()
+    Path(f"{path}.badchans").unlink(missing_ok=True)
+    emit("host_stages", native_available=native,
+         native_calls=getattr(lowbit, "native_calls", 0) - calls,
+         no_native=os.environ.get("PUTPU_NO_NATIVE") == "1",
+         threads=os.cpu_count(), nsamples=LOWBIT_BLOCKS[2] * E2E_CHUNK // 2,
+         runs=runs)
+
+
 def _lowbit_clean(torch, np, path, workdir):
     """``PUclean`` on the 2-bit file on the card against the CPU run:
-    the bytes without ``--fft-zap``; with it, the zapped bins, and the
-    codes that differ counted."""
+    the bytes without ``--fft-zap``; with it, the zapped bins (at least
+    one), and the codes that differ counted."""
     import logging
 
     from pulsarutils_tpu_torch.cli import clean_main
@@ -3732,11 +4029,15 @@ def _lowbit_clean(torch, np, path, workdir):
     try:
         for label, device in (("card", "cuda"), ("host", "cpu")):
             dst = workdir / f"clean_{label}.fil"
-            t0 = time.perf_counter()
-            rc = clean_main.main([str(path), "-o", str(dst), "--device",
-                                  device])
-            out[f"{label}_s"] = time.perf_counter() - t0
+            with _host_decode_timer() as spent:
+                t0 = time.perf_counter()
+                rc = clean_main.main([str(path), "-o", str(dst),
+                                      "--device", device])
+                out[f"{label}_s"] = time.perf_counter() - t0
             check(rc == 0, f"PUclean --device {device} returned {rc}")
+            if device == "cpu":
+                out["host_decode"] = _decode_share(
+                    "PUclean --device cpu", spent, out[f"{label}_s"])
     finally:
         root.handlers[:] = saved[0]
         root.setLevel(saved[1])
@@ -3753,6 +4054,7 @@ def _lowbit_clean(torch, np, path, workdir):
                      fft_zap=True, device=device, summary=summary)
         out[f"fft_zap_{label}_s"] = time.perf_counter() - t0
         zap[label] = summary
+    check(zap["card"]["nzapped"] > 0, "PUclean --fft-zap: no bin zapped")
     check(len(zap["card"]["zapped"]) == len(zap["host"]["zapped"])
           and all(np.array_equal(g[2], c[2]) and g[:2] == c[:2]
                   for g, c in zip(zap["card"]["zapped"],
@@ -3791,8 +4093,14 @@ def phase_e2e_lowbit(torch, np, workdir, seed, pulsar=None):
     from pulsarutils_tpu_torch.pipeline.spectral_stats import get_bad_chans
     from pulsarutils_tpu_torch.utils.logging_utils import BudgetAccountant
 
+    from pulsarutils_tpu_torch.io import lowbit
+
     launches = {}
+    check(lowbit.native_available(), "the native low-bit decode did not "
+          "build or load on this machine")
+    native = {n: _native_case(torch, np, n) for n in (1, 2, 4)}
     unpack = {n: _unpack_case(torch, np, n) for n in (1, 2, 4)}
+    host_decode = {"multi_if_read": _multi_if_read(np, workdir)}
 
     # 1. the 2-bit file and its twin, direct sweep: P, T, T, P
     files = {}
@@ -3802,9 +4110,14 @@ def phase_e2e_lowbit(torch, np, workdir, seed, pulsar=None):
         _write_lowbit_pair(torch, np, path, twin, nbits,
                            LOWBIT_BLOCKS[nbits], seed + 20 + nbits)
         write_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        get_bad_chans(str(path))  # the cache, before the timed runs
-        scan_s = time.perf_counter() - t0
+        with _host_decode_timer() as spent:
+            t0 = time.perf_counter()
+            get_bad_chans(str(path))  # the cache, before the timed runs
+            scan_s = time.perf_counter() - t0
+        if nbits == 2:
+            host_decode["bandpass_scan"] = {
+                "nsamples": LOWBIT_BLOCKS[nbits] * E2E_CHUNK // 2,
+                **_decode_share("2-bit bandpass scan", spent, scan_s)}
         # the twin holds the same codes: the same bad channels
         shutil.copy(f"{path}.badchans", f"{twin}.badchans")
         files[nbits] = (path, twin)
@@ -3960,7 +4273,9 @@ def phase_e2e_lowbit(torch, np, workdir, seed, pulsar=None):
 
     # 7. PUclean on the card against the CPU
     clean = _lowbit_clean(torch, np, path, workdir)
+    host_decode["clean_cpu"] = clean.pop("host_decode")
     emit("e2e_lowbit_clean", **clean)
+    emit("e2e_lowbit_host_decode", native_available=True, **host_decode)
     path.unlink()
 
     # 8. period_search on the 2-bit copy of the pulsar file
@@ -3991,7 +4306,8 @@ def phase_e2e_lowbit(torch, np, workdir, seed, pulsar=None):
         r["counts"]
     shutil.rmtree(r["out"], ignore_errors=True)
     psr2.unlink()
-    return {"launches": launches, "unpack": unpack}
+    return {"launches": launches, "unpack": unpack, "native": native,
+            "host_decode": host_decode}
 
 
 def phase_autotune_search(torch, np, workdir, path, chunk_length, nchunks):
@@ -5065,9 +5381,10 @@ def phase_e2e_beams(torch, np, workdir, seed):
     all-beam one; the cold ``|b4`` tuning timed once before the arms;
     2-bit copies of 2 beams on 1 chunk, ``packed="device"`` against
     ``"host"``,
-    byte for byte, with the upload ratio (both arms decode with the same
-    torch function, on the card and on the host: ``e2e_lowbit_unpack``
-    holds it against the NumPy decode); an injected ``beams`` OOM on
+    byte for byte, with the upload ratio (the device arm decodes on the
+    card, the host arm with the native host decode: ``e2e_lowbit_unpack``
+    and ``e2e_lowbit_native`` hold each against the NumPy decode); an
+    injected ``beams`` OOM on
     two 2-bit copies' first epoch (the ``halve_batch`` rung, the same
     tables)."""
     from pulsarutils_tpu_torch.beams import multibeam_search
@@ -6727,6 +7044,9 @@ def main(argv=None):
                              "e2e_observe only")
     parser.add_argument("--lowbit", action="store_true",
                         help="build and run e2e_lowbit only")
+    parser.add_argument("--host-stages", action="store_true",
+                        help="time the host stages of the 2-bit file "
+                             "only (no build)")
     parser.add_argument("--autotune", action="store_true",
                         help="build, the end-to-end and pulsar files and "
                              "the tuner's phases only")
@@ -6778,7 +7098,14 @@ def main(argv=None):
                                          / "tune_cache.json")
     try:
         card = phase_environment(torch)
+        if opts.host_stages:
+            shutil.rmtree(workdir, ignore_errors=True)
+            workdir.mkdir(parents=True)
+            phase_host_stages(torch, np, workdir, opts.seed)
+            return 0
         phase_build()
+        if not (opts.quick or opts.breakdown or opts.overlap):
+            phase_static()
         if opts.breakdown:
             phase_sweep_breakdown(torch, np, opts.seed)
             phase_kernel_breakdown(torch, np, opts.seed)

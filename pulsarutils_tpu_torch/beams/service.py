@@ -461,6 +461,7 @@ class SurveyService:
                 # _finish_locked; a free no-op handle when tracing is
                 # off.
                 with _trace.trace_context(job.trace_id):
+                    # putpu-lint: disable=span-leak — ends at the job's terminal transition (_finish_locked)
                     job.span = _trace.begin_span(
                         "job", track="service", job=job.id,
                         fname=os.path.basename(job.spec["fname"]))

@@ -258,7 +258,7 @@ def main(args=None):
                 total_raw)
     if opts.metrics_out:
         from ..obs.metrics import REGISTRY
-        from ..utils.logging_utils import SCHEMA_VERSION
+        from ..obs.gate import SCHEMA_VERSION
 
         if opts.metrics_out.endswith(".prom"):
             n = REGISTRY.write_prometheus(opts.metrics_out)

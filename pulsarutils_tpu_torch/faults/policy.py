@@ -409,3 +409,10 @@ class QuarantineManifest:
                 except ValueError:
                     continue
         return out
+
+    def chunks(self, reason_prefix=None):
+        """Set of quarantined chunk starts, optionally only those whose
+        reason starts with ``reason_prefix``."""
+        return {r["chunk"] for r in self.records()
+                if reason_prefix is None
+                or str(r["reason"]).startswith(reason_prefix)}

@@ -805,6 +805,7 @@ class FleetCoordinator:
             # tracing is off).  Ends in _end_lease_span_locked — a
             # reviewed cross-method seam.
             with _trace.trace_context(unit.trace_id):
+                # putpu-lint: disable=span-leak — ends at lease resolution, tracked on the _Lease
                 lease.span = _trace.begin_span(
                     "lease", track=f"worker {worker.id}",
                     lease=lease.id, unit=unit.id, worker=worker.id,

@@ -292,7 +292,15 @@ class FilterbankReader:
         """The stored values of raw ``frames`` ``(n, frame_width)`` (a
         tensor in :attr:`frame_dtype`, on any device) as ``(n, nifs *
         nchans)`` in ``dtype``, file channel order, every IF, computed
-        where the frames are (a packed file's codes unpacked there)."""
+        where the frames are (a packed file's codes unpacked there: on
+        the host by the native decode, :func:`.lowbit.unpack`, as the
+        JAX package's host reads do)."""
+        if self.packed and frames.device.type == "cpu":
+            from .lowbit import unpack
+
+            codes = unpack(frames.numpy(), self.nbits)
+            return torch.from_numpy(codes.reshape(
+                frames.shape[0], frames.shape[1] * 8 // self.nbits)).to(dtype)
         if self.packed:
             from .lowbit import unpack_codes
 
@@ -358,6 +366,13 @@ class FilterbankReader:
         nsamps = self._seamed_length(istart, nsamps)
         raw = np.asarray(self._mmap[istart:istart + nsamps])
         return self.unpack_frames(raw, band_ascending=band_ascending)
+
+    def readBlock(self, istart, nsamps, as_filterbankBlock=False,
+                  band_ascending=False):
+        """The sigpyproc spelling the reference calls
+        (``readBlock(istart, size, as_filterbankBlock=False)``):
+        :meth:`read_block`; the flag is accepted and ignored."""
+        return self.read_block(istart, nsamps, band_ascending=band_ascending)
 
     def read_block_tensor(self, istart, nsamps, device):
         """Float32 ``(nchans, n)`` contiguous block on ``device``, in
@@ -437,11 +452,18 @@ class FilterbankWriter:
         (a tensor on any device, time-major, file channel order), rounded
         and clipped there as the JAX package's writer does: 8 and 16 bits
         ``rint`` then clip to the dtype's range; 1, 2 and 4 bits a float32
-        cast, ``rint``, clip to the codes and LSB-first packing; 32 bits
-        a float32 cast.  (16-bit samples come back as int32: few tensor
-        operations take uint16.)"""
+        cast, ``rint``, clip to the codes and LSB-first packing (on the
+        host by the native encode, :func:`.lowbit.pack`, as the JAX
+        package's writer does); 32 bits a float32 cast.  (16-bit samples
+        come back as int32: few tensor operations take uint16.)"""
         if self.nbits == 32:
             return values.to(torch.float32)
+        if self.nbits in _LOWBIT and values.device.type == "cpu":
+            from .lowbit import pack
+
+            packed = pack(values.to(torch.float32).numpy(), self.nbits)
+            return torch.from_numpy(packed.reshape(
+                values.shape[0], values.shape[1] * self.nbits // 8))
         if self.nbits in _LOWBIT:
             from .lowbit import pack_codes
 

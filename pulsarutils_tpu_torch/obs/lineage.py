@@ -155,6 +155,7 @@ class LineageRecorder:
         # the explicit trace_id attr: without a bound context nothing
         # else stamps it; the span ends in persisted(), on the persist
         # worker
+        # putpu-lint: disable=span-leak — ends in persisted() on the persist executor (cross-thread; end() is idempotent)
         span = begin_span("candidate", track=f"chunk {istart}",
                           chunk=istart, trace_id=trace_id,
                           **({"snr": round(float(snr), 3)}

@@ -28,9 +28,12 @@ serves both:
 Times are the card's own: a CUDA event pair around each launch on the
 current stream, read back lazily (:func:`flush`), so recording adds no
 synchronisation; on the CPU the wall clock.  The peaks are the card's,
-from :data:`CARD_PEAKS` keyed by ``torch.cuda.get_device_name()``; a
-card not in the table (and the CPU) gets no fraction, only the achieved
-rates.  Accounting is opt-in (:func:`enable`, the CLI's ``--trace``, or
+from :data:`CARD_PEAKS` keyed by ``torch.cuda.get_device_name()``,
+unless :func:`set_peaks` or the ``PUTPU_PEAK_FLOPS`` /
+``PUTPU_PEAK_BYTES_PER_S`` variables give them (either overrides the
+table); a card not in the table (and the CPU) without them gets no
+fraction, only the achieved rates.  Accounting is opt-in
+(:func:`enable`, the CLI's ``--trace``, or
 ``PUTPU_ROOFLINE=1``); disabled, :func:`begin` is one global read.
 """
 
@@ -47,7 +50,8 @@ __all__ = ["CARD_PEAKS", "PEAK_FP32_ADDS", "PEAK_HBM_BYTES_S",
            "B6_OPS_PER_ADD", "bound_ms", "sweep_bound_ms", "b6_bound_ms",
            "sweep_work", "fdmt_pass_work", "score_work", "fdd_work",
            "b6_work", "clean_work", "fused_seed_work", "enable", "disable",
-           "enabled", "begin", "end", "flush", "record", "table",
+           "enabled", "set_peaks", "begin", "end", "flush", "record",
+           "table",
            "log_table", "reset"]
 
 #: NVIDIA H100 SXM data-sheet peaks (700 W).  The sheet's 67 TFLOP/s
@@ -179,9 +183,22 @@ def enabled():
     return _ENABLED
 
 
+def set_peaks(peak_flops=None, peak_bytes_per_s=None):
+    """Pin the roofline peaks (operations/s, bytes/s) instead of the
+    card's :data:`CARD_PEAKS` row; ``None`` leaves that bound unset."""
+    global _PEAKS
+    _PEAKS = (peak_flops, peak_bytes_per_s)
+
+
 def _peaks():
     global _PEAKS
     if _PEAKS is None:
+        env_f = os.environ.get("PUTPU_PEAK_FLOPS")
+        env_b = os.environ.get("PUTPU_PEAK_BYTES_PER_S")
+        if env_f or env_b:
+            _PEAKS = (float(env_f) if env_f else None,
+                      float(env_b) if env_b else None)
+            return _PEAKS
         _PEAKS = (None, None)
         try:
             import torch

@@ -70,7 +70,7 @@ class _Handler(BaseHTTPRequestHandler):
             path, _, query = self.path.partition("?")
             path = path.rstrip("/") or "/"
             if path == "/metrics":
-                self._send(200, _metrics.REGISTRY.prometheus_text(
+                self._send(200, srv.registry.prometheus_text(
                     manifest_help=True),
                            "text/plain; version=0.0.4; charset=utf-8")
             elif path == "/metrics/history":
@@ -268,13 +268,17 @@ class ObsServer:
     :class:`~..beams.service.SurveyService`, ``fleet`` a
     :class:`~..fleet.coordinator.FleetCoordinator`, ``timeseries`` a
     :class:`~.timeseries.TimeSeriesSampler`, ``slo`` an
-    :class:`~.slo.SLOEngine` (each ``None``: its routes answer 404).
+    :class:`~.slo.SLOEngine` (each ``None``: its routes answer 404);
+    ``registry`` the :class:`~.metrics.MetricsRegistry` ``/metrics``
+    serves (``None``: the process registry).
     """
 
     def __init__(self, port=0, health=None, progress_fn=None,
-                 host="127.0.0.1", push=None, service=None, fleet=None,
-                 timeseries=None, slo=None):
+                 registry=None, host="127.0.0.1", service=None,
+                 fleet=None, timeseries=None, slo=None, push=None):
         self.health = health
+        self.registry = registry if registry is not None \
+            else _metrics.REGISTRY
         self.push = push
         self.service = service
         self.fleet = fleet
@@ -324,9 +328,9 @@ class ObsServer:
         self.close()
 
 
-def start_obs_server(port, health=None, progress_fn=None,
-                     host="127.0.0.1", push=None, service=None, fleet=None,
-                     timeseries=None, slo=None):
+def start_obs_server(port, health=None, progress_fn=None, registry=None,
+                     host="127.0.0.1", service=None, fleet=None,
+                     timeseries=None, slo=None, push=None):
     """Start the live surface; returns the :class:`ObsServer` (its
     ``port`` is the bound port: pass ``port=0`` for an ephemeral one).
     ``host`` is the bind address: the loopback default keeps the surface
@@ -335,7 +339,10 @@ def start_obs_server(port, health=None, progress_fn=None,
     API under ``/jobs``; ``fleet`` (a
     :class:`~..fleet.coordinator.FleetCoordinator`) the fleet protocol
     and read routes under ``/fleet/``; ``timeseries`` serves
-    ``/metrics/history`` and ``slo`` serves ``/alerts``."""
+    ``/metrics/history`` and ``slo`` serves ``/alerts``; ``registry``
+    (``None``: the process registry) is what ``/metrics`` serves.  The
+    positional order is the JAX package's."""
     return ObsServer(port=port, health=health, progress_fn=progress_fn,
-                     host=host, push=push, service=service, fleet=fleet,
-                     timeseries=timeseries, slo=slo)
+                     registry=registry, host=host, service=service,
+                     fleet=fleet, timeseries=timeseries, slo=slo,
+                     push=push)

@@ -214,8 +214,8 @@ class TimeSeriesSampler:
             # lifecycle fields are owner-thread-only (start/stop callers;
             # the sampler thread never writes them) — the lock guards the
             # ring, not the lifecycle
-            self._stop.clear()
-            self._thread = threading.Thread(
+            self._stop.clear()  # putpu-lint: disable=lock-discipline — owner-thread lifecycle, see above
+            self._thread = threading.Thread(  # putpu-lint: disable=lock-discipline — owner-thread lifecycle
                 target=self._loop, name="metric-history", daemon=True)
             self._thread.start()
         return self
@@ -238,7 +238,7 @@ class TimeSeriesSampler:
             # join CANNOT hold the lock (the sampler thread takes it in
             # sample()); lifecycle fields are owner-thread-only
             self._thread.join(timeout=self.interval_s + 5.0)
-            self._thread = None
+            self._thread = None  # putpu-lint: disable=lock-discipline — owner-thread lifecycle
         if final_sample:
             self.sample()
 

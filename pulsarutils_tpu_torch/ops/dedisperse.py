@@ -95,6 +95,7 @@ def apply_dm_shifts_to_data(data, shifts, chan_block=64):
     of ``chan_block`` channels, so its index stays small."""
     data = torch.as_tensor(data)
     t = data.shape[1]
+    # putpu-lint: disable=device-trip — host shifts
     sh = torch.from_numpy(np.rint(np.asarray(shifts)).astype(np.int64))
     sh = sh.to(data.device)
     ramp = torch.arange(t, device=data.device)

@@ -317,6 +317,7 @@ def merge_plain(state, idx_low, idx_high, shift, shift_high=None):
     t = state.shape[1]
     out = torch.empty((rows_out, t), dtype=state.dtype, device=state.device)
     zeros = np.zeros(rows_out, np.int32)
+    # putpu-lint: disable=device-trip — a host plan table
     sh = zeros if shift_high is None else np.asarray(shift_high)
     for lo, hi in _row_chunks(rows_out, t):
         high = _rolled_rows(state, idx_high[lo:hi], sh[lo:hi])

@@ -286,9 +286,11 @@ def _fourier_device_run(data, trial_dms, start_freq, bandwidth,
     plane (ndm, T) or None)``."""
     nchan, t = data.shape
     chan_block = chan_block or FOURIER_CHAN_BLOCK
+    # putpu-lint: disable=device-trip — a host plan
     trial_dms = np.atleast_1d(np.asarray(trial_dms, dtype=np.float64))
     keep_plane = with_plane or not with_scores
     if trial_dms.size == 0:  # an empty plan (inverted DM range)
+        # putpu-lint: disable=float64-leak — an empty host score pack
         stacked = torch.zeros((5, 0), dtype=torch.float64)
         plane = data.new_zeros((0, t))
         return (stacked if with_scores else None,

@@ -173,6 +173,7 @@ def power_sf_log(power, nsum=1):
     tensor keeps its dtype; other input becomes float64."""
     power = torch.as_tensor(power)
     if not power.is_floating_point():
+        # putpu-lint: disable=float64-leak — integer input, the JAX promotion
         power = power.to(torch.float64)
     logp = torch.log(torch.where(power > 0, power, 1e-300))
     terms = [k * logp - _log_factorial(k) for k in range(int(nsum))]
@@ -191,6 +192,7 @@ def sf_log_to_sigma(log_sf):
     ``sqrt(u - log u)``, ``u = -2 log(sf) - log(2 pi)`` floored at 1."""
     log_sf = torch.as_tensor(log_sf)
     if not log_sf.is_floating_point():
+        # putpu-lint: disable=float64-leak — integer input, the JAX promotion
         log_sf = log_sf.to(torch.float64)
     u = -2.0 * log_sf - float(np.log(2.0 * np.pi))
     u = torch.where(u > 1.0, u, 1.0)

@@ -42,22 +42,24 @@ def median(x, dim=None, keepdim=False):
     return mid if keepdim else mid.squeeze(dim)
 
 
-def mad(x, dim=None):
-    """Normalised median absolute deviation ``median(|x - med|) / 0.6745``."""
-    x = torch.as_tensor(x)
-    med = median(x, dim=dim, keepdim=dim is not None)
-    return median(torch.abs(x - med), dim=dim) / MAD_SCALE
+def mad(array, axis=None):
+    """Normalised median absolute deviation ``median(|x - med|) / 0.6745``
+    of ``array``; ``axis=None`` reduces over the whole array, an integer
+    along that axis (the JAX package's keywords)."""
+    array = torch.as_tensor(array)
+    med = median(array, dim=axis, keepdim=axis is not None)
+    return median(torch.abs(array - med), dim=axis) / MAD_SCALE
 
 
-def ref_mad(x, window=1):
-    """``mad(diff(x)) / sqrt(2)``; ``window > 1`` takes the minimum over
-    non-overlapping windows of that many samples."""
-    d = torch.diff(torch.as_tensor(x))
+def ref_mad(array, window=1):
+    """``mad(diff(array)) / sqrt(2)``; ``window > 1`` takes the minimum
+    over non-overlapping windows of that many samples."""
+    d = torch.diff(torch.as_tensor(array))
     if window and window > 1:
         n = d.shape[0] // int(window)
         if n >= 1:
             blocks = d[: n * int(window)].reshape(n, int(window))
-            return torch.min(mad(blocks, dim=1)) / np.sqrt(2)
+            return torch.min(mad(blocks, axis=1)) / np.sqrt(2)
     return mad(d) / np.sqrt(2)
 
 
@@ -74,6 +76,7 @@ def median_filter_1d(x, size):
 
 def z_n_test(profile, n_harmonics):
     """Z^2_n of a binned phase profile: ``(2/N) sum_{k<=n} |FFT_k|^2``."""
+    # putpu-lint: disable=float64-leak — one profile, the JAX float64 statistic
     profile = torch.as_tensor(profile).to(torch.float64)
     nbin = profile.shape[0]
     n_harmonics = int(n_harmonics)
@@ -88,13 +91,14 @@ def z_n_test(profile, n_harmonics):
 
 def h_test(profile, nmax=20):
     """de Jager H-test: ``max_m (Z^2_m - 4m + 4)``; returns ``(H, m_best)``."""
+    # putpu-lint: disable=float64-leak — one profile, the JAX float64 statistic
     profile = torch.as_tensor(profile).to(torch.float64)
     n = profile.shape[0]
     nmax = int(max(1, min(nmax, n // 2 if n >= 4 else 1)))
     spec = torch.fft.rfft(profile)
     powers = torch.abs(spec[1:nmax + 1]) ** 2
     z2 = 2.0 / profile.sum() * torch.cumsum(powers, dim=0)
-    m = torch.arange(1, nmax + 1, dtype=torch.float64)
+    m = torch.arange(1, nmax + 1, dtype=profile.dtype)
     h_candidates = z2 - 4.0 * m + 4.0
     best = torch.argmax(h_candidates)
     return h_candidates[best], best + 1
@@ -110,6 +114,7 @@ def h_test_batch(profiles, nmax=20, total=None):
     """
     profiles = torch.as_tensor(profiles)
     if not profiles.is_floating_point():
+        # putpu-lint: disable=float64-leak — integer input, the JAX promotion
         profiles = profiles.to(torch.float64)
     nbin = profiles.shape[1]
     nmax = int(max(1, min(nmax, nbin // 2 if nbin >= 4 else 1)))

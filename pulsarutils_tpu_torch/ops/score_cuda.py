@@ -70,6 +70,7 @@ def score_plane_cuda(plane, with_cert=False):
         raise ValueError(f"plane must be on a CUDA device, got "
                          f"{plane.device}")
     lib = _library()
+    # putpu-lint: disable=float64-leak — the kernel writes the float64 score pack
     out = torch.empty((6 if with_cert else 5, rows), dtype=torch.float64,
                       device=plane.device)
     stream = torch.cuda.current_stream(plane.device).cuda_stream

@@ -162,6 +162,7 @@ def _centred(plane):
     large DC offset is off by several of the mean's ulps (~1e-3 at 1e4,
     a relative error of ~3e-4 in the maxima); the rounded exact mean is
     within half an ulp, and the CUDA scorer reproduces it."""
+    # putpu-lint: disable=float64-leak — one float64 mean a row, rounded
     mean = plane.mean(dim=1, keepdim=True, dtype=torch.float64)
     return plane - mean.to(plane.dtype)
 
@@ -208,6 +209,7 @@ def score_profiles_stacked(plane):
     back to the host in one transfer.  Float64 holds the float32 scores
     and every integer window and peak exactly (the JAX package packs
     float32, exact only below 2^24 samples)."""
+    # putpu-lint: disable=float64-leak — the score pack, exact at any length
     return torch.stack([s.to(torch.float64) for s in score_profiles(plane)])
 
 
@@ -242,6 +244,7 @@ def score_profiles_chunked(plane, chunk=512, with_cert=False):
     def one(sub):
         stacked = score_profiles_stacked(sub)
         if with_cert:
+            # putpu-lint: disable=float64-leak — the score pack's cert row
             cert = cert_profile_scores(sub).to(torch.float64)
             stacked = torch.cat([stacked, cert[None]])
         return stacked
@@ -819,7 +822,9 @@ def _fused_seed(data, table, idx, cert_params, n_lo, n_hi, start_freq,
     sel = torch.cat([top - 1, top, top + 1]).clamp(0, ndm - 1)
     sel = torch.cat([sel, sel[:1].expand(bucket - 3 * k)])
     exact = score_plane(dedisperse_rows(data, table, sel))  # (5, bucket)
+    # putpu-lint: disable=float64-leak — the fused readback pack, exact rows
     parts = [coarse.reshape(-1), sel.to(torch.float64), exact.reshape(-1),
+             # putpu-lint: disable=float64-leak — the pack's bucket entry
              torch.full((1,), float(bucket), dtype=torch.float64,
                         device=dev)]
     if bucket2:
@@ -831,7 +836,9 @@ def _fused_seed(data, table, idx, cert_params, n_lo, n_hi, start_freq,
             coarse.to(torch.float32), exact[2].max().to(torch.float32),
             rescored, cert_params, bucket2)
         exact2 = score_plane(dedisperse_rows(data, table, sel2))
+        # putpu-lint: disable=float64-leak — the fused readback pack
         parts += [sel2.to(torch.float64), exact2.reshape(-1),
+                  # putpu-lint: disable=float64-leak — the pack's count
                   n_need.to(torch.float64)[None]]
     return torch.cat(parts).cpu().numpy()
 
@@ -1142,6 +1149,7 @@ def dedispersion_search(data, dmmin, dmmax, start_freq, bandwidth, sample_time,
         with budget_bucket("search/plan"):
             trial_dms = dedispersion_plan(nchan, dmmin, dmmax, start_freq,
                                           bandwidth, sample_time)
+    # putpu-lint: disable=device-trip — a host plan
     trial_dms = np.asarray(trial_dms, dtype=np.float64)
     if kernel == "auto":
         kernel = "pallas"  # an empty plan: nothing to measure

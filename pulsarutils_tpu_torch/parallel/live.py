@@ -67,6 +67,7 @@ def make_chunk(opts, dev):
     x.mul_(noise)
     x[:, opts.nsamples // 2] += signal
     x.abs_()
+    # putpu-lint: disable=device-trip — a host plan
     shifts = np.rint(np.asarray(dedispersion_shifts(
         opts.nchan, opts.dm, *BAND))).astype(np.int64) % opts.nsamples
     for c, shift in enumerate(shifts):

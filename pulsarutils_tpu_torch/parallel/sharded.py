@@ -92,6 +92,7 @@ def mesh_source(data, mesh):
         if data.device not in {norm_device(d) for d in mesh.devices.flat}:
             data = data.to(home)
         return data.contiguous()
+    # putpu-lint: disable=device-trip — not a tensor here: host data
     return torch.as_tensor(np.asarray(data, dtype=np.float32)).to(
         home).contiguous()
 
@@ -187,6 +188,7 @@ def shard_partial(data, offs, kernel, chan_block=None, policy=None,
         return dedisperse_plane(data, offs, planned)
     form = "roll" if data.device.type == "cpu" else "gather"
     plane = dedisperse_block_chunked(
+        # putpu-lint: disable=device-trip — host offsets
         data, torch.from_numpy(np.asarray(offs, dtype=np.int64)).to(
             data.device), chan_block if form == "gather" else None, form,
         policy)
@@ -358,8 +360,9 @@ def sharded_dedispersion_search(data, dmmin, dmmax, start_freq, bandwidth,
                 budget_count("readbacks")
     with budget_bucket("search/readback"):
         local_scores = (torch.cat([to_device(s, home) for s in scores], dim=1)
-                        if scores else torch.zeros((5, 0),
-                                                   dtype=torch.float64))
+                        if scores else torch.zeros(
+                            # putpu-lint: disable=float64-leak — an empty pack
+                            (5, 0), dtype=torch.float64))
         stacked = fetch_global(local_scores, mesh)[:, :ndm]
         budget_count("readbacks")
     maxvalues, stds, snrs, windows, peaks = unstack_scores(stacked)

@@ -256,6 +256,7 @@ def _fused_mesh_round(data, data_rs, mesh, slices, idx, start_freq,
         exact2 = rescore_rows(sel2)
         parts += [sel2.to(torch.float32), exact2.reshape(-1),
                   n_need.to(torch.float32)[None]]
+    # putpu-lint: disable=float64-leak — the fused readback pack, exact rows
     return torch.cat([p.to(torch.float64) for p in parts]).cpu().numpy()
 
 
@@ -320,6 +321,7 @@ def sharded_hybrid_search(data, dmmin, dmmax, start_freq, bandwidth,
     nchan, nsamples = data.shape
     # the plan grid and its offset table, made once a geometry and shared
     # by every rescore bucket and chunk
+    # putpu-lint: disable=device-trip — a host plan
     trial_dms = np.asarray(dedispersion_plan(nchan, dmmin, dmmax, start_freq,
                                              bandwidth, sample_time),
                            dtype=np.float64)

@@ -25,6 +25,7 @@ import warnings
 import numpy as np
 import torch
 
+from ..obs import metrics as _metrics
 from ..ops.periodicity import _SPEC_KEYS, spectral_stacked
 from ..ops.rebin import stretch_resample
 from ..utils.device import resolve_device, to_numpy
@@ -67,8 +68,8 @@ def fractional_resample(series, accel, tsamp, jerk=0.0):
 
 
 def _capped_side(n_side, max_trials, axis):
-    """Bound a symmetric grid at ``max_trials``, with a warning when the
-    cap binds."""
+    """Bound a symmetric grid at ``max_trials``; a binding cap warns and
+    ticks ``putpu_period_grid_capped_total``, never silent."""
     cap = (int(max_trials) - 1) // 2
     if n_side > cap:
         warnings.warn(
@@ -76,6 +77,7 @@ def _capped_side(n_side, max_trials, axis):
             f"requested range but max_trials={int(max_trials)} caps it "
             f"at {2 * cap + 1}; trial spacing widens accordingly",
             UserWarning, stacklevel=3)
+        _metrics.counter("putpu_period_grid_capped_total", axis=axis).inc()
         return cap
     return n_side
 

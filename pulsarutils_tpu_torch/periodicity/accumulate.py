@@ -33,6 +33,7 @@ import zipfile
 import numpy as np
 import torch
 
+from ..obs import metrics as _metrics
 from ..utils.device import to_numpy
 
 logger = logging.getLogger("pulsarutils_tpu_torch")
@@ -173,6 +174,7 @@ class DMTimeAccumulator:
             self.plane[:, out_lo:out_lo + nbins] += seg.reshape(
                 self.ndm, nbins, self.rebin).sum(axis=2)
         self.seen.add(istart)
+        _metrics.counter("putpu_period_chunks_accumulated_total").inc()
         return True
 
     def series(self, dm_index):
@@ -195,6 +197,7 @@ class DMTimeAccumulator:
                      trial_dms=(np.zeros(0) if self.trial_dms is None
                                 else self.trial_dms))
         os.replace(tmp, path)
+        _metrics.counter("putpu_period_snapshot_writes_total").inc()
 
     def restore(self, path):
         """Load a snapshot written by :meth:`save`; True when state was

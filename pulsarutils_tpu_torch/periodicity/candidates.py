@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..io.atomic import atomic_write_text
+from ..obs import metrics as _metrics
 from ..ops.periodicity import epoch_folding_search, refine_grid
 from ..utils.device import resolve_device, to_numpy
 from .accel import fractional_resample
@@ -146,7 +147,8 @@ def sift_candidates(cands, *, zap=None, freq_tol=None, dm_radius=None,
     ``freq_tol`` (Hz) is the same-frequency window of the DM grouping
     (None: no grouping); ``dm_radius=None`` groups across all DM trials.
     Returns ``(kept, stats)``, ``stats["rejected"]`` counting per reason
-    (each rejected candidate gets ``rejected`` and, when absorbed,
+    (each rejection ticks ``putpu_period_sift_rejected_total{reason}``;
+    each rejected candidate gets ``rejected`` and, when absorbed,
     ``absorbed_by``)."""
     cands = sorted(cands, key=lambda c: (-c["sigma"], c["accel_index"],
                                          c["dm_index"]))
@@ -155,6 +157,8 @@ def sift_candidates(cands, *, zap=None, freq_tol=None, dm_radius=None,
 
     def reject(cand, reason, of=None):
         stats["rejected"][reason] += 1
+        _metrics.counter("putpu_period_sift_rejected_total",
+                         reason=reason).inc()
         cand["rejected"] = reason
         if of is not None:
             cand["absorbed_by"] = of["freq"]
@@ -217,6 +221,7 @@ def fold_candidates(accumulator, cands, *, nbin=32, oversample=8,
         cand["h"] = float(h[k])
         cand["m"] = int(to_numpy(m)[k])
         cand["profile"] = to_numpy(profiles[k]).astype(np.float32)
+        _metrics.counter("putpu_period_folds_total").inc()
     return cands
 
 

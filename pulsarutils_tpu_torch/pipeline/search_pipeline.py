@@ -1039,6 +1039,7 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
             return
         # the searched chunk's persist, ended on the worker: the trace
         # shows the overlap the serial budget leaves out
+        # putpu-lint: disable=span-leak — ends in the persist worker (cross-thread; the drain barrier guarantees completion)
         pspan = (begin_span("persist", track="persist-worker",
                             chunk=istart_) if reason is None else None)
         persist_futures.append(persist_pool.submit(

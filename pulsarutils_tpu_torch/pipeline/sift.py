@@ -11,7 +11,14 @@ from __future__ import annotations
 import json
 import logging
 
+from ..obs import metrics as _metrics
+
 logger = logging.getLogger("pulsarutils_tpu_torch")
+
+#: histogram edges of the candidate-quality series (the JAX package's):
+#: S/N by the detection-floor decades, DM by galactic-to-FRB decades
+SNR_EDGES = (6.0, 7.0, 8.0, 10.0, 12.0, 15.0, 20.0, 30.0, 50.0, 100.0)
+DM_EDGES = (50.0, 100.0, 200.0, 300.0, 400.0, 600.0, 800.0, 1200.0, 2000.0)
 
 
 def hit_fields(istart, iend, info, table):
@@ -90,6 +97,10 @@ def sift_hits(hits, time_radius=None, dm_radius=None, stats=None):
     approximate times use 1.5 chunk spans.  Returns candidate dicts
     (descending S/N) with keys ``time, dm, snr, width, istart, iend,
     n_members, info, table``, and logs one ``SIFT_JSON`` line.
+
+    The in/kept totals and the rejected counts by reason go to the
+    metrics registry, the kept candidates to the ``putpu_sift_snr`` and
+    ``putpu_sift_dm`` histograms.
     """
     stats = {} if stats is None else stats
     if not hits:
@@ -101,5 +112,14 @@ def sift_hits(hits, time_radius=None, dm_radius=None, stats=None):
         else:
             time_radius = "pair-width"
     kept = sift_candidates(cands, time_radius, dm_radius, stats=stats)
+    _metrics.counter("putpu_sift_candidates_in_total").inc(stats["in"])
+    _metrics.counter("putpu_sift_candidates_kept_total").inc(stats["kept"])
+    for reason, n in stats["rejected"].items():
+        _metrics.counter("putpu_sift_rejected_total", reason=reason).inc(n)
+    snr_hist = _metrics.histogram("putpu_sift_snr", edges=SNR_EDGES)
+    dm_hist = _metrics.histogram("putpu_sift_dm", edges=DM_EDGES)
+    for c in kept:
+        snr_hist.observe(c["snr"])
+        dm_hist.observe(c["dm"])
     logger.info("SIFT_JSON %s", json.dumps(stats))
     return kept

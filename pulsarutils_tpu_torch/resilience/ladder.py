@@ -109,9 +109,18 @@ def descend(step):
     return new
 
 
-def oom_event(surface):
-    """Count one caught out-of-memory error on ``surface``."""
+def oom_event(surface, headroom=None):
+    """Count one caught out-of-memory error on ``surface``; record the
+    headroom at failure (``headroom=None``: the memory budget's
+    :func:`~.memory_budget.headroom_bytes`, no gauge when unknown)."""
     _metrics.counter("putpu_oom_events_total", surface=surface).inc()
+    if headroom is None:
+        from . import memory_budget as _mb
+
+        headroom = _mb.headroom_bytes()
+    if headroom is not None:
+        _metrics.gauge("putpu_oom_headroom_at_failure_bytes").set(
+            int(headroom))
 
 
 def count_split(stage, n=1):

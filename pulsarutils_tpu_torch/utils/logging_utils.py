@@ -27,12 +27,10 @@ import time
 
 from ..obs import metrics as _metrics
 from ..obs import trace as _trace
+#: the ``BUDGET_JSON`` record's schema version (its home is the gate)
+from ..obs.gate import SCHEMA_VERSION
 
 logger = logging.getLogger("pulsarutils_tpu_torch")
-
-#: the ``BUDGET_JSON`` record's schema version: the JAX package's
-#: (``obs/gate.py``), so one parser reads both packages' footers
-SCHEMA_VERSION = 3
 
 
 class StageTimer:
@@ -257,6 +255,7 @@ class BudgetAccountant(StageTimer):
             c[name] = c.get(name, 0) + n
         self.counters_total[name] = self.counters_total.get(name, 0) + n
         # the names are enumerated as BUDGET_COUNTERS in obs/names.py
+        # putpu-lint: disable=metric-name-dynamic — enumerated manifest seam
         _metrics.counter(f"putpu_{name}_total").inc(n)
 
     def add_async(self, name, dt):
@@ -384,6 +383,12 @@ class BudgetAccountant(StageTimer):
         _roofline.log_table(log)  # no-op unless roofline accounting ran
 
 
+def current_budget():
+    """The :class:`BudgetAccountant` whose chunk context encloses this
+    call on this thread, or ``None``."""
+    return _ACTIVE_BUDGET.get()
+
+
 @contextlib.contextmanager
 def budget_bucket(name):
     """Charge the block to ``name`` in the active chunk budget, if any,
@@ -407,3 +412,15 @@ def budget_count(name, n=1):
     acct = _ACTIVE_BUDGET.get()
     if acct is not None:
         acct.count(name, n)
+
+
+@contextlib.contextmanager
+def device_trace(trace_dir=None):
+    """Wrap a block in a ``torch.profiler`` device trace written under
+    ``trace_dir`` (:func:`~..obs.trace.trace_session`'s device-only
+    form); a no-op when ``trace_dir`` is not set."""
+    if not trace_dir:
+        yield
+        return
+    with _trace.trace_session(device_trace_dir=trace_dir):
+        yield

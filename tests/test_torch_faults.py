@@ -1031,3 +1031,39 @@ def test_kernel_build_error_propagates_without_fallback(survey_file,
     # nothing was marked done: no ledger and no manifest were written
     assert not [f for f in os.listdir(tmp_path)
                 if f.startswith(("progress_", "quarantine_"))]
+
+
+def test_injected_oom_records_the_headroom_gauge_as_jax(survey_file,
+                                                        tmp_path,
+                                                        monkeypatch):
+    """An injected OOM on the CPU under a memory budget: both drivers
+    count the event and record the headroom at failure, the budget less
+    the bytes in use (none on an empty host device)."""
+    monkeypatch.setenv("PUTPU_MEM_LIMIT", str(6 << 30))
+    monkeypatch.setattr("pulsarutils_tpu.obs.memory.device_memory_snapshot",
+                        lambda *a, **k: None)
+    specs = [dict(site="dispatch", kind="oom", chunks=(0,))]
+    JAX_REGISTRY.reset()
+    with JaxFaultPlan([JaxFaultSpec(**s) for s in specs]).armed():
+        jax_search_by_chunks(survey_file, output_dir=str(tmp_path / "jax"),
+                             **JAX_KW, **SEARCH)
+    REGISTRY.reset()
+    ladder.reset()
+    with FaultPlan([FaultSpec(**s) for s in specs]).armed():
+        search_by_chunks(survey_file, device="cpu",
+                         output_dir=str(tmp_path / "port"), **SEARCH)
+
+    def oom_series(registry):
+        return {(m["name"], tuple(sorted(m["labels"].items()))): m["value"]
+                for m in registry.snapshot()
+                if m["name"].startswith("putpu_oom_")}
+
+    ours = oom_series(REGISTRY)
+    assert ours == oom_series(JAX_REGISTRY)
+    assert ours[("putpu_oom_headroom_at_failure_bytes", ())] == 6 << 30
+    assert ours[("putpu_oom_events_total",
+                 (("surface", "chunk_search"),))] == 1
+    JAX_REGISTRY.reset()
+    REGISTRY.reset()
+    ladder.reset()
+    jax_ladder.reset()

@@ -3,7 +3,14 @@ the JAX package: the decode triangle (the port's device unpack and host
 unpack, the JAX package's ``device_unpack_block`` and ``unpack_numpy``)
 bit for bit across widths, band orders, channel counts and a truncated
 final frame; the writer's bytes; the reader's ``if_mode``; the
-code-domain gates and the packed canary's bytes."""
+code-domain gates and the packed canary's bytes; the native host decode
+(``native/unpack.cpp``) built here, against the JAX package's, and the
+host reads, writes and cleans that go through it."""
+import os
+import subprocess
+import sys
+import tempfile
+
 import numpy as np
 import pytest
 import torch
@@ -356,3 +363,251 @@ def test_packed_canary_bytes_equal_jax(nbits, descending):
     skipped = next(k for k in range(64) if not half.selects(k))
     assert half.maybe_inject_packed(frames, skipped, nbits=nbits,
                                     nchan=nchan) is frames
+
+
+# -- the native host decode ---------------------------------------------------
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_native_source_is_the_jax_file_byte_for_byte():
+    ours = os.path.join(REPO, "pulsarutils_tpu_torch", "native", "unpack.cpp")
+    theirs = os.path.join(REPO, "pulsarutils_tpu", "native", "unpack.cpp")
+    assert open(ours, "rb").read() == open(theirs, "rb").read()
+
+
+@pytest.fixture
+def fresh_native(monkeypatch):
+    """The loader as in a fresh process (its state restored after)."""
+    monkeypatch.setattr(lowbit, "_lib", None)
+    monkeypatch.setattr(lowbit, "_lib_tried", False)
+    return monkeypatch
+
+
+def _halves_and_rails(nbits, seed):
+    rng = np.random.default_rng(seed)
+    return np.concatenate([
+        rng.integers(0, 1 << nbits, 8000).astype(np.float32),
+        rng.uniform(-2.0, (1 << nbits) + 2.0, 800).astype(np.float32),
+        np.array([0.5, 1.5, 2.5, 3.5, 14.5, 15.5, -0.5, -3.0, 99.0, 1.4],
+                 np.float32),
+        np.zeros(6, np.float32)])[: 8800 // 8 * 8 + 8]
+
+
+@pytest.mark.parametrize("nbits", [1, 2, 4])
+def test_native_decode_and_encode_equal_jax(nbits):
+    """Built here (the host has a C++ compiler): the native path's bytes
+    are the JAX package's native path's and the numpy oracle's, exact
+    halves rounded to even."""
+    assert lowbit.native_available()
+    assert jax_lowbit.native_available()
+    raw = np.random.default_rng(nbits).integers(0, 256, 1 << 16,
+                                                dtype=np.uint8)
+    before = lowbit.native_calls
+    out = lowbit.unpack(raw, nbits)
+    assert out.dtype == np.float32
+    np.testing.assert_array_equal(out, jax_lowbit.unpack(raw, nbits))
+    np.testing.assert_array_equal(out, lowbit.unpack_numpy(raw, nbits))
+    values = _halves_and_rails(nbits, nbits)
+    values = values[: values.size // PER[nbits] * PER[nbits]]
+    packed = lowbit.pack(values, nbits)
+    np.testing.assert_array_equal(packed, jax_lowbit.pack(values, nbits))
+    np.testing.assert_array_equal(packed, lowbit.pack_numpy(values, nbits))
+    assert lowbit.native_calls == before + 2
+
+
+@pytest.mark.parametrize("nbits", [1, 2, 4])
+def test_no_native_variable_takes_numpy(fresh_native, nbits):
+    fresh_native.setenv("PUTPU_NO_NATIVE", "1")
+    assert not lowbit.native_available()
+    raw = np.arange(256, dtype=np.uint8)
+    before = lowbit.native_calls
+    np.testing.assert_array_equal(lowbit.unpack(raw, nbits),
+                                  jax_lowbit.unpack_numpy(raw, nbits))
+    values = _halves_and_rails(nbits, 7)
+    values = values[: values.size // PER[nbits] * PER[nbits]]
+    np.testing.assert_array_equal(lowbit.pack(values, nbits),
+                                  jax_lowbit.pack_numpy(values, nbits))
+    assert lowbit.native_calls == before
+
+
+def test_native_builds_into_build_dir_else_a_user_temp_dir(fresh_native,
+                                                           tmp_path):
+    build = tmp_path / "pkg_build"
+    fresh_native.setattr(lowbit, "_BUILD_DIR", str(build))
+    path = lowbit._build_library()
+    assert os.path.dirname(path) == str(build)
+    assert os.path.basename(path).startswith("_unpack.")
+    assert [p.name for p in build.iterdir()] == [os.path.basename(path)]
+    # the second call reuses the library (no rebuild, no temp file)
+    assert lowbit._build_library() == path
+    # an unwritable build directory (here a file): the per-user temp dir
+    blocker = tmp_path / "blocker"
+    blocker.write_text("")
+    fresh_native.setattr(lowbit, "_BUILD_DIR", str(blocker / "_build"))
+    fresh_native.setattr(tempfile, "tempdir", str(tmp_path / "tmp"))
+    os.makedirs(tmp_path / "tmp")
+    path = lowbit._build_library()
+    assert path.startswith(str(tmp_path / "tmp"))
+    assert "pulsarutils_tpu_torch_native_" in path
+    assert lowbit.native_available()
+
+
+def test_no_working_compiler_takes_numpy_and_logs(fresh_native, tmp_path,
+                                                  caplog):
+    fresh_native.setattr(lowbit, "_BUILD_DIR", str(tmp_path / "b"))
+    fresh_native.setattr(tempfile, "tempdir",
+                         str(tmp_path / "t"))
+    fresh_native.setenv("CXX", str(tmp_path / "no-such-compiler"))
+    with caplog.at_level("INFO", logger="pulsarutils_tpu_torch"):
+        assert not lowbit.native_available()
+    assert "numpy decode" in caplog.text
+    raw = np.arange(256, dtype=np.uint8)
+    np.testing.assert_array_equal(lowbit.unpack(raw, 2),
+                                  lowbit.unpack_numpy(raw, 2))
+    assert not list((tmp_path / "b").iterdir())  # no orphan temp file
+
+
+def test_concurrent_builds_leave_one_library(tmp_path):
+    """Processes building at once (parallel test workers) rename their
+    own temp file into place: one library, no partial file left."""
+    code = ("import sys, pulsarutils_tpu_torch.io.lowbit as l; "
+            "l._BUILD_DIR = sys.argv[1]; "
+            "print(l.native_available(), l._build_library())")
+    procs = [subprocess.Popen([sys.executable, "-c", code,
+                               str(tmp_path / "b")], cwd=REPO,
+                              stdout=subprocess.PIPE, text=True)
+             for _ in range(3)]
+    outs = [p.communicate(timeout=300)[0].split() for p in procs]
+    assert all(p.returncode == 0 for p in procs)
+    assert {o[0] for o in outs} == {"True"}
+    assert len({o[1] for o in outs}) == 1
+    assert os.listdir(tmp_path / "b") == [os.path.basename(outs[0][1])]
+
+
+@pytest.mark.parametrize("nbits", [1, 2, 4])
+@pytest.mark.parametrize("nifs", [1, 3])
+def test_host_reads_and_writes_go_through_the_native_decode(tmp_path, nbits,
+                                                            nifs):
+    """The reader's host blocks (``read_block``/``readBlock``, a
+    multi-IF read, the bandpass scan) and the writer's host encode call
+    the native decode, with the JAX package's bytes and values."""
+    from pulsarutils_tpu.pipeline.spectral_stats import \
+        get_spectral_stats as jax_stats
+    from pulsarutils_tpu_torch.pipeline.spectral_stats import \
+        get_spectral_stats
+
+    rng = np.random.default_rng(nbits * 10 + nifs)
+    shape = (nifs, 32, 300) if nifs > 1 else (32, 300)
+    data = rng.integers(0, 1 << nbits, shape).astype(np.float64)
+    path = str(tmp_path / "x.fil")
+    before = lowbit.native_calls
+    with FilterbankWriter(path, _header(32, nbits, True, nifs=nifs)) as w:
+        w.write_block(data)
+    assert lowbit.native_calls > before
+    jpath = str(tmp_path / "jax.fil")
+    with JaxWriter(jpath, _header(32, nbits, True, nifs=nifs)) as w:
+        w.write_block(data)
+    assert open(path, "rb").read() == open(jpath, "rb").read()
+    ours, ref = FilterbankReader(path), JaxReader(path)
+    for read in ("read_block", "readBlock"):
+        before = lowbit.native_calls
+        block = getattr(ours, read)(7, 200, band_ascending=True)
+        assert lowbit.native_calls > before
+        np.testing.assert_array_equal(block, ref.readBlock(
+            7, 200, as_filterbankBlock=False, band_ascending=True))
+    before = lowbit.native_calls
+    mean, std = get_spectral_stats(path, chunksize=64)
+    assert lowbit.native_calls > before
+    jmean, jstd = jax_stats(path, chunksize=64)
+    np.testing.assert_array_equal(mean, jmean)
+    np.testing.assert_array_equal(std, jstd)
+
+
+@pytest.mark.parametrize("nbits", [2, 4])
+def test_cpu_clean_goes_through_the_native_decode(tmp_path, nbits):
+    from pulsarutils_tpu.pipeline.cleanup import cleanup_data as jax_clean
+    from pulsarutils_tpu_torch.pipeline.cleanup import cleanup_data
+
+    data = _codes(32, 400, nbits, 3).astype(np.float64)
+    data[5] = 0.0
+    path = str(tmp_path / "in.fil")
+    with FilterbankWriter(path, _header(32, nbits, True)) as w:
+        w.write_block(data)
+    before = lowbit.native_calls
+    cleanup_data(path, str(tmp_path / "ours.fil"), surelybad=(3,),
+                 chunksize=128, device="cpu")
+    assert lowbit.native_calls > before
+    jax_clean(path, str(tmp_path / "jax.fil"), surelybad=(3,),
+              chunksize=128)
+    assert open(tmp_path / "ours.fil", "rb").read() \
+        == open(tmp_path / "jax.fil", "rb").read()
+
+
+@pytest.mark.parametrize("nbits", [1, 2, 4])
+@pytest.mark.parametrize("descending", [True, False])
+def test_unpack_from_meta_equals_jax(nbits, descending):
+    codes = _codes(40, 64, nbits, nbits)
+    frames = _frames(codes, nbits, descending)
+    packed = lowbit.PackedFrames(frames, nbits, 40, descending)
+    for dtype_name in ("float32", "int32"):
+        meta = packed.meta(dtype_name)
+        ours = lowbit.unpack_from_meta(torch.from_numpy(frames), meta)
+        theirs = jax_lowbit.unpack_from_meta(jnp.asarray(frames), meta, jnp)
+        assert ours.dtype == getattr(torch, dtype_name)
+        np.testing.assert_array_equal(ours.numpy(), np.asarray(theirs))
+
+
+def test_device_paths_keep_the_torch_unpack(tmp_path):
+    """The chunk loop's block (a single-IF packed file) and the
+    statistics sample stay off the native decode, as in JAX."""
+    codes = _codes(32, 256, 2, 5)
+    path = str(tmp_path / "x.fil")
+    with FilterbankWriter(path, _header(32, 2, True)) as w:
+        w.write_block(codes)
+    reader = FilterbankReader(path)
+    before = lowbit.native_calls
+    block = reader.read_block_tensor(0, 256, "cpu")
+    lowbit.sample_codes(reader.read_block_packed(0, 256), 2, 32)
+    assert lowbit.native_calls == before
+    np.testing.assert_array_equal(block.numpy(), codes[::-1])
+
+
+@pytest.mark.parametrize("nbits", [1, 2, 4])
+@pytest.mark.parametrize("nbytes", [(2 << 20) + 999, (2 << 20) + 4096,
+                                    (3 << 20) + 10007])
+def test_native_calls_split_over_threads_give_the_single_call(monkeypatch,
+                                                              nbits, nbytes):
+    """A call of 2 MiB or more runs in byte slices on several threads
+    (three cores here): the values and bytes of one call, whatever the
+    slice bounds."""
+    monkeypatch.setattr(lowbit.os, "cpu_count", lambda: 3)
+    raw = np.random.default_rng(nbytes).integers(0, 256, nbytes,
+                                                 dtype=np.uint8)
+    before = lowbit.native_calls
+    out = lowbit.unpack(raw, nbits)
+    np.testing.assert_array_equal(out, jax_lowbit.unpack_numpy(raw, nbits))
+    values = out
+    values[::7] += 0.5        # exact halves round to even
+    values[::11] = -1.0
+    values[::13] = 99.0
+    np.testing.assert_array_equal(lowbit.pack(values, nbits),
+                                  jax_lowbit.pack(values, nbits))
+    assert lowbit.native_calls == before + 2
+
+
+@pytest.mark.parametrize("nbits", [1, 2, 4])
+@pytest.mark.parametrize("descending", [True, False])
+def test_packed_frames_to_host_goes_through_the_native_decode(nbits,
+                                                              descending):
+    """``PackedFrames.to_host`` (multibeam's host packed mode) decodes
+    with :func:`lowbit.unpack`, to the JAX package's block."""
+    codes = _codes(40, 64, nbits, nbits + 7)
+    frames = _frames(codes, nbits, descending)
+    before = lowbit.native_calls
+    ours = lowbit.PackedFrames(frames, nbits, 40, descending).to_host()
+    assert lowbit.native_calls == before + 1
+    theirs = jax_lowbit.PackedFrames(frames, nbits, 40, descending).to_host()
+    assert ours.dtype == np.float32 and ours.flags["C_CONTIGUOUS"]
+    np.testing.assert_array_equal(ours, theirs)
+    np.testing.assert_array_equal(ours, codes)

@@ -565,3 +565,158 @@ def test_cli_writes_metrics_trace_and_report(pulse_file, tmp_path,
     first = json.loads((tmp_path / "m.jsonl").read_text().splitlines()[0])
     assert first == {"schema_version": logging_utils.SCHEMA_VERSION}
     assert os.path.getsize(tmp_path / "m.jsonl") > 100
+
+
+# -- the series the sift, the periodicity grid and the OOM ladder emit -------
+
+def _family(registry, prefix):
+    """``{(name, labels): sample}`` of a registry's series under
+    ``prefix``."""
+    return {(m["name"], tuple(sorted(m["labels"].items()))):
+            {k: v for k, v in m.items()
+             if k not in ("name", "labels", "type")}
+            for m in registry.snapshot() if m["name"].startswith(prefix)}
+
+
+class _Table:
+    """A minimal hit table for ``hit_fields`` (both packages)."""
+
+    colnames = ("peak",)
+
+    def __init__(self, dm, snr, rebin=1):
+        self._row = {"DM": dm, "snr": snr, "rebin": rebin, "peak": 100}
+
+    def best_row(self):
+        return self._row
+
+    def __getitem__(self, k):
+        return [self._row[k]]
+
+
+class _Info:
+    pulse_freq = 1.0 / (1000 * 0.001)
+    nbin = 1000
+
+    def __init__(self, t0=0.0):
+        self.t0 = t0
+
+
+#: a duplicate, a width and a DM-radius absorption, and three kept
+#: candidates whose S/N and DM fall in different histogram buckets
+SIFT_HITS = [(0, 1000, _Info(), _Table(300.0, 20.0)),
+             (500, 1500, _Info(), _Table(300.2, 15.0)),
+             (500, 1500, _Info(), _Table(305.0, 11.0)),
+             (2000, 3000, _Info(2.0), _Table(300.0, 12.0, rebin=1000)),
+             (9000, 10000, _Info(500.0), _Table(640.0, 9.0)),
+             (9000, 10000, _Info(500.0), _Table(900.0, 6.2))]
+
+
+def test_sift_series_equal_jax(clean_state):
+    """The in/kept totals, the rejected counts by reason and the S/N and
+    DM histograms of one sift equal the JAX package's."""
+    from pulsarutils_tpu.pipeline.sift import sift_hits as jax_sift_hits
+    from pulsarutils_tpu_torch.pipeline import sift
+
+    jax_metrics.REGISTRY.reset()
+    jax_stats, stats = {}, {}
+    jax_kept = jax_sift_hits(SIFT_HITS, stats=jax_stats)
+    kept = sift.sift_hits(SIFT_HITS, stats=stats)
+    assert stats == jax_stats and len(kept) == len(jax_kept) == 3
+    assert stats["rejected"] == {"duplicate": 1, "width": 1,
+                                 "dm_radius": 1}
+    ours = _family(metrics.REGISTRY, "putpu_sift_")
+    assert ours == _family(jax_metrics.REGISTRY, "putpu_sift_")
+    assert {name for name, _ in ours} == {
+        "putpu_sift_candidates_in_total", "putpu_sift_candidates_kept_total",
+        "putpu_sift_rejected_total", "putpu_sift_snr", "putpu_sift_dm"}
+    assert ours[("putpu_sift_candidates_in_total", ())] == {"value": 6}
+    from pulsarutils_tpu.pipeline import sift as jax_sift
+
+    assert (sift.SNR_EDGES, sift.DM_EDGES) == (jax_sift.SNR_EDGES,
+                                              jax_sift.DM_EDGES)
+    jax_metrics.REGISTRY.reset()
+
+
+def test_search_with_hits_then_sift_series_equal_jax(pulse_file, tmp_path,
+                                                     clean_state):
+    """A search with hits, then ``sift_hits``, in each package: the sift
+    series' counts equal (the S/N sums within the scorers' tolerance)."""
+    from pulsarutils_tpu.pipeline.sift import sift_hits as jax_sift_hits
+    from pulsarutils_tpu_torch.pipeline.sift import sift_hits
+
+    jax_metrics.REGISTRY.reset()
+    ref_hits, _ = jax_search_by_chunks(
+        pulse_file, backend="jax", kernel="pallas", make_plots=False,
+        progress=False, output_dir=str(tmp_path / "jax"), **SEARCH)
+    hits, _ = search_by_chunks(pulse_file, device="cpu", make_plots=False,
+                               output_dir=str(tmp_path / "port"), **SEARCH)
+    assert len(hits) == len(ref_hits) >= 2
+    jax_sift_hits(ref_hits)
+    sift_hits(hits)
+    ours = _family(metrics.REGISTRY, "putpu_sift_")
+    theirs = _family(jax_metrics.REGISTRY, "putpu_sift_")
+    assert ours.keys() == theirs.keys() and len(ours) >= 4
+    for key, sample in ours.items():
+        ref = theirs[key]
+        assert sample.keys() == ref.keys()
+        for k in sample:
+            if k == "sum":
+                assert sample[k] == pytest.approx(ref[k], rel=1e-4)
+            else:
+                assert sample[k] == ref[k], (key, k)
+    jax_metrics.REGISTRY.reset()
+
+
+@pytest.mark.parametrize("axis", ["accel", "jerk"])
+def test_capped_grid_series_equal_jax(clean_state, axis):
+    from pulsarutils_tpu.periodicity import accel as jax_accel
+    from pulsarutils_tpu_torch.periodicity import accel
+
+    grid_fn = f"{axis}_grid"
+    jax_metrics.REGISTRY.reset()
+    with pytest.warns(UserWarning, match="max_trials"):
+        ours = getattr(accel, grid_fn)(1.0e9, 0.001, 1 << 16, max_trials=11)
+    with pytest.warns(UserWarning, match="max_trials"):
+        theirs = getattr(jax_accel, grid_fn)(1.0e9, 0.001, 1 << 16,
+                                             max_trials=11)
+    np.testing.assert_array_equal(ours, theirs)
+    # an uncapped grid ticks nothing
+    getattr(accel, grid_fn)(1.0, 0.001, 1 << 16, max_trials=1025)
+    getattr(jax_accel, grid_fn)(1.0, 0.001, 1 << 16, max_trials=1025)
+    family = _family(metrics.REGISTRY, "putpu_period_grid_capped")
+    assert family == _family(jax_metrics.REGISTRY,
+                             "putpu_period_grid_capped")
+    assert family == {("putpu_period_grid_capped_total",
+                       (("axis", axis),)): {"value": 1}}
+    jax_metrics.REGISTRY.reset()
+
+
+@pytest.mark.parametrize("headroom,limit", [(12345, None),
+                                            (None, "3000000"),
+                                            (None, None)])
+def test_oom_event_headroom_gauge_equals_jax(monkeypatch, clean_state,
+                                             headroom, limit):
+    """``oom_event(surface, headroom=None)`` as in JAX: the given
+    headroom, else the budget's (``PUTPU_MEM_LIMIT`` on the host), else
+    no gauge."""
+    from pulsarutils_tpu.resilience import ladder as jax_ladder
+    from pulsarutils_tpu_torch.resilience import ladder
+
+    if limit is None:
+        monkeypatch.delenv("PUTPU_MEM_LIMIT", raising=False)
+    else:
+        monkeypatch.setenv("PUTPU_MEM_LIMIT", limit)
+    # the JAX host backend reports its live arrays as in use; the port's
+    # host reports none: hold both to an empty device
+    monkeypatch.setattr("pulsarutils_tpu.obs.memory.device_memory_snapshot",
+                        lambda *a, **k: None)
+    jax_metrics.REGISTRY.reset()
+    ladder.oom_event("chunk_search", headroom=headroom)
+    jax_ladder.oom_event("chunk_search", headroom=headroom)
+    ours = _family(metrics.REGISTRY, "putpu_oom_")
+    assert ours == _family(jax_metrics.REGISTRY, "putpu_oom_")
+    gauge = ours.get(("putpu_oom_headroom_at_failure_bytes", ()))
+    expect = headroom if headroom is not None else (
+        int(limit) if limit else None)
+    assert (gauge or {}).get("value") == expect
+    jax_metrics.REGISTRY.reset()

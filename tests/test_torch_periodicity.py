@@ -836,3 +836,37 @@ def test_plane_consumer_and_chunk_subset(pulsar_file, tmp_path):
         plane_consumer=consumer, chunks=[8192, 4096, 999], device="cpu",
         output_dir=str(tmp_path))
     assert seen == [4096, 8192] and store.done_chunks == [4096, 8192]
+
+
+def _period_series(registry):
+    return {(m["name"], tuple(sorted(m["labels"].items()))): m["value"]
+            for m in registry.snapshot()
+            if m["name"] in ("putpu_period_chunks_accumulated_total",
+                             "putpu_period_snapshot_writes_total",
+                             "putpu_period_sift_rejected_total",
+                             "putpu_period_folds_total")}
+
+
+def test_periodicity_job_series_equal_jax(pulsar_file, tmp_path):
+    """A periodicity job in each package: the chunks accumulated, the
+    snapshot writes, the sift's rejections by reason and the folds are
+    counted alike."""
+    from pulsarutils_tpu.obs.metrics import REGISTRY as JAX_REGISTRY
+    from pulsarutils_tpu_torch.obs.metrics import REGISTRY
+
+    JAX_REGISTRY.reset()
+    REGISTRY.reset()
+    ref = jax_periodicity_search(pulsar_file, output_dir=str(tmp_path / "j"),
+                                 progress=False, **JOB)
+    res = periodicity_search(pulsar_file, output_dir=str(tmp_path / "t"),
+                             device="cpu", **JOB)
+    assert _top(res) == _top(ref)
+    ours, theirs = _period_series(REGISTRY), _period_series(JAX_REGISTRY)
+    assert ours == theirs
+    assert ours[("putpu_period_chunks_accumulated_total", ())] > 1
+    assert ours[("putpu_period_snapshot_writes_total", ())] > 1
+    assert ours[("putpu_period_folds_total", ())] >= 1
+    assert any(name == "putpu_period_sift_rejected_total"
+               for name, _ in ours)
+    JAX_REGISTRY.reset()
+    REGISTRY.reset()

@@ -219,6 +219,17 @@ def test_port_sources_cover_the_fleet():
         assert f"pulsarutils_tpu_torch/{name}" in walked, name
 
 
+def test_port_sources_cover_the_lint_gate_and_native_decode():
+    walked = {str(p.relative_to(REPO)) for p in _port_sources()}
+    for name in ("core", "waivers", "baseline", "cli", "name_drift",
+                 "reason_drift", "exceptions", "locks", "spans",
+                 "persistence", "device_trip", "dtypes"):
+        assert f"pulsarutils_tpu_torch/analysis/{name}.py" in walked, name
+    for name in ("cli/lint_main.py", "cli/gate_main.py", "obs/gate.py",
+                 "io/lowbit.py"):
+        assert f"pulsarutils_tpu_torch/{name}" in walked, name
+
+
 def _forbidden(module):
     return (module == "jax" or module.startswith("jax.")
             or module == "pulsarutils_tpu"
@@ -289,6 +300,14 @@ assert search._search_hybrid(x, dms, 1200.0, 200.0, 5e-4, False,
                              fused=True)[5].any()
 table = fdas_search(x[:4], 5e-4, [-1e5, 0.0, 1e5], topk=4, device="cpu")
 assert len(table["sigma"]) == 4
+# the port's lint, its perf gate and the native low-bit decode
+from pulsarutils_tpu_torch.analysis.cli import run_lint
+assert run_lint().report()["clean"]
+from pulsarutils_tpu_torch.cli import gate_main
+assert gate_main.main(["--snapshot", "BENCH_GATE_cpu.jsonl",
+                       "--skip-lint"]) == 0
+from pulsarutils_tpu_torch.io import lowbit
+assert lowbit.native_available()
 bad = [k for k in sys.modules if k == "jax" or k.startswith("jax.")
        or k == "pulsarutils_tpu" or k.startswith("pulsarutils_tpu.")]
 assert not bad, bad

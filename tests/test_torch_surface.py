@@ -274,3 +274,181 @@ def test_drivers_take_progress(small_file, tmp_path, monkeypatch, caplog,
     logged = [r.getMessage() for r in caplog.records
               if r.getMessage().startswith("processed ")]
     assert bool(logged) == progress
+
+
+# -- the rest of the library surface, in the JAX spelling ---------------------
+
+def _params(fn, drop=("xp",)):
+    import inspect
+
+    return [(p.name, p.default) for p in
+            inspect.signature(fn).parameters.values() if p.name not in drop]
+
+
+@pytest.mark.parametrize("descending", [True, False])
+@pytest.mark.parametrize("nbits", [2, 8])
+def test_read_block_sigpyproc_spelling_equals_jax(tmp_path, descending,
+                                                  nbits):
+    from pulsarutils_tpu.io.sigproc import FilterbankReader as JaxReader
+    from pulsarutils_tpu_torch.io.sigproc import FilterbankReader
+
+    array, header = tsim.simulate_test_data(150.0, nsamples=1024, nchan=16,
+                                            rng=4)
+    path = str(tmp_path / "x.fil")
+    write_simulated_filterbank(path, np.clip(array, 0, 3) if nbits == 2
+                               else array + 20.0, header,
+                               descending=descending, nbits=nbits)
+    ours, ref = FilterbankReader(path), JaxReader(path)
+    assert _params(FilterbankReader.readBlock) == _params(JaxReader.readBlock)
+    for args, kw in [((10, 300), {}), ((10, 300, False, True), {}),
+                     ((0, 2000), {"as_filterbankBlock": False,
+                                  "band_ascending": True})]:
+        np.testing.assert_array_equal(ours.readBlock(*args, **kw),
+                                      ref.readBlock(*args, **kw))
+
+
+def test_quarantine_manifest_chunks_equals_jax(tmp_path):
+    from pulsarutils_tpu.faults.policy import QuarantineManifest as JaxQM
+    from pulsarutils_tpu_torch.faults.policy import QuarantineManifest
+
+    ours = QuarantineManifest(str(tmp_path / "t"), "fp")
+    ref = JaxQM(str(tmp_path / "j"), "fp")
+    assert ours.chunks() == ref.chunks() == set()
+    for qm in (ours, ref):
+        qm.record(0, 100, "integrity:nan_frac", {"nan_frac": 1.0})
+        qm.record(100, 200, "read_error")
+        qm.record(200, 300, "persist_dead_letter")
+        qm.record(300, 400, "integrity:dead_frac")
+    assert _params(QuarantineManifest.chunks) == _params(JaxQM.chunks)
+    for prefix in (None, "integrity", "integrity:dead", "persist_dead_letter",
+                   "nope"):
+        assert ours.chunks(prefix) == ref.chunks(reason_prefix=prefix)
+    assert ours.chunks("integrity") == {0, 300}
+
+
+def test_current_budget_and_device_trace(tmp_path):
+    from pulsarutils_tpu.utils import logging_utils as jlog
+    from pulsarutils_tpu_torch.obs import trace
+    from pulsarutils_tpu_torch.utils import logging_utils as tlog
+
+    assert _params(tlog.device_trace) == _params(jlog.device_trace)
+    assert tlog.current_budget() is None
+    acct = tlog.BudgetAccountant()
+    with acct.chunk(0):
+        assert tlog.current_budget() is acct
+    assert tlog.current_budget() is None
+    with tlog.device_trace(None):   # no directory: a no-op
+        pass
+    assert not list(tmp_path.iterdir())
+    with tlog.device_trace(str(tmp_path / "dev")):
+        torch.ones(64).sum()
+    assert (tmp_path / "dev" / trace.DEVICE_TRACE_FILE).is_file()
+
+
+@pytest.fixture
+def peaks_state():
+    from pulsarutils_tpu.obs import roofline as jroof
+    from pulsarutils_tpu_torch.obs import roofline as troof
+
+    jroof.reset()
+    troof.reset()
+    yield jroof, troof
+    jroof.reset()
+    troof.reset()
+
+
+def test_set_peaks_equals_jax(peaks_state):
+    jroof, troof = peaks_state
+    assert _params(troof.set_peaks) == _params(jroof.set_peaks)
+    # the host, no card: no peaks, no fraction
+    assert troof._peaks() == (None, None)
+    assert troof._fraction(1e9, 1e9, 0.01) is None
+    for peaks in [(2e12, 1e11), (None, 1e11), (2e12, None)]:
+        jroof.set_peaks(*peaks)
+        troof.set_peaks(*peaks)
+        assert troof._peaks() == jroof._peaks() == peaks
+        for work in [(1e9, 1e8), (1e6, 1e10), (0.0, 0.0)]:
+            assert troof._fraction(*work, 0.01) \
+                == jroof._fraction(*work, 0.01)
+
+
+@pytest.mark.parametrize("env", [{"PUTPU_PEAK_FLOPS": "3e12"},
+                                 {"PUTPU_PEAK_BYTES_PER_S": "2.5e11"},
+                                 {"PUTPU_PEAK_FLOPS": "3e12",
+                                  "PUTPU_PEAK_BYTES_PER_S": "2.5e11"}])
+def test_peak_variables_equal_jax(monkeypatch, peaks_state, env):
+    jroof, troof = peaks_state
+    for key in ("PUTPU_PEAK_FLOPS", "PUTPU_PEAK_BYTES_PER_S"):
+        monkeypatch.delenv(key, raising=False)
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
+    assert troof._peaks() == jroof._peaks()
+    assert troof._fraction(1e10, 1e9, 0.05) == jroof._fraction(1e10, 1e9,
+                                                               0.05)
+    assert troof._fraction(1e10, 1e9, 0.05) is not None
+
+
+def test_a_card_missing_from_the_table_gets_a_fraction_once_set(
+        monkeypatch, peaks_state):
+    _, troof = peaks_state
+    for key in ("PUTPU_PEAK_FLOPS", "PUTPU_PEAK_BYTES_PER_S"):
+        monkeypatch.delenv(key, raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "get_device_name",
+                        lambda *a: "A card not in the table")
+    assert troof._peaks() == (None, None)
+    assert troof._fraction(1e10, 1e9, 0.05) is None
+    troof.reset()
+    monkeypatch.setenv("PUTPU_PEAK_BYTES_PER_S", "1e12")
+    assert troof._fraction(1e10, 1e9, 0.05) == pytest.approx(0.02)
+    troof.reset()
+    monkeypatch.delenv("PUTPU_PEAK_BYTES_PER_S")
+    monkeypatch.setattr(torch.cuda, "get_device_name",
+                        lambda *a: "NVIDIA H100 80GB HBM3")
+    # the table's card: its row unless a peak is given
+    assert troof._peaks() == troof.CARD_PEAKS["NVIDIA H100 80GB HBM3"]
+    troof.set_peaks(1e12, None)
+    assert troof._peaks() == (1e12, None)
+
+
+def test_start_obs_server_positional_order_and_registry_equal_jax():
+    import urllib.request
+
+    from pulsarutils_tpu.obs import server as jserver
+    from pulsarutils_tpu_torch.obs import server as tserver
+    from pulsarutils_tpu_torch.obs.metrics import MetricsRegistry
+
+    assert _params(tserver.start_obs_server) \
+        == _params(jserver.start_obs_server)
+    own = MetricsRegistry()
+    own.counter("putpu_hits_total").inc(7)
+    # the JAX positional order: port, health, progress_fn, registry
+    with tserver.start_obs_server(0, None, lambda: {"x": 1}, own) as srv:
+        text = urllib.request.urlopen(
+            f"http://127.0.0.1:{srv.port}/metrics", timeout=10).read()
+        progress = urllib.request.urlopen(
+            f"http://127.0.0.1:{srv.port}/progress", timeout=10).read()
+    assert b"putpu_hits_total 7" in text
+    assert b'"x": 1' in progress
+    with tserver.start_obs_server(0) as srv:   # the process registry
+        assert srv.registry is tserver._metrics.REGISTRY
+
+
+@pytest.mark.parametrize("axis", [None, 0, 1])
+def test_mad_takes_the_jax_keywords(axis):
+    from pulsarutils_tpu.ops import robust as jrobust
+    from pulsarutils_tpu_torch.ops import robust as trobust
+
+    assert _params(trobust.mad) == _params(jrobust.mad)
+    assert _params(trobust.ref_mad) == _params(jrobust.ref_mad)
+    x = np.random.default_rng(3).normal(0, 2, (6, 400))
+    np.testing.assert_allclose(
+        trobust.mad(array=torch.from_numpy(x), axis=axis).numpy(),
+        jrobust.mad(array=x, axis=axis), rtol=1e-12)
+    row = x[0]
+    for window in (1, 50):
+        assert float(trobust.ref_mad(array=torch.from_numpy(row),
+                                     window=window)) \
+            == pytest.approx(float(jrobust.ref_mad(array=row,
+                                                   window=window)),
+                             rel=1e-12)

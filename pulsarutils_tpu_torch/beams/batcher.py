@@ -298,11 +298,12 @@ class BeamBatcher:
         if isinstance(block, torch.Tensor) and block.dtype == dtype \
                 and on_device(block, self.device):
             return block, slot  # the body reads its operand, never writes it
-        src = _as_tensor(block)
-        if slot is None:
-            slot = torch.empty(tuple(src.shape), dtype=dtype,
-                               device=self.device)
-        slot.copy_(src)
+        with budget_bucket("search/dispatch/upload"):
+            src = _as_tensor(block)
+            if slot is None:
+                slot = torch.empty(tuple(src.shape), dtype=dtype,
+                                   device=self.device)
+            slot.copy_(src)
         if self.packed_meta is not None:
             obs_metrics.counter("putpu_lowbit_packed_chunks_total").inc()
             obs_metrics.counter("putpu_lowbit_bytes_saved_total").inc(

@@ -233,6 +233,16 @@ def multibeam_search(fnames, dmmin=200, dmmax=800, *, snr_threshold=6.0,
     spec resumes from its ledger) while the others go on.
     ``store_factory(i, fname, fingerprint)`` builds a beam's store.
 
+    ``budget``, a caller-owned
+    :class:`~..utils.logging_utils.BudgetAccountant` (one is made
+    otherwise), takes one chunk an epoch: buckets ``read``, ``clean``
+    (the host conditioning), ``search`` (``search/dispatch`` with a
+    ``search/dispatch/upload`` a host beam, ``search/readback``),
+    ``hit_products`` a hit beam, ``persist`` (``persist/candidate`` a
+    hit beam, ``persist/ledger`` every beam).  With a ``budget`` a CUDA
+    run also times each bucket on the stream with CUDA events
+    (``device_s`` on each epoch's record).
+
     ``packed`` selects the low-bit data path:
 
     * ``"auto"``: ``"device"`` when every file is a packed 1/2/4-bit
@@ -311,6 +321,9 @@ def multibeam_search(fnames, dmmin=200, dmmax=800, *, snr_threshold=6.0,
 
     timer = budget if budget is not None else BudgetAccountant()
     timer.begin_stream()
+    if budget is not None:
+        # the stages' device intervals, from events on the stream
+        timer.enable_device_timing(batcher.device)
 
     beams = []
     for i, (reader, label) in enumerate(zip(readers, labels)):
@@ -442,43 +455,46 @@ def multibeam_search(fnames, dmmin=200, dmmax=800, *, snr_threshold=6.0,
 
                 payload = None
                 if is_hit:
-                    if mode == "device":
-                        # the hit's waterfall: the host decode and host
-                        # clean of the bytes the device searched, alike
-                        # in both packed arms
-                        from ..io.lowbit import PackedFrames
+                    with timer.bucket("hit_products"):
+                        if mode == "device":
+                            # the hit's waterfall: the host decode and host
+                            # clean of the bytes the device searched, alike
+                            # in both packed arms
+                            from ..io.lowbit import PackedFrames
 
-                        array = _clean_block(PackedFrames(
-                            blocks[i], nbits, nchan,
-                            band_descending=descending).to_host(),
-                            plan.resample)
-                    elif mode == "host":
-                        array = _clean_block(blocks[i], plan.resample)
-                    else:
-                        array = blocks[i]
-                    info = PulseInfo(
-                        allprofs=array, start_freq=start_freq,
-                        bandwidth=bandwidth, nbin=array.shape[1],
-                        nchan=array.shape[0], date=date, t0=t0,
-                        istart=istart,
-                        pulse_freq=1.0 / (array.shape[1] * eff_tsamp),
-                        ibeam=b["beam"], nbeams=b["nbeams"],
-                        dm=float(best["DM"]), snr=float(best["snr"]),
-                        width=float(best["rebin"]) * eff_tsamp)
-                    info.disp_profile = np.asarray(array.mean(0))
-                    info.compute_stats()
-                    payload = (info, sci_table)
-                    obs_metrics.counter("putpu_beam_hits_total",
-                                        beam=str(b["beam"])).inc()
-                    logger.info("HIT beam %s chunk %d-%d: DM=%.2f "
-                                "snr=%.2f", b["beam"], istart, iend,
-                                info.dm, info.snr)
+                            array = _clean_block(PackedFrames(
+                                blocks[i], nbits, nchan,
+                                band_descending=descending).to_host(),
+                                plan.resample)
+                        elif mode == "host":
+                            array = _clean_block(blocks[i], plan.resample)
+                        else:
+                            array = blocks[i]
+                        info = PulseInfo(
+                            allprofs=array, start_freq=start_freq,
+                            bandwidth=bandwidth, nbin=array.shape[1],
+                            nchan=array.shape[0], date=date, t0=t0,
+                            istart=istart,
+                            pulse_freq=1.0 / (array.shape[1] * eff_tsamp),
+                            ibeam=b["beam"], nbeams=b["nbeams"],
+                            dm=float(best["DM"]), snr=float(best["snr"]),
+                            width=float(best["rebin"]) * eff_tsamp)
+                        info.disp_profile = np.asarray(array.mean(0))
+                        info.compute_stats()
+                        payload = (info, sci_table)
+                        obs_metrics.counter("putpu_beam_hits_total",
+                                            beam=str(b["beam"])).inc()
+                        logger.info("HIT beam %s chunk %d-%d: DM=%.2f "
+                                    "snr=%.2f", b["beam"], istart, iend,
+                                    info.dm, info.snr)
                 with timer.bucket("persist"):
                     if payload is not None:
-                        b["store"].save_candidate(b["root"], istart, iend,
-                                                  *payload)
+                        with timer.bucket("persist/candidate"):
+                            b["store"].save_candidate(b["root"], istart,
+                                                      iend, *payload)
                         b["hits"].append((istart, iend) + payload)
-                    b["store"].mark_done(istart)
+                    with timer.bucket("persist/ledger"):
+                        b["store"].mark_done(istart)
                 b["chunks_done"] += 1
                 obs_metrics.counter("putpu_beam_chunks_total",
                                     beam=str(b["beam"])).inc()
@@ -525,6 +541,7 @@ def multibeam_search(fnames, dmmin=200, dmmax=800, *, snr_threshold=6.0,
                      "verdicts": {}, "vetoed_members": 0}
         coinc = {"groups": groups, "stats": stats}
 
+    timer.resolve_device_times()
     timer.report()
     timer.footer()
     logger.info("BUDGET_JSON %s", json.dumps(timer.to_json()))

@@ -362,6 +362,8 @@ METRIC_NAMES = {
 #: ``count()`` name means adding it here, or the runtime warns and the
 #: doc/baseline coverage check cannot vouch for it.
 BUDGET_COUNTERS = frozenset({
+    "b1_launches",
+    "b4_launches",
     "dispatches",
     "host_sweeps",
     "offset_tables",
@@ -373,8 +375,15 @@ BUDGET_COUNTERS = frozenset({
 
 
 #: the port's own series, declared beside the JAX package's tables (which
-#: stay equal to the JAX package's): name -> one-line meaning
+#: stay equal to the JAX package's, but for the port's two launch counters
+#: in BUDGET_COUNTERS): name -> one-line meaning
 PORT_METRIC_NAMES = {
+    "putpu_b1_launches_total":
+        "B1 dedispersion kernel launches (csrc/dedisperse.cu) that "
+        "reached the card, the port's budget counter b1_launches",
+    "putpu_b4_launches_total":
+        "B4 scorer kernel launches (csrc/score.cu) that reached the "
+        "card, the port's budget counter b4_launches",
     "putpu_fallbacks_total":
         "chunks a device='cpu' run moved to its host path after the "
         "device attempts failed (labelled by stage)",

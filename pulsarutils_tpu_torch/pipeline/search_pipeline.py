@@ -225,37 +225,6 @@ def clean_chunk(block, mask, *, cut_outliers=False, zero_dm=False,
     return cleaned
 
 
-class _Stages:
-    """The loop's stage clock, kept by the budget accountant ``timer``:
-    :meth:`run` (and :meth:`bucket`) charge a call to a bucket and one
-    span.  With ``sync`` (a caller asked for the seconds: ``stage_seconds``,
-    ``budget`` or a trace) each stage also synchronises the current stream
-    at its end, so that device work queued on the main stream is charged
-    to the stage that queued it (side-stream uploads are not: they overlap
-    by design); without it the buckets are host-side, as the JAX package's
-    are.  :meth:`add` records seconds off the critical path (the reader
-    thread, the persist worker)."""
-
-    def __init__(self, device, timer, sync):
-        self.device = device
-        self.timer = timer
-        self.sync = sync and device.type == "cuda"
-
-    def add(self, name, seconds):
-        self.timer.add_async(name, seconds)
-
-    @contextlib.contextmanager
-    def bucket(self, name):
-        with self.timer.bucket(name):
-            yield
-            if self.sync:
-                torch.cuda.current_stream(self.device).synchronize()
-
-    def run(self, name, fn, *args, **kwargs):
-        with self.bucket(name):
-            return fn(*args, **kwargs)
-
-
 def _search_with_fallback(array, dmmin, dmmax, start_freq, bandwidth,
                           eff_tsamp, *, device, kernel, capture_plane, state,
                           ndm, snr_floor=None, chunk=None, policy=None,
@@ -548,7 +517,10 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
       otherwise): every chunk's wall in named buckets with the residual
       ``unattributed``, the footer and one ``BUDGET_JSON`` log line; a
       CUDA run prices its trips with :func:`~..utils.logging_utils.
-      measure_device_rtt`;
+      measure_device_rtt`.  With a ``budget``, ``stage_seconds`` or a
+      tracer a CUDA run also times each bucket on the stream with CUDA
+      events, never waiting for them (``device_s`` on each chunk
+      record); the buckets stay host walls;
     * ``http_port`` serves ``/metrics``, ``/healthz`` (HTTP 503 on
       CRITICAL), ``/progress`` (also ``/status``) while the loop runs
       (:mod:`..obs.server`; ``0`` binds an ephemeral port, ``http_host``
@@ -646,16 +618,17 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
     timer.begin_stream()
     timer.mesh_shape = (list(mesh.shape.values()) if mesh is not None
                         else None)
-    stages = _Stages(dev, timer, sync=(stage_seconds is not None
-                                       or budget is not None
-                                       or is_tracing()))
+    if stage_seconds is not None or budget is not None or is_tracing():
+        # a caller asked for the seconds: the stages' device intervals
+        # too, from events on the stream (nothing waits for them)
+        timer.enable_device_timing(dev)
     base_seconds = timer.stage_seconds()
     _ladder.reset()
     # the pre-scan reads the file through the loop's read seam before the
     # loop exists: an armed read fault is for the search chunks
     with fault_inject.suppressed():
-        mask_fileorder = stages.run("badchans", get_bad_chans, fname,
-                                    surelybad=surelybad)
+        mask_fileorder = timer.run("badchans", get_bad_chans, fname,
+                                   surelybad=surelybad)
     sp = plan_survey(fname, chunk_length=chunk_length,
                      new_sample_time=new_sample_time, tmin=tmin,
                      dmmin=dmmin, dmmax=dmmax, surelybad=surelybad,
@@ -868,7 +841,7 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
                 block, gate = gate_chunk(np.asarray(block), integrity)
             return _HostChunk(nread=block.shape[1], block=block, gate=gate)
         finally:
-            stages.add("read_decode", time.perf_counter() - t0)
+            timer.add_async("read_decode", time.perf_counter() - t0)
 
     def read_packed(s, frames, got):
         """The reader thread's work on packed ``frames`` (the staging
@@ -929,8 +902,8 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
             host = np.ascontiguousarray(got.block, dtype=np.float32)
             obs_metrics.counter("putpu_bytes_uploaded_total").inc(
                 int(host.nbytes))
-            block = stages.run("upload_wait",
-                               lambda: torch.from_numpy(host).to(dev))
+            block = timer.run("upload_wait",
+                              lambda: torch.from_numpy(host).to(dev))
         else:
             pending = (prefetched[1] if prefetched is not None
                        and prefetched[0] == istart else upload(got))
@@ -941,24 +914,24 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
                 obs_metrics.counter("putpu_lowbit_bytes_saved_total").inc(
                     int(header["nchans"] * got.nread * 4
                         - got.nread * reader.bytes_per_frame))
-            frames = stages.run("upload_wait", staging.wait, pending)
+            frames = timer.run("upload_wait", staging.wait, pending)
             by_bytes = gate_bytes and got.canary is None
             if by_bytes:
-                gate_info = stages.run("gate", gate_frames, frames,
-                                       integrity)
+                gate_info = timer.run("gate", gate_frames, frames,
+                                      integrity)
                 if gate_info["verdict"] == "quarantine":
                     return None, gate_info
-            block = stages.run("clean", reader.block_from_frames, frames)
+            block = timer.run("clean", reader.block_from_frames, frames)
             del frames
             if got.canary is not None:
-                block = stages.run("clean", inject_tensor, block, got.canary)
+                block = timer.run("clean", inject_tensor, block, got.canary)
             if integrity is not None and not by_bytes and not packed_bits:
-                block, gate_info = stages.run("gate", gate_tensor, block,
-                                              integrity)
+                block, gate_info = timer.run("gate", gate_tensor, block,
+                                             integrity)
         if gate_info is not None and gate_info["verdict"] == "quarantine":
             return None, gate_info
         timer.count("dispatches")
-        return (stages.run("clean", clean_chunk, block, mask, **clean_kw),
+        return (timer.run("clean", clean_chunk, block, mask, **clean_kw),
                 gate_info)
 
     def _persist_and_mark(payload, istart_, iend_, reason=None):
@@ -1022,7 +995,7 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
             out = _persist_and_mark(payload, istart_, iend_, reason=reason)
             lineage_finish(cl, istart_, iend_, payload, out)
         finally:
-            stages.add("persist", time.perf_counter() - t0)
+            timer.add_async("persist", time.perf_counter() - t0)
             if pspan is not None:
                 pspan.end()
 
@@ -1032,7 +1005,7 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
 
     def persist(payload, istart_, iend_, reason=None, cl=None):
         if persist_pool is None:
-            with stages.bucket("persist"):
+            with timer.bucket("persist"):
                 out = _persist_and_mark(payload, istart_, iend_,
                                         reason=reason)
                 lineage_finish(cl, istart_, iend_, payload, out)
@@ -1047,7 +1020,7 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
         # backpressure: each queued payload holds its cutout and table on
         # the host; two in flight keep the overlap and bound the memory
         while len(persist_futures) > 2:
-            stages.run("persist_backpressure", persist_futures.pop(0).result)
+            timer.run("persist_backpressure", persist_futures.pop(0).result)
 
     def drain_persist(block=False):
         # a persist failure the retry policy does not absorb (a bug, not a
@@ -1090,7 +1063,7 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
             t_chunk = time.perf_counter()
             iend = istart + chunk_size(istart)
             t0 = istart * sample_time
-            got = stages.run("read", next_read.result)
+            got = timer.run("read", next_read.result)
             next_read = submit_read(ichunk + 1)
 
             reason = stats = None
@@ -1128,7 +1101,7 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
             if lineage is not None:
                 lineage.mark(istart, "dispatch")
             try:
-                result = stages.run(
+                result = timer.run(
                     "search", _search_with_fallback, array, dmmin, dmmax,
                     start_freq, bandwidth, eff_tsamp, device=dev,
                     kernel=kernel, capture_plane=capture, state=state,
@@ -1145,8 +1118,8 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
             if lineage is not None:
                 lineage.mark(istart, "ready")
             if plane_consumer is not None:
-                stages.run("plane_consume", plane_consumer, istart, plane,
-                           table)
+                timer.run("plane_consume", plane_consumer, istart, plane,
+                          table)
 
             canary_obs = (canary.observe(istart, table, snr_threshold)
                           if canary is not None else None)
@@ -1183,10 +1156,10 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
                 # skips the period stage
                 obs_metrics.counter("putpu_canary_period_skips_total").inc()
             elif period_search:
-                pres = stages.run("period", period_search_plane, plane,
-                                  eff_tsamp,
-                                  fmin=4.0 / (plane.shape[1] * eff_tsamp),
-                                  refine_top=1)
+                pres = timer.run("period", period_search_plane, plane,
+                                 eff_tsamp,
+                                 fmin=4.0 / (plane.shape[1] * eff_tsamp),
+                                 refine_top=1)
                 if pres["best_sigma"] > period_sigma_threshold:
                     info.period_freq = float(pres["best_freq"])
                     info.period_dm = float(table["DM"][pres["best_dm_index"]])
@@ -1204,7 +1177,7 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
                 info.dm = float(best["DM"])
                 info.snr = float(best["snr"])
                 info.width = float(best["rebin"]) * eff_tsamp
-                with stages.bucket("hit_products"):
+                with timer.bucket("hit_products"):
                     info.disp_profile = to_numpy(array.mean(0))
                     if plane is not None:
                         info.dedisp_profile = to_numpy(plane[
@@ -1247,10 +1220,10 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
                 # the full table backs the figure (its plane panel is
                 # labelled by the table's trials row for row), so a
                 # promoted chunk's figure shows the canary's track
-                stages.run("plot", plot_diagnostics, info, table, plane,
-                           outname=os.path.join(
-                               output_dir, f"{root}_{istart}-{iend}.jpg"),
-                           t0=t0, show=show_plots, waterfall=array)
+                timer.run("plot", plot_diagnostics, info, table, plane,
+                          outname=os.path.join(
+                              output_dir, f"{root}_{istart}-{iend}.jpg"),
+                          t0=t0, show=show_plots, waterfall=array)
             # a non-hit's info still holds the cleaned chunk on the card
             del array, plane, info
             # submitted after the figure: the ledger never marks a chunk
@@ -1296,13 +1269,14 @@ def search_by_chunks(fname, chunk_length=None, new_sample_time=None, tmin=0,
             persist_pool.shutdown(wait=True)
             drain_persist(block=True)
 
-        stages.run("persist_drain", finish)
+        timer.run("persist_drain", finish)
     if push is not None and push_owned:
         # bounded: a wedged subscriber journals to the dead letter
         logger.info("PUSH_JSON %s", json.dumps(push.close()))
     if health is not None and nproc:
         # a dead letter from the final drain reaches the engine here
         health_update("drain", None)
+    timer.resolve_device_times()
     timer.report()
     timer.footer()
     logger.info("BUDGET_JSON %s", json.dumps(timer.to_json()))

@@ -14,12 +14,18 @@ load of a kernel library (:mod:`.nvcc`).  A build in any chunk after a
 stream's first is flagged as a retrace.  :func:`measure_device_rtt`
 prices one CUDA round trip: a one-element launch and a
 ``torch.cuda.synchronize``.
+
+Where the JAX loop blocks on each stage to time it, the accountant here
+never waits: with device timing on (:meth:`BudgetAccountant.
+enable_device_timing`) every bucket also records a pair of CUDA events
+on the stream, read once the stream has passed them.
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import functools
 import json
 import logging
 import threading
@@ -34,21 +40,12 @@ logger = logging.getLogger("pulsarutils_tpu_torch")
 
 
 class StageTimer:
-    """Accumulates wall-clock per named stage; ``report()`` logs a table."""
+    """Wall-clock totals and calls per named stage; ``report()`` logs
+    them as a table."""
 
     def __init__(self):
         self.totals = {}
         self.counts = {}
-
-    @contextlib.contextmanager
-    def stage(self, name):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            dt = time.perf_counter() - t0
-            self.totals[name] = self.totals.get(name, 0.0) + dt
-            self.counts[name] = self.counts.get(name, 0) + 1
 
     def report(self, log=logger):
         for name, total in sorted(self.totals.items(), key=lambda kv: -kv[1]):
@@ -82,6 +79,28 @@ def _percentile(sorted_values, q):
         return float(sorted_values[-1])
     return float(sorted_values[lo] * (1.0 - frac)
                  + sorted_values[lo + 1] * frac)
+
+
+def _timing_event_class(device):
+    """The event class that times ``device``'s stream: ``torch.cuda.Event``
+    on a card, None elsewhere (no device timing)."""
+    if getattr(device, "type", None) != "cuda":
+        return None
+    import torch
+
+    return torch.cuda.Event
+
+
+def _launch_counts():
+    """Cumulative ``(B1, B4)`` kernel launches that reached a card in
+    this process (the modules' ``launches`` counters)."""
+    from ..ops import dedisperse_cuda, score_cuda
+
+    return dedisperse_cuda.launches, score_cuda.launches
+
+
+#: the budget counters of :func:`_launch_counts`, in its order
+_LAUNCH_COUNTERS = ("b1_launches", "b4_launches")
 
 
 def compile_snapshot():
@@ -135,7 +154,21 @@ class BudgetAccountant(StageTimer):
       serial budget;
     * ``unattributed`` = chunk wall - the top-level buckets, per chunk
       and in :meth:`footer`; :meth:`to_json` is the ``BUDGET_JSON``
-      record, with the JAX package's keys.
+      record, with the JAX package's keys;
+    * every chunk counts the hand-written kernels' launches made in it,
+      ``b1_launches`` (B1, ``csrc/dedisperse.cu``) and ``b4_launches``
+      (B4, ``csrc/score.cu``), each only where it is not zero: a chunk
+      with no launch on a card (every CPU run) keeps the JAX record;
+    * with device timing on (:meth:`enable_device_timing`, a card only)
+      each bucket opened in a chunk on the enabling thread records a
+      CUDA event on the device's current stream as it opens and another
+      as it closes.  Nothing waits: a pair is read once its end event
+      has completed, at each chunk close and in
+      :meth:`resolve_device_times`, and lands in its chunk's record as
+      ``device_s: {bucket: seconds}``, the stream's interval from the
+      bucket's first queued work to its last (summed over a bucket's
+      openings in the chunk).  Buckets stay host walls.  With timing
+      off no event is made and no record has the key.
 
     ``rtt_s`` (:func:`measure_device_rtt`) prices the trips: the footer
     reports ``(dispatches + readbacks) x rtt``.
@@ -155,6 +188,11 @@ class BudgetAccountant(StageTimer):
         self._stream_chunks = 0
         self._truncation_warned = False
         self._autotune_mark = self._autotune_seq()
+        # device timing: (event class, current-stream reader, thread id)
+        # while on; spare events; (record, bucket, start, end) not yet read
+        self._timing = None
+        self._spare_events = []
+        self._pending = []
 
     @staticmethod
     def _autotune_seq():
@@ -172,6 +210,45 @@ class BudgetAccountant(StageTimer):
         self._retrace_chunks = 0
         self._autotune_mark = self._autotune_seq()
 
+    # -- device timing -------------------------------------------------------
+
+    def enable_device_timing(self, device):
+        """Time this thread's buckets on ``device``'s current stream with
+        CUDA events from now on (see the class docstring); a no-op off a
+        card."""
+        event_class = _timing_event_class(device)
+        if event_class is None:
+            return
+        import torch
+
+        self._timing = (event_class,
+                        functools.partial(torch.cuda.current_stream, device),
+                        threading.get_ident())
+
+    def _device_mark(self):
+        """An event, spare or new, recorded on the stream now."""
+        event_class, current_stream, _ = self._timing
+        ev = (self._spare_events.pop() if self._spare_events
+              else event_class(enable_timing=True))
+        ev.record(current_stream())
+        return ev
+
+    def resolve_device_times(self):
+        """Read every pending event pair whose end the stream has passed
+        into its chunk's ``device_s``; a pair it has not reached stays
+        pending.  Never waits.  Each entry calls it once before it
+        returns, after its last readback."""
+        left = []
+        for rec, name, start, end in self._pending:
+            if not end.query():
+                left.append((rec, name, start, end))
+                continue
+            dev = rec.setdefault("device_s", {})
+            dev[name] = round(dev.get(name, 0.0)
+                              + start.elapsed_time(end) * 1e-3, 6)
+            self._spare_events += (start, end)
+        self._pending = left
+
     # -- per-chunk budget ----------------------------------------------------
 
     @contextlib.contextmanager
@@ -179,6 +256,7 @@ class BudgetAccountant(StageTimer):
         if self._active is not None:
             raise RuntimeError("budget chunks cannot nest")
         c0, s0 = compile_snapshot()
+        launches0 = _launch_counts()
         rec = {"chunk": label, "wall_s": 0.0, "buckets": {}, "counters": {}}
         self._active = rec
         token = _ACTIVE_BUDGET.set(self)
@@ -192,6 +270,10 @@ class BudgetAccountant(StageTimer):
             _trace.close_span(s)
             _trace.pop_track(track_token)
             rec["wall_s"] = s.dur
+            for name, n0, n1 in zip(_LAUNCH_COUNTERS, launches0,
+                                    _launch_counts()):
+                if n1 > n0:
+                    self.count(name, n1 - n0)
             _ACTIVE_BUDGET.reset(token)
             self._active = None
             self._stream_chunks += 1
@@ -221,6 +303,8 @@ class BudgetAccountant(StageTimer):
             rec["buckets"] = {k: round(v, 4)
                               for k, v in rec["buckets"].items()}
             self.chunks.append(rec)
+            if self._pending:
+                self.resolve_device_times()
             _metrics.counter("putpu_chunks_total").inc()
             logger.debug("chunk %s budget: wall=%.3fs %s "
                          "unattributed=%.3fs counters=%s", label,
@@ -234,13 +318,26 @@ class BudgetAccountant(StageTimer):
     @contextlib.contextmanager
     def bucket(self, name):
         """Serial main-thread time, measured as one span (the budget and
-        an active tracer read the same interval)."""
+        an active tracer read the same interval); with device timing on,
+        also a pair of events on the stream."""
+        rec = self._active
+        timed = (self._timing is not None and rec is not None
+                 and threading.get_ident() == self._timing[2])
         s = _trace.open_span(name)
+        start = self._device_mark() if timed else None
         try:
             yield
         finally:
+            if timed:
+                self._pending.append((rec, name, start,
+                                      self._device_mark()))
             _trace.close_span(s)
             self.add(name, s.dur)
+
+    def run(self, name, fn, *args, **kwargs):
+        """``fn(*args, **kwargs)`` charged to the bucket ``name``."""
+        with self.bucket(name):
+            return fn(*args, **kwargs)
 
     def add(self, name, dt):
         if self._active is not None:
@@ -395,7 +492,11 @@ def budget_bucket(name):
     and record it as a span when a tracer is active; a plain yield when
     neither is."""
     acct = _ACTIVE_BUDGET.get()
-    if acct is None and not _trace.is_tracing():
+    if acct is not None:
+        with acct.bucket(name):
+            yield
+        return
+    if not _trace.is_tracing():
         yield
         return
     s = _trace.open_span(name)
@@ -403,8 +504,6 @@ def budget_bucket(name):
         yield
     finally:
         _trace.close_span(s)
-        if acct is not None:
-            acct.add(name, s.dur)
 
 
 def budget_count(name, n=1):

@@ -70,7 +70,11 @@ def pulse_file(tmp_path_factory):
 
 def test_names_manifest_equals_jax():
     assert names.METRIC_NAMES == jax_names.METRIC_NAMES
-    assert names.BUDGET_COUNTERS == jax_names.BUDGET_COUNTERS
+    # the port's own budget counters: the launches of B1 and B4
+    launches = {"b1_launches", "b4_launches"}
+    assert names.BUDGET_COUNTERS == jax_names.BUDGET_COUNTERS | launches
+    for name in launches:
+        assert names.meaning(names.budget_counter_metric(name))
     for name in ("putpu_hits_total", "putpu_dispatches_total",
                  "putpu_nope_total", "other"):
         assert names.is_known(name) == jax_names.is_known(name)

@@ -1487,6 +1487,19 @@ def e2e_trial_dms():
                              TSAMP)
 
 
+def sweep_launches(ndm, direct):
+    """``(B1, B4)`` launches of one sweep of ``ndm`` trials on the card:
+    the direct sweep (which the ``f32`` gather of float32 data is,
+    ``ops.search.direct_gather``) launches both once a ``SUPERBLOCK``-trial
+    superblock; torch's gather or roll no B1 and B4 once a 32-trial
+    block."""
+    from pulsarutils_tpu_torch.ops.search import SUPERBLOCK
+
+    if direct:
+        return (-(-ndm // SUPERBLOCK),) * 2
+    return 0, -(-ndm // 32)
+
+
 #: the cache the ``warm`` phases share (a file under :data:`TUNE_ROOT`)
 WARM_CACHE = "warm_phases_tune_cache.json"
 
@@ -2245,8 +2258,10 @@ def phase_e2e_precision(torch, np, workdir, path, chunk_length, nchunks,
     end-to-end file with ``kernel="roll"`` under ``PUTPU_PRECISION=
     f32_compensated`` and ``kernel="gather"`` under
     ``bf16_operand_f32_accum``, each beside its ``f32`` run (the hits
-    equal, snr within the strategy's ``score_rtol``; roll's ``f32`` hits
-    equal the direct sweep's); then, on the pulse's chunk, the roll
+    equal, snr within the strategy's ``score_rtol``; each ``f32`` run's
+    hits equal the direct sweep's: the roll adds the channels in B1's
+    order, and the ``f32`` gather is the direct sweep on the card, B1 and
+    B4 a superblock); then, on the pulse's chunk, the roll
     ``f32`` plane against B1's bit for bit, ``spectral_search`` of that
     514-trial plane under every policy (B6 at 514 x 131,073) against the
     ``f32`` search, and B6 on that plane's power under every policy,
@@ -2264,7 +2279,6 @@ def phase_e2e_precision(torch, np, workdir, path, chunk_length, nchunks,
 
     dms = dedispersion_plan(NCHAN, DMMIN, DMMAX, START_FREQ, BANDWIDTH,
                             TSAMP)
-    blocks = -(-len(dms) // 32)  # the formulations' default trial block
     launches = {}
     try:
         for kernel, policy in PRECISION_RUNS:
@@ -2283,9 +2297,12 @@ def phase_e2e_precision(torch, np, workdir, path, chunk_length, nchunks,
                 wall = time.perf_counter() - t0
                 counts = read_counts()
                 check_clean_run(summary, f"e2e_precision {kernel} {pol}")
-                check(counts["B4"] == nchunks * blocks and counts["B1"] == 0,
+                b1, b4 = sweep_launches(len(dms), kernel == "gather"
+                                        and pol == "f32")
+                check(counts["B4"] == nchunks * b4
+                      and counts["B1"] == nchunks * b1,
                       f"{kernel} {pol}: launches {counts} for {nchunks} "
-                      f"chunks of {blocks} trial blocks")
+                      f"chunks of {b1} B1 and {b4} B4 launches")
                 check(len(store.done_chunks) == nchunks,
                       f"{kernel} {pol}: ledger")
                 check(hits, f"{kernel} {pol}: the pulse was not found")
@@ -2304,11 +2321,11 @@ def phase_e2e_precision(torch, np, workdir, path, chunk_length, nchunks,
             bad = _policy_hit_mismatch(hits_by[policy], hits_by["f32"], rtol)
             check(bad is None, f"{kernel}: hits under {policy} differ from "
                   f"f32's: {bad}")
-            if kernel == "roll":
-                # roll adds the channels in B1's order: the same scores
-                bad = _hit_mismatch(hits_by["f32"], direct_hits)
-                check(bad is None, f"roll f32 hits differ from the direct "
-                      f"sweep's: {bad}")
+            # the roll adds the channels in B1's order and the f32 gather
+            # is the direct sweep: the same scores
+            bad = _hit_mismatch(hits_by["f32"], direct_hits)
+            check(bad is None, f"{kernel} f32 hits differ from the direct "
+                  f"sweep's: {bad}")
     finally:
         os.environ.pop("PUTPU_PRECISION", None)
 
@@ -4571,13 +4588,21 @@ def phase_fdmt_knobs(torch, np, seed):
     return out, paths
 
 
+#: the policy of each formulation in ``phase_preflight``: torch's sweep
+#: on the card (the ``f32`` gather there is the direct sweep)
+PREFLIGHT_POLICY = {"gather": "bf16_operand_f32_accum", "roll": "f32"}
+
+
 def phase_preflight(torch, np, workdir, path, hits):
     """The memory preflight on the card: ``kernel="gather"`` and
     ``"roll"`` on the pulse's end-to-end chunk with ``PUTPU_MEM_LIMIT`` at
     half the model's estimate (``putpu_oom_splits_total`` and the ladder
     level rise, the table equal to the unconstrained one bit for bit),
     then with no limit the allocator's high-water mark over the model's
-    estimate, and the calibration file written."""
+    estimate, and the calibration file written.  The gather runs under
+    :data:`PREFLIGHT_POLICY`'s policy: under ``f32`` it is the direct
+    sweep on the card, which has no preflight (its OOM ladder splits
+    superblocks when the allocator fails)."""
     from pulsarutils_tpu_torch.io.sigproc import FilterbankReader
     from pulsarutils_tpu_torch.obs.metrics import REGISTRY
     from pulsarutils_tpu_torch.ops.search import (auto_chan_block,
@@ -4614,7 +4639,7 @@ def phase_preflight(torch, np, workdir, path, hits):
             with env_set(PUTPU_MEM_LIMIT=est // 2):
                 split_tables[form] = dedispersion_search(
                     chunk, *args, trial_dms=dms, kernel=form,
-                    precision="f32", device="cuda")
+                    precision=PREFLIGHT_POLICY[form], device="cuda")
             split_s = time.perf_counter() - t0
             level = ladder.level()
             ladder.reset()
@@ -4628,7 +4653,8 @@ def phase_preflight(torch, np, workdir, path, hits):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             table = dedispersion_search(chunk, *args, trial_dms=dms,
-                                        kernel=form, precision="f32",
+                                        kernel=form,
+                                        precision=PREFLIGHT_POLICY[form],
                                         device="cuda")
             whole_s = time.perf_counter() - t0
             peak = torch.cuda.max_memory_allocated()
@@ -4648,7 +4674,7 @@ def phase_preflight(torch, np, workdir, path, hits):
             calib.read_text())["offsets"],
             f"no calibration for {key} in {calib}")
     emit("preflight", chunk=istart, ndm=ndm, dm_block=dm_block,
-         chan_block=chan_block, key=key, **out)
+         chan_block=chan_block, key=key, policies=PREFLIGHT_POLICY, **out)
     del chunk
     torch.cuda.empty_cache()
     return out
@@ -5403,7 +5429,6 @@ def phase_e2e_beams(torch, np, workdir, seed):
          seconds=time.perf_counter() - t0)
     dms = e2e_trial_dms()
     ndm = len(dms)
-    nblocks = -(-ndm // 32)
     chunk_length = E2E_CHUNK // 2 * TSAMP
 
     # the cold batch-keyed tuning, once; the arms below run warm
@@ -5419,6 +5444,9 @@ def phase_e2e_beams(torch, np, workdir, seed):
           f"e2e_beams tuning: {key} -> {kernel}")
     emit("e2e_beams_tuning", key=key, kernel=kernel, seconds=tune_s,
          probe_launches=read_probe_counts())
+    # a beam-chunk's launches: the beams are float32 on every arm (the
+    # packed ones are conditioned), so the gather is the direct sweep
+    b1, b4 = sweep_launches(ndm, kernel == "gather")
 
     def arm(label, out, main=True, **kw):
         acc = BudgetAccountant()
@@ -5458,10 +5486,11 @@ def phase_e2e_beams(torch, np, workdir, seed):
     check(nchunks == BEAM_BLOCKS - 1, f"e2e_beams: {nchunks} epochs")
     for label, rec, trips in (("batched", brec, nchunks),
                               ("sequential", srec, BEAM_COUNT * nchunks)):
-        check(rec["launches"]["B4"] == BEAM_COUNT * nchunks * nblocks
-              and rec["launches"]["B1"] == 0,
+        check(rec["launches"]["B4"] == BEAM_COUNT * nchunks * b4
+              and rec["launches"]["B1"] == BEAM_COUNT * nchunks * b1,
               f"e2e_beams {label}: launches {rec['launches']}, predicted "
-              f"B4 {BEAM_COUNT * nchunks * nblocks}")
+              f"B1 {BEAM_COUNT * nchunks * b1}, "
+              f"B4 {BEAM_COUNT * nchunks * b4}")
         check(rec["dispatches"] == trips and rec["readbacks"] == trips,
               f"e2e_beams {label}: {rec['dispatches']} dispatches, "
               f"{rec['readbacks']} readbacks for {nchunks} epochs")
@@ -5512,7 +5541,9 @@ def phase_e2e_beams(torch, np, workdir, seed):
     host, hrec2 = arm("packed_host", "beams_packed_host",
                       paths=packed_paths, packed="host")
     check(drec["epochs"] == 1 and drec["launches"]["B4"]
-          == len(packed_paths) * nblocks == hrec2["launches"]["B4"],
+          == len(packed_paths) * b4 == hrec2["launches"]["B4"]
+          and drec["launches"]["B1"] == len(packed_paths) * b1
+          == hrec2["launches"]["B1"],
           f"e2e_beams packed: {drec['launches']}, {hrec2['launches']}")
     check(_beam_tables_equal(np, dev, host)
           and _snapshot(np, workdir / "beams_packed_device")
@@ -5537,7 +5568,8 @@ def phase_e2e_beams(torch, np, workdir, seed):
     check(plan.fired() == 1 and _counter_value(
         "putpu_oom_ladder_steps_total", step="halve_batch") == steps + 1
           and hrec["dispatches"] == 2
-          and hrec["launches"]["B4"] == 2 * nblocks,
+          and hrec["launches"]["B4"] == 2 * b4
+          and hrec["launches"]["B1"] == 2 * b1,
           f"e2e_beams halve_batch: fired {plan.fired()}, {hrec}")
     for a, b in zip(halved["beams"], dev["beams"]):
         check(_tables_bitwise(np, a["tables"][0][1], b["tables"][0][1]),
@@ -6364,7 +6396,6 @@ def phase_e2e_service(torch, np, workdir, path, pulsar, period):
 
     chunk_length = E2E_CHUNK // 2 * TSAMP
     dms = e2e_trial_dms()
-    nblocks = -(-len(dms) // 32)
     # the co-batch's second file and the resumed job's: the same bytes
     # under other names (hard links), so their ledgers and candidate files
     # are their own
@@ -6380,6 +6411,8 @@ def phase_e2e_service(torch, np, workdir, path, pulsar, period):
         NCHAN, E2E_CHUNK, len(dms), b, START_FREQ, BANDWIDTH, TSAMP, dms,
         dm_block=32, chan_block=auto_chan_block(NCHAN, E2E_CHUNK, 32),
         device="cuda") for b in (1, 2)}
+    # a file's chunk: float32 beams, so the gather is the direct sweep
+    co_b1, co_b4 = sweep_launches(len(dms), kernels[2] == "gather")
     torch.cuda.empty_cache()
     physics = {"dmmin": DMMIN, "dmmax": DMMAX, "chunk_length": chunk_length}
     pspec = {"fname": str(pulsar), "workload": "periodicity",
@@ -6490,8 +6523,8 @@ def phase_e2e_service(torch, np, workdir, path, pulsar, period):
           f"{cocall['fnames']}")
     check(cocall["counters"].get("dispatches") == 2
           and cocall["counters"].get("readbacks") == 2
-          and cocall["launches"]["B4"] == 2 * 2 * nblocks
-          and cocall["launches"]["B1"] == 0,
+          and cocall["launches"]["B4"] == 2 * 2 * co_b4
+          and cocall["launches"]["B1"] == 2 * 2 * co_b1,
           f"e2e_service co-batch: {cocall['counters']}, "
           f"{cocall['launches']}")
     torch.cuda.empty_cache()
@@ -6543,7 +6576,9 @@ def phase_e2e_service(torch, np, workdir, path, pulsar, period):
           f"e2e_service resume: {mid['state']} {done_first}, "
           f"{again['chunks_done']}/{again['chunks_total']}")
     both = _sum_counts(midcall["launches"], againcall["launches"])
-    check(both["B4"] == 4 * nblocks, f"e2e_service resume launches {both}")
+    b1, b4 = sweep_launches(len(dms), kernels[1] == "gather")
+    check(both["B4"] == 4 * b4 and both["B1"] == 4 * b1,
+          f"e2e_service resume launches {both}")
     # the uninterrupted run's ledger: its store marks every chunk of the
     # plan in order (the bytes a serial run writes)
     (resumed_ledger,) = [p for p in svc.iterdir() if p.name.startswith(

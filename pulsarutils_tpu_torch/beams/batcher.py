@@ -10,15 +10,22 @@ another (the JAX package runs the batch as one jitted ``lax.map`` over a
 stacked operand; the port's loop holds one beam's operand at a time).
 
 * The per-beam body is one function (:func:`beam_scores`): the device
-  unpack of a packed beam, the optional conditioning, then the gather or
-  roll sweep with every trial block scored by B4
-  (:func:`~..ops.search.formulation_scores`).  A batch and a single
+  unpack of a packed beam, the optional conditioning, then the sweep.
+  The plain ``f32`` gather of float32 beams on a card runs B1 and B4 a
+  superblock of 512 trials (:func:`~..ops.search.direct_scores`, the
+  direct sweep's sums, no gathered workspace); every other case the
+  gather or roll in torch with every trial block scored by B4
+  (:func:`~..ops.search.formulation_scores`).  The choice is
+  :func:`~..ops.search.direct_gather`'s, made once by the batcher on its
+  device, operand dtype, policy and formulation.  A batch and a single
   beam run the same body on the same values, so each beam's table is
   bit for bit the sequential one.
 * The formulation is measured by the tuner under a batch-keyed geometry
   (``...|b<N>``, :func:`~..tuning.autotune.resolve_batched_kernel`);
-  only ``"roll"`` and ``"gather"`` ride in a batch, as in the JAX
-  package, whose direct-sweep kernel cannot run inside its batch map.
+  the batcher takes ``"roll"`` and ``"gather"``, the JAX package's
+  batch formulations (its direct-sweep kernel cannot run inside its
+  ``lax.map``; the port's batch is a loop over beams, so B1 runs inside
+  the gather's body).
 """
 
 from __future__ import annotations
@@ -28,8 +35,10 @@ import logging
 import numpy as np
 import torch
 
+from ..obs import metrics as obs_metrics
+from ..ops import search as search_ops
 from ..ops.plan import offsets_for
-from ..ops.search import auto_chan_block, block_offsets, formulation_scores
+from ..ops.search import auto_chan_block, formulation_scores
 from ..tuning.geometry import PLAN_CACHE_SIZE
 from ..utils.device import on_device, resolve_device, to_numpy
 from ..utils.logging_utils import budget_bucket, budget_count
@@ -54,8 +63,8 @@ def _as_tensor(block):
     return torch.from_numpy(np.require(block, requirements=["C", "W"]))
 
 
-def beam_scores(beam, offset_blocks, chan_block, formulation, packed=None,
-                prep=None, policy=None):
+def beam_scores(beam, offsets, chan_block, formulation, packed=None,
+                prep=None, policy=None, direct=False):
     """The per-beam body shared by the batched and the single-beam search.
 
     ``beam`` is the ``(nchan, T)`` float block on the device, or with
@@ -64,8 +73,13 @@ def beam_scores(beam, offset_blocks, chan_block, formulation, packed=None,
     (:func:`~..io.lowbit.device_unpack_block`) to that dtype (an integer
     accumulator when nothing downstream needs floats).  ``prep`` =
     ``(renormalize, resample)`` conditions the beam on the device.
-    Returns the ``(5, nblocks * dm_block)`` float64 scores, on the
-    device."""
+    ``offsets`` are :func:`~..ops.search.sweep_offsets`' at the searched
+    length, for the direct sweep where ``direct``
+    (:func:`~..ops.search.direct_gather`; counted as ``beam_direct`` in
+    the active budget), else for torch's; each sweep counts a
+    ``putpu_beam_sweeps_total{path}``.  Returns the ``(5, ndm')`` float64
+    scores (``ndm'`` = the trials, padded to whole trial blocks on
+    torch's path), on the device."""
     if packed is not None:
         from ..io.lowbit import device_unpack_block
 
@@ -82,17 +96,25 @@ def beam_scores(beam, offset_blocks, chan_block, formulation, packed=None,
             from ..ops.rebin import quick_resample
 
             beam = quick_resample(beam, resample)
-    return formulation_scores(beam.contiguous(), offset_blocks, chan_block,
-                              formulation, policy)
+    beam = beam.contiguous()
+    if direct:
+        path = "direct"
+        scores = search_ops.direct_scores(beam, offsets)
+        budget_count("beam_direct")
+    else:
+        path = "torch"
+        scores = formulation_scores(beam, offsets, chan_block, formulation,
+                                    policy)
+    obs_metrics.counter("putpu_beam_sweeps_total", path=path).inc()
+    return scores
 
 
-def batched_scores(data, offset_blocks, chan_block, formulation, packed=None,
-                   prep=None, policy=None):
+def batched_scores(data, offsets, chan_block, formulation, packed=None,
+                   prep=None, policy=None, direct=False):
     """:func:`beam_scores` of every beam of the stacked operand ``data``
-    (leading batch axis), stacked: ``(B, 5, nblocks * dm_block)`` on the
-    device."""
-    return torch.stack([beam_scores(beam, offset_blocks, chan_block,
-                                    formulation, packed, prep, policy)
+    (leading batch axis), stacked: ``(B, 5, ndm')`` on the device."""
+    return torch.stack([beam_scores(beam, offsets, chan_block, formulation,
+                                    packed, prep, policy, direct)
                         for beam in data])
 
 
@@ -128,13 +150,16 @@ def batched_probe_runners(candidates, nchan, nsamples, batch, sub_dms,
         beam[chans, cols] += amp
     if dm_block is None:
         dm_block = 32
-    blocks = torch.from_numpy(block_offsets(
-        offsets, min(int(dm_block), ndm))).to(dev)
 
     def make(kern):
+        direct = search_ops.direct_gather(dev, synth.dtype, kern, None)
+        offs = search_ops.sweep_offsets(
+            sub_dms, nchan, start_freq, bandwidth, sample_time, nsamples,
+            min(int(dm_block), ndm), dev, direct)
+
         def run():
-            pack = to_numpy(batched_scores(synth, blocks, chan_block,
-                                           kern)[0])[:, :ndm]
+            pack = to_numpy(batched_scores(synth, offs, chan_block, kern,
+                                           direct=direct)[0])[:, :ndm]
             return (pack[0].astype(np.float32), pack[1].astype(np.float32),
                     pack[2].astype(np.float32), pack[3].astype(np.int32),
                     pack[4].astype(np.int64))
@@ -155,9 +180,11 @@ class BeamBatcher:
 
     ``kernel``: ``"roll"`` or ``"gather"``; None resolves through the
     tuner (:func:`~..tuning.autotune.resolve_batched_kernel`; static:
-    the roll on the CPU, the gather on the card).  ``precision``: one
-    :mod:`..precision` policy for every beam (``"auto"`` runs ``f32``:
-    the policy tuner measures the single-beam search).
+    the roll on the CPU, the gather on the card, where the ``f32`` gather
+    of float32 beams runs B1 and B4, :func:`beam_scores`).
+    ``precision``: one :mod:`..precision` policy for every beam
+    (``"auto"`` runs ``f32``: the policy tuner measures the single-beam
+    search).
 
     ``packed`` = ``(nbits, band_descending)``: :meth:`search` takes each
     beam's raw ``(nsamps, bytes_per_frame)`` uint8 frames, uploads the
@@ -223,18 +250,24 @@ class BeamBatcher:
                    if self.prep is None else None) or "float32"
             self.packed_meta = (int(nbits), self.nchan, bool(descending),
                                 acc)
-        # device offset tables per series length: interior chunks share
-        # one, a ragged last chunk gets its own (the sweep wraps mod T)
+        # the one sweep every beam runs (the beams' operand dtype is fixed
+        # here: float32 unless a packed batcher sums integer codes)
+        self.direct = search_ops.direct_gather(
+            self.device, getattr(torch, self.packed_meta[3])
+            if self.packed_meta is not None else torch.float32,
+            self.kernel, self.policy)
+        # the sweep's device offsets per series length: interior chunks
+        # share one, a ragged last chunk gets its own (the sweep wraps
+        # mod T)
         self._offs_dev = {}
 
     def _offsets_dev(self, nsamples):
         dev = self._offs_dev.get(int(nsamples))
         if dev is None:
-            offsets = offsets_for(self.trial_dms, self.nchan,
-                                  self.start_freq, self.bandwidth,
-                                  self.sample_time, int(nsamples))
-            dev = torch.from_numpy(block_offsets(offsets, self.dm_block)).to(
-                self.device)
+            dev = search_ops.sweep_offsets(
+                self.trial_dms, self.nchan, self.start_freq, self.bandwidth,
+                self.sample_time, int(nsamples), self.dm_block, self.device,
+                self.direct)
             if len(self._offs_dev) >= PLAN_CACHE_SIZE:
                 self._offs_dev.clear()  # bounded; geometries are few
             self._offs_dev[int(nsamples)] = dev
@@ -291,8 +324,6 @@ class BeamBatcher:
         beam: the device holds one beam's operand, whatever the batch),
         with the upload counts of the bytes that cross: a packed batcher
         ships the raw bytes and counts what they save."""
-        from ..obs import metrics as obs_metrics
-
         dtype = torch.uint8 if self.packed_meta is not None \
             else torch.float32
         if isinstance(block, torch.Tensor) and block.dtype == dtype \
@@ -322,7 +353,7 @@ class BeamBatcher:
             operand, slot = self._operand(block, slot)
             scores.append(beam_scores(operand, offs_dev, self.chan_block,
                                       self.kernel, self.packed_meta,
-                                      self.prep, self.policy))
+                                      self.prep, self.policy, self.direct))
         return torch.stack(scores)
 
     def max_batch(self, nsamples=None):

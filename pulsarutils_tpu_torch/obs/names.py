@@ -364,6 +364,7 @@ METRIC_NAMES = {
 BUDGET_COUNTERS = frozenset({
     "b1_launches",
     "b4_launches",
+    "beam_direct",
     "dispatches",
     "host_sweeps",
     "offset_tables",
@@ -375,8 +376,8 @@ BUDGET_COUNTERS = frozenset({
 
 
 #: the port's own series, declared beside the JAX package's tables (which
-#: stay equal to the JAX package's, but for the port's two launch counters
-#: in BUDGET_COUNTERS): name -> one-line meaning
+#: stay equal to the JAX package's, but for the port's launch and
+#: beam-sweep counters in BUDGET_COUNTERS): name -> one-line meaning
 PORT_METRIC_NAMES = {
     "putpu_b1_launches_total":
         "B1 dedispersion kernel launches (csrc/dedisperse.cu) that "
@@ -384,6 +385,13 @@ PORT_METRIC_NAMES = {
     "putpu_b4_launches_total":
         "B4 scorer kernel launches (csrc/score.cu) that reached the "
         "card, the port's budget counter b4_launches",
+    "putpu_beam_direct_total":
+        "beam sweeps of a beam batch run as the direct sweep (B1 and B4 "
+        "a superblock), the port's budget counter beam_direct",
+    "putpu_beam_sweeps_total":
+        "beam sweeps of a beam batch's per-beam body (labelled by path: "
+        "direct, B1 and B4 a superblock; torch, the gather or roll in "
+        "torch with B4 a trial block)",
     "putpu_fallbacks_total":
         "chunks a device='cpu' run moved to its host path after the "
         "device attempts failed (labelled by stage)",

@@ -18,7 +18,8 @@ façade, with six kernels:
   by trial block, whose channel sums follow a :mod:`..precision` policy
   (``precision=``, else ``PUTPU_PRECISION``; ``"auto"`` measured by
   :func:`~..tuning.autotune.resolve_search_policy`), after the memory
-  preflight (:mod:`..resilience.memory_budget`);
+  preflight (:mod:`..resilience.memory_budget`); on the card the plain
+  ``f32`` gather is the direct sweep itself (:func:`direct_gather`);
 * ``"fdmt"``: the tree transform over every integer band-delay trial
   (:func:`~.fdmt.fdmt_transform`) scored in one pass
   (:func:`~.score_cuda.score_plane`), one host readback;
@@ -425,7 +426,8 @@ def formulation_scores(data, blocks, chan_block, formulation, policy,
     scores, left on the device; ``planes`` (a list) collects each
     block's plane.  Integer sums of packed codes are scored as their
     float32 view (the same values).  The body of a gather or roll sweep,
-    and of every beam of a batch (:mod:`..beams.batcher`)."""
+    and of every beam of a batch (:mod:`..beams.batcher`), that
+    :func:`direct_gather` leaves to torch."""
     from .dedisperse import dedisperse_block_chunked
     from .score_cuda import score_plane
 
@@ -439,6 +441,52 @@ def formulation_scores(data, blocks, chan_block, formulation, policy,
         if planes is not None:
             planes.append(plane)
     return torch.cat(scores, dim=1)
+
+
+def direct_gather(device, dtype, formulation, policy):
+    """Whether a ``formulation`` sweep of ``dtype`` data on ``device``
+    under ``policy`` runs as the direct sweep (:func:`direct_scores`): the
+    plain ``f32`` gather of float32 data on a card.  The gather's
+    contract, ``sum_c x[c, (t + off[d, c]) mod T]`` in float32, is B1's in
+    B1's ascending channel order (the reference's association,
+    :mod:`.dedisperse`), so its table is the direct sweep's bit for bit.
+    Every other policy, an integer sum of packed codes, the roll and every
+    CPU tensor keep torch's sweep (:func:`formulation_scores`): they
+    define another arithmetic, or are the CPU tests' reference paths."""
+    return (formulation == "gather" and policy is None
+            and dtype == torch.float32
+            and torch.device(device).type == "cuda")
+
+
+def sweep_offsets(trial_dms, nchan, start_freq, bandwidth, sample_time,
+                  nsamples, dm_block, device, direct):
+    """The offsets a sweep of ``trial_dms`` at ``nsamples`` samples reads
+    on ``device``: where ``direct`` (:func:`direct_gather`), the direct
+    sweep's :data:`SUPERBLOCK`-trial superblocks (:func:`_direct_sweep`'s,
+    kept per geometry) for :func:`direct_scores`; else the padded
+    ``(nblocks, dm_block, nchan)`` device offsets of torch's sweep
+    (:func:`formulation_scores`)."""
+    # putpu-lint: disable=device-trip — a host trial grid
+    dms = np.asarray(trial_dms, dtype=np.float64)
+    if direct:
+        return _direct_sweep(dms.tobytes(), int(nchan), float(start_freq),
+                             float(bandwidth), float(sample_time),
+                             int(nsamples), SUPERBLOCK, torch.device(device))
+    offsets = offsets_for(dms, nchan, start_freq, bandwidth, sample_time,
+                          nsamples)
+    return torch.from_numpy(block_offsets(offsets, dm_block)).to(device)
+
+
+def direct_scores(data, superblocks):
+    """The ``(5, ndm)`` float64 scores of ``data`` over ``superblocks``
+    (:func:`_direct_sweep`'s), left on the device: B1 then B4 a
+    superblock (their plain versions on a CPU tensor), no readback, no
+    gathered workspace.  Each row is :func:`_search_direct`'s bit for
+    bit."""
+    from .score_cuda import score_plane
+
+    return torch.cat([score_plane(dedisperse_plane(data, rows, planned))
+                      for rows, planned in superblocks], dim=1)
 
 
 def _search_formulation(data, offsets, capture_plane, formulation, policy,
@@ -1051,7 +1099,9 @@ def dedispersion_search(data, dmmin, dmmax, start_freq, bandwidth, sample_time,
     ``kernel``: ``"pallas"`` runs the exact direct sweep (the JAX
     package's names, so its flags carry over); ``"gather"`` and
     ``"roll"`` the JAX package's portable formulations of it, whose
-    channel sums follow ``precision``; ``"auto"`` the fastest of the
+    channel sums follow ``precision`` (on the card the ``f32`` gather of
+    float32 data runs the direct sweep, the same sums,
+    :func:`direct_gather`); ``"auto"`` the fastest of the
     three at this geometry on ``device``, measured once and cached
     (:func:`~..tuning.autotune.resolve_search_kernel`: the direct sweep
     below ``PUTPU_AUTOTUNE_MIN`` elements, with ``PUTPU_AUTOTUNE=off``
@@ -1204,7 +1254,8 @@ def dedispersion_search(data, dmmin, dmmax, start_freq, bandwidth, sample_time,
         }, meta=cert_meta(certified, rho_out, snr_floor, cert_slack))
         return (table, plane) if capture_plane else table
 
-    if kernel in ("gather", "roll"):
+    if kernel in ("gather", "roll") \
+            and not direct_gather(data.device, data.dtype, kernel, policy):
         offsets = offsets_for(trial_dms, nchan, start_freq, bandwidth,
                               sample_time, nsamples)
         (maxvalues, stds, best_snrs, best_windows, best_peaks,

@@ -687,7 +687,10 @@ def resolve_batched_kernel(nchan, nsamples, ndm, batch, start_freq,
 
     The batcher (:mod:`..beams.batcher`) runs one per-beam body for every
     beam of a batch, so its candidates are the formulations that body
-    holds: ``"roll"`` and ``"gather"``, each trial block scored by B4.
+    holds: ``"roll"``, each trial block scored by B4, and ``"gather"``,
+    which on the card runs B1 and B4 a superblock for float32 beams under
+    ``f32`` (:func:`~..ops.search.direct_gather`; torch's gather
+    otherwise), so its measurement times that path.
     The static choice is the JAX package's: the roll on the CPU, the
     gather on the card.  The key carries the batch width (``|b<N>``), so
     a batched winner never answers a single-beam key; the measurement

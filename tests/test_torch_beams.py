@@ -201,6 +201,155 @@ def test_ragged_tail_gets_its_own_offsets():
     _tables_close(tables[1], ref[1], max_exact=True)
 
 
+# -- the direct sweep in the batch ---------------------------------------------
+
+#: 40 trials: at :func:`_small_superblocks`' 16 rows, three superblocks,
+#: the last ragged (8 rows)
+DIRECT_DMS = np.linspace(0.0, 300.0, 40)
+
+
+def _force_direct(monkeypatch):
+    """Send the plain float32 gather to the direct sweep on the CPU too,
+    where :func:`~pulsarutils_tpu_torch.ops.search.direct_gather` keeps
+    torch's: B1 and B4 then run their plain versions.  A batcher made
+    after this call takes the direct sweep."""
+    from pulsarutils_tpu_torch.ops import search as tsearch
+
+    monkeypatch.setattr(
+        tsearch, "direct_gather",
+        lambda device, dtype, formulation, policy: formulation == "gather"
+        and policy is None and dtype == torch.float32)
+
+
+def _small_superblocks(monkeypatch):
+    """Superblocks of 16 trials in place of the direct sweep's 512."""
+    from pulsarutils_tpu_torch.ops import search as tsearch
+
+    monkeypatch.setattr(tsearch, "SUPERBLOCK", 16)
+
+
+def _conditioned(block, prep):
+    """The beam as the body's ``prep`` leaves it."""
+    from pulsarutils_tpu_torch.ops.clean_ops import renormalize_data
+    from pulsarutils_tpu_torch.ops.rebin import quick_resample
+
+    beam = torch.from_numpy(block)
+    if prep is not None:
+        beam = renormalize_data(beam)
+        if prep[1] > 1:
+            beam = quick_resample(beam, prep[1])
+    return beam
+
+
+@pytest.mark.parametrize("prep, ragged", [
+    (None, False), (None, True), ((True, 2), False), ((True, 2), True)])
+def test_direct_beam_body_equals_the_direct_sweep(monkeypatch, prep,
+                                                  ragged):
+    """The beam body's direct sweep (B1 and B4 a superblock, here their
+    plain versions) gives each beam the direct sweep's table bit for bit,
+    interior and ragged chunks alike, and torch's gather's within the
+    scores' float tolerance."""
+    from pulsarutils_tpu_torch.ops.search import dedispersion_search
+
+    nsamples = 2048
+    blocks = _blocks(8, n=3, nsamples=1024 if ragged else nsamples)
+    searched = blocks[0].shape[1] // (prep[1] if prep else 1)
+
+    def batcher():
+        return BeamBatcher(32, nsamples // (prep[1] if prep else 1),
+                           DIRECT_DMS, *BATCHER_GEOM, kernel="gather",
+                           prep=prep, device="cpu")
+
+    _small_superblocks(monkeypatch)
+    torch_batcher = batcher()
+    torch_tables = torch_batcher.search(blocks)
+    _force_direct(monkeypatch)
+    direct = batcher()
+    assert (torch_batcher.direct, direct.direct) == (False, True)
+    tables = direct.search(blocks)
+    assert [len(rows) for rows, _ in direct._offsets_dev(searched)] \
+        == [16, 16, 8]
+    for block, table, ref in zip(blocks, tables, torch_tables):
+        pallas = dedispersion_search(
+            _conditioned(block, prep), 0.0, 0.0, *BATCHER_GEOM,
+            trial_dms=DIRECT_DMS, kernel="pallas", device="cpu")
+        _tables_equal(table, pallas)
+        _tables_equal(table, direct.search_single(block))
+        _tables_close(table, ref, max_exact=False)
+
+
+@pytest.mark.parametrize("nsamples", [15360, 32768, 65536, 82944, 1 << 20])
+def test_sweep_offsets_of_each_path(nsamples):
+    """The direct path reads the direct search's own superblocks (the
+    same cached objects, :data:`SUPERBLOCK` trials each, at every series
+    length); torch's the padded trial blocks of the offsets."""
+    from pulsarutils_tpu_torch.ops import search as tsearch
+    from pulsarutils_tpu_torch.ops.plan import offsets_for
+
+    dms = np.linspace(0.0, 2000.0, 1100)
+    geom = (96, 1230.0, 288.0, 2.5e-4, nsamples)
+    direct = tsearch.sweep_offsets(dms, *geom, 32, "cpu", True)
+    assert direct is tsearch._direct_sweep(
+        dms.tobytes(), *geom, tsearch.SUPERBLOCK, torch.device("cpu"))
+    assert [len(rows) for rows, _ in direct] == [512, 512, 76]
+    blocks = tsearch.sweep_offsets(dms, *geom, 32, "cpu", False)
+    want = tsearch.block_offsets(offsets_for(dms, *geom), 32)
+    assert blocks.shape == (35, 32, 96)
+    assert np.array_equal(blocks.numpy(), want)
+    assert np.array_equal(np.concatenate([rows for rows, _ in direct]),
+                          want.reshape(-1, 96)[:len(dms)])
+
+
+@pytest.mark.parametrize("device, dtype, formulation, policy, direct", [
+    ("cuda", torch.float32, "gather", None, True),
+    ("cuda:0", torch.float32, "gather", None, True),
+    ("cuda", torch.float32, "gather", "f32_compensated", False),
+    ("cuda", torch.float32, "gather", "split_f32", False),
+    ("cuda", torch.float32, "gather", "bf16_operand_f32_accum", False),
+    ("cuda", torch.int16, "gather", None, False),
+    ("cuda", torch.int32, "gather", None, False),
+    ("cuda", torch.float32, "roll", None, False),
+    ("cpu", torch.float32, "gather", None, False),
+])
+def test_direct_gather_path_choice(device, dtype, formulation, policy,
+                                   direct):
+    """Only the plain ``f32`` gather of float32 data on a card runs the
+    direct sweep: every other policy, integer code sums, the roll and
+    every CPU tensor keep torch's sweep."""
+    from pulsarutils_tpu_torch.ops import search as tsearch
+
+    assert tsearch.direct_gather(torch.device(device), dtype, formulation,
+                                 policy) is direct
+
+
+def test_beam_sweeps_are_counted_by_path(monkeypatch):
+    """One ``putpu_beam_sweeps_total{path}`` a beam sweep, on the path it
+    took, and ``beam_direct`` in the active budget for each direct one."""
+    def sweeps(path):
+        return metrics.REGISTRY.counter("putpu_beam_sweeps_total",
+                                        path=path).value
+
+    def batcher():
+        return BeamBatcher(32, 2048, DMS, *BATCHER_GEOM, kernel="gather",
+                           device="cpu")
+
+    blocks = _blocks(9)
+    metrics.REGISTRY.reset()
+    acct = BudgetAccountant()
+    with acct.chunk(0):
+        batcher().search(blocks)
+    assert (sweeps("torch"), sweeps("direct")) == (3, 0)
+    _force_direct(monkeypatch)
+    direct = batcher()
+    with acct.chunk(1):
+        direct.search(blocks)
+        direct.search_single(blocks[0])
+    assert (sweeps("torch"), sweeps("direct")) == (3, 4)
+    assert "beam_direct" not in acct.chunks[0]["counters"]
+    assert acct.chunks[1]["counters"]["beam_direct"] == 4
+    assert metrics.REGISTRY.counter("putpu_beam_direct_total").value == 4
+
+
 def test_batcher_rejects_mixed_shapes_and_other_kernels():
     batcher = BeamBatcher(32, 4096, DMS[:8], *BATCHER_GEOM, kernel="roll",
                           device="cpu")

@@ -70,8 +70,9 @@ def pulse_file(tmp_path_factory):
 
 def test_names_manifest_equals_jax():
     assert names.METRIC_NAMES == jax_names.METRIC_NAMES
-    # the port's own budget counters: the launches of B1 and B4
-    launches = {"b1_launches", "b4_launches"}
+    # the port's own budget counters: the launches of B1 and B4, and the
+    # beam sweeps run as the direct sweep
+    launches = {"b1_launches", "b4_launches", "beam_direct"}
     assert names.BUDGET_COUNTERS == jax_names.BUDGET_COUNTERS | launches
     for name in launches:
         assert names.meaning(names.budget_counter_metric(name))
